@@ -1,0 +1,197 @@
+"""Reusable gridding plans: one geometry sort shared by every call.
+
+Counterpart of ``ska_sdp_func_python_tpu/ops/gridding_plan.py``. A plan is
+built once per set of coordinates with one stable ``torch.argsort`` on the
+(lower w-plane, v-tile, u-tile) segment key, so the port's plan order is
+the JAX plan's order for the same tile. It keeps the permutation (sorted
+position -> original index), the per-entry window corners, plane indices,
+plane fractions and separable ES taps in plan order, and the segment
+bounds in the form the grid kernel's CTAs take them: every segment cut
+into chunks of at most ``chunk`` entries. Values move between natural and plan order through
+``permute.permute_apply`` (kernel K4) with the stored permutation, in
+place of the JAX package's rank-keyed sorts.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+
+from ..config import not_ported
+from .gridding_fused import _es_taps8, degrid, grid
+from .permute import permute_apply
+
+__all__ = [
+    "GridPlan",
+    "make_grid_plan",
+    "grid_with_plan",
+    "degrid_with_plan",
+    "sort_values",
+    "unsort_values",
+]
+
+
+@dataclass(frozen=True)
+class GridPlan:
+    """Precomputed geometry for the plan gridder/degridder. Per-entry
+    arrays are in plan order; entries ``[n_in, n)`` lie outside the grid
+    (the TPU plan's trash segment)."""
+
+    perm: torch.Tensor  # int32 [n]: original index of each sorted entry
+    iu0: torch.Tensor  # int32 [n] clipped window corner (u)
+    iv0: torch.Tensor  # int32 [n] clipped window corner (v)
+    plane: torch.Tensor  # int32 [n] lower w-plane
+    frac: torch.Tensor  # f32 [n] fraction to the upper plane
+    ku: torch.Tensor  # f32 [n, 8] u taps
+    kv: torch.Tensor  # f32 [n, 8] v taps
+    chunk_seg: torch.Tensor  # int32 [nchunks]
+    chunk_start: torch.Tensor  # int32 [nchunks]
+    chunk_count: torch.Tensor  # int32 [nchunks]
+    n: int
+    n_in: int
+    npixel: int
+    support: int
+    nplanes: int
+    tile: int
+    wstacked: bool
+    beta: float | None = None
+
+
+def make_grid_plan(
+    u_pix,
+    v_pix,
+    plane_idx=None,
+    plane_frac=None,
+    *,
+    npixel: int,
+    support: int = 8,
+    nplanes: int = 1,
+    tile: int = 64,
+    chunk: int = 2048,
+    beta: float | None = None,
+    u_lo=None,
+    v_lo=None,
+) -> GridPlan:
+    """Build a plan from fractional grid coordinates (same contract as the
+    JAX package's ``make_grid_plan``). ``chunk`` is the most entries one
+    grid CTA takes; it changes only how the work is partitioned."""
+    if support != 8:
+        raise not_ported(f"support {support} plans", "S8")
+    device = u_pix.device
+    if u_pix.dtype != torch.float64:
+        u_pix = u_pix.to(torch.float32)
+        v_pix = v_pix.to(torch.float32)
+    half = support // 2
+    nta = npixel // tile
+    if nta * tile != npixel:
+        raise ValueError(f"tile {tile} must divide npixel {npixel}")
+    ntiles = nta * nta
+    if plane_idx is not None and plane_frac is None:
+        raise not_ported("nearest-plane (w_interp='nearest') plans", "S8")
+    wstacked = plane_idx is not None and nplanes > 1
+
+    iu0 = torch.floor(u_pix).to(torch.int32) - (half - 1)
+    iv0 = torch.floor(v_pix).to(torch.int32) - (half - 1)
+    in_grid = (
+        (iu0 >= 0)
+        & (iu0 + support <= npixel)
+        & (iv0 >= 0)
+        & (iv0 + support <= npixel)
+    )
+    iu0c = torch.clamp(iu0, 0, npixel - support)
+    iv0c = torch.clamp(iv0, 0, npixel - support)
+    base = (iv0c // tile) * nta + (iu0c // tile)
+    if wstacked:
+        p0 = torch.clamp(plane_idx.to(torch.int32), 0, nplanes - 2)
+        frac = plane_frac.to(torch.float32)
+        nseg = ntiles * (nplanes - 1)
+    else:
+        p0 = torch.zeros_like(iu0c)
+        frac = torch.zeros(u_pix.shape, dtype=torch.float32, device=device)
+        nseg = ntiles
+    seg = torch.where(in_grid, p0 * ntiles + base, nseg)
+
+    perm = torch.argsort(seg, stable=True)
+    seg_s = seg[perm]
+    n = int(u_pix.shape[0])
+    n_in = int(in_grid.sum())
+    u_s, v_s = u_pix[perm], v_pix[perm]
+    iu0_s, iv0_s = iu0c[perm], iv0c[perm]
+    ku = _es_taps8(
+        u_s, iu0_s, support, beta, lo=None if u_lo is None else u_lo[perm]
+    )
+    kv = _es_taps8(
+        v_s, iv0_s, support, beta, lo=None if v_lo is None else v_lo[perm]
+    )
+
+    counts = torch.bincount(seg_s[:n_in], minlength=nseg)[:nseg]
+    starts = torch.cumsum(counts, 0) - counts
+    nch = (counts + chunk - 1) // chunk  # chunks per segment (0 if empty)
+    chunk_seg = torch.repeat_interleave(
+        torch.arange(nseg, device=device), nch
+    )
+    first = torch.cumsum(nch, 0) - nch
+    k = torch.arange(chunk_seg.shape[0], device=device) - first[chunk_seg]
+    chunk_start = starts[chunk_seg] + k * chunk
+    chunk_count = torch.clamp(counts[chunk_seg] - k * chunk, max=chunk)
+
+    def i32(x):
+        return x.to(torch.int32).contiguous()
+
+    return GridPlan(
+        perm=i32(perm),
+        iu0=i32(iu0_s),
+        iv0=i32(iv0_s),
+        plane=i32(p0[perm]),
+        frac=frac[perm].contiguous(),
+        ku=ku,
+        kv=kv,
+        chunk_seg=i32(chunk_seg),
+        chunk_start=i32(chunk_start),
+        chunk_count=i32(chunk_count),
+        n=n,
+        n_in=n_in,
+        npixel=npixel,
+        support=support,
+        nplanes=nplanes,
+        tile=tile,
+        wstacked=wstacked,
+        beta=beta,
+    )
+
+
+def sort_values(plan: GridPlan, vals: torch.Tensor) -> torch.Tensor:
+    """Natural order -> plan order, as complex64."""
+    return permute_apply(plan.perm, vals.to(torch.complex64))
+
+
+def unsort_values(plan: GridPlan, vals_sorted: torch.Tensor) -> torch.Tensor:
+    """Plan order -> natural order, as complex64."""
+    return permute_apply(
+        plan.perm, vals_sorted.to(torch.complex64), inverse=True
+    )
+
+
+def grid_with_plan(
+    plan: GridPlan, vals: torch.Tensor, *, values_sorted: bool = False
+) -> torch.Tensor:
+    """Grid (weighted) values; ``[nplanes, npix, npix]`` complex64 grids
+    (``[npix, npix]`` for a single-plane plan). ``values_sorted=True``
+    takes values already in plan order."""
+    vals = vals.to(torch.complex64).contiguous()
+    if not values_sorted:
+        vals = sort_values(plan, vals)
+    grids = grid(plan, vals)
+    return grids if plan.wstacked else grids[0]
+
+
+def degrid_with_plan(
+    plan: GridPlan, grids: torch.Tensor, *, to_sorted: bool = False
+) -> torch.Tensor:
+    """Degrid values from (w-stacked) grids; ``to_sorted=True`` returns
+    them in plan order."""
+    if grids.ndim == 2:
+        grids = grids[None]
+    vals = degrid(plan, grids.to(torch.complex64).contiguous())
+    return vals if to_sorted else unsort_values(plan, vals)
