@@ -1,7 +1,8 @@
 """Stage breakdown and device busy share of the port's fused ICAL cycle.
 
 Builds the flagship observation of ``chip_smoke.py`` (SKA-LOW 512 stations,
-76 integrations, 1024^2 image) on one CUDA device, runs four major cycles
+76 integrations, 1024^2 image) on one CUDA device, with the chosen CLEAN
+(msclean, the default, or hogbom), runs four major cycles
 of ``pipeline._fused_selfcal_cycle`` (printing each cycle's wall time and
 StefCal iteration count), times each stage of a steady cycle on its own
 (synchronised, averaged), and profiles one more cycle with
@@ -16,7 +17,7 @@ StefCal iteration count), times each stage of a steady cycle on its own
 
 The chrome trace is written to ``<out>/cycle_trace.json``.
 
-Usage: python3 profile_torch_cycle.py [--out DIR]
+Usage: python3 profile_torch_cycle.py [--out DIR] [--algorithm msclean|hogbom]
 """
 
 from __future__ import annotations
@@ -99,6 +100,10 @@ def busy_in(trace_path, window="cycle"):
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile", help="trace directory")
+    ap.add_argument(
+        "--algorithm", default="msclean", choices=("msclean", "hogbom"),
+        help="the CLEAN lane of the cycle",
+    )
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_torch_cycle: no CUDA device")
@@ -112,7 +117,7 @@ def main() -> int:
     psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
     ws = P._FusedSelfCal(
         vis, model, plan, None, ["T"], create_calibration_controls(), "mean",
-        200, 1e-6, psf, **cs.CLEAN,
+        200, 1e-6, psf, algorithm=args.algorithm, scales=cs.SCALES, **cs.CLEAN,
     )
     gains = [ws.gt0s[0].gain]
     gwts = [ws.gt0s[0].weight]
@@ -171,7 +176,7 @@ def main() -> int:
     )
     stage("  fft tail only", lambda: uv_grids_to_dirty(p0, gr))
     resid = (d[0] / d[1])[None, None].to(torch.float32)
-    stage("hogbom lane", lambda: P._fused_clean(resid, ws.psf_patch, ws.cfg), 3)
+    stage(f"{args.algorithm} lane", lambda: P._fused_clean(resid, ws, ws.cfg), 3)
 
     from torch.profiler import ProfilerActivity, profile, record_function
 

@@ -21,6 +21,8 @@ __all__ = [
     "frac_dot_turns",
     "expi",
     "not_ported",
+    "default_device",
+    "resolve_device",
 ]
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -78,6 +80,24 @@ def frac_dot_turns(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
         t = frac(xh * yh) + frac(xh * yl) + frac(xl * yh) + xl * yl
         total = t if total is None else total + t
     return frac(total)
+
+
+def default_device() -> torch.device:
+    """The device the port's constructors use when the caller names none:
+    the CUDA card. Raises when there is none; the CPU is taken only when
+    the caller asks for it (``device="cpu"``)."""
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: the port runs on the card by default; pass "
+            "device='cpu' to run its plain versions on the CPU"
+        )
+    return torch.device("cuda")
+
+
+def resolve_device(device=None) -> torch.device:
+    """``device`` as a ``torch.device``, or :func:`default_device` for
+    None."""
+    return default_device() if device is None else torch.device(device)
 
 
 def not_ported(what: str, slice_: str) -> NotImplementedError:

@@ -2,9 +2,9 @@
 
 Each function takes an object of the JAX package (or anything with the
 same fields), reads every field through ``np.asarray`` and builds the
-port's object on a chosen device, keeping the numpy dtypes (a JAX object
-made under x64 arrives in f64). Nothing here imports JAX: the arrays
-arrive as numpy.
+port's object on a chosen device (None: the CUDA card), keeping the numpy
+dtypes (a JAX object made under x64 arrives in f64). Nothing here imports
+JAX: the arrays arrive as numpy.
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .config import resolve_device
 from .models.components import SkyComponents
 from .models.gaintable import GainTable
 from .models.image import Image
@@ -31,6 +32,7 @@ def _t(x, device):
 
 
 def to_visibility(vis, device=None) -> Visibility:
+    device = resolve_device(device)
     return Visibility(
         vis=_t(vis.vis, device),
         weight=_t(vis.weight, device),
@@ -51,6 +53,7 @@ def to_visibility(vis, device=None) -> Visibility:
 
 
 def to_image(im, device=None) -> Image:
+    device = resolve_device(device)
     return Image(
         pixels=_t(im.pixels, device),
         frequency=np.asarray(im.frequency, np.float64),
@@ -65,6 +68,7 @@ def to_image(im, device=None) -> Image:
 
 
 def to_gaintable(gt, device=None) -> GainTable:
+    device = resolve_device(device)
     return GainTable(
         gain=_t(gt.gain, device),
         weight=_t(gt.weight, device),
@@ -78,6 +82,7 @@ def to_gaintable(gt, device=None) -> GainTable:
 
 
 def to_skycomponents(sc, device=None) -> SkyComponents:
+    device = resolve_device(device)
     return SkyComponents(
         direction=np.asarray(sc.direction, np.float64),
         flux=_t(sc.flux, device),

@@ -1,9 +1,10 @@
 """Build, load and launch the port's hand-written Hopper kernels.
 
 The CUDA C++ sources live in ``csrc/`` and expose a plain C interface.
-They are compiled with ``nvcc`` for ``sm_90a`` into one shared library at
-first use (about seconds, against minutes for a build that includes
-PyTorch's headers) and bound with ``ctypes``. The library is built into
+They are compiled with ``nvcc`` for ``sm_90a`` at first use, one ``nvcc``
+per source, all started together, and linked into one shared library
+(about seconds, against minutes for a build that includes PyTorch's
+headers), which is bound with ``ctypes``. The library is built into
 ``build/torch_kernels/`` at the repository root, under a name that carries
 a hash of the sources and flags, so an edited source is never served by a
 stale library.
@@ -37,12 +38,11 @@ __all__ = [
 
 _SRC_DIR = Path(__file__).resolve().parent / "csrc"
 _BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "torch_kernels"
+_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _NVCC_FLAGS = [
-    "-gencode",
-    "arch=compute_90a,code=sm_90a",
+    *_ARCH,
     "-std=c++17",
     "-O3",
-    "-shared",
     "-Xcompiler",
     "-fPIC",
     "-Xptxas",
@@ -83,18 +83,31 @@ def build_library() -> Path:
     if so.exists():
         return so
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = [str(s) for s in _sources() if s.suffix == ".cu"]
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=_BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", tmp, *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{build_log}"
-        )
-    os.replace(tmp, so)
+    nvcc = _nvcc()
+    with tempfile.TemporaryDirectory(dir=_BUILD_DIR) as work:
+        jobs = []
+        for src in (s for s in _sources() if s.suffix == ".cu"):
+            obj = os.path.join(work, src.stem + ".o")
+            cmd = [nvcc, *_NVCC_FLAGS, "-c", "-o", obj, str(src)]
+            jobs.append((obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )))
+        logs, failed = [], False
+        for _, proc in jobs:
+            logs.append(proc.communicate()[0])
+            failed |= proc.returncode != 0
+        tmp = os.path.join(work, so.name)
+        if not failed:
+            link = subprocess.run(
+                [nvcc, *_ARCH, "-shared", "-o", tmp, *[o for o, _ in jobs]],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            logs.append(link.stdout)
+            failed = link.returncode != 0
+        build_log = "".join(logs)
+        if failed:
+            raise RuntimeError(f"nvcc failed:\n{build_log}")
+        os.replace(tmp, so)
     return so
 
 
@@ -164,7 +177,17 @@ KERNELS = {
     "hogbom": Kernel(
         "hogbom",
         "ska_hogbom",
-        [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F],
+        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F],
+    ),
+    "msclean": Kernel(
+        "msclean",
+        "ska_msclean",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F],
+    ),
+    "hogbom_complex": Kernel(
+        "hogbom_complex",
+        "ska_hogbom_complex",
+        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F],
     ),
 }
 

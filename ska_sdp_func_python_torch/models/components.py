@@ -12,6 +12,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..config import resolve_device
+
 __all__ = ["SkyComponents"]
 
 
@@ -51,6 +53,8 @@ class SkyComponents:
         dtype: torch.dtype = torch.float32,
         device=None,
     ) -> "SkyComponents":
+        """Components on ``device`` (None: the CUDA card)."""
+        device = resolve_device(device)
         directions = np.asarray(directions, np.float64).reshape(-1, 2)
         fluxes = np.asarray(fluxes, dtype=float)
         if fluxes.ndim == 2:  # [ncomp, npol] -> single channel

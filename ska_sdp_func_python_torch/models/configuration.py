@@ -13,7 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import not_ported
+from ..config import not_ported, resolve_device
 from .visibility import Visibility, create_visibility_from_arrays
 
 __all__ = ["Configuration", "create_named_configuration", "create_visibility"]
@@ -98,10 +98,11 @@ def create_visibility(
     device=None,
 ) -> Visibility:
     """Simulate an empty observation at hour angles ``times`` (rad): uvw
-    computed on the host in f64, then moved to ``device``.
-    ``elevation_limit`` (rad) drops integrations below it."""
+    computed on the host in f64, then moved to ``device`` (None: the CUDA
+    card). ``elevation_limit`` (rad) drops integrations below it."""
     from ..utils.coordinates import hadec_to_azel, xyz_to_uvw
 
+    device = resolve_device(device)
     times = np.atleast_1d(np.asarray(times, dtype=float))
     frequency = np.atleast_1d(np.asarray(frequency, dtype=float))
     dec = float(phasecentre[1])

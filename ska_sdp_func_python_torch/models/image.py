@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..config import resolve_device
 from .polarisation import npol as _frame_npol
 
 __all__ = ["Image", "create_image"]
@@ -72,7 +73,8 @@ def create_image(
     dtype: torch.dtype = torch.float32,
     device=None,
 ) -> Image:
-    """An empty image on ``device``."""
+    """An empty image on ``device`` (None: the CUDA card)."""
+    device = resolve_device(device)
     frequency = np.atleast_1d(
         np.asarray([1e8] if frequency is None else frequency, np.float64)
     )

@@ -1,7 +1,8 @@
-"""Polarisation frames: the stokesI frame of the ported slice.
+"""Polarisation frames: stokesI and stokesIQUV.
 
-Counterpart of ``ska_sdp_func_python_tpu/models/polarisation.py``. Only the
-stokesI frame is ported; every other frame raises.
+Counterpart of ``ska_sdp_func_python_tpu/models/polarisation.py``. Images
+may carry either frame; a conversion between two different frames is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from ..config import not_ported
 
 __all__ = ["npol", "convert_pol_frame"]
 
-_FRAMES = {"stokesI": ["I"]}
+_FRAMES = {"stokesI": ["I"], "stokesIQUV": ["I", "Q", "U", "V"]}
 
 
 def _name(frame) -> str:
@@ -28,8 +29,8 @@ def npol(frame) -> int:
 
 def convert_pol_frame(data: torch.Tensor, src, dst, polaxis: int = -1):
     """Convert ``data`` from frame ``src`` to ``dst`` along ``polaxis``;
-    stokesI to stokesI is the identity."""
+    a frame to itself is the identity."""
     src, dst = _name(src), _name(dst)
-    if src == dst == "stokesI":
+    if src == dst and src in _FRAMES:
         return data
     raise not_ported(f"conversion {src} -> {dst}", "S7x")

@@ -14,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import complex_of
+from ..config import complex_of, resolve_device
 from .polarisation import npol as _frame_npol
 
 C_M_S = 299792458.0  # speed of light [m/s]
@@ -110,7 +110,9 @@ def create_visibility_from_arrays(
 ) -> Visibility:
     """Build a Visibility on ``device`` filling defaults (zero vis, unit
     weight). ``dtype`` is the real working dtype (f32 by default; f64 is
-    the opt-in for tests) and sets the complex dtype with it."""
+    the opt-in for tests) and sets the complex dtype with it. ``device``
+    None is the CUDA card (:func:`config.default_device`)."""
+    device = resolve_device(device)
     cdtype = complex_of(dtype)
 
     def real(x):

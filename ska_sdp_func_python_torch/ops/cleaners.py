@@ -1,30 +1,119 @@
-"""Hogbom CLEAN (kernel K5).
+"""CLEAN minor cycles: Hogbom (kernel K5), complex Hogbom (K6) and
+multi-scale CLEAN (K7, which also stands for K7v1).
 
-Counterpart of ``hogbom`` in ``ska_sdp_func_python_tpu/ops/cleaners.py``.
-The semantics are kept exactly: the peak of |residual| with ties to the
-first index; mval = val * gain / pmax; the PSF subtracted over its
-footprint around the peak, clipped at the image edges (overlapIndices);
-stop once |val - mval * psf_centre| < 0.9 * absthresh with
-absthresh = max(thresh, fracthresh * max|dirty|). Components leave the
-loop as [niter, 4] rows (y, x, val, used) and are scattered into the
-component image afterwards, as the TPU list kernel does.
+Counterpart of ``hogbom``, ``hogbom_complex``, ``msclean`` and the
+scale-stack helpers in ``ska_sdp_func_python_tpu/ops/cleaners.py``. The
+semantics of the JAX package's XLA loops are kept exactly:
 
-On CUDA the whole loop is one kernel (``csrc/hogbom.cu``); on the CPU the
-plain version below runs.
+* Hogbom: the peak of |residual * window| with ties to the first index;
+  mval = val * gain / pmax; the PSF subtracted over its footprint around
+  the peak, clipped at the image edges; stop once
+  |val - mval * psf_centre| < 0.9 * absthresh with
+  absthresh = max(thresh, fracthresh * max|dirty|).
+* Complex Hogbom of Q + iU: the search is |Q + iU| (times the window),
+  mval = val * gain / pmax with pmax the peak of the Q PSF, and the loop
+  stops when |res_new[peak]| < absthresh, with no 0.9 factor.
+* msclean: the search is |res_s / cd_s * windowstack * sensitivity^2| over
+  the whole [scale, y, x] stack, first index in (scale, y, x) order; the
+  loop stops BEFORE the subtraction once |res[peak]| < 0.9 * absthresh,
+  with absthresh taken once from the initial stack's scale 0.
+
+Every loop leaves its components as rows, which one function per
+algorithm turns into component images, so a kernel and its plain version
+share that step. On CUDA each loop is a hand-written kernel
+(``csrc/hogbom.cu``, ``csrc/msclean.cu``); on the CPU the plain version
+beside it runs.
+
+Rounding: the JAX package's CPU loops (XLA) contract every residual
+update ``res - patch * m`` into one fused multiply-subtract, at f32 as
+well. The kernels use ``__fmaf_rn`` and the plain versions :func:`_fms`,
+so both round as the JAX loop does and the kernels agree bit for bit with
+their plain versions.
 """
 
 from __future__ import annotations
 
+import math
+import typing
+
 import torch
 
 from .. import kernels
-from ..config import not_ported
+from ..config import resolve_device
+from .pswf import grdsf
 
-__all__ = ["hogbom", "hogbom_lanes", "hogbom_rows_plain"]
+__all__ = [
+    "hogbom",
+    "hogbom_lanes",
+    "hogbom_rows_plain",
+    "hogbom_complex",
+    "hogbom_complex_lanes",
+    "hogbom_complex_rows_plain",
+    "msclean",
+    "msclean_lanes",
+    "msclean_rows_plain",
+    "msclean_psf_stacks",
+    "msclean_rows_to_comps",
+    "msclean_with_stacks",
+    "MSCleanStacks",
+    "create_scalestack",
+    "convolve_scalestack",
+    "convolve_convolve_scalestack",
+]
+
+
+def _fms(c, a, b):
+    """c - a * b in c's dtype. For f32, rounded once as a fused
+    multiply-subtract rounds it: the rounding the JAX package's CPU loops
+    get from XLA's contraction and the CUDA kernels from ``__fmaf_rn``.
+
+    The f32 product is exact in f64, but rounding the f64 difference to
+    nearest and then to f32 can round twice the wrong way at a tie. So the
+    f64 difference is rounded to odd (its exact error from TwoSum moves an
+    even result one f64 step toward the exact value), after which rounding
+    to f32 is the correctly rounded result."""
+    if c.dtype == torch.float64:
+        return c - a * b
+    x, y = c.double(), -(a.double() * b.double())
+    s = x + y
+    t = s - x
+    err = (x - (s - t)) + (y - t)
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.inf, -torch.inf).to(s.dtype)
+    s = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
+    return s.to(c.dtype)
+
+
+def _footprint(my, mx, ny, nx, py, px):
+    """Image and PSF slices of the PSF footprint centred on (my, mx),
+    clipped at the image edges (the JAX package's padded-canvas slice)."""
+    cy, cx = py // 2, px // 2
+    y0, y1 = max(0, my - cy), min(ny, my - cy + py)
+    x0, x1 = max(0, mx - cx), min(nx, mx - cx + px)
+    img = (slice(y0, y1), slice(x0, x1))
+    psf = (slice(y0 - my + cy, y1 - my + cy), slice(x0 - mx + cx, x1 - mx + cx))
+    return img, psf
+
+
+def _check_psf(dirty_shape, psf_shape):
+    ny, nx = dirty_shape[-2:]
+    py, px = psf_shape[-2:]
+    if py > 2 * ny or px > 2 * nx:
+        raise ValueError(f"psf: shape {tuple(psf_shape)} for {tuple(dirty_shape)}")
+
+
+# ---------------------------------------------------------------- Hogbom
 
 
 def hogbom_rows_plain(
-    dirty, psf, *, gain: float, thresh: float, niter: int, fracthresh: float
+    dirty,
+    psf,
+    window=None,
+    *,
+    gain: float,
+    thresh: float,
+    niter: int,
+    fracthresh: float,
 ):
     """Plain version of the K5 loop for one lane: returns ([niter, 4]
     rows (y, x, val, used), residual)."""
@@ -38,36 +127,28 @@ def hogbom_rows_plain(
     absthresh = torch.clamp(fracthresh * dirty.abs().max(), min=thresh)
     stop = 0.9 * absthresh
     for i in range(niter):
-        idx = int(torch.argmax(res.abs()))
-        my, mx = divmod(idx, nx)
+        search = res.abs() if window is None else (res * window).abs()
+        my, mx = divmod(int(torch.argmax(search)), nx)
         val = res[my, mx].clone()
         mval = val * gain / pmax
-        y0, y1 = max(0, my - cy), min(ny, my - cy + py)
-        x0, x1 = max(0, mx - cx), min(nx, mx - cx + px)
-        patch = psf[y0 - my + cy : y1 - my + cy, x0 - mx + cx : x1 - mx + cx]
-        res[y0:y1, x0:x1] = _fms(res[y0:y1, x0:x1], patch, mval)
+        img, pat = _footprint(my, mx, ny, nx, py, px)
+        res[img] = _fms(res[img], psf[pat], mval)
         rows[i, 0], rows[i, 1], rows[i, 2], rows[i, 3] = my, mx, mval, 1.0
         if bool(_fms(val, mval, psf_c).abs() < stop):
             break
     return rows, res
 
 
-def _fms(c, a, b):
-    """c - a * b rounded once to f32, as a fused multiply-add rounds it
-    (the f32 product is exact in f64). The JAX package's CPU loop gets
-    this rounding from XLA's multiply-subtract contraction and the CUDA
-    kernel from ``__fmaf_rn``."""
-    return (c.double() - a.double() * b.double()).to(torch.float32)
-
-
-def _rows_to_image(rows, ny, nx):
-    """Scatter [lanes, niter, 4] component rows into [lanes, ny, nx]."""
+def _rows_to_image(rows, ny, nx, col=2, used=3):
+    """Scatter [lanes, niter, k] component rows (y, x, ...) into
+    [lanes, ny, nx], taking the value in column ``col`` of each used
+    row."""
     nl = rows.shape[0]
     lane = torch.arange(nl, device=rows.device)[:, None].expand(
         -1, rows.shape[1]
     )
-    vals = torch.where(rows[..., 3] > 0.0, rows[..., 2], 0.0)
-    comps = torch.zeros((nl, ny, nx), dtype=torch.float32, device=rows.device)
+    vals = torch.where(rows[..., used] > 0.0, rows[..., col], 0.0)
+    comps = torch.zeros((nl, ny, nx), dtype=rows.dtype, device=rows.device)
     comps.index_put_(
         (lane, rows[..., 0].long(), rows[..., 1].long()),
         vals,
@@ -76,9 +157,21 @@ def _rows_to_image(rows, ny, nx):
     return comps
 
 
+def _lane_windows(window, nl, ny, nx):
+    if window is None:
+        return None
+    return torch.broadcast_to(window, (nl, ny, nx))
+
+
+def _f32(t):
+    """A contiguous f32 copy of ``t`` for a kernel (None stays None)."""
+    return None if t is None else t.to(torch.float32).contiguous()
+
+
 def hogbom_lanes(
     dirty: torch.Tensor,
     psf: torch.Tensor,
+    window: torch.Tensor | None = None,
     *,
     gain: float,
     thresh: float,
@@ -86,15 +179,16 @@ def hogbom_lanes(
     fracthresh: float,
 ):
     """Hogbom on a batch of independent lanes: dirty ``[lanes, ny, nx]``,
-    psf ``[lanes, py, px]`` (f32). Returns (components, residual), both
-    ``[lanes, ny, nx]``."""
+    psf ``[lanes, py, px]`` (f32), optional search window broadcastable
+    to dirty. Returns (components, residual), both ``[lanes, ny, nx]``."""
     nl, ny, nx = dirty.shape
     py, px = psf.shape[-2:]
+    win = _lane_windows(window, nl, ny, nx)
     if dirty.device.type == "cpu":
         out = [
             hogbom_rows_plain(
-                dirty[i], psf[i], gain=gain, thresh=thresh, niter=niter,
-                fracthresh=fracthresh,
+                dirty[i], psf[i], None if win is None else win[i],
+                gain=gain, thresh=thresh, niter=niter, fracthresh=fracthresh,
             )
             for i in range(nl)
         ]
@@ -103,13 +197,16 @@ def hogbom_lanes(
         return _rows_to_image(rows, ny, nx), res
     dev = dirty.device
     chk = kernels.check_cuda_tensor
-    if psf.shape[0] != nl or py > 2 * ny or px > 2 * nx:
+    if psf.shape[0] != nl:
         raise ValueError(f"psf: shape {tuple(psf.shape)} for {tuple(dirty.shape)}")
+    _check_psf(dirty.shape, psf.shape)
     res = torch.empty_like(dirty)
     rows = torch.empty((nl, niter, 4), dtype=torch.float32, device=dev)
+    win = _f32(win)
     kernels.KERNELS["hogbom"].launch(
         chk("dirty", dirty, torch.float32, dev),
         chk("psf", psf, torch.float32, dev),
+        None if win is None else chk("window", win, torch.float32, dev),
         res.data_ptr(),
         rows.data_ptr(),
         nl,
@@ -134,15 +231,479 @@ def hogbom(
     niter: int = 100,
     fracthresh: float = 0.01,
 ):
-    """Hogbom CLEAN of one image. Returns (components, residual)."""
-    if window is not None:
-        raise not_ported("clean windows", "S7x")
+    """Hogbom CLEAN of one image, with an optional search window
+    ``[ny, nx]`` (1 = allowed). Returns (components, residual)."""
     comps, res = hogbom_lanes(
         dirty[None].to(torch.float32).contiguous(),
         psf[None].to(torch.float32).contiguous(),
+        None if window is None else window[None],
         gain=gain,
         thresh=thresh,
         niter=niter,
         fracthresh=fracthresh,
     )
     return comps[0], res[0]
+
+
+# -------------------------------------------------------- complex Hogbom
+
+
+def hogbom_complex_rows_plain(
+    dirty_q,
+    dirty_u,
+    psf,
+    window=None,
+    *,
+    gain: float,
+    thresh: float,
+    niter: int,
+    fracthresh: float,
+):
+    """Plain version of the K6 loop for one lane of Q + iU with a real
+    PSF: returns ([niter, 5] rows (y, x, mq, mu, used), res_q, res_u).
+
+    Held to the JAX package's XLA loop: the search is hypot(Q, U) and the
+    loop stops when |res_new[peak]| < absthresh. (The TPU list kernel
+    searches Q^2 + U^2 and can break near-ties otherwise.)"""
+    ny, nx = dirty_q.shape
+    py, px = psf.shape
+    cy, cx = py // 2, px // 2
+    rq, ru = dirty_q.clone(), dirty_u.clone()
+    rows = torch.zeros((niter, 5), dtype=rq.dtype, device=rq.device)
+    pmax = psf.max()
+    psf_c = psf[cy, cx]
+    absthresh = torch.clamp(
+        fracthresh * torch.hypot(dirty_q, dirty_u).max(), min=thresh
+    )
+    for i in range(niter):
+        if window is None:
+            search = torch.hypot(rq, ru)
+        else:
+            search = torch.hypot(rq * window, ru * window)
+        my, mx = divmod(int(torch.argmax(search)), nx)
+        vq, vu = rq[my, mx].clone(), ru[my, mx].clone()
+        mq = vq * gain / pmax
+        mu = vu * gain / pmax
+        img, pat = _footprint(my, mx, ny, nx, py, px)
+        rq[img] = _fms(rq[img], psf[pat], mq)
+        ru[img] = _fms(ru[img], psf[pat], mu)
+        rows[i, 0], rows[i, 1], rows[i, 2], rows[i, 3] = my, mx, mq, mu
+        rows[i, 4] = 1.0
+        if bool(torch.hypot(_fms(vq, mq, psf_c), _fms(vu, mu, psf_c)) < absthresh):
+            break
+    return rows, rq, ru
+
+
+def hogbom_complex_lanes(
+    dirty_q: torch.Tensor,
+    dirty_u: torch.Tensor,
+    psf: torch.Tensor,
+    window: torch.Tensor | None = None,
+    *,
+    gain: float,
+    thresh: float,
+    niter: int,
+    fracthresh: float,
+):
+    """Complex Hogbom on a batch of lanes: Q and U ``[lanes, ny, nx]``,
+    the real PSF ``[lanes, py, px]``, optional window broadcastable to Q.
+    Returns (comps_q, comps_u, res_q, res_u), each ``[lanes, ny, nx]``."""
+    nl, ny, nx = dirty_q.shape
+    py, px = psf.shape[-2:]
+    win = _lane_windows(window, nl, ny, nx)
+    if dirty_q.device.type == "cpu":
+        out = [
+            hogbom_complex_rows_plain(
+                dirty_q[i], dirty_u[i], psf[i], None if win is None else win[i],
+                gain=gain, thresh=thresh, niter=niter, fracthresh=fracthresh,
+            )
+            for i in range(nl)
+        ]
+        rows = torch.stack([o[0] for o in out])
+        rq = torch.stack([o[1] for o in out])
+        ru = torch.stack([o[2] for o in out])
+    else:
+        dev = dirty_q.device
+        chk = kernels.check_cuda_tensor
+        if psf.shape[0] != nl or dirty_u.shape != dirty_q.shape:
+            raise ValueError(
+                f"shapes: q {tuple(dirty_q.shape)}, u {tuple(dirty_u.shape)}, "
+                f"psf {tuple(psf.shape)}"
+            )
+        _check_psf(dirty_q.shape, psf.shape)
+        rq = torch.empty_like(dirty_q)
+        ru = torch.empty_like(dirty_u)
+        rows = torch.empty((nl, niter, 5), dtype=torch.float32, device=dev)
+        win = _f32(win)
+        kernels.KERNELS["hogbom_complex"].launch(
+            chk("dirty_q", dirty_q, torch.float32, dev),
+            chk("dirty_u", dirty_u, torch.float32, dev),
+            chk("psf", psf, torch.float32, dev),
+            None if win is None else chk("window", win, torch.float32, dev),
+            rq.data_ptr(),
+            ru.data_ptr(),
+            rows.data_ptr(),
+            nl,
+            ny,
+            nx,
+            py,
+            px,
+            int(niter),
+            float(gain),
+            float(thresh),
+            float(fracthresh),
+        )
+    cq = _rows_to_image(rows, ny, nx, col=2, used=4)
+    cu = _rows_to_image(rows, ny, nx, col=3, used=4)
+    return cq, cu, rq, ru
+
+
+def hogbom_complex(
+    dirty_q,
+    dirty_u,
+    psf_q,
+    psf_u,
+    window=None,
+    gain: float = 0.1,
+    thresh: float = 0.0,
+    niter: int = 100,
+    fracthresh: float = 0.01,
+):
+    """Complex Hogbom CLEAN of Q + iU. Only ``psf_q`` is used (``psf_u`` is
+    accepted and ignored, as in the JAX package). On the CPU the inputs
+    keep their dtype; on CUDA the kernel runs in f32.
+
+    Returns (comps_q, comps_u, res_q, res_u)."""
+    if dirty_q.device.type != "cpu":
+        dirty_q, dirty_u, psf_q = (
+            t.to(torch.float32) for t in (dirty_q, dirty_u, psf_q)
+        )
+    cq, cu, rq, ru = hogbom_complex_lanes(
+        dirty_q[None].contiguous(),
+        dirty_u[None].contiguous(),
+        psf_q[None].contiguous(),
+        None if window is None else window[None],
+        gain=gain,
+        thresh=thresh,
+        niter=niter,
+        fracthresh=fracthresh,
+    )
+    return cq[0], cu[0], rq[0], ru[0]
+
+
+# ------------------------------------------------------------ scale stacks
+
+
+def create_scalestack(
+    npixel_y: int,
+    npixel_x: int,
+    scales,
+    norm: bool = True,
+    dtype: torch.dtype = torch.float64,
+    device=None,
+):
+    """Scale basis blobs ``[nscales, ny, nx]``: a truncated paraboloid
+    tapered by the PSWF, centred at (ceil(ny/2), ceil(nx/2)); scale 0 is
+    a delta. ``device`` None is the CUDA card."""
+    device = resolve_device(device)
+    ycen = int(math.ceil(float(npixel_y) / 2.0))
+    xcen = int(math.ceil(float(npixel_x) / 2.0))
+    iy = torch.arange(npixel_y, device=device)[:, None] - ycen
+    ix = torch.arange(npixel_x, device=device)[None, :] - xcen
+    stacks = []
+    for scale in scales:
+        if scale > 0:
+            r = torch.sqrt((iy**2 + ix**2).to(dtype)) / (scale / 2.0)
+            blob = grdsf(torch.clamp(r, max=1.0))[0] * (1.0 - r**2)
+            blob = torch.where(r < 1.0, blob, 0.0)
+            blob = torch.clamp(blob, min=0.0)
+            if norm:
+                blob = blob / blob.sum()
+        else:
+            blob = torch.zeros((npixel_y, npixel_x), dtype=dtype, device=device)
+            blob[ycen, xcen] = 1.0
+        stacks.append(blob)
+    return torch.stack(stacks)
+
+
+def _cfft(img):
+    return torch.fft.fftshift(
+        torch.fft.fft2(torch.fft.fftshift(img, dim=(-2, -1)), dim=(-2, -1)),
+        dim=(-2, -1),
+    )
+
+
+def _cifft(img):
+    return torch.fft.ifftshift(
+        torch.fft.ifft2(torch.fft.ifftshift(img, dim=(-2, -1)), dim=(-2, -1)),
+        dim=(-2, -1),
+    )
+
+
+def convolve_scalestack(scalestack, img):
+    """FFT-convolve ``img`` with every scale: ``[ns, ny, nx]``."""
+    ximg = _cfft(img)
+    xscale = _cfft(scalestack)
+    return _cifft(ximg[None] * xscale.conj()).real
+
+
+def convolve_convolve_scalestack(scalestack, img):
+    """Doubly scale-convolved image ``[ns, ns, ny, nx]``: entry [i, j] is
+    img convolved with scale j and correlated with scale i."""
+    ximg = _cfft(img)
+    xscale = _cfft(scalestack)
+    xmult = ximg[None, None] * xscale[None, :] * xscale[:, None].conj()
+    return _cifft(xmult).real
+
+
+# ---------------------------------------------------------------- msclean
+
+
+def msclean_rows_plain(
+    res_stack,
+    psf_ss,
+    coupling_diag,
+    windowstack=None,
+    sensitivity=None,
+    *,
+    gain: float,
+    thresh: float,
+    fracthresh: float,
+    niter: int,
+):
+    """Plain version of the K7 loop for one lane, in the dtype of its
+    inputs: residual stack ``[ns, ny, nx]``, cross-scale PSF stack
+    ``psf_ss [ns, ns, py, px]`` (entry [s', s]: the effect on scale s' of
+    a component of scale s), coupling diagonal ``[ns]``. Returns
+    ([niter, 5] rows (y, x, scale, gain * mval, used), residual stack)."""
+    ns, ny, nx = res_stack.shape
+    py, px = psf_ss.shape[-2:]
+    res = res_stack.clone()
+    rows = torch.zeros((niter, 5), dtype=res.dtype, device=res.device)
+    cd = coupling_diag
+    absthresh = torch.clamp(fracthresh * res_stack[0].abs().max(), min=thresh)
+    stop = 0.9 * absthresh
+    for i in range(niter):
+        scaled = res / cd[:, None, None]
+        if windowstack is not None:
+            scaled = scaled * windowstack
+        if sensitivity is not None:
+            # searched with sensitivity squared, as in the JAX package
+            scaled = scaled * sensitivity * sensitivity
+        ms, rem = divmod(int(torch.argmax(scaled.abs())), ny * nx)
+        my, mx = divmod(rem, nx)
+        val = res[ms, my, mx]
+        if bool(val.abs() < stop):
+            break
+        gm = gain * (val / cd[ms])
+        img, pat = _footprint(my, mx, ny, nx, py, px)
+        res[:, img[0], img[1]] = _fms(
+            res[:, img[0], img[1]], psf_ss[:, ms, pat[0], pat[1]], gm
+        )
+        rows[i, 0], rows[i, 1], rows[i, 2], rows[i, 3] = my, mx, ms, gm
+        rows[i, 4] = 1.0
+    return rows, res
+
+
+def msclean_rows_to_comps(rows, pscalestack, ny: int, nx: int):
+    """The component image of one lane's msclean rows: each used row adds
+    its scale's blob, centred on (y, x), clipped at the image edges and
+    scaled by gain * mval, in emission order (the JAX package's loop
+    order). Shared by the kernel and the plain version."""
+    py, px = pscalestack.shape[-2:]
+    comps = torch.zeros((ny, nx), dtype=pscalestack.dtype, device=rows.device)
+    for y, x, s, gm, used in rows.cpu().tolist():
+        if used <= 0.0:
+            continue
+        img, pat = _footprint(int(y), int(x), ny, nx, py, px)
+        comps[img] += pscalestack[int(s)][pat] * gm
+    return comps
+
+
+def msclean_lanes(
+    res_stack: torch.Tensor,
+    psf_ss: torch.Tensor,
+    coupling_diag: torch.Tensor,
+    windowstack: torch.Tensor | None = None,
+    sensitivity: torch.Tensor | None = None,
+    *,
+    gain: float,
+    thresh: float,
+    fracthresh: float,
+    niter: int,
+):
+    """The msclean minor-cycle loop on a batch of lanes: residual stacks
+    ``[lanes, ns, ny, nx]``, cross-scale PSF stacks ``[lanes, ns, ns, py,
+    px]``, coupling diagonals ``[lanes, ns]``, optional window stacks
+    ``[lanes, ns, ny, nx]`` and sensitivity images ``[lanes, ny, nx]``.
+    Returns (rows ``[lanes, niter, 5]``, residual stacks). On CUDA each
+    lane is one run of kernel K7 (f32)."""
+    nl, ns, ny, nx = res_stack.shape
+    py, px = psf_ss.shape[-2:]
+
+    def lane(t, i):
+        return None if t is None else t[i]
+
+    if res_stack.device.type == "cpu":
+        out = [
+            msclean_rows_plain(
+                res_stack[i], psf_ss[i], coupling_diag[i],
+                lane(windowstack, i), lane(sensitivity, i),
+                gain=gain, thresh=thresh, fracthresh=fracthresh, niter=niter,
+            )
+            for i in range(nl)
+        ]
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+    dev = res_stack.device
+    chk = kernels.check_cuda_tensor
+    if psf_ss.shape[:3] != (nl, ns, ns) or coupling_diag.shape != (nl, ns):
+        raise ValueError(
+            f"shapes: res_stack {tuple(res_stack.shape)}, psf_ss "
+            f"{tuple(psf_ss.shape)}, coupling_diag {tuple(coupling_diag.shape)}"
+        )
+    _check_psf(res_stack.shape, psf_ss.shape)
+    if ns * ny * nx >= 2**31:
+        raise ValueError(f"res_stack: {tuple(res_stack.shape)} exceeds int32 indexing")
+    chk("res_stack", res_stack, torch.float32, dev)
+    chk("psf_ss", psf_ss, torch.float32, dev)
+    chk("coupling_diag", coupling_diag, torch.float32, dev)
+    for name, t in (("windowstack", windowstack), ("sensitivity", sensitivity)):
+        if t is not None:
+            chk(name, t, torch.float32, dev)
+    res = res_stack.clone()
+    rows = torch.empty((nl, niter, 5), dtype=torch.float32, device=dev)
+    # per-CTA (value, index) partials of the grid-wide search, one CTA per
+    # few rows of the stack, plus the loop state
+    nparts = min(ns * ny, _MSCLEAN_MAX_PARTS)
+    scratch = torch.empty(16 + 3 * nparts, dtype=torch.int32, device=dev)
+    for i in range(nl):
+        kernels.KERNELS["msclean"].launch(
+            res[i].data_ptr(),
+            psf_ss[i].data_ptr(),
+            coupling_diag[i].data_ptr(),
+            None if windowstack is None else windowstack[i].data_ptr(),
+            None if sensitivity is None else sensitivity[i].data_ptr(),
+            rows[i].data_ptr(),
+            scratch.data_ptr(),
+            nparts,
+            ns,
+            ny,
+            nx,
+            py,
+            px,
+            int(niter),
+            float(gain),
+            float(thresh),
+            float(fracthresh),
+        )
+    return rows, res
+
+
+# at most this many CTAs share one sweep of the stack (8 per SM of an H100)
+_MSCLEAN_MAX_PARTS = 1056
+
+
+class MSCleanStacks(typing.NamedTuple):
+    """What msclean derives from the PSF alone: the PSF peak, the scale
+    stacks at image and PSF size, the cross-scale PSF stack and its
+    coupling diagonal. The fused cycle builds it once per ``ical``."""
+
+    pmax: torch.Tensor
+    scalestack: torch.Tensor
+    pscalestack: torch.Tensor
+    psf_ss: torch.Tensor
+    coupling_diag: torch.Tensor
+
+
+def msclean_psf_stacks(psf: torch.Tensor, ny: int, nx: int, scales) -> MSCleanStacks:
+    """The PSF-only part of :func:`msclean` for a ``[ny, nx]`` image, in the
+    dtype and on the device of ``psf``."""
+    dt, dev = psf.dtype, psf.device
+    pmax = psf.max()
+    scalestack = create_scalestack(ny, nx, scales, dtype=dt, device=dev)
+    pscalestack = create_scalestack(
+        psf.shape[0], psf.shape[1], scales, dtype=dt, device=dev
+    )
+    psf_ss = convolve_convolve_scalestack(pscalestack, psf / pmax).to(dt)
+    coupling_diag = torch.diagonal(psf_ss.amax(dim=(-2, -1))).contiguous()
+    return MSCleanStacks(
+        pmax, scalestack, pscalestack, psf_ss.contiguous(), coupling_diag
+    )
+
+
+def msclean_with_stacks(
+    stacks: MSCleanStacks,
+    dirty: torch.Tensor,
+    window=None,
+    sensitivity=None,
+    *,
+    gain: float,
+    thresh: float,
+    niter: int,
+    fracthresh: float,
+):
+    """msclean of ``dirty`` with the PSF's stacks already built. Returns
+    (comps, residual)."""
+    ny, nx = dirty.shape
+    dt = stacks.psf_ss.dtype
+    ldirty = dirty.to(dt) / stacks.pmax
+    res_stack = convolve_scalestack(stacks.scalestack, ldirty).to(dt)
+    windowstack = None
+    if window is not None:
+        windowstack = (
+            convolve_scalestack(stacks.scalestack, window.to(dt)) > 0.9
+        ).to(dt)[None].contiguous()
+    sens = None if sensitivity is None else sensitivity.to(dt)[None].contiguous()
+    rows, res = msclean_lanes(
+        res_stack[None].contiguous(),
+        stacks.psf_ss[None],
+        stacks.coupling_diag[None],
+        windowstack,
+        sens,
+        gain=gain,
+        thresh=thresh,
+        fracthresh=fracthresh,
+        niter=niter,
+    )
+    comps = msclean_rows_to_comps(rows[0], stacks.pscalestack, ny, nx)
+    return comps, stacks.pmax * res[0, 0]
+
+
+def msclean(
+    dirty,
+    psf,
+    window=None,
+    sensitivity=None,
+    gain: float = 0.1,
+    thresh: float = 0.0,
+    niter: int = 100,
+    scales=(0, 3, 10, 30),
+    fracthresh: float = 0.01,
+    use_pallas=None,
+):
+    """Multi-scale CLEAN (Cornwell 2008) of one image, with an optional
+    search window and sensitivity image ``[ny, nx]``.
+
+    The minor-cycle loop follows the JAX package's XLA loop
+    (``_msclean_loop``), which it runs for every case its TPU shape gate
+    refuses. ``use_pallas`` is accepted and ignored: the TPU kernels K7
+    (``_msclean_corner_kernel``) and K7v1 (``_msclean_pallas_kernel``)
+    compute the same loop, and both map to the one CUDA kernel here. On
+    the CPU the inputs keep their dtype; on CUDA the kernel runs in f32.
+
+    Returns (comps, residual)."""
+    if dirty.device.type != "cpu":
+        dirty, psf = dirty.to(torch.float32), psf.to(torch.float32)
+        if sensitivity is not None:
+            sensitivity = sensitivity.to(torch.float32)
+    stacks = msclean_psf_stacks(psf, dirty.shape[0], dirty.shape[1], scales)
+    return msclean_with_stacks(
+        stacks,
+        dirty,
+        window,
+        sensitivity,
+        gain=gain,
+        thresh=thresh,
+        niter=niter,
+        fracthresh=fracthresh,
+    )

@@ -1,5 +1,5 @@
-"""Deconvolution helpers the fused cycle reaches: clean arguments, PSF
-bounding, beam fitting and restore.
+"""Deconvolution: clean arguments, clean windows, PSF bounding,
+``deconvolve_cube``, beam fitting and restore.
 
 Counterpart of the same functions in
 ``ska_sdp_func_python_tpu/ops/deconvolution.py``.
@@ -14,6 +14,7 @@ import torch
 
 from ..config import not_ported
 from ..models.image import Image
+from .cleaners import hogbom_complex_lanes, hogbom_lanes, msclean
 
 log = logging.getLogger("ska-sdp-func-python-torch")
 
@@ -21,6 +22,7 @@ __all__ = [
     "common_arguments",
     "find_window",
     "bound_psf",
+    "deconvolve_cube",
     "fit_psf",
     "restore_cube",
     "convert_clean_beam_to_degrees",
@@ -50,10 +52,27 @@ def common_arguments(**kwargs):
 
 
 def find_window(dirty: Image, window_shape=None, **kwargs):
-    """The clean window: only the windowless case (None) is ported."""
-    if window_shape is not None or kwargs.get("mask") is not None:
-        raise not_ported("clean windows", "S7x")
-    return None
+    """The clean window (1 = the search may pick the pixel), on the device
+    of ``dirty``: None; "quarter" (the central quarter); "no_edge" (all
+    but ``window_edge`` pixels, default 16, at each edge); or an explicit
+    ``mask`` (a tensor, an array or an Image), which takes precedence."""
+    device = dirty.pixels.device
+    mask = kwargs.get("mask", None)
+    if mask is not None:
+        return torch.as_tensor(getattr(mask, "pixels", mask), device=device)
+    if window_shape is None:
+        return None
+    ny, nx = dirty.pixels.shape[-2:]
+    window = torch.zeros(dirty.pixels.shape, dtype=dirty.pixels.dtype, device=device)
+    if window_shape == "quarter":
+        qx, qy = nx // 4, ny // 4
+        window[..., qy + 1 : 3 * qy, qx + 1 : 3 * qx] = 1.0
+    elif window_shape == "no_edge":
+        edge = kwargs.get("window_edge", 16)
+        window[..., edge + 1 : ny - edge, edge + 1 : nx - edge] = 1.0
+    else:
+        raise ValueError(f"Window shape {window_shape} is not recognized")
+    return window
 
 
 def bound_psf(dirty: Image, psf: Image, psf_support=None) -> Image:
@@ -71,6 +90,109 @@ def bound_psf(dirty: Image, psf: Image, psf_support=None) -> Image:
         ]
         return psf.replace(pixels=cropped)
     return psf
+
+
+def _lane_psfs(psf):
+    """[lanes, py, px] PSFs with a unit delta in every empty lane, and the
+    mask of the lanes whose PSF has a positive peak."""
+    ok = psf.amax(dim=(-2, -1)) > 0.0
+    delta = torch.zeros_like(psf)
+    delta[:, psf.shape[-2] // 2, psf.shape[-1] // 2] = 1.0
+    return torch.where(ok[:, None, None], psf, delta).contiguous(), ok
+
+
+def deconvolve_cube(
+    dirty: Image, psf: Image, sensitivity: Image = None, prefix: str = "", **kwargs
+):
+    """CLEAN a dirty image cube ``[nchan, npol, ny, nx]``.
+
+    Algorithms: "hogbom", "hogbom-complex" (stokesIQUV: Hogbom for I and
+    V, complex Hogbom for Q + iU) and "msclean" (the default; with an
+    optional ``sensitivity`` Image). A (chan, pol) lane whose PSF has no
+    positive peak is skipped: its components and residual stay zero
+    (complex Hogbom runs for every channel, as in the JAX package). The
+    PSF is bounded by :func:`bound_psf` (``psf_support``) and the window
+    comes from :func:`find_window`.
+
+    :return: (component Image, residual Image)
+    """
+    algorithm = kwargs.get("algorithm", "msclean")
+    if algorithm in ("msmfsclean", "mfsmsclean", "mmclean"):
+        raise not_ported(f"deconvolve_cube(algorithm={algorithm!r})", "S10")
+    window = find_window(
+        dirty,
+        kwargs.get("window_shape", None),
+        **{k: v for k, v in kwargs.items() if k != "window_shape"},
+    )
+    psf = bound_psf(dirty, psf, kwargs.get("psf_support", None))
+    fracthresh, gain, niter, thresh, scales = common_arguments(**kwargs)
+    clean = dict(gain=gain, thresh=thresh, niter=niter, fracthresh=fracthresh)
+    nchan, npol, ny, nx = dirty.pixels.shape
+    pix, ppix = dirty.pixels, psf.pixels
+    comp = torch.zeros_like(pix)
+    res = torch.zeros_like(pix)
+
+    def win_for(chan, pol):
+        if window is None:
+            return None
+        return window[min(chan, window.shape[0] - 1), pol]
+
+    def lane_windows(lanes):
+        if window is None:
+            return None
+        return torch.stack([win_for(c, p) for c, p in lanes])
+
+    def hogbom_on(lanes):
+        """Hogbom on the (chan, pol) ``lanes`` in one batch."""
+        d = torch.stack([pix[c, p] for c, p in lanes]).to(torch.float32)
+        p2, ok = _lane_psfs(
+            torch.stack([ppix[c, p] for c, p in lanes]).to(torch.float32)
+        )
+        cb, rb = hogbom_lanes(d.contiguous(), p2, lane_windows(lanes), **clean)
+        okm = ok[:, None, None]
+        for i, (c, p) in enumerate(lanes):
+            comp[c, p] = torch.where(okm[i], cb[i], 0.0).to(pix.dtype)
+            res[c, p] = torch.where(okm[i], rb[i], 0.0).to(pix.dtype)
+
+    if algorithm == "hogbom":
+        hogbom_on([(c, p) for c in range(nchan) for p in range(npol)])
+    elif algorithm == "hogbom-complex":
+        if npol != 4:
+            raise ValueError("hogbom-complex requires stokesIQUV images")
+        hogbom_on([(c, p) for c in range(nchan) for p in (0, 3)])
+        lanes = [(c, 1) for c in range(nchan)]
+        f32 = torch.float32
+        cq, cu, rq, ru = hogbom_complex_lanes(
+            pix[:, 1].to(f32).contiguous(),
+            pix[:, 2].to(f32).contiguous(),
+            ppix[:, 1].to(f32).contiguous(),
+            lane_windows(lanes),
+            **clean,
+        )
+        comp[:, 1], comp[:, 2] = cq.to(pix.dtype), cu.to(pix.dtype)
+        res[:, 1], res[:, 2] = rq.to(pix.dtype), ru.to(pix.dtype)
+    elif algorithm == "msclean":
+        sens = sensitivity.pixels if sensitivity is not None else None
+        for c in range(nchan):
+            for p in range(npol):
+                if float(ppix[c, p].max()) <= 0.0:
+                    continue
+                cc, rr = msclean(
+                    pix[c, p],
+                    ppix[c, p],
+                    win_for(c, p),
+                    sens[c, p] if sens is not None else None,
+                    gain=gain,
+                    thresh=thresh,
+                    niter=niter,
+                    scales=tuple(scales),
+                    fracthresh=fracthresh,
+                )
+                comp[c, p] = cc.to(pix.dtype)
+                res[c, p] = rr.to(pix.dtype)
+    else:
+        raise ValueError(f"deconvolve_cube: Unknown algorithm {algorithm}")
+    return dirty.replace(pixels=comp), dirty.replace(pixels=res)
 
 
 def convert_clean_beam_to_degrees(im: Image, beam_pixels) -> dict:

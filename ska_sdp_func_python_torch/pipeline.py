@@ -10,12 +10,13 @@ cycle. One cycle:
 3. forms the product-form normal equations and runs the StefCal solve;
 4. moves the inverse gain factors into plan order (kernel K4, forward);
 5. inverts the residual in plan order (kernels K1+K2, FFT tail);
-6. runs Hogbom CLEAN on the residual (kernel K5).
+6. CLEANs the residual: msclean (kernel K7, the default) or Hogbom (K5),
+   with an optional clean window.
 
 The slice ports the branches the flagship configuration takes: stokesI,
-one channel, a single "T" (phase-only, scalar) term, Hogbom, no sky
-components, no clean window. Every other branch raises and names the
-ROADMAP slice that brings it.
+one channel, a single "T" (phase-only, scalar) term, msclean or Hogbom,
+no sky components. Every other branch raises and names the ROADMAP slice
+that brings it.
 """
 
 from __future__ import annotations
@@ -32,8 +33,9 @@ from .models.image import Image
 from .models.polarisation import convert_pol_frame
 from .models.visibility import Visibility
 from .ops.calibration_chain import create_calibration_controls
-from .ops.cleaners import hogbom_lanes
+from .ops.cleaners import hogbom_lanes, msclean_psf_stacks, msclean_with_stacks
 from .ops.deconvolution import (
+    _lane_psfs,
     bound_psf,
     common_arguments,
     find_window,
@@ -101,15 +103,19 @@ class _FusedCfg(typing.NamedTuple):
     normalise_gains: str | None
     solver_niter: int
     solver_tol: float
+    algorithm: str
     clean_gain: float
     clean_niter: int
     clean_thresh: float
     clean_frac: float
+    scales: tuple
 
 
 class _FusedSelfCal(_SortedWorkspace):
     """Device-resident workspace of :func:`_fused_selfcal_cycle` for the
-    ported configuration: one "T" term, stokesI, windowless Hogbom."""
+    ported configuration: one "T" term, stokesI, msclean or Hogbom with an
+    optional clean window. The msclean scale stacks depend on the PSF
+    alone and are built here once, not in every cycle."""
 
     def __init__(
         self,
@@ -131,12 +137,19 @@ class _FusedSelfCal(_SortedWorkspace):
         if controls["T"].get("shape") != "scalar":
             raise not_ported("non-scalar 'T' controls", "S7x")
         algorithm = clean_kwargs.get("algorithm", "msclean")
-        if algorithm != "hogbom":
-            raise not_ported(f"algorithm {algorithm!r} in the fused cycle", "S9")
-        find_window(
+        if algorithm in ("msmfsclean", "mfsmsclean", "mmclean"):
+            raise not_ported(f"algorithm {algorithm!r} in the fused cycle", "S10")
+        if algorithm not in ("hogbom", "msclean"):
+            raise ValueError(f"fused clean: unsupported algorithm {algorithm}")
+        win = find_window(
             model,
             clean_kwargs.get("window_shape"),
-            mask=clean_kwargs.get("mask"),
+            **{k: clean_kwargs[k] for k in ("mask", "window_edge") if k in clean_kwargs},
+        )
+        self.clean_window = (
+            None
+            if win is None
+            else torch.broadcast_to(win.to(torch.float32), model.pixels.shape)
         )
         device = vis.device
         self.gt0s, self.cal = [], []
@@ -165,7 +178,16 @@ class _FusedSelfCal(_SortedWorkspace):
         ).long()
         bpsf = bound_psf(psf, psf, clean_kwargs.get("psf_support", None))
         self.psf_patch = bpsf.pixels.to(torch.float32)
-        frac, cgain, cniter, cthresh, _ = common_arguments(**clean_kwargs)
+        frac, cgain, cniter, cthresh, scales = common_arguments(**clean_kwargs)
+        ny, nx = model.pixels.shape[-2:]
+        self.ms_stacks = (
+            [
+                [msclean_psf_stacks(pp, ny, nx, scales) for pp in pc]
+                for pc in self.psf_patch
+            ]
+            if algorithm == "msclean"
+            else None
+        )
         self.cfg = _FusedCfg(
             npol=self.npol,
             terms=(
@@ -178,10 +200,12 @@ class _FusedSelfCal(_SortedWorkspace):
             normalise_gains=normalise_gains,
             solver_niter=solver_niter,
             solver_tol=solver_tol,
+            algorithm=algorithm,
             clean_gain=cgain,
             clean_niter=cniter,
             clean_thresh=cthresh,
             clean_frac=frac,
+            scales=tuple(scales),
         )
 
     def gaintables(self, gains, gwts, gress) -> dict:
@@ -252,24 +276,40 @@ def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, mvis):
     return [gain_new], [gwt], [gres], inv[..., None]
 
 
-def _fused_clean(residual, psf_patch, cfg: _FusedCfg):
-    """The Hogbom lane: every (chan, pol) plane cleans independently;
+def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
+    """The CLEAN lane of the cycle; returns the component cube.
+
+    Hogbom: every (chan, pol) plane cleans independently in one batch;
     lanes with an empty PSF get a unit delta and their components are
-    dropped."""
+    dropped. msclean: each plane in turn, with the workspace's scale
+    stacks. Both search within the clean window when there is one."""
     nchan, npol, ny, nx = residual.shape
-    d2 = residual.reshape(-1, ny, nx).contiguous()
-    p2 = psf_patch.reshape(-1, *psf_patch.shape[-2:])
-    ok = p2.amax(dim=(-2, -1)) > 0.0
-    delta = torch.zeros_like(p2)
-    delta[:, p2.shape[-2] // 2, p2.shape[-1] // 2] = 1.0
-    p2_safe = torch.where(ok[:, None, None], p2, delta).contiguous()
-    cb, _ = hogbom_lanes(
-        d2,
-        p2_safe,
+    window = ws.clean_window
+    clean = dict(
         gain=cfg.clean_gain,
         thresh=cfg.clean_thresh,
         niter=cfg.clean_niter,
         fracthresh=cfg.clean_frac,
+    )
+    if cfg.algorithm == "msclean":
+        comp = torch.zeros_like(residual)
+        for c in range(nchan):
+            for p in range(npol):
+                comp[c, p], _ = msclean_with_stacks(
+                    ws.ms_stacks[c][p],
+                    residual[c, p],
+                    None if window is None else window[c, p],
+                    **clean,
+                )
+        return comp
+    d2 = residual.reshape(-1, ny, nx).contiguous()
+    p2 = ws.psf_patch.reshape(-1, *ws.psf_patch.shape[-2:])
+    p2_safe, ok = _lane_psfs(p2)
+    cb, _ = hogbom_lanes(
+        d2,
+        p2_safe,
+        None if window is None else window.reshape(-1, ny, nx),
+        **clean,
     )
     cb = torch.where(ok[:, None, None], cb, 0.0)
     return cb.reshape(residual.shape)
@@ -287,7 +327,7 @@ def _fused_selfcal_cycle(
 ):
     """One self-cal major cycle in the plan-sorted domain: model degrid,
     back-permute, normal equations and StefCal solve, factor permute,
-    residual invert, Hogbom. Returns (model_pixels, gains, gwts, gress,
+    residual invert, CLEAN. Returns (model_pixels, gains, gwts, gress,
     residual, sumwt, peak)."""
     cfg = ws.cfg
     plan = ws.plan.plans[0]
@@ -332,7 +372,7 @@ def _fused_selfcal_cycle(
     scale = torch.where(okw, 1.0 / torch.where(okw, sumwt, 1.0), 0.0)
     residual = pixels * scale[:, :, None, None]
 
-    comp_pixels = _fused_clean(residual, ws.psf_patch, cfg)
+    comp_pixels = _fused_clean(residual, ws, cfg)
     model_pixels = model_pixels + comp_pixels
     peak = residual.abs().max()
     return model_pixels, gains, gwts, gress, residual, sumwt, peak

@@ -1,8 +1,11 @@
-"""Parity of the port's Hogbom CLEAN (kernel K5, plain version on the CPU)
-with the JAX package's ``hogbom`` (its XLA loop on the CPU).
+"""Parity of the port's Hogbom CLEAN (kernel K5) and complex Hogbom (K6),
+plain versions on the CPU, with the JAX package's ``hogbom`` and
+``hogbom_complex``.
 
-Tolerance: identical component positions; component values and the
-residual to 1e-6 relative, on the same f32 residual and PSF.
+Tolerances: identical component positions; against the XLA loops in f32,
+component values and the residual to 1e-6 relative; in f64, 1e-8 of the
+maxima; against the TPU complex kernel in interpret mode, 1e-6 (its
+search rounds the modulus differently).
 """
 
 import numpy as np
@@ -11,7 +14,10 @@ import pytest
 import torch
 
 from ska_sdp_func_python_tpu.ops.cleaners import hogbom as jax_hogbom
-from ska_sdp_func_python_torch.ops.cleaners import hogbom
+from ska_sdp_func_python_tpu.ops.cleaners import (
+    hogbom_complex as jax_hogbom_complex,
+)
+from ska_sdp_func_python_torch.ops.cleaners import hogbom, hogbom_complex
 
 
 def _psf(n, sigma=2.5):
@@ -54,3 +60,103 @@ def test_hogbom_matches_jax(ny, py, niter):
     np.testing.assert_allclose(
         pr, jr, rtol=0.0, atol=1e-6 * np.max(np.abs(jr))
     )
+
+
+def test_hogbom_window_matches_jax():
+    """The search window keeps Hogbom off the masked pixels, as in the
+    JAX package (same f32 inputs; positions identical, values 1e-6)."""
+    rng = np.random.default_rng(12)
+    psf = _psf(48)
+    dirty = _dirty(96, psf, rng)
+    win = np.zeros((96, 96), np.float32)
+    win[10:80, 20:90] = 1.0
+    kw = dict(gain=0.2, thresh=0.0, niter=150, fracthresh=0.01)
+    jc, jr = jax_hogbom(jnp.asarray(dirty), jnp.asarray(psf), jnp.asarray(win), **kw)
+    pc, pr = hogbom(
+        torch.as_tensor(dirty), torch.as_tensor(psf), torch.as_tensor(win), **kw
+    )
+    jc, jr = np.asarray(jc), np.asarray(jr)
+    pc, pr = pc.numpy(), pr.numpy()
+    np.testing.assert_array_equal(pc != 0.0, jc != 0.0)
+    assert np.all(pc[win == 0] == 0.0)
+    np.testing.assert_allclose(pc, jc, rtol=1e-6, atol=0.0)
+    np.testing.assert_allclose(pr, jr, rtol=0.0, atol=1e-6 * np.max(np.abs(jr)))
+
+
+def _qu(n, rng, dtype):
+    d = np.zeros((n, n))
+    d[n // 2 - 20, n // 2 - 60] = 1.0
+    d[(3 * n) // 4, (7 * n) // 8] = -0.7
+    d[5, n - 4] = 0.9  # a peak whose PSF footprint is clipped
+    d += rng.normal(0, 0.01, (n, n))
+    return d.astype(dtype), (np.roll(d, 7, axis=0) * 0.6).astype(dtype)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["plain", "window"])
+def test_hogbom_complex_matches_jax_loop_f64(window):
+    """Complex Hogbom against the JAX XLA loop in f64: positions
+    identical, components and residuals to 1e-8 of their maxima."""
+    rng = np.random.default_rng(31)
+    n = 320
+    dq, du = _qu(n, rng, np.float64)
+    pn = 64
+    p = np.exp(-(((np.mgrid[0:pn, 0:pn] - pn // 2) / 3.0) ** 2).sum(0))
+    win = None
+    if window:
+        win = np.ones((n, n))
+        win[: n // 2 - 10, : n // 2] = 0.0  # masks the first peak
+    kw = dict(gain=0.2, niter=60, fracthresh=0.01)
+    jo = jax_hogbom_complex(
+        jnp.asarray(dq), jnp.asarray(du), jnp.asarray(p), jnp.asarray(p),
+        None if win is None else jnp.asarray(win), use_pallas=False, **kw,
+    )
+    po = hogbom_complex(
+        torch.as_tensor(dq), torch.as_tensor(du), torch.as_tensor(p),
+        torch.as_tensor(p), None if win is None else torch.as_tensor(win), **kw,
+    )
+    for a, b in zip(po, jo):
+        a, b = a.numpy(), np.asarray(b)
+        assert a.dtype == np.float64
+        np.testing.assert_allclose(a, b, rtol=0, atol=1e-8 * np.abs(b).max())
+    np.testing.assert_array_equal(po[0].numpy() != 0, np.asarray(jo[0]) != 0)
+    if window:
+        assert np.all(po[0].numpy()[win == 0] == 0.0)
+
+
+def test_hogbom_complex_matches_jax_kernel_f32():
+    """Against the TPU list kernel (K6b) in interpret mode at 640^2 with a
+    128^2 PSF, to 1e-6 as the JAX package's own test holds it."""
+    rng = np.random.default_rng(0)
+    n = 640
+    dq, du = _qu(n, rng, np.float32)
+    pn = 128
+    p = np.exp(
+        -(((np.mgrid[0:pn, 0:pn] - pn // 2) / 3.0) ** 2).sum(0)
+    ).astype(np.float32)
+    kw = dict(gain=0.2, niter=30)
+    jo = jax_hogbom_complex(
+        jnp.asarray(dq), jnp.asarray(du), jnp.asarray(p), jnp.asarray(p), None,
+        use_pallas=True, **kw,
+    )
+    po = hogbom_complex(
+        torch.as_tensor(dq), torch.as_tensor(du), torch.as_tensor(p),
+        torch.as_tensor(p), None, **kw,
+    )
+    for a, b in zip(po, jo):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0, atol=1e-6)
+
+
+def test_fms_rounds_once_like_a_fused_multiply_add():
+    """The plain versions' residual update c - a*b rounds once, as a fused
+    multiply-add does, even where rounding the f64 difference and then
+    to f32 would round twice the wrong way: here the exact value lies just
+    above an f32 midpoint that the f64 rounding lands on."""
+    from ska_sdp_func_python_torch.ops.cleaners import _fms
+
+    c = np.float32(1 + 2.0**-23)
+    a = np.float32(2.0**-12 * (1 + 2.0**-18))
+    b = np.float32(2.0**-12 * (1 - 2.0**-18))
+    twice = np.float32(np.float64(c) - np.float64(a) * np.float64(b))
+    once = _fms(torch.tensor([c]), torch.tensor([a]), torch.tensor([b]))
+    assert twice == np.float32(1.0)
+    assert once.item() == np.float32(1 + 2.0**-23)

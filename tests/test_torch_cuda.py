@@ -6,8 +6,9 @@ imports only the port, so it also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: ``permute_apply`` is bit-exact (elements are only moved);
-``hogbom`` gives identical component positions and values to 1e-6
-relative; ``grid`` (atomics, run-to-run summation order; held against
+``hogbom`` (with and without a window), ``hogbom_complex`` and
+``msclean`` give identical component positions and values to 1e-6
+relative (the same f32 operations in the same order); ``grid`` (atomics, run-to-run summation order; held against
 the plain version accumulated in f64) and ``degrid`` agree to 1e-5 of the
 maximum.
 """
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 from ska_sdp_func_python_torch import kernels
+from ska_sdp_func_python_torch.ops import cleaners
 from ska_sdp_func_python_torch.ops.cleaners import hogbom_lanes
 from ska_sdp_func_python_torch.ops.gridding_fused import (
     degrid,
@@ -91,23 +93,114 @@ def test_permute_bit_exact(dev, inverse):
         assert torch.equal(o, r)
 
 
-def test_hogbom_matches_plain(dev):
-    rng = np.random.default_rng(9)
-    ny, py = 128, 64
+def _clean_inputs(ny=128, py=64, seed=9):
+    rng = np.random.default_rng(seed)
     y, x = np.mgrid[:py, :py] - py // 2
     psf = np.exp(-(x**2 + y**2) / 8.0).astype(np.float32)
     dirty = 0.01 * rng.normal(size=(ny, ny)).astype(np.float32)
     for _ in range(4):
         cy, cx = rng.integers(0, ny, 2)
         dirty[max(cy - 3, 0) : cy + 3, max(cx - 3, 0) : cx + 3] += 1.0
+    return dirty, psf
+
+
+def _same(out, ref):
+    for o, r in zip(out, ref):
+        o = o.cpu()
+        torch.testing.assert_close(o, r, rtol=0.0, atol=1e-6 * float(r.abs().max()))
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["plain", "window"])
+def test_hogbom_matches_plain(dev, window):
+    dirty, psf = _clean_inputs()
     d = torch.as_tensor(dirty, device=dev)[None].contiguous()
     p = torch.as_tensor(psf, device=dev)[None].contiguous()
+    w = None
+    if window:
+        w = torch.zeros_like(d)
+        w[:, 20:100, 30:110] = 1.0
     kw = dict(gain=0.2, thresh=0.0, niter=300, fracthresh=0.01)
     before = kernels.KERNELS["hogbom"].launches
-    comps, res = hogbom_lanes(d, p, **kw)
+    comps, res = hogbom_lanes(d, p, w, **kw)
     assert kernels.KERNELS["hogbom"].launches == before + 1
-    rc, rr = hogbom_lanes(d.cpu(), p.cpu(), **kw)
+    rc, rr = hogbom_lanes(d.cpu(), p.cpu(), None if w is None else w.cpu(), **kw)
     comps, res = comps.cpu(), res.cpu()
     assert torch.equal(comps != 0, rc != 0)
     torch.testing.assert_close(comps, rc, rtol=1e-6, atol=0.0)
     torch.testing.assert_close(res, rr, rtol=0.0, atol=1e-6 * float(rr.abs().max()))
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["plain", "window"])
+def test_hogbom_complex_matches_plain(dev, window):
+    dq, psf = _clean_inputs(seed=10)
+    du = 0.6 * np.roll(dq, 7, axis=0)
+    q, u, p = (torch.as_tensor(a, device=dev)[None].contiguous() for a in (dq, du, psf))
+    w = None
+    if window:
+        w = torch.zeros_like(q)
+        w[:, 10:90, 30:120] = 1.0
+    kw = dict(gain=0.2, thresh=0.0, niter=200, fracthresh=0.01)
+    before = kernels.KERNELS["hogbom_complex"].launches
+    out = cleaners.hogbom_complex_lanes(q, u, p, w, **kw)
+    assert kernels.KERNELS["hogbom_complex"].launches == before + 1
+    ref = cleaners.hogbom_complex_lanes(
+        q.cpu(), u.cpu(), p.cpu(), None if w is None else w.cpu(), **kw
+    )
+    assert torch.equal(out[0].cpu() != 0, ref[0] != 0)
+    _same(out, ref)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["plain", "window+sensitivity"])
+def test_msclean_matches_plain(dev, window):
+    dirty, psf = _clean_inputs(ny=128, py=128, seed=11)
+    d = torch.as_tensor(dirty, device=dev)
+    p = torch.as_tensor(psf, device=dev)
+    w = s = None
+    if window:
+        w = torch.zeros_like(d)
+        w[16:112, 8:100] = 1.0
+        s = torch.linspace(0.5, 1.5, 128 * 128, device=dev).reshape(128, 128)
+    kw = dict(gain=0.2, thresh=0.0, niter=120, fracthresh=0.01)
+    st = cleaners.msclean_psf_stacks(p, 128, 128, (0, 3, 10, 30))
+    before = kernels.KERNELS["msclean"].launches
+    out = cleaners.msclean_with_stacks(st, d, w, s, **kw)
+    assert kernels.KERNELS["msclean"].launches == before + 1
+    st_cpu = cleaners.MSCleanStacks(*(t.cpu() for t in st))
+    ref = cleaners.msclean_with_stacks(
+        st_cpu, d.cpu(), None if w is None else w.cpu(), None if s is None else s.cpu(), **kw
+    )
+    assert torch.equal(out[0].cpu() != 0, ref[0] != 0)
+    _same(out, ref)
+
+
+@pytest.mark.parametrize("algorithm", ["hogbom-complex", "msclean"])
+def test_deconvolve_cube_window_on_card_matches_cpu(dev, algorithm):
+    """deconvolve_cube with the quarter window on the card (kernels) and on
+    the CPU (plain versions): identical component positions, values to
+    1e-5 of the maximum (msclean's scale stacks come from cuFFT on the
+    card)."""
+    from ska_sdp_func_python_torch.models.image import create_image
+    from ska_sdp_func_python_torch.ops.deconvolution import deconvolve_cube
+
+    dirty, psf = _clean_inputs(ny=96, py=96, seed=12)
+    frame = "stokesIQUV" if algorithm == "hogbom-complex" else "stokesI"
+    npol = 4 if frame == "stokesIQUV" else 1
+    scale = np.array([1.0, 0.17, 0.1, 0.02])[:npol, None, None]
+    out = {}
+    for d in (dev, torch.device("cpu")):
+        im = create_image(96, 0.001, (0.0, -0.6), polarisation_frame=frame, device=d)
+        di = im.replace(pixels=torch.as_tensor(scale * dirty[None], dtype=torch.float32, device=d)[None])
+        ps = im.replace(pixels=torch.as_tensor(np.broadcast_to(psf, (1, npol, 96, 96)).copy(), device=d))
+        kernels.reset_launch_counts()
+        out[d.type] = deconvolve_cube(
+            di, ps, algorithm=algorithm, niter=40, gain=0.2,
+            fractional_threshold=0.01, window_shape="quarter", scales=[0, 3, 10],
+        )
+        if d.type == "cuda":
+            counts = kernels.launch_counts()
+            names = ("hogbom", "hogbom_complex") if npol == 4 else ("msclean",)
+            assert all(counts[n] > 0 for n in names), counts
+    for a, b in zip(out["cuda"], out["cpu"]):
+        a, b = a.pixels.cpu(), b.pixels
+        assert torch.equal(a != 0, b != 0)
+        torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5 * float(b.abs().max()))

@@ -39,6 +39,8 @@ from ska_sdp_func_python_torch.ops.imaging import (
 
 from simul import make_visibility
 
+CPU = torch.device("cpu")
+
 TOL = 1e-5
 NW = 4
 
@@ -52,7 +54,7 @@ def plans():
     )
     jplan = jax_make_visibility_plan(vis, model, context="ng", nw=NW)
     pplan = make_visibility_plan(
-        interop.to_visibility(vis), interop.to_image(model), nw=NW
+        interop.to_visibility(vis, device=CPU), interop.to_image(model, device=CPU), nw=NW
     )
     return jplan.plans[0], pplan.plans[0]
 

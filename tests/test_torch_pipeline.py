@@ -11,6 +11,7 @@ run in f64 on both sides and agree to 1e-10.
 import numpy as np
 import jax.numpy as jnp
 import pytest
+import torch
 
 from ska_sdp_func_python_tpu.models import (
     SkyComponents,
@@ -33,6 +34,7 @@ from ska_sdp_func_python_torch.pipeline import ical
 from simul import make_visibility
 
 PC = (0.0, np.deg2rad(-35.0))
+CPU = torch.device("cpu")
 
 
 @pytest.fixture(scope="module")
@@ -56,13 +58,13 @@ def test_dft_and_gain_apply_match_jax(obs):
     vis, _, comps, gt = obs
     jvis = jax_dft(vis, comps)
     pvis = dft_skycomponent_visibility(
-        interop.to_visibility(vis), interop.to_skycomponents(comps)
+        interop.to_visibility(vis, device=CPU), interop.to_skycomponents(comps, device=CPU)
     )
     np.testing.assert_allclose(
         pvis.vis.numpy(), np.asarray(jvis.vis), rtol=0, atol=1e-10
     )
     jcor = jax_apply_gaintable(jvis, gt)
-    pcor = apply_gaintable(pvis, interop.to_gaintable(gt))
+    pcor = apply_gaintable(pvis, interop.to_gaintable(gt, device=CPU))
     np.testing.assert_allclose(
         pcor.vis.numpy(), np.asarray(jcor.vis), rtol=0, atol=1e-10
     )
@@ -72,7 +74,7 @@ def test_weight_visibility_matches_jax(obs):
     vis, model, _, _ = obs
     ref = jax_weight_visibility(vis, model, weighting="uniform")
     out = weight_visibility(
-        interop.to_visibility(vis), interop.to_image(model), weighting="uniform"
+        interop.to_visibility(vis, device=CPU), interop.to_image(model, device=CPU), weighting="uniform"
     )
     np.testing.assert_allclose(
         out.imaging_weight.numpy(), np.asarray(ref.imaging_weight),
@@ -83,28 +85,38 @@ def test_weight_visibility_matches_jax(obs):
 def test_create_image_from_visibility_matches_jax(obs):
     vis, model, _, _ = obs
     pmodel = create_image_from_visibility(
-        interop.to_visibility(vis), npixel=128, oversampling=4.0, nchan=1
+        interop.to_visibility(vis, device=CPU), npixel=128, oversampling=4.0, nchan=1
     )
     assert pmodel.cellsize == pytest.approx(model.cellsize, rel=1e-12)
     assert pmodel.pixels.shape == tuple(model.pixels.shape)
 
 
-def test_ical_fused_matches_jax(obs):
+def _ical_both(obs, **kw):
+    """The JAX fused ical and the port's on the same corrupted
+    observation; returns both results."""
     vis, model, comps, gt = obs
     corrupted = jax_apply_gaintable(jax_dft(vis, comps), gt)
     kw = dict(
         nmajor=3,
         calibration_context="T",
         context="ng",
-        algorithm="hogbom",
         niter=200,
         gain=0.2,
         fractional_threshold=0.01,
+        **kw,
     )
-    d0, r0, s0, g0 = jax_ical(corrupted, model, use_plan=True, fused=True, **kw)
-    d1, r1, s1, g1 = ical(
-        interop.to_visibility(corrupted), interop.to_image(model), **kw
+    ref = jax_ical(corrupted, model, use_plan=True, fused=True, **kw)
+    out = ical(
+        interop.to_visibility(corrupted, device=CPU),
+        interop.to_image(model, device=CPU),
+        **kw,
     )
+    return ref, out
+
+
+def _assert_slice_bounds(ref, out):
+    """The slice bounds: the JAX package's fused-vs-composed ones."""
+    (d0, r0, s0, g0), (d1, r1, s1, g1) = ref, out
     ga = np.asarray(g0["T"].gain)[..., 0, 0]
     gb = g1["T"].gain.numpy()[..., 0, 0]
     pa = ga * np.exp(-1j * np.angle(ga[:, :1]))
@@ -117,3 +129,31 @@ def test_ical_fused_matches_jax(obs):
     peak1 = float(s1.pixels.max())
     assert abs(peak0 - peak1) < 0.05
     assert abs(peak1 - 2.0) < 0.2
+
+
+def test_ical_fused_matches_jax(obs):
+    _assert_slice_bounds(*_ical_both(obs, algorithm="hogbom"))
+
+
+def test_ical_fused_msclean_default_matches_jax(obs):
+    """With no algorithm= both run msclean, the default deconvolver."""
+    _assert_slice_bounds(*_ical_both(obs, scales=[0, 3, 10]))
+
+
+@pytest.mark.parametrize("algorithm", ["hogbom", "msclean"])
+def test_ical_fused_windowed_matches_jax(obs, algorithm):
+    """window_shape="quarter" in the fused cycle: the component peaks stay
+    in the window (msclean's scale blobs may spill past its edge, as in
+    the JAX package) and the result matches the JAX fused cycle."""
+    ref, out = _ical_both(obs, algorithm=algorithm, window_shape="quarter")
+    _assert_slice_bounds(ref, out)
+    cpix = out[0].pixels.numpy()[0, 0]
+    n = cpix.shape[0]
+    outside = cpix.copy()
+    outside[n // 4 + 1 : 3 * (n // 4), n // 4 + 1 : 3 * (n // 4)] = 0
+    assert np.max(np.abs(outside)) < np.max(np.abs(cpix))
+    if algorithm == "hogbom":
+        assert np.max(np.abs(outside)) == 0.0
+    np.testing.assert_allclose(
+        cpix, np.asarray(ref[0].pixels)[0, 0], rtol=0, atol=1e-3 * np.abs(cpix).max()
+    )
