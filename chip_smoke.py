@@ -1,8 +1,14 @@
 """Smoke run of the PyTorch port on one NVIDIA GPU.
 
-Drives the port's paths at the flagship size: SKA-LOW (512 stations
+Drives the port's paths at two sizes. The flagship: SKA-LOW (512 stations
 within 40 km), 76 integrations at 120 MHz (~9.9M visibilities), a 1024^2
 image, "T" phase-only calibration, CLEAN niter 300, gain 0.2, fractional
+threshold 0.01. The MSMFS cube (the JAX package's BASELINE config 4,
+``bench_msmfs_pipeline.py``): 256 stations within 2 km in the JAX test
+layout, 9 hour angles over +-pi/12 at dec -35 deg, 64 channels of 1 MHz
+from 100 MHz (18,800,640 visibilities), a 256^2 cube at oversampling 3,
+uniform weights, one 2.0 Jy source at (+20, -14) pixels with spectral
+index -0.7 about channel 32, MSMFS with 3 moments, niter 100, fractional
 threshold 0.01.
 
 Phases, each on lines of its own:
@@ -27,13 +33,23 @@ Phases, each on lines of its own:
   7. small slice: ical on a small observation with the CUDA kernels and
      on the CPU (plain versions), for Hogbom and msclean (the latter to a
      fractional threshold of 0.05), held to the JAX package's
-     fused-vs-composed bounds.
-Each of phases 4-6 resets the launch counters just before it and fails
-unless every kernel of its path launched. The script then prints the
-kernels JSON line (launches summed over phases 4-6), the card line, and,
-last, the ``{"ok": true, ...}`` line. Any failure raises and exits
-non-zero; without a CUDA device it exits non-zero before printing any
-result.
+     fused-vs-composed bounds;
+  8. MSMFS cube: simulates the config-4 cube on the card and (a) holds the
+     msmfs kernel against its plain version on the cycle-0 moment stacks;
+     (b) runs ``continuum_imaging(algorithm="mmclean")`` for 4 major
+     cycles, printing each cycle's wall time and peak residual, and gates
+     the peak's fall, the model flux around the source in channel 32 and
+     the spectral index from the channel-0 and channel-63 model fluxes;
+     (c) runs ``ical(algorithm="mmclean")`` on the cube corrupted with
+     N(0, 0.4) "T" phases, 4 cycles, and prints the gain phase error;
+     (d) runs ical with MSMFS on a small cube (the JAX package's fused-cube
+     test geometry) on the card and on the CPU, to the bounds of phase 7.
+Each of phases 4-6 and 8b-c resets the launch counters just before it
+and fails unless every kernel of its path launched. The script then
+prints the kernels JSON line (launches summed over those phases), the
+card line, and, last, the ``{"ok": true, ...}`` line. Any failure raises
+and exits non-zero; without a CUDA device it exits non-zero before
+printing any result.
 
 Usage: python3 chip_smoke.py
 """
@@ -42,18 +58,30 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
+# The CPU runs of the small slices are the reference the card is held to,
+# and their clean picks between near-equal peaks: MKL's default code path
+# depends on the host's CPU model and its thread count on the host's load,
+# and their rounding moved the CPU run's picks (and the gains by 4e-2) on
+# one host. Its conditional numerical reproducibility mode with a fixed
+# thread count gives the same CPU results on every host. Both must be set
+# before torch loads MKL.
+os.environ.setdefault("MKL_CBWR", "COMPATIBLE")
+os.environ.setdefault("MKL_DYNAMIC", "FALSE")
+
 # kernel: (tolerance on the max error relative to the plain version's
 # maximum, source, the TPU kernel it replaces). grid: held against the
 # plain version accumulated in f64, since atomics change the f32 summation
 # order from run to run; degrid: f32 sums in another order; permute moves
 # elements and must be bit-exact; hogbom, msclean and hogbom_complex: the
-# same f32 operations in the same order.
+# same f32 operations in the same order; msmfs: the same, against the
+# residual's maximum.
 KERNELS = {
     "grid": (
         1e-5,
@@ -85,6 +113,11 @@ KERNELS = {
         "ska_sdp_func_python_torch/csrc/hogbom.cu",
         "ska_sdp_func_python_tpu/ops/cleaners.py:517 (and :433)",
     ),
+    "msmfs": (
+        1e-6,
+        "ska_sdp_func_python_torch/csrc/msmfs.cu",
+        "ska_sdp_func_python_tpu/ops/cleaners.py:1562",
+    ),
 }
 CLEAN = dict(niter=300, gain=0.2, fractional_threshold=0.01)
 SCALES = [0, 3, 10, 30]
@@ -92,6 +125,19 @@ SCALES = [0, 3, 10, 30]
 SOURCES = [(0, 0, 2.0), (60, -40, 1.2), (-80, 30, 0.8)]
 # polarisation of the deconvolve_cube sky: fraction, angle, circular
 POL_P, POL_CHI, POL_V = 0.2, np.deg2rad(30.0), 0.02
+# the MSMFS cube (config 4): layout, observation and CLEAN
+CUBE = dict(nants=256, rmax=2000.0, ntimes=9, nchan=64, df=1e6, npixel=256,
+            oversampling=3.0, offset=(20, -14), alpha=-0.7, weighting="uniform")
+CUBE_CLEAN = dict(algorithm="mmclean", nmoment=3, niter=100,
+                  fractional_threshold=0.01, scales=SCALES)
+# the spectral-index gate: the JAX package's own fused cube cycle, run on the
+# CPU on this layout at 48 stations and 16 channels of 4 MHz, recovers -0.835
+# for the sky's -0.7 (and -0.703 at 128 stations, 8 channels), so the gate
+# is 0.15, not 0.1
+INDEX_TOL = 0.15
+# the small cube of the JAX package's fused-cube test (test_composite.py)
+SMALL_CUBE = dict(nants=14, rmax=300.0, ntimes=3, nchan=6, df=4e6, npixel=96,
+                  oversampling=4.0, offset=(7, -4), alpha=-0.7, weighting="natural")
 
 # NVIDIA H100 SXM published peaks at 700 W: HBM and f32 outside the
 # tensor cores
@@ -109,6 +155,18 @@ def card_line() -> str:
         capture_output=True, text=True, check=True,
     )
     return out.stdout.strip().splitlines()[0]
+
+
+def host_cpu() -> str:
+    """The host's CPU model, which the small slices' CPU runs depend on."""
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith("model name"):
+                    return line.split(":", 1)[1].strip()
+    except OSError:
+        pass
+    return "unknown CPU"
 
 
 def timed(fn, reps):
@@ -194,6 +252,67 @@ def simulate(device, rmax, ntimes, npixel, seed=42):
         apply_gaintable(vis, gt), model, weighting="uniform"
     )
     return cfg, corrupted, model, phases
+
+
+def simulate_cube(device, nants, rmax, ntimes, nchan, df, npixel, oversampling,
+                  offset, alpha, weighting, flux=2.0, seed=42):
+    """A cube observation in the JAX package's test layout
+    (``tests/simul.py``: ``random_array_xyz``, hour angles over +-pi/12,
+    dec -35 deg), channels of ``df`` from 100 MHz, and one source of
+    ``flux`` Jy at channel nchan // 2 with spectral index ``alpha``, at
+    pixel offset ``offset`` (dx, dy) from the centre. Returns (vis,
+    model)."""
+    from ska_sdp_func_python_torch.models import (
+        SkyComponents,
+        create_visibility_from_arrays,
+        random_array_xyz,
+    )
+    from ska_sdp_func_python_torch.ops import (
+        create_image_from_visibility,
+        dft_skycomponent_visibility,
+    )
+    from ska_sdp_func_python_torch.ops.weighting import weight_visibility
+    from ska_sdp_func_python_torch.utils.coordinates import xyz_to_uvw
+
+    ants = random_array_xyz(nants, rmax=rmax, seed=seed)
+    a1, a2 = np.triu_indices(nants, 1)
+    hour_angles = np.linspace(-np.pi / 12.0, np.pi / 12.0, ntimes)
+    dec = np.deg2rad(-35.0)
+    uvw = np.stack([xyz_to_uvw(ants[a2] - ants[a1], ha, dec) for ha in hour_angles])
+    freq = 1.0e8 + df * np.arange(nchan)
+    vis = create_visibility_from_arrays(
+        uvw=uvw, time=hour_angles * 86164.1 / (2 * np.pi), frequency=freq,
+        antenna1=a1, antenna2=a2, phasecentre=(0.0, dec), nants=nants,
+        device=device,
+    )
+    model = create_image_from_visibility(
+        vis, npixel=npixel, oversampling=oversampling, nchan=nchan
+    )
+    ra, dec_s = model.pixel_to_radec(npixel // 2 + offset[0], npixel // 2 + offset[1])
+    fluxes = flux * (freq / freq[nchan // 2]) ** alpha
+    sky = SkyComponents.from_lists(
+        [[float(ra), float(dec_s)]], fluxes[None, :, None], vis.frequency,
+        device=device,
+    )
+    vis = dft_skycomponent_visibility(vis, sky)
+    return weight_visibility(vis, model, weighting=weighting), model
+
+
+def corrupt(vis, sigma, seed=42):
+    """``vis`` times per-station "T" phases from N(0, sigma); returns
+    (corrupted vis, true phases [ntime, nants, 1])."""
+    import torch
+
+    from ska_sdp_func_python_torch.models import create_gaintable_from_visibility
+    from ska_sdp_func_python_torch.ops import apply_gaintable
+
+    gt = create_gaintable_from_visibility(vis, jones_type="T")
+    phases = np.random.default_rng(seed).normal(0, sigma, gt.gain.shape[:3])
+    true_gain = torch.polar(
+        torch.ones(phases.shape), torch.as_tensor(phases, dtype=torch.float32)
+    ).to(vis.device)
+    gt = gt.replace(gain=true_gain[..., None, None].contiguous())
+    return apply_gaintable(vis, gt), phases
 
 
 def gain_phase_error(solved, true_phases):
@@ -468,13 +587,16 @@ def _launch_gate(label, counts, names):
         raise AssertionError(f"{label}: kernels {missing} never launched: {counts}")
 
 
-def run_ical(label, vis, model, phases, nmajor, path_kernels, **kw):
-    """The user-facing ical on the card, launch counters reset just before
-    it and read just after. Returns (counts, peaks, model, restored)."""
+def run_logged(label, entry, nmajor, path_kernels):
+    """Runs ``entry()``, a user-facing entry point that logs each major
+    cycle's peak residual, on the card, with the launch counters reset
+    just before it and read just after; prints each cycle's wall time and
+    peak. Fails unless every cycle logged a finite peak, the peak fell and
+    every kernel of ``path_kernels`` launched. Returns (entry's result,
+    counts, peaks)."""
     import torch
 
     from ska_sdp_func_python_torch import kernels
-    from ska_sdp_func_python_torch.pipeline import ical
 
     handler = _CycleLog()
     logger = logging.getLogger("ska-sdp-func-python-torch")
@@ -483,14 +605,12 @@ def run_ical(label, vis, model, phases, nmajor, path_kernels, **kw):
     torch.cuda.synchronize()
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    current, residual, restored, gts = ical(
-        vis, model, nmajor=nmajor, calibration_context="T", context="ng", **kw
-    )
+    out = entry()
     torch.cuda.synchronize()
     total = time.perf_counter() - t0
     counts = kernels.launch_counts()
     logger.removeHandler(handler)
-    say(f"{label}: ical total {total:.3f} s, launches {counts}")
+    say(f"{label}: total {total:.3f} s, launches {counts}")
     peaks = []
     prev = None
     for t, msg in handler.events:
@@ -498,6 +618,27 @@ def run_ical(label, vis, model, phases, nmajor, path_kernels, **kw):
             peaks.append(float(msg.rsplit(" ", 1)[1]))
             say(f"{label}: {msg.split(': ', 1)[1]}, wall {(t - prev) * 1e3:.1f} ms")
         prev = t
+    if not all(np.isfinite(peaks)) or len(peaks) != nmajor:
+        raise AssertionError(f"{label}: per-cycle peaks missing or not finite: {peaks}")
+    if not peaks[-1] < peaks[0]:
+        raise AssertionError(f"{label}: peak residual did not fall: {peaks}")
+    if not all(torch.isfinite(im.pixels).all() for im in out[:3]):
+        raise AssertionError(f"{label}: an output image is not finite")
+    _launch_gate(label, counts, path_kernels)
+    return out, counts, peaks
+
+
+def run_ical(label, vis, model, phases, nmajor, path_kernels, **kw):
+    """The user-facing ical on the card (see :func:`run_logged`), and its
+    gain phase error. Returns (counts, peaks, model, restored peak)."""
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    (current, residual, restored, gts), counts, peaks = run_logged(
+        label,
+        lambda: ical(vis, model, nmajor=nmajor, calibration_context="T",
+                     context="ng", **kw),
+        nmajor, path_kernels,
+    )
     gmax, grms = gain_phase_error(gts["T"].gain, phases)
     rpeak = float(restored.pixels.max())
     say(
@@ -505,13 +646,6 @@ def run_ical(label, vis, model, phases, nmajor, path_kernels, **kw):
         f"rad; restored peak {rpeak:.4f} (source 2.0 Jy); final residual "
         f"peak {float(residual.pixels.abs().max()):.4e}"
     )
-    if not all(np.isfinite(peaks)) or len(peaks) != nmajor:
-        raise AssertionError(f"{label}: per-cycle peaks missing or not finite: {peaks}")
-    if not peaks[-1] < peaks[0]:
-        raise AssertionError(f"{label}: peak residual did not fall: {peaks}")
-    if not torch.isfinite(restored.pixels).all():
-        raise AssertionError(f"{label}: restored image is not finite")
-    _launch_gate(label, counts, path_kernels)
     return counts, peaks, current, rpeak
 
 
@@ -632,6 +766,205 @@ def small_slice_matches_cpu(device, algorithm, **clean):
         raise AssertionError(f"small slice {algorithm}: card and cpu disagree")
 
 
+def model_flux_near(current, chan, offset, radius=10):
+    """The model flux (Jy) of channel ``chan`` within ``radius`` pixels of
+    the source at pixel offset ``offset`` (dx, dy) from the centre."""
+    n = current.npixel
+    px = current.pixels[chan, 0].detach().double().cpu().numpy()
+    yy, xx = np.mgrid[0:n, 0:n]
+    near = np.hypot(yy - (n // 2 + offset[1]), xx - (n // 2 + offset[0])) <= radius
+    return float(px[near].sum())
+
+
+def cube_gates(label, current, peaks, offset, alpha, gate=True):
+    """The MSMFS cube gates: the last peak residual below 0.1x the first;
+    the model flux within 10 px of the source in the middle channel within
+    0.2 of 2.0 Jy; the spectral index from the first and last channels'
+    model fluxes within INDEX_TOL of the sky's. With ``gate`` False the
+    numbers are only printed."""
+    freq = np.asarray(current.frequency)
+    nchan = len(freq)
+    f_mid = model_flux_near(current, nchan // 2, offset)
+    f_lo = model_flux_near(current, 0, offset)
+    f_hi = model_flux_near(current, nchan - 1, offset)
+    index = float(np.log(f_hi / f_lo) / np.log(freq[-1] / freq[0]))
+    say(
+        f"{label}: model flux within 10 px of the source: channel {nchan // 2} "
+        f"{f_mid:.4f} (sky 2.0), channel 0 {f_lo:.4f}, channel {nchan - 1} "
+        f"{f_hi:.4f}; spectral index {index:.4f} (sky {alpha}); peak residual "
+        f"{peaks[0]:.6f} -> {peaks[-1]:.6f}"
+    )
+    if not gate:
+        return
+    if not peaks[-1] < 0.1 * peaks[0]:
+        raise AssertionError(f"{label}: last peak not below 0.1x the first: {peaks}")
+    if not abs(f_mid - 2.0) < 0.2:
+        raise AssertionError(f"{label}: flux {f_mid} not within 0.2 of 2.0")
+    if not abs(index - alpha) < INDEX_TOL:
+        raise AssertionError(
+            f"{label}: spectral index {index} not within {INDEX_TOL} of {alpha}"
+        )
+
+
+def compare_msmfs(vis, model):
+    """Phase 8a: the msmfs kernel against its plain version on the card, on
+    the cycle-0 moment stacks of the cube's fused cycle (the moment images
+    of the dirty cube and the moment PSFs over the moment-PSF peak)."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops import cleaners as cl
+    from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        make_visibility_plan,
+    )
+    from ska_sdp_func_python_torch.ops.taylor import moment_weights
+
+    nm = CUBE_CLEAN["nmoment"]
+    plan = make_visibility_plan(vis, model, context="ng")
+    psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
+    dirty, _ = invert_visibility(vis, model, plan=plan)
+    patch = bound_psf(psf, psf).pixels.to(torch.float32)
+    w_m, w_p = (
+        moment_weights(model.frequency, None, k).to(device=vis.device, dtype=torch.float32)
+        for k in (nm, 2 * nm)
+    )
+    psf_t = torch.einsum("cm,cpyx->mpyx", w_p, patch)
+    peak = psf_t.max()
+    ny, nx = model.pixels.shape[-2:]
+    st = cl.msmfs_psf_stacks(psf_t[:, 0] / peak, ny, nx, SCALES)
+    dpix = torch.einsum("cm,cpyx->mpyx", w_m, dirty.pixels.to(torch.float32)) / peak
+    smres = cl.calculate_scale_moment_residual(dpix[:, 0] / st.pmax, st.scalestack)
+    smres = smres.contiguous()
+    del plan, psf, dirty, patch
+    kw = dict(gain=0.7, thresh=0.0, fracthresh=CUBE_CLEAN["fractional_threshold"],
+              niter=CUBE_CLEAN["niter"])
+
+    def kernel():
+        return cl.msmfs_lanes(smres[None], st.canvas, st.hsmm, st.ihsmm, **kw)
+
+    def plain():
+        return cl.msmfs_rows_plain(smres, st.canvas, st.hsmm, st.ihsmm, **kw)
+
+    (krows, kres), (prows, pres) = kernel(), plain()
+    if not torch.equal(krows[0, :, :4], prows[:, :4]):
+        raise AssertionError("msmfs: component rows differ from the plain version")
+    kmodel = cl.msmfs_rows_to_model(krows[0], st.pscalestack, ny, nx)
+    pmodel = cl.msmfs_rows_to_model(prows, st.pscalestack, ny, nx)
+    err = max(
+        float((kres[0] - pres).abs().max()), float((kmodel - pmodel).abs().max()),
+        float((krows[0, :, 4:] - prows[:, 4:]).abs().max()),
+    )
+    rel = err / float(pres.abs().max())
+    ns = len(SCALES)
+    py, px = st.canvas.shape[-2:]
+    used = [r for r in prows.tolist() if r[3] > 0]
+    area = sum(footprint_area(int(r[0]), int(r[1]), ny, nx, py, px) for r in used)
+    stack = ns * nm * ny * nx
+    # bytes: the stack in and out, the compact canvas, Hessian and inverse
+    # in, the rows out; operations: the moment-0 criterion (nm products,
+    # nm - 1 sums) and its comparison over the stack once per search, and
+    # nm sums of nm products for every moment plane of every scale over
+    # each pick's footprint
+    bnd = bound(
+        4 * (2 * stack + ns * ns * (2 * nm - 1) * py * px + 2 * ns * nm * nm)
+        + 4 * prows.numel(),
+        (2 * nm + 1) * ns * ny * nx * (len(used) + 1) + 2 * nm * ns * nm * area,
+    )
+    ms = timed(kernel, 5)
+    out = _row(err, rel, ms, timed(plain, 2), bnd)
+    per_it = max(len(used), 1)
+    per_it_mb = (4 * stack + 4 * ns * (2 * nm + 2 * nm - 1) * area / per_it) / 1e6
+    say(
+        f"msmfs: {len(used)} iterations at {ny}x{nx}, {ns} scales, {nm} moments, "
+        f"PSF {py}x{px}: {ms / per_it * 1e3:.2f} us per iteration; the stack "
+        f"streamed once per iteration plus the footprint read-modify-write and "
+        f"its canvas rows is {per_it_mb:.2f} MB, "
+        f"{per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} us at 3.35 TB/s"
+    )
+    return out
+
+
+def run_cube(device):
+    """Phase 8: the MSMFS cube. Returns (kernel row of msmfs, summed launch
+    counts of 8b and 8c)."""
+    import torch
+
+    from ska_sdp_func_python_torch.pipeline import continuum_imaging
+
+    t0 = time.perf_counter()
+    vis, model = simulate_cube(device, **CUBE)
+    torch.cuda.synchronize()
+    say(
+        f"cube observation: {CUBE['nants']} stations, {vis.nchan} channels, "
+        f"{vis.nvis} visibilities, {model.npixel}^2 x {model.nchan} cube, "
+        f"simulated in {time.perf_counter() - t0:.1f} s"
+    )
+    row = compare_msmfs(vis, model)
+    torch.cuda.empty_cache()
+    (current, _, _), counts_b, peaks = run_logged(
+        "msmfs continuum_imaging",
+        lambda: continuum_imaging(vis, model, nmajor=4, context="ng", **CUBE_CLEAN),
+        4, ("grid", "degrid", "msmfs"),
+    )
+    cube_gates("msmfs continuum_imaging", current, peaks, CUBE["offset"], CUBE["alpha"])
+    del current
+    corrupted, phases = corrupt(vis, 0.4)
+    del vis
+    counts_c, peaks, current, _ = run_ical(
+        "msmfs ical", corrupted, model, phases, 4,
+        ("grid", "degrid", "permute", "msmfs"), **CUBE_CLEAN,
+    )
+    # printed, not gated: the self-cal residual keeps the calibration error
+    cube_gates("msmfs ical", current, peaks, CUBE["offset"], CUBE["alpha"], gate=False)
+    return row, {k: counts_b[k] + counts_c[k] for k in counts_b}
+
+
+def small_cube_matches_cpu(device):
+    """Phase 8d: ical with MSMFS (2 moments) on the small cube of the JAX
+    package's fused-cube test, with the CUDA kernels and on the CPU, to
+    the bounds of phase 7 (gains 1e-4, residual peak 1e-3 relative)."""
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    out = {}
+    for dev in (device, "cpu"):
+        vis, model = simulate_cube(dev, **SMALL_CUBE)
+        vis, _ = corrupt(vis, 0.3)
+        d, r, _, g = ical(
+            vis, model, nmajor=3, calibration_context="T", context="ng",
+            algorithm="mmclean", nmoment=2, niter=100, fractional_threshold=0.01,
+        )
+        gain = g["T"].gain.cpu().numpy()[..., 0, 0, 0]
+        out[dev] = (gain * np.exp(-1j * np.angle(gain[:, :1])), d.pixels.cpu(), r.pixels.cpu())
+    (ga, da, ra), (gb, db, rb) = out[device], out["cpu"]
+    dg = float(np.max(np.abs(ga - gb)))
+    res_a, res_b = float(ra.abs().max()), float(rb.abs().max())
+    same = bool(((da != 0) == (db != 0)).all())
+    say(
+        f"small cube mmclean card vs cpu: gain {dg:.2e} (bound 1e-4), residual "
+        f"peak {res_a:.6f} vs {res_b:.6f} (bound 1e-3 rel), same component "
+        f"pixels {same}, model {float((da - db).abs().max()):.3e} apart"
+    )
+    if not (dg < 1e-4 and abs(res_a - res_b) < 1e-3 * res_b):
+        raise AssertionError("small cube mmclean: card and cpu disagree")
+
+
+def report_kernel(name, r):
+    """Prints a kernel's comparison with its plain version, and fails if
+    the error is above its tolerance."""
+    tol = KERNELS[name][0]
+    ok = r["rel"] <= tol
+    lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
+    say(
+        f"kernel {name}: max abs err {r['max_abs_err']:.3e}, rel err "
+        f"{r['rel']:.3e} (tolerance {tol:g}) {'ok' if ok else 'FAIL'}; "
+        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
+        f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}"
+    )
+    if not ok:
+        raise AssertionError(f"kernel {name} disagrees with its plain version")
+
+
 def main() -> int:
     import torch
 
@@ -647,6 +980,10 @@ def main() -> int:
     device = torch.device("cuda", 0)
     card = card_line()
     say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    say(
+        f"host: {host_cpu()}, {torch.get_num_threads()} threads, "
+        f"{torch.backends.cpu.get_cpu_capability()}, MKL_CBWR={os.environ['MKL_CBWR']}"
+    )
 
     t0 = time.perf_counter()
     kernels.build_library()
@@ -673,17 +1010,7 @@ def main() -> int:
     results = compare_gridding(device, vis, plan)
     results.update(compare_cleaners(dirty.pixels[0, 0].to(torch.float32), psf_patch))
     for name, r in results.items():
-        tol = KERNELS[name][0]
-        ok = r["rel"] <= tol
-        lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
-        say(
-            f"kernel {name}: max abs err {r['max_abs_err']:.3e}, rel err "
-            f"{r['rel']:.3e} (tolerance {tol:g}) {'ok' if ok else 'FAIL'}; "
-            f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
-            f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}"
-        )
-        if not ok:
-            raise AssertionError(f"kernel {name} disagrees with its plain version")
+        report_kernel(name, r)
     del psf_patch, plan
     torch.cuda.empty_cache()
 
@@ -701,6 +1028,14 @@ def main() -> int:
     # clean goes on to PSF-sidelobe structure where peaks tie to 1e-5, below
     # the f32 difference between the card's and the CPU's dirty images
     small_slice_matches_cpu(device, "msclean", fractional_threshold=0.05)
+    del vis, model
+    torch.cuda.empty_cache()
+
+    results["msmfs"], counts = run_cube(device)
+    for name in launches:
+        launches[name] += counts[name]
+    report_kernel("msmfs", results["msmfs"])
+    small_cube_matches_cpu(device)
 
     say(json.dumps({
         "kernels": [

@@ -2,11 +2,15 @@
 
 Builds the flagship observation of ``chip_smoke.py`` (SKA-LOW 512 stations,
 76 integrations, 1024^2 image) on one CUDA device, with the chosen CLEAN
-(msclean, the default, or hogbom), runs four major cycles
-of ``pipeline._fused_selfcal_cycle`` (printing each cycle's wall time and
+(msclean, the default, or hogbom), or with ``--algorithm mmclean`` the
+MSMFS cube of ``chip_smoke.py`` (BASELINE config 4: 256 stations, 64
+channels, 18.8M visibilities, a 256^2 cube, 3 moments) corrupted with
+N(0, 0.4) "T" phases; runs four major cycles of
+``pipeline._fused_selfcal_cycle`` (printing each cycle's wall time and
 StefCal iteration count), times each stage of a steady cycle on its own
-(synchronised, averaged), and profiles one more cycle with
-``torch.profiler``. From that trace it prints:
+(synchronised, averaged; each stage summed over the image channels), and
+profiles one more cycle with ``torch.profiler``. From that trace it
+prints:
 
   - the cycle's wall time: the span of a ``record_function`` range that
     ends after a device synchronise;
@@ -17,7 +21,7 @@ StefCal iteration count), times each stage of a steady cycle on its own
 
 The chrome trace is written to ``<out>/cycle_trace.json``.
 
-Usage: python3 profile_torch_cycle.py [--out DIR] [--algorithm msclean|hogbom]
+Usage: python3 profile_torch_cycle.py [--out DIR] [--algorithm msclean|hogbom|mmclean]
 """
 
 from __future__ import annotations
@@ -101,7 +105,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", default="build/profile", help="trace directory")
     ap.add_argument(
-        "--algorithm", default="msclean", choices=("msclean", "hogbom"),
+        "--algorithm", default="msclean", choices=("msclean", "hogbom", "mmclean"),
         help="the CLEAN lane of the cycle",
     )
     args = ap.parse_args()
@@ -112,12 +116,18 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     print(cs.card_line())
 
-    _, vis, model, _ = cs.simulate(dev, rmax=40000.0, ntimes=76, npixel=1024)
+    if args.algorithm == "mmclean":
+        vis, model = cs.simulate_cube(dev, **cs.CUBE)
+        vis, _ = cs.corrupt(vis, 0.4)
+        clean = cs.CUBE_CLEAN
+    else:
+        _, vis, model, _ = cs.simulate(dev, rmax=40000.0, ntimes=76, npixel=1024)
+        clean = dict(algorithm=args.algorithm, scales=cs.SCALES, **cs.CLEAN)
     plan = make_visibility_plan(vis, model, context="ng")
     psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
     ws = P._FusedSelfCal(
         vis, model, plan, None, ["T"], create_calibration_controls(), "mean",
-        200, 1e-6, psf, algorithm=args.algorithm, scales=cs.SCALES, **cs.CLEAN,
+        200, 1e-6, psf, **clean,
     )
     gains = [ws.gt0s[0].gain]
     gwts = [ws.gt0s[0].weight]
@@ -146,36 +156,45 @@ def main() -> int:
         calls[0] = 0
     solvers._gain_substitution_scalar = substitution
 
-    p0 = plan.plans[0]
-    perm = p0.gp.perm
+    # each stage runs over every image channel (polarisation 0, stokesI)
+    plans = plan.plans
+    chans = range(len(plans))
     ms = stage(
         "predict (fft head + degrid)",
-        lambda: predict_with_plan(p0, mp[0, 0], to_sorted=True),
+        lambda: [predict_with_plan(plans[c], mp[c, 0], to_sorted=True) for c in chans],
     )
     mv = stage(
         "permute model -> natural",
-        lambda: permute_apply(perm, ms, inverse=True),
+        lambda: [permute_apply(plans[c].gp.perm, ms[c], inverse=True) for c in chans],
     )
-    mvis = mv.reshape(ws.cal[0]["w_t"].shape[1], -1, 1)[..., None]
+    ntime = ws.cal[0]["w_t"].shape[1]
+    mvis = torch.stack([m.reshape(ntime, -1) for m in mv], dim=2)[..., None]
     inv = stage(
         "solve (normal equations + StefCal + factors)",
         lambda: P._solve_terms(ws, ws.cfg, gains, mvis), reps=2,
     )[3]
+    fac = inv[:, :, 0, 0].reshape(-1).contiguous()
     f = stage(
         "permute factors -> plan",
-        lambda: permute_apply(perm, inv[:, :, 0, 0].reshape(-1).contiguous()),
+        lambda: [permute_apply(plans[c].gp.perm, fac) for c in chans],
     )
-    rs = ws.obs_s[0] * f - ms
+    rs = [ws.obs_s[c][0] * f[c] - ms[c] for c in chans]
     d = stage(
         "invert (grid + fft tail)",
-        lambda: invert_with_plan(p0, rs, ws.wgt_s[0], values_sorted=True),
+        lambda: [
+            invert_with_plan(plans[c], rs[c], ws.wgt_s[c][0], values_sorted=True)
+            for c in chans
+        ],
     )
     gr = stage(
         "  grid only",
-        lambda: grid_with_plan(p0.gp, rs * ws.wgt_s[0], values_sorted=True),
+        lambda: [
+            grid_with_plan(plans[c].gp, rs[c] * ws.wgt_s[c][0], values_sorted=True)
+            for c in chans
+        ],
     )
-    stage("  fft tail only", lambda: uv_grids_to_dirty(p0, gr))
-    resid = (d[0] / d[1])[None, None].to(torch.float32)
+    stage("  fft tail only", lambda: [uv_grids_to_dirty(plans[c], gr[c]) for c in chans])
+    resid = torch.stack([di / sw for di, sw in d])[:, None].to(torch.float32)
     stage(f"{args.algorithm} lane", lambda: P._fused_clean(resid, ws, ws.cfg), 3)
 
     from torch.profiler import ProfilerActivity, profile, record_function

@@ -189,6 +189,11 @@ KERNELS = {
         "ska_hogbom_complex",
         [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F],
     ),
+    "msmfs": Kernel(
+        "msmfs",
+        "ska_msmfs",
+        [_P, _P, _P, _P, _P, _P, _P, *[_I] * 10, _F, _F, _F],
+    ),
 }
 
 

@@ -5,6 +5,7 @@ from .configuration import (
     Configuration,
     create_named_configuration,
     create_visibility,
+    random_array_xyz,
 )
 from .gaintable import GainTable, create_gaintable_from_visibility
 from .image import Image, create_image
@@ -16,6 +17,7 @@ __all__ = [
     "Configuration",
     "create_named_configuration",
     "create_visibility",
+    "random_array_xyz",
     "GainTable",
     "create_gaintable_from_visibility",
     "Image",

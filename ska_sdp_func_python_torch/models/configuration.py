@@ -16,7 +16,29 @@ import torch
 from ..config import not_ported, resolve_device
 from .visibility import Visibility, create_visibility_from_arrays
 
-__all__ = ["Configuration", "create_named_configuration", "create_visibility"]
+__all__ = [
+    "Configuration",
+    "create_named_configuration",
+    "create_visibility",
+    "random_array_xyz",
+]
+
+
+def random_array_xyz(nants: int, rmax: float = 1000.0, seed: int = 42) -> np.ndarray:
+    """A pseudo-random 2-D array of ``nants`` stations within ``rmax``
+    metres, rotated to celestial XYZ at a LOW-like latitude ([nants, 3],
+    f64): the layout of the JAX package's test observations
+    (``tests/simul.py``), the same numbers for the same seed."""
+    rng = np.random.default_rng(seed)
+    r = rmax * np.sqrt(rng.uniform(0.1, 1.0, nants))
+    th = rng.uniform(0, 2 * np.pi, nants)
+    e, n = r * np.cos(th), r * np.sin(th)
+    u = np.zeros(nants)
+    lat = np.deg2rad(-26.82)
+    x = -np.sin(lat) * n + np.cos(lat) * u
+    y = e
+    z = np.cos(lat) * n + np.sin(lat) * u
+    return np.stack([x, y, z], axis=-1)
 
 
 @dataclasses.dataclass

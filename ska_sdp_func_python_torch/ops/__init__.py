@@ -1,5 +1,6 @@
-"""Operations of the PyTorch port (plain PyTorch around four hand-written
-Hopper kernels: grid, degrid, permute, hogbom)."""
+"""Operations of the PyTorch port (plain PyTorch around hand-written
+Hopper kernels: grid, degrid, permute, hogbom, hogbom_complex, msclean,
+msmfs)."""
 
 from .calibration_chain import create_calibration_controls
 from .cleaners import hogbom
@@ -13,6 +14,7 @@ from .imaging import (
     invert_with_plan,
     make_imaging_plan,
     make_visibility_plan,
+    predict_visibility,
     predict_with_plan,
 )
 from .permute import permute_apply
@@ -34,6 +36,7 @@ __all__ = [
     "invert_with_plan",
     "make_imaging_plan",
     "make_visibility_plan",
+    "predict_visibility",
     "predict_with_plan",
     "permute_apply",
     "solve_gains_core",

@@ -1,9 +1,11 @@
-"""CLEAN minor cycles: Hogbom (kernel K5), complex Hogbom (K6) and
-multi-scale CLEAN (K7, which also stands for K7v1).
+"""CLEAN minor cycles: Hogbom (kernel K5), complex Hogbom (K6), multi-scale
+CLEAN (K7, which also stands for K7v1) and multi-scale multi-frequency
+CLEAN (MSMFS, K8).
 
-Counterpart of ``hogbom``, ``hogbom_complex``, ``msclean`` and the
-scale-stack helpers in ``ska_sdp_func_python_tpu/ops/cleaners.py``. The
-semantics of the JAX package's XLA loops are kept exactly:
+Counterpart of ``hogbom``, ``hogbom_complex``, ``msclean``, ``msmfsclean``
+and the scale-stack and moment-stack helpers in
+``ska_sdp_func_python_tpu/ops/cleaners.py``. The semantics of the JAX
+package's XLA loops are kept exactly:
 
 * Hogbom: the peak of |residual * window| with ties to the first index;
   mval = val * gain / pmax; the PSF subtracted over its footprint around
@@ -17,6 +19,13 @@ semantics of the JAX package's XLA loops are kept exactly:
   the whole [scale, y, x] stack, first index in (scale, y, x) order; the
   loop stops BEFORE the subtraction once |res[peak]| < 0.9 * absthresh,
   with absthresh taken once from the initial stack's scale 0.
+* MSMFS (Rau & Cornwell 2011, Algorithm 1): the criterion is the moment-0
+  principal solution ``sum_m ih[s, m, 0] smres[s, m]`` (RASCIL) or the
+  CASA ``dchisq``, times the window stack; its first argmax over (scale,
+  y, x) gives the scale, and the unwindowed argmax of |moment-0 solution|
+  of that scale gives the pixel; the loop stops BEFORE the subtraction
+  once |mval[0]| < absthresh (no 0.9 factor), absthresh taken once from
+  the initial scale-0, moment-0 residual.
 
 Every loop leaves its components as rows, which one function per
 algorithm turns into component images, so a kernel and its plain version
@@ -39,7 +48,7 @@ import typing
 import torch
 
 from .. import kernels
-from ..config import resolve_device
+from ..config import not_ported, resolve_device
 from .pswf import grdsf
 
 __all__ = [
@@ -59,6 +68,16 @@ __all__ = [
     "create_scalestack",
     "convolve_scalestack",
     "convolve_convolve_scalestack",
+    "calculate_scale_moment_residual",
+    "calculate_scale_scale_moment_moment_psf",
+    "calculate_scale_inverse_moment_moment_hessian",
+    "msmfs_rows_plain",
+    "msmfs_lanes",
+    "msmfs_rows_to_model",
+    "msmfs_psf_stacks",
+    "msmfs_with_stacks",
+    "msmfsclean",
+    "MSMFSStacks",
 ]
 
 
@@ -706,4 +725,377 @@ def msclean(
         thresh=thresh,
         niter=niter,
         fracthresh=fracthresh,
+    )
+
+
+# ------------------------------------------------------------------ MSMFS
+
+
+def calculate_scale_moment_residual(residual, scalestack):
+    """``[nscales, nmoment, ny, nx]``: every moment plane of ``residual``
+    ``[nmoment, ny, nx]`` convolved with every scale."""
+    return torch.stack(
+        [convolve_scalestack(scalestack, r) for r in residual], dim=1
+    )
+
+
+def _moment_canvas(psf, scalestack):
+    """The compact scale-scale moment-moment PSF ``[ns, ns, 2nm-1, py,
+    px]``: the moment-moment PSF of moments (t, q) is ``psf[t + q]``, so
+    it has 2nm-1 distinct planes, nm = max(len(psf) // 2, 1)."""
+    nm = max(psf.shape[0] // 2, 1)
+    return torch.stack(
+        [convolve_convolve_scalestack(scalestack, psf[j]) for j in range(2 * nm - 1)],
+        dim=2,
+    )
+
+
+def _canvas_to_ssmm(canvas):
+    nm = (canvas.shape[2] + 1) // 2
+    j = torch.arange(nm, device=canvas.device)
+    return canvas[:, :, j[:, None] + j[None, :]]
+
+
+def calculate_scale_scale_moment_moment_psf(psf, scalestack):
+    """``[ns, ns, nm, nm, py, px]``: entry [s, s', t, q] is the PSF of
+    moment t + q convolved with scale s' and correlated with scale s."""
+    return _canvas_to_ssmm(_moment_canvas(psf, scalestack))
+
+
+def _hessian_inverse(hess):
+    """The ``[ns, nm, nm]`` inverse, taken in f64 on the host and cast
+    back: over a wide band the moment Hessian is poorly conditioned, and
+    f32 inverses on the card and the CPU would differ."""
+    inv = torch.linalg.inv(hess.detach().cpu().double())
+    return inv.to(device=hess.device, dtype=hess.dtype).contiguous()
+
+
+def calculate_scale_inverse_moment_moment_hessian(ssmmpsf):
+    """(Hessian ``[ns, nm, nm]`` at the PSF centre, its inverse)."""
+    ns = ssmmpsf.shape[0]
+    py, px = ssmmpsf.shape[-2:]
+    s = torch.arange(ns, device=ssmmpsf.device)
+    hess = ssmmpsf[s, s, :, :, py // 2, px // 2]
+    return hess, _hessian_inverse(hess)
+
+
+def _moment_solution(ih, res, n):
+    """sum_m ih[..., m, n] * res[..., m, :, :], one rounding per operation
+    in m order: ``ih`` is ``[ns, nm, nm]``, ``res`` ``[ns, nm, ...]``. The
+    kernel computes the same sums in the same order."""
+    nm = ih.shape[-1]
+    tail = (None,) * (res.ndim - 2)
+    acc = ih[(slice(None), 0, n) + tail] * res[:, 0]
+    for m in range(1, nm):
+        acc = acc + ih[(slice(None), m, n) + tail] * res[:, m]
+    return acc
+
+
+def _dchisq(h, sols, res):
+    """CASA's criterion 2 sum_m sol_m res_m - sum_{m,n} h[m,n] sol_m sol_n,
+    in the kernel's order of operations."""
+    nm = len(sols)
+    tail = (None,) * (res.ndim - 2)
+    a = sols[0] * res[:, 0]
+    for m in range(1, nm):
+        a = a + sols[m] * res[:, m]
+    b = None
+    for m in range(nm):
+        for n in range(nm):
+            t = (h[(slice(None), m, n) + tail] * sols[m]) * sols[n]
+            b = t if b is None else b + t
+    return 2.0 * a - b
+
+
+def msmfs_rows_plain(
+    smres,
+    canvas,
+    hsmm,
+    ihsmm,
+    windowstack=None,
+    *,
+    gain: float,
+    thresh: float,
+    fracthresh: float,
+    niter: int,
+    findpeak: str = "RASCIL",
+):
+    """Plain version of the K8 loop for one lane, in the dtype of its
+    inputs: scale-moment residual ``[ns, nm, ny, nx]``, compact moment
+    canvas ``[ns, ns, 2nm-1, py, px]``, Hessian and inverse ``[ns, nm,
+    nm]``, optional window stack ``[ns, ny, nx]``. Returns ([niter, 4 + nm]
+    rows (y, x, scale, used, gain * mval[0..nm-1]), residual stack)."""
+    ns, nm, ny, nx = smres.shape
+    py, px = canvas.shape[-2:]
+    res = smres.clone()
+    rows = torch.zeros((niter, 4 + nm), dtype=res.dtype, device=res.device)
+    absthresh = torch.clamp(fracthresh * smres[0, 0].abs().max(), min=thresh)
+    for i in range(niter):
+        sol0 = _moment_solution(ihsmm, res, 0)
+        if findpeak == "CASA":
+            sols = [sol0] + [_moment_solution(ihsmm, res, n) for n in range(1, nm)]
+            crit = _dchisq(hsmm, sols, res)
+        else:
+            crit = sol0
+        search = crit if windowstack is None else crit * windowstack
+        ms = int(torch.argmax(search.abs())) // (ny * nx)
+        my, mx = divmod(int(torch.argmax(sol0[ms].abs())), nx)
+        pix = res[ms : ms + 1, :, my, mx]
+        mval = torch.stack(
+            [_moment_solution(ihsmm[ms : ms + 1], pix, n)[0] for n in range(nm)]
+        )
+        if bool(mval[0].abs() < absthresh):
+            break
+        gm = gain * mval
+        img, pat = _footprint(my, mx, ny, nx, py, px)
+        c = canvas[ms][:, :, pat[0], pat[1]]  # [ns, 2nm-1, h, w]
+        for qp in range(nm):
+            acc = c[:, qp] * gm[0]
+            for q in range(1, nm):
+                acc = acc + c[:, qp + q] * gm[q]
+            res[:, qp, img[0], img[1]] = res[:, qp, img[0], img[1]] - acc
+        rows[i, 0], rows[i, 1], rows[i, 2], rows[i, 3] = my, mx, ms, 1.0
+        rows[i, 4:] = gm
+    return rows, res
+
+
+# at most this many CTAs share one sweep of the stack (8 per SM of an H100)
+_MSMFS_MAX_PARTS = 1056
+# the kernel keeps each pixel's moments in registers
+_MSMFS_MAX_MOMENTS = 6
+
+
+def msmfs_lanes(
+    smres: torch.Tensor,
+    canvas: torch.Tensor,
+    hsmm: torch.Tensor,
+    ihsmm: torch.Tensor,
+    windowstack: torch.Tensor | None = None,
+    *,
+    gain: float,
+    thresh: float,
+    fracthresh: float,
+    niter: int,
+    findpeak: str = "RASCIL",
+):
+    """The MSMFS minor-cycle loop on a batch of lanes that share one PSF:
+    scale-moment residuals ``[lanes, ns, nm, ny, nx]``, the compact canvas
+    ``[ns, ns, 2nm-1, py, px]``, Hessian and inverse ``[ns, nm, nm]``,
+    optional window stacks ``[lanes, ns, ny, nx]``. Returns (rows
+    ``[lanes, niter, 4 + nm]``, residual stacks). On CUDA each lane is one
+    run of kernel K8 (f32)."""
+    nl, ns, nm, ny, nx = smres.shape
+    py, px = canvas.shape[-2:]
+    if canvas.shape[:3] != (ns, ns, 2 * nm - 1) or ihsmm.shape != (ns, nm, nm):
+        raise ValueError(
+            f"shapes: smres {tuple(smres.shape)}, canvas {tuple(canvas.shape)}, "
+            f"ihsmm {tuple(ihsmm.shape)}"
+        )
+    if smres.device.type == "cpu":
+        out = [
+            msmfs_rows_plain(
+                smres[i], canvas, hsmm, ihsmm,
+                None if windowstack is None else windowstack[i],
+                gain=gain, thresh=thresh, fracthresh=fracthresh, niter=niter,
+                findpeak=findpeak,
+            )
+            for i in range(nl)
+        ]
+        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+    dev = smres.device
+    chk = kernels.check_cuda_tensor
+    _check_psf(smres.shape, canvas.shape)
+    if nm > _MSMFS_MAX_MOMENTS:
+        raise ValueError(f"msmfs kernel: {nm} moments, at most {_MSMFS_MAX_MOMENTS}")
+    if ns * nm * ny * nx >= 2**31:
+        raise ValueError(f"smres: {tuple(smres.shape)} exceeds int32 indexing")
+    chk("smres", smres, torch.float32, dev)
+    chk("canvas", canvas, torch.float32, dev)
+    chk("hsmm", hsmm, torch.float32, dev)
+    chk("ihsmm", ihsmm, torch.float32, dev)
+    if windowstack is not None:
+        chk("windowstack", windowstack, torch.float32, dev)
+    res = smres.clone()
+    rows = torch.empty((nl, niter, 4 + nm), dtype=torch.float32, device=dev)
+    # the sweep's CTAs each take a few rows of one scale; per CTA two
+    # (value, index) partials and the initial peak, plus the loop state
+    rows_per_cta = -(-ny // min(ny, max(1, _MSMFS_MAX_PARTS // ns)))
+    ctas_per_scale = -(-ny // rows_per_cta)
+    scratch = torch.empty(
+        32 + 5 * ns * ctas_per_scale, dtype=torch.int32, device=dev
+    )
+    for i in range(nl):
+        kernels.KERNELS["msmfs"].launch(
+            res[i].data_ptr(),
+            canvas.data_ptr(),
+            hsmm.data_ptr(),
+            ihsmm.data_ptr(),
+            None if windowstack is None else windowstack[i].data_ptr(),
+            rows[i].data_ptr(),
+            scratch.data_ptr(),
+            ctas_per_scale,
+            rows_per_cta,
+            ns,
+            nm,
+            ny,
+            nx,
+            py,
+            px,
+            int(niter),
+            int(findpeak == "CASA"),
+            float(gain),
+            float(thresh),
+            float(fracthresh),
+        )
+    return rows, res
+
+
+def msmfs_rows_to_model(rows, pscalestack, ny: int, nx: int):
+    """The moment model ``[nm, ny, nx]`` of one lane's MSMFS rows, on the
+    rows' device: each used row adds gain * mval[n] times its scale's
+    blob, centred on (y, x) and clipped at the image edges, in emission
+    order (the JAX package's scan over the rows). Only the count of used
+    rows, which are a prefix, is read on the host."""
+    nm = rows.shape[-1] - 4
+    ns, py, px = pscalestack.shape
+    dev, dt = rows.device, pscalestack.dtype
+    big = torch.zeros((ns, 2 * ny, 2 * nx), dtype=dt, device=dev)
+    oy, ox = ny - py // 2, nx - px // 2
+    big[:, oy : oy + py, ox : ox + px] = pscalestack
+    flat = big.reshape(-1)
+    offs = (
+        torch.arange(ny, device=dev)[:, None] * (2 * nx)
+        + torch.arange(nx, device=dev)[None, :]
+    )
+    rows = rows.to(dt)
+    model = torch.zeros((nm, ny, nx), dtype=dt, device=dev)
+    for i in range(int((rows[:, 3] > 0).sum())):
+        r = rows[i]
+        y, x, s = r[0].long(), r[1].long(), r[2].long()
+        patch = flat[s * (4 * ny * nx) + (ny - y) * (2 * nx) + (nx - x) + offs]
+        model = model + (r[4:] * r[3])[:, None, None] * patch[None]
+    return model
+
+
+class MSMFSStacks(typing.NamedTuple):
+    """What MSMFS derives from the moment PSFs alone: the PSF peak, the
+    scale stacks at image and PSF size, the compact moment canvas and
+    the moment Hessian with its inverse. The fused cycle builds it once
+    per run."""
+
+    pmax: torch.Tensor
+    scalestack: torch.Tensor
+    pscalestack: torch.Tensor
+    canvas: torch.Tensor
+    hsmm: torch.Tensor
+    ihsmm: torch.Tensor
+
+
+def msmfs_psf_stacks(psf: torch.Tensor, ny: int, nx: int, scales) -> MSMFSStacks:
+    """The PSF-only part of :func:`msmfsclean` for ``[nm, ny, nx]`` moment
+    images and moment PSFs ``psf [2 nm (or 1), py, px]``, in the dtype and
+    on the device of ``psf``."""
+    dt, dev = psf.dtype, psf.device
+    pmax = psf.max()
+    scalestack = create_scalestack(ny, nx, scales, dtype=dt, device=dev)
+    pscalestack = create_scalestack(
+        psf.shape[-2], psf.shape[-1], scales, dtype=dt, device=dev
+    )
+    canvas = _moment_canvas(psf / pmax, pscalestack).to(dt).contiguous()
+    py, px = psf.shape[-2:]
+    s = torch.arange(len(scales), device=dev)
+    nm = (canvas.shape[2] + 1) // 2
+    j = torch.arange(nm, device=dev)
+    hess = canvas[s, s][:, j[:, None] + j[None, :], py // 2, px // 2].contiguous()
+    return MSMFSStacks(
+        pmax, scalestack, pscalestack, canvas, hess, _hessian_inverse(hess)
+    )
+
+
+def msmfs_with_stacks(
+    stacks: MSMFSStacks,
+    dirty: torch.Tensor,
+    window=None,
+    *,
+    gain: float,
+    thresh: float,
+    niter: int,
+    fracthresh: float,
+    findpeak: str = "RASCIL",
+):
+    """MSMFS of the moment images ``dirty [nm, ny, nx]`` with the PSF's
+    stacks already built, with an optional ``[ny, nx]`` window. Returns
+    (moment model, moment residual), both ``[nm, ny, nx]``."""
+    nm, ny, nx = dirty.shape
+    if stacks.ihsmm.shape[-1] != nm:
+        raise ValueError(
+            f"{nm} moment images for a {stacks.ihsmm.shape[-1]}-moment PSF"
+        )
+    dt = stacks.canvas.dtype
+    smres = calculate_scale_moment_residual(
+        dirty.to(dt) / stacks.pmax, stacks.scalestack
+    ).to(dt)
+    windowstack = None
+    if window is not None:
+        windowstack = (
+            convolve_scalestack(stacks.scalestack, window.to(dt)) > 0.9
+        ).to(dt)[None].contiguous()
+    rows, res = msmfs_lanes(
+        smres[None].contiguous(),
+        stacks.canvas,
+        stacks.hsmm,
+        stacks.ihsmm,
+        windowstack,
+        gain=gain,
+        thresh=thresh,
+        fracthresh=fracthresh,
+        niter=niter,
+        findpeak=findpeak,
+    )
+    model = msmfs_rows_to_model(rows[0], stacks.pscalestack, ny, nx)
+    return model, stacks.pmax * res[0, 0]
+
+
+def msmfsclean(
+    dirty,
+    psf,
+    window=None,
+    sensitivity=None,
+    gain: float = 0.1,
+    thresh: float = 0.0,
+    niter: int = 100,
+    scales=(0, 3, 10, 30),
+    fracthresh: float = 0.01,
+    findpeak: str = "RASCIL",
+    use_pallas=None,
+):
+    """Multi-scale multi-frequency CLEAN (Rau & Cornwell 2011, Algorithm 1,
+    image plane) of moment images ``dirty [nm, ny, nx]`` with moment PSFs
+    ``psf [2 nm (or 1), py, px]`` and an optional ``[ny, nx]`` window.
+    ``findpeak`` is "RASCIL" (or "Algorithm1") or "CASA".
+
+    The loop follows the JAX package's XLA loop (``_msmfs_loop``), which
+    the TPU kernel K8 (``_msmfs_corner_kernel``) also computes;
+    ``use_pallas`` is accepted and ignored. On the CPU the inputs keep
+    their dtype; on CUDA the kernel runs in f32.
+
+    A sensitivity image raises: the JAX package multiplies the
+    ``[nscales, ny, nx]`` search by the ``[nmoment, ny, nx]`` sensitivity
+    stack, which fails unless the two counts agree.
+
+    Returns (moment model, moment residual), both ``[nm, ny, nx]``."""
+    if sensitivity is not None:
+        raise not_ported("a sensitivity image in MSMFS CLEAN", "S9")
+    if dirty.device.type != "cpu":
+        dirty, psf = dirty.to(torch.float32), psf.to(torch.float32)
+    stacks = msmfs_psf_stacks(psf, dirty.shape[-2], dirty.shape[-1], scales)
+    return msmfs_with_stacks(
+        stacks,
+        dirty,
+        window,
+        gain=gain,
+        thresh=thresh,
+        niter=niter,
+        fracthresh=fracthresh,
+        findpeak=findpeak,
     )

@@ -14,7 +14,11 @@ import torch
 
 from ..config import not_ported
 from ..models.image import Image
-from .cleaners import hogbom_complex_lanes, hogbom_lanes, msclean
+from .cleaners import hogbom_complex_lanes, hogbom_lanes, msclean, msmfsclean
+from .taylor import (
+    calculate_image_frequency_moments,
+    calculate_image_from_frequency_taylor_terms,
+)
 
 log = logging.getLogger("ska-sdp-func-python-torch")
 
@@ -107,8 +111,10 @@ def deconvolve_cube(
     """CLEAN a dirty image cube ``[nchan, npol, ny, nx]``.
 
     Algorithms: "hogbom", "hogbom-complex" (stokesIQUV: Hogbom for I and
-    V, complex Hogbom for Q + iU) and "msclean" (the default; with an
-    optional ``sensitivity`` Image). A (chan, pol) lane whose PSF has no
+    V, complex Hogbom for Q + iU), "msclean" (the default; with an
+    optional ``sensitivity`` Image) and "mmclean" (also "msmfsclean",
+    "mfsmsclean": MSMFS on the cube's frequency moments, see
+    :func:`_mmclean_cube`). A (chan, pol) lane whose PSF has no
     positive peak is skipped: its components and residual stay zero
     (complex Hogbom runs for every channel, as in the JAX package). The
     PSF is bounded by :func:`bound_psf` (``psf_support``) and the window
@@ -117,8 +123,6 @@ def deconvolve_cube(
     :return: (component Image, residual Image)
     """
     algorithm = kwargs.get("algorithm", "msclean")
-    if algorithm in ("msmfsclean", "mfsmsclean", "mmclean"):
-        raise not_ported(f"deconvolve_cube(algorithm={algorithm!r})", "S10")
     window = find_window(
         dirty,
         kwargs.get("window_shape", None),
@@ -190,9 +194,76 @@ def deconvolve_cube(
                 )
                 comp[c, p] = cc.to(pix.dtype)
                 res[c, p] = rr.to(pix.dtype)
+    elif algorithm in ("msmfsclean", "mfsmsclean", "mmclean"):
+        return _mmclean_cube(dirty, psf, sensitivity, window, **kwargs)
     else:
         raise ValueError(f"deconvolve_cube: Unknown algorithm {algorithm}")
     return dirty.replace(pixels=comp), dirty.replace(pixels=res)
+
+
+def _mmclean_cube(dirty: Image, psf: Image, sensitivity, window, **kwargs):
+    """MSMFS on a channel cube through its frequency moments: the cube and
+    the PSF become ``nmoment`` and ``2 nmoment`` moment images, each
+    polarisation is cleaned by :func:`msmfsclean`, and the moment model and
+    residual go back onto the cube's frequency grid. The loop gain defaults
+    to 0.7. Needs ``nchan > 2 (nmoment - 1)``.
+
+    As in the JAX package, the moment images are divided by the peak of
+    the moment PSFs and the normalised moment components are taken back
+    to the channels as they are (with unit-peak channel PSFs the peak is
+    about nchan, so they are already in per-channel flux units). The
+    window is the moment-0 image of the window cube over nchan.
+
+    A sensitivity image raises: the JAX package multiplies the
+    ``[nscales, ny, nx]`` search by the ``[nmoment, ny, nx]`` sensitivity
+    stack, which fails unless the two counts agree."""
+    fracthresh, gain, niter, thresh, scales = common_arguments(**kwargs)
+    gain = kwargs.get("gain", 0.7)
+    findpeak = kwargs.get("findpeak", "RASCIL")
+    nmoment = kwargs.get("nmoment", 3)
+    nchan = dirty.nchan
+    if not nchan > 2 * (nmoment - 1):
+        raise ValueError(
+            f"Requires nchan > 2*(nmoment-1) ({nchan} > {2 * (nmoment - 1)})"
+        )
+    if sensitivity is not None:
+        raise not_ported("a sensitivity image in MSMFS CLEAN", "S9")
+    dirty_taylor = calculate_image_frequency_moments(dirty, nmoment=nmoment)
+    nmoment_for_psf = 2 * nmoment if nmoment > 1 else 1
+    psf_taylor = calculate_image_frequency_moments(psf, nmoment=nmoment_for_psf)
+    psf_peak = psf_taylor.pixels.max()
+    dpix = dirty_taylor.pixels / psf_peak
+    ppix = psf_taylor.pixels / psf_peak
+    w_taylor = None
+    if window is not None:
+        w_taylor = calculate_image_frequency_moments(
+            dirty.replace(pixels=window.to(dirty.pixels.dtype)), nmoment=nmoment
+        ).pixels / nchan
+    comp_t = torch.zeros_like(dpix)
+    res_t = torch.zeros_like(dpix)
+    for pol in range(dirty.npol):
+        if float(ppix[0, 0].max()) <= 0.0:
+            continue
+        c, r = msmfsclean(
+            dpix[:, pol],
+            ppix[:, 0],
+            None if w_taylor is None else w_taylor[0, pol],
+            gain=gain,
+            thresh=thresh,
+            niter=niter,
+            scales=tuple(scales),
+            fracthresh=fracthresh,
+            findpeak=findpeak,
+        )
+        comp_t[:, pol] = c.to(dpix.dtype)
+        res_t[:, pol] = r.to(dpix.dtype)
+    comp = calculate_image_from_frequency_taylor_terms(
+        dirty, dirty_taylor.replace(pixels=comp_t)
+    )
+    residual = calculate_image_from_frequency_taylor_terms(
+        dirty, dirty_taylor.replace(pixels=res_t)
+    )
+    return comp, residual
 
 
 def convert_clean_beam_to_degrees(im: Image, beam_pixels) -> dict:

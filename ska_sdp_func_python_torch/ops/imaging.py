@@ -46,6 +46,7 @@ __all__ = [
     "VisibilityImagingPlan",
     "make_visibility_plan",
     "invert_visibility",
+    "predict_visibility",
     "create_image_from_visibility",
 ]
 
@@ -309,38 +310,54 @@ def make_visibility_plan(
     **kwargs,
 ) -> VisibilityImagingPlan:
     """Precompute the gridding geometry for these (vis, model)
-    coordinates: the linear-w plan on device coordinates."""
+    coordinates: one linear-w plan on device coordinates per image
+    channel, each from the visibility channel of the same index."""
     if context == "awprojection":
         raise ValueError("plans are not supported for awprojection")
     if kwargs.get("coords", "device") != "device":
         raise not_ported("host64 coordinate plans", "S8")
-    if model.nchan != 1 or vis.nchan != 1:
-        raise not_ported("multi-channel plans", "S10")
+    if model.nchan == 1 and vis.nchan > 1:
+        raise not_ported("multi-frequency synthesis (MFS) plans", "S10")
+    if model.nchan > vis.nchan:
+        raise ValueError(
+            f"{model.nchan} image channels for {vis.nchan} visibility channels"
+        )
     do_wstacking = context != "2d" and kwargs.get("do_wstacking", True)
     nwp = _nw_for(vis, model, do_wstacking, nw)
     uvw_l = vis.uvw_lambda
-    plan = make_imaging_plan(
-        uvw_l[:, :, 0, 0].reshape(-1),
-        uvw_l[:, :, 0, 1].reshape(-1),
-        uvw_l[:, :, 0, 2].reshape(-1),
-        npixel=model.npixel,
-        cellsize=model.cellsize,
-        support=support,
-        nw=nwp,
-        do_wstacking=do_wstacking,
-        w_range=kwargs.get("w_range"),
-        w_interp=kwargs.get("w_interp", "linear"),
-        padding=kwargs.get("padding", 1.25),
+    plans = tuple(
+        make_imaging_plan(
+            uvw_l[:, :, c, 0].reshape(-1),
+            uvw_l[:, :, c, 1].reshape(-1),
+            uvw_l[:, :, c, 2].reshape(-1),
+            npixel=model.npixel,
+            cellsize=model.cellsize,
+            support=support,
+            nw=nwp,
+            do_wstacking=do_wstacking,
+            w_range=kwargs.get("w_range"),
+            w_interp=kwargs.get("w_interp", "linear"),
+            padding=kwargs.get("padding", 1.25),
+        )
+        for c in range(model.nchan)
     )
     return VisibilityImagingPlan(
-        plans=(plan,),
+        plans=plans,
         support=support,
         nw=nwp,
         do_wstacking=do_wstacking,
         mfs=False,
         npixel=model.npixel,
-        nchan=1,
+        nchan=model.nchan,
     )
+
+
+def _check_plan(plan: VisibilityImagingPlan, model: Image) -> None:
+    if plan.nchan != model.nchan or plan.npixel != model.npixel:
+        raise ValueError(
+            f"plan for {plan.nchan} channels of {plan.npixel}^2, image "
+            f"{tuple(model.pixels.shape)}"
+        )
 
 
 def invert_visibility(
@@ -360,6 +377,7 @@ def invert_visibility(
         raise not_ported("invert_visibility without a plan", "S8")
     if kwargs.get("epsilon") is not None:
         raise not_ported("invert_visibility(epsilon=...)", "S8")
+    _check_plan(plan, model)
     svis = shift_vis_to_image(vis, model, tangent=True, inverse=False)
     ms = convert_pol_frame(
         svis.flagged_vis, vis.polarisation_frame, model.polarisation_frame
@@ -370,34 +388,73 @@ def invert_visibility(
         ms = torch.zeros_like(ms)
         ms[..., 0] = 1.0
     pixels = torch.zeros_like(model.pixels)
-    sumwt = torch.zeros((1, model.npol), dtype=wgt.dtype, device=wgt.device)
-    for pol in range(model.npol):
-        dirty, swt = invert_with_plan(
-            plan.plans[0],
-            ms[:, :, 0, pol].reshape(-1),
-            wgt[:, :, 0, pol].reshape(-1),
-        )
-        pixels[0, pol] = dirty.to(pixels.dtype)
-        sumwt[0, pol] = swt
+    sumwt = torch.zeros(
+        (model.nchan, model.npol), dtype=wgt.dtype, device=wgt.device
+    )
+    for chan in range(model.nchan):
+        for pol in range(model.npol):
+            dirty, swt = invert_with_plan(
+                plan.plans[chan],
+                ms[:, :, chan, pol].reshape(-1),
+                wgt[:, :, chan, pol].reshape(-1),
+            )
+            pixels[chan, pol] = dirty.to(pixels.dtype)
+            sumwt[chan, pol] = swt
     out = model.replace(pixels=pixels)
     if normalise:
         out = normalise_sumwt(out, sumwt)
     return out, sumwt
 
 
+def predict_visibility(
+    vis: Visibility,
+    model: Image,
+    context: str = "ng",
+    plan: VisibilityImagingPlan | None = None,
+    **kwargs,
+) -> Visibility:
+    """Model image -> visibilities on a plan: each image channel degrids
+    into the visibility channel of the same index (the others stay zero).
+    Returns ``vis`` with its ``vis`` replaced."""
+    if plan is None:
+        raise not_ported("predict_visibility without a plan", "S8")
+    if kwargs.get("epsilon") is not None:
+        raise not_ported("predict_visibility(epsilon=...)", "S8")
+    _check_plan(plan, model)
+    cdtype = complex_of(vis.weight.dtype)
+    newvis = torch.zeros(
+        vis.vis.shape[:3] + (model.npol,), dtype=cdtype, device=vis.device
+    )
+    for chan in range(model.nchan):
+        for pol in range(model.npol):
+            vals = predict_with_plan(plan.plans[chan], model.pixels[chan, pol])
+            newvis[:, :, chan, pol] = vals.reshape(vis.vis.shape[:2]).to(cdtype)
+    newvis = convert_pol_frame(
+        newvis, model.polarisation_frame, vis.polarisation_frame
+    )
+    out = vis.replace(vis=newvis.to(vis.vis.dtype))
+    return shift_vis_to_image(out, model, tangent=True, inverse=True)
+
+
 def create_image_from_visibility(
     vis: Visibility, dtype=None, device=None, **kwargs
 ) -> Image:
-    """Template image from visibility metadata: cellsize from the longest
-    baseline over ``oversampling`` (default 3), on the vis device."""
-    nchan = kwargs.get("nchan", vis.nchan)
-    if nchan != 1:
-        raise not_ported("multi-channel images", "S10")
-    freq = vis.frequency.cpu().numpy().astype(np.float64)
-    frequency = np.array([np.mean(freq)])
-    channel_bandwidth = np.array(
-        [np.sum(vis.channel_bandwidth.cpu().numpy().astype(np.float64))]
+    """Template image from visibility metadata, on the vis device: one
+    channel at the mean frequency over the whole band (``nchan=1``), or
+    the first ``nchan`` visibility channels (default: all of them);
+    cellsize from the longest baseline at the highest image frequency over
+    ``oversampling`` (default 3)."""
+    nchan = int(kwargs.get("nchan", vis.nchan))
+    freq = np.asarray(
+        kwargs.get("frequency", vis.frequency.cpu().numpy()), np.float64
     )
+    bandwidth = vis.channel_bandwidth.cpu().numpy().astype(np.float64)
+    if nchan == 1:
+        frequency = np.array([np.mean(freq)])
+        channel_bandwidth = np.array([np.sum(bandwidth)])
+    else:
+        frequency = freq[:nchan]
+        channel_bandwidth = bandwidth[:nchan]
     npixel = int(kwargs.get("npixel", 512))
     cellsize = kwargs.get("cellsize", None)
     if cellsize is None:

@@ -1,22 +1,25 @@
-"""The fused ICAL self-calibration major cycle.
+"""The fused self-calibration and continuum-imaging major cycles.
 
 Counterpart of the fused path of ``ska_sdp_func_python_tpu/pipeline.py``:
-``ical`` builds one imaging plan, takes the PSF through it, builds a
-plan-sorted workspace and runs :func:`_fused_selfcal_cycle` once per major
-cycle. One cycle:
+``ical`` and ``continuum_imaging`` build one imaging plan per image
+channel, take the PSF through them, build a plan-sorted workspace and run
+:func:`_fused_selfcal_cycle` once per major cycle. One cycle, for every
+image channel in turn:
 
-1. degrids the model image in plan order (kernel K3);
+1. degrids the model image in that channel's plan order (kernel K3);
 2. moves the model into natural order (kernel K4, inverse);
-3. forms the product-form normal equations and runs the StefCal solve;
+3. (all channels together) forms the product-form normal equations and
+   runs the StefCal solve; ``continuum_imaging`` leaves this out;
 4. moves the inverse gain factors into plan order (kernel K4, forward);
 5. inverts the residual in plan order (kernels K1+K2, FFT tail);
-6. CLEANs the residual: msclean (kernel K7, the default) or Hogbom (K5),
-   with an optional clean window.
+6. CLEANs the residual cube: msclean (kernel K7, the default) or Hogbom
+   (K5) per (channel, polarisation) plane, or MSMFS (``algorithm=
+   "mmclean"``, kernel K8) on the cube's frequency moments, with an
+   optional clean window.
 
-The slice ports the branches the flagship configuration takes: stokesI,
-one channel, a single "T" (phase-only, scalar) term, msclean or Hogbom,
-no sky components. Every other branch raises and names the ROADMAP slice
-that brings it.
+The port covers stokesI, one or more image channels (one per visibility
+channel), a single "T" (phase-only, scalar) term, and no sky components.
+Every other branch raises and names the ROADMAP slice that brings it.
 """
 
 from __future__ import annotations
@@ -33,7 +36,13 @@ from .models.image import Image
 from .models.polarisation import convert_pol_frame
 from .models.visibility import Visibility
 from .ops.calibration_chain import create_calibration_controls
-from .ops.cleaners import hogbom_lanes, msclean_psf_stacks, msclean_with_stacks
+from .ops.cleaners import (
+    hogbom_lanes,
+    msclean_psf_stacks,
+    msclean_with_stacks,
+    msmfs_psf_stacks,
+    msmfs_with_stacks,
+)
 from .ops.deconvolution import (
     _lane_psfs,
     bound_psf,
@@ -52,20 +61,28 @@ from .ops.imaging import (
 )
 from .ops.permute import permute_apply
 from .ops.solvers import ne_index_map, solve_gains_core
+from .ops.taylor import moment_weights
 
 log = logging.getLogger("ska-sdp-func-python-torch")
 
-__all__ = ["ical"]
+__all__ = ["ical", "continuum_imaging"]
+
+_MMCLEAN = ("msmfsclean", "mfsmsclean", "mmclean")
 
 
 class _SortedWorkspace:
-    """Image-frame, plan-sorted visibility workspace: observed values and
-    weights are moved into plan order once, so a major cycle never sorts
-    them again."""
+    """Image-frame, plan-sorted visibility workspace: the observed values
+    and weights of every (channel, polarisation) are moved into that
+    channel plan's order once, so a major cycle never sorts them again."""
 
     def __init__(self, vis, model, plan, components=None):
         if components is not None and components.ncomp > 0:
             raise not_ported("sky components in the fused cycle", "S7x")
+        if plan.nchan != vis.nchan:
+            raise ValueError(
+                f"the fused cycle images every visibility channel: {vis.nchan} "
+                f"channels, {plan.nchan} image channels"
+            )
         svis = shift_vis_to_image(vis, model)
         ms = convert_pol_frame(
             svis.flagged_vis, vis.polarisation_frame, model.polarisation_frame
@@ -77,18 +94,20 @@ class _SortedWorkspace:
         # invariant under the phase shift, so gains solve in the image frame)
         self.ms_nat = ms
         self.fw_nat = svis.flagged_weight
-        perm = plan.plans[0].gp.perm
-        # each polarisation's values and weights move in one launch
-        moved = [
-            permute_apply(
-                perm,
-                ms[:, :, 0, p].reshape(-1).to(torch.complex64).contiguous(),
-                wgt[:, :, 0, p].reshape(-1).to(torch.float32).contiguous(),
-            )
-            for p in range(self.npol)
-        ]
-        self.obs_s = [m[0] for m in moved]
-        self.wgt_s = [m[1] for m in moved]
+        # obs_s[chan][pol], wgt_s[chan][pol]: each stream's values and
+        # weights move in one launch, by its channel plan's permutation
+        self.obs_s, self.wgt_s = [], []
+        for c, cplan in enumerate(plan.plans):
+            moved = [
+                permute_apply(
+                    cplan.gp.perm,
+                    ms[:, :, c, p].reshape(-1).to(torch.complex64).contiguous(),
+                    wgt[:, :, c, p].reshape(-1).to(torch.float32).contiguous(),
+                )
+                for p in range(self.npol)
+            ]
+            self.obs_s.append([m[0] for m in moved])
+            self.wgt_s.append([m[1] for m in moved])
 
 
 class _FusedTermCfg(typing.NamedTuple):
@@ -98,6 +117,7 @@ class _FusedTermCfg(typing.NamedTuple):
 
 
 class _FusedCfg(typing.NamedTuple):
+    nchan: int
     npol: int
     terms: tuple
     normalise_gains: str | None
@@ -109,13 +129,16 @@ class _FusedCfg(typing.NamedTuple):
     clean_thresh: float
     clean_frac: float
     scales: tuple
+    findpeak: str
 
 
 class _FusedSelfCal(_SortedWorkspace):
     """Device-resident workspace of :func:`_fused_selfcal_cycle` for the
-    ported configuration: one "T" term, stokesI, msclean or Hogbom with an
-    optional clean window. The msclean scale stacks depend on the PSF
-    alone and are built here once, not in every cycle."""
+    ported configuration: one "T" term, stokesI, one or more channels,
+    msclean, Hogbom or MSMFS with an optional clean window. What CLEAN
+    derives from the PSF alone (the msclean scale stacks per plane; the
+    MSMFS moment weights, moment-PSF peak and moment stacks) is built here
+    once, not in every cycle."""
 
     def __init__(
         self,
@@ -137,10 +160,7 @@ class _FusedSelfCal(_SortedWorkspace):
         if controls["T"].get("shape") != "scalar":
             raise not_ported("non-scalar 'T' controls", "S7x")
         algorithm = clean_kwargs.get("algorithm", "msclean")
-        if algorithm in ("msmfsclean", "mfsmsclean", "mmclean"):
-            raise not_ported(f"algorithm {algorithm!r} in the fused cycle", "S10")
-        if algorithm not in ("hogbom", "msclean"):
-            raise ValueError(f"fused clean: unsupported algorithm {algorithm}")
+        _check_algorithm(model, clean_kwargs)
         win = find_window(
             model,
             clean_kwargs.get("window_shape"),
@@ -188,7 +208,25 @@ class _FusedSelfCal(_SortedWorkspace):
             if algorithm == "msclean"
             else None
         )
+        self.mom_w = self.psf_peak = self.mm_stacks = None
+        if algorithm in _MMCLEAN:
+            # mmclean's default loop gain is 0.7, as in deconvolve_cube
+            cgain = clean_kwargs.get("gain", 0.7)
+            nmoment = clean_kwargs.get("nmoment", 3)
+            nm_psf = 2 * nmoment if nmoment > 1 else 1
+            self.mom_w = tuple(
+                moment_weights(model.frequency, None, k).to(
+                    device=device, dtype=torch.float32
+                )
+                for k in (nmoment, nm_psf)
+            )
+            psf_t = torch.einsum("cm,cpyx->mpyx", self.mom_w[1], self.psf_patch)
+            self.psf_peak = psf_t.max()
+            self.mm_stacks = msmfs_psf_stacks(
+                psf_t[:, 0] / self.psf_peak, ny, nx, scales
+            )
         self.cfg = _FusedCfg(
+            nchan=plan.nchan,
             npol=self.npol,
             terms=(
                 _FusedTermCfg(
@@ -206,6 +244,7 @@ class _FusedSelfCal(_SortedWorkspace):
             clean_thresh=cthresh,
             clean_frac=frac,
             scales=tuple(scales),
+            findpeak=clean_kwargs.get("findpeak", "RASCIL"),
         )
 
     def gaintables(self, gains, gwts, gress) -> dict:
@@ -282,7 +321,14 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
     Hogbom: every (chan, pol) plane cleans independently in one batch;
     lanes with an empty PSF get a unit delta and their components are
     dropped. msclean: each plane in turn, with the workspace's scale
-    stacks. Both search within the clean window when there is one."""
+    stacks. Both search within the clean window when there is one.
+
+    MSMFS: the residual cube becomes ``nmoment`` moment images over the
+    peak of the moment PSFs; each polarisation is cleaned with the
+    workspace's moment stacks, searching within the clean window of
+    channel 0 (windows do not depend on frequency); the moment model goes
+    back onto the channels as it is (with unit-peak channel PSFs the
+    normalised moment components are in per-channel flux units)."""
     nchan, npol, ny, nx = residual.shape
     window = ws.clean_window
     clean = dict(
@@ -291,6 +337,19 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
         niter=cfg.clean_niter,
         fracthresh=cfg.clean_frac,
     )
+    if cfg.algorithm in _MMCLEAN:
+        w_m = ws.mom_w[0]
+        dpix = torch.einsum("cm,cpyx->mpyx", w_m, residual) / ws.psf_peak
+        comp_t = torch.zeros_like(dpix)
+        for p in range(npol):
+            comp_t[:, p], _ = msmfs_with_stacks(
+                ws.mm_stacks,
+                dpix[:, p],
+                None if window is None else window[0, p],
+                findpeak=cfg.findpeak,
+                **clean,
+            )
+        return torch.einsum("cm,mpyx->cpyx", w_m, comp_t)
     if cfg.algorithm == "msclean":
         comp = torch.zeros_like(residual)
         for c in range(nchan):
@@ -328,46 +387,63 @@ def _fused_selfcal_cycle(
     """One self-cal major cycle in the plan-sorted domain: model degrid,
     back-permute, normal equations and StefCal solve, factor permute,
     residual invert, CLEAN. Returns (model_pixels, gains, gwts, gress,
-    residual, sumwt, peak)."""
+    residual, sumwt, peak).
+
+    It serves one image channel (the JAX package's
+    ``_fused_selfcal_cycle``) and a cube (``_fused_selfcal_cycle_cube``)
+    alike: each channel's legs run on that channel's plan in turn, the
+    solve takes the model visibilities of all channels as ``[time,
+    baseline, chan, pol]``, and the "T" factors, one per (time, baseline),
+    serve every channel."""
     cfg = ws.cfg
-    plan = ws.plan.plans[0]
-    perm = plan.gp.perm
-    npol = cfg.npol
-    model_s = []
-    for p in range(npol):
-        if with_model:
-            model_s.append(
-                predict_with_plan(plan, model_pixels[0, p], to_sorted=True)
-            )
-        else:
-            model_s.append(ws.obs_s[p] * 0.0)
+    plans = ws.plan.plans
+    nchan, npol = cfg.nchan, cfg.npol
+    model_s = [
+        [
+            predict_with_plan(plans[c], model_pixels[c, p], to_sorted=True)
+            if with_model
+            else ws.obs_s[c][p] * 0.0
+            for p in range(npol)
+        ]
+        for c in range(nchan)
+    ]
 
     any_cal = any(do_cal)
     if any_cal:
         ntime, nbl = ws.cal[0]["w_t"].shape[1], ws.a1.shape[0]
-        pols = [
-            permute_apply(perm, model_s[p], inverse=True).reshape(ntime, nbl, 1)
-            for p in range(npol)
+        chans = [
+            torch.stack(
+                [
+                    permute_apply(
+                        plans[c].gp.perm, model_s[c][p], inverse=True
+                    ).reshape(ntime, nbl)
+                    for p in range(npol)
+                ],
+                dim=-1,
+            )
+            for c in range(nchan)
         ]
-        mvis = torch.stack(pols, dim=-1)  # [t, b, 1, npol]
+        mvis = torch.stack(chans, dim=2)  # [t, b, nchan, npol]
         gains, gwts, gress, inv_tot = _solve_terms(ws, cfg, gains, mvis)
 
-    ny = nx = plan.npixel
+    ny = nx = plans[0].npixel
     device = model_pixels.device
-    pixels = torch.zeros((1, npol, ny, nx), dtype=torch.float32, device=device)
-    sumwt = torch.zeros((1, npol), dtype=torch.float32, device=device)
-    for p in range(npol):
-        if any_cal:
-            f_p = inv_tot[:, :, 0, p].reshape(-1)
-            corr = ws.obs_s[p] * permute_apply(perm, f_p.contiguous())
-        else:
-            corr = ws.obs_s[p]
-        resid_s = corr - model_s[p]
-        dirty, swt = invert_with_plan(
-            plan, resid_s, ws.wgt_s[p], values_sorted=True
-        )
-        pixels[0, p] = dirty.to(torch.float32)
-        sumwt[0, p] = swt
+    pixels = torch.zeros((nchan, npol, ny, nx), dtype=torch.float32, device=device)
+    sumwt = torch.zeros((nchan, npol), dtype=torch.float32, device=device)
+    for c in range(nchan):
+        perm = plans[c].gp.perm
+        for p in range(npol):
+            if any_cal:
+                f_p = inv_tot[:, :, 0, p].reshape(-1)
+                corr = ws.obs_s[c][p] * permute_apply(perm, f_p.contiguous())
+            else:
+                corr = ws.obs_s[c][p]
+            resid_s = corr - model_s[c][p]
+            dirty, swt = invert_with_plan(
+                plans[c], resid_s, ws.wgt_s[c][p], values_sorted=True
+            )
+            pixels[c, p] = dirty.to(torch.float32)
+            sumwt[c, p] = swt
     okw = sumwt > 0.0
     scale = torch.where(okw, 1.0 / torch.where(okw, sumwt, 1.0), 0.0)
     residual = pixels * scale[:, :, None, None]
@@ -390,27 +466,18 @@ def ical(
     state=None,
     **kwargs,
 ):
-    """ICAL: iterative calibration + imaging self-cal loop, fused path.
+    """ICAL: iterative calibration + imaging self-cal loop, fused path, on
+    one image channel or a cube (one image channel per visibility
+    channel). ``algorithm`` is "msclean" (the default), "hogbom" or
+    "mmclean" (MSMFS, which needs ``nchan > 2 (nmoment - 1)``).
 
     :return: (model Image, residual Image, restored Image, gaintables dict)
     """
     if controls is None:
         controls = create_calibration_controls()
-    if kwargs.pop("fused", True) is False:
-        raise not_ported("the composed (fused=False) ical path", "S7x")
-    if kwargs.pop("use_plan", True) is False:
-        raise not_ported("ical without an imaging plan", "S8")
     if checkpoint_path is not None or state is not None:
         raise not_ported("ical checkpoints (SelfCalState)", "S7x")
-    if kwargs.get("epsilon") is not None:
-        raise not_ported("ical(epsilon=...)", "S8")
-    if vis.npol != 1 or model.npol != 1:
-        raise not_ported("polarised ical (npol > 1)", "S7x")
-    ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
-    plan = make_visibility_plan(vis, model, context=context, **ikw)
-    psf, _ = invert_visibility(
-        vis, model, dopsf=True, context=context, plan=plan, **ikw
-    )
+    plan, psf = _plan_and_psf("ical", vis, model, context, kwargs)
     return _ical_fused(
         vis, model, components, nmajor, calibration_context, controls,
         plan, psf, **kwargs,
@@ -455,6 +522,85 @@ def _ical_fused(
     gaintables = ws.gaintables(gains, gwts, gress)
     restored = _restore_with_components(current, psf, residual, components)
     return current, residual, restored, gaintables
+
+
+def continuum_imaging(
+    vis: Visibility,
+    model: Image,
+    nmajor: int = 5,
+    context: str = "ng",
+    components=None,
+    **kwargs,
+):
+    """Major/minor-cycle CLEAN imaging without self-calibration, fused
+    path: :func:`_fused_selfcal_cycle` with the calibration leg left out,
+    on one image channel or a cube. ``algorithm`` as for :func:`ical`;
+    "mmclean" on a cube is MSMFS continuum imaging.
+
+    :return: (model Image, residual Image, restored Image)
+    """
+    plan, psf = _plan_and_psf("continuum_imaging", vis, model, context, kwargs)
+    ws = _FusedSelfCal(
+        vis, model, plan, components, ["T"], create_calibration_controls(),
+        None, 1, 1e-6, psf, **kwargs,
+    )
+    gains = [ws.gt0s[0].gain]
+    gwts = [ws.gt0s[0].weight]
+    gress = [ws.gt0s[0].residual]
+    model_px = torch.zeros_like(model.pixels, dtype=torch.float32)
+    res_px = None
+    log.info("continuum_imaging[fused]: workspace ready, %d visibilities", vis.nvis)
+    for cycle in range(nmajor):
+        model_px, _, _, _, res_px, _, peak = _fused_selfcal_cycle(
+            ws, model_px, gains, gwts, gress, do_cal=(False,), with_model=cycle > 0
+        )
+        if log.isEnabledFor(logging.INFO):
+            log.info(
+                "continuum_imaging[fused]: cycle %d peak residual %.6f",
+                cycle, float(peak),
+            )
+    current = model.replace(pixels=model_px.to(model.pixels.dtype))
+    residual = model.replace(pixels=res_px) if res_px is not None else None
+    restored = _restore_with_components(current, psf, residual, components)
+    return current, residual, restored
+
+
+def _check_algorithm(model: Image, kwargs: dict) -> None:
+    """The fused cycle's CLEAN algorithms: msclean, Hogbom, and MSMFS,
+    which needs more image channels than its moments' polynomial order
+    (``nchan > 2 (nmoment - 1)``, as in ``deconvolve_cube``)."""
+    algorithm = kwargs.get("algorithm", "msclean")
+    if algorithm in _MMCLEAN:
+        nmoment = kwargs.get("nmoment", 3)
+        if not model.nchan > 2 * (nmoment - 1):
+            raise ValueError(
+                f"{algorithm} requires nchan > 2*(nmoment-1) "
+                f"({model.nchan} > {2 * (nmoment - 1)})"
+            )
+    elif algorithm not in ("hogbom", "msclean"):
+        raise ValueError(f"fused clean: unsupported algorithm {algorithm}")
+
+
+def _plan_and_psf(name: str, vis, model, context: str, kwargs: dict):
+    """What ``ical`` and ``continuum_imaging`` share before their cycles:
+    the checks of the ported configuration (the workspace checks the
+    CLEAN algorithm), one plan per image channel and the PSF through
+    them. Takes the imaging keywords out of
+    ``kwargs``. Returns (plan, psf)."""
+    if kwargs.pop("fused", True) is False:
+        raise not_ported(f"the composed (fused=False) {name} path", "S7x")
+    if kwargs.pop("use_plan", True) is False:
+        raise not_ported(f"{name} without an imaging plan", "S8")
+    if kwargs.get("epsilon") is not None:
+        raise not_ported(f"{name}(epsilon=...)", "S8")
+    if vis.npol != 1 or model.npol != 1:
+        raise not_ported(f"polarised {name} (npol > 1)", "S7x")
+    ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
+    plan = make_visibility_plan(vis, model, context=context, **ikw)
+    psf, _ = invert_visibility(
+        vis, model, dopsf=True, context=context, plan=plan, **ikw
+    )
+    return plan, psf
 
 
 def _restore_with_components(current, psf, residual, components):

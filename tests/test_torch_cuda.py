@@ -6,8 +6,8 @@ imports only the port, so it also runs where JAX is absent:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
 Tolerances: ``permute_apply`` is bit-exact (elements are only moved);
-``hogbom`` (with and without a window), ``hogbom_complex`` and
-``msclean`` give identical component positions and values to 1e-6
+``hogbom`` (with and without a window), ``hogbom_complex``, ``msclean``
+and ``msmfs`` give identical component positions and values to 1e-6
 relative (the same f32 operations in the same order); ``grid`` (atomics, run-to-run summation order; held against
 the plain version accumulated in f64) and ``degrid`` agree to 1e-5 of the
 maximum.
@@ -204,3 +204,78 @@ def test_deconvolve_cube_window_on_card_matches_cpu(dev, algorithm):
         a, b = a.pixels.cpu(), b.pixels
         assert torch.equal(a != 0, b != 0)
         torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5 * float(b.abs().max()))
+
+
+def _moment_inputs(nmoment, n=96, seed=13):
+    """f32 moment images [nmoment, n, n] and moment PSFs [2 nmoment, n, n]
+    of an 8-channel cube over 100-163 MHz (PSF narrowing with frequency,
+    sources with spectral indices)."""
+    rng = np.random.default_rng(seed)
+    freq = np.linspace(1.0e8, 1.63e8, 8)
+    x = (freq - freq[4]) / freq[4]
+    yy, xx = np.mgrid[:n, :n] - n // 2
+    psfs = np.stack([np.exp(-(yy**2 + xx**2) / (2.5 * freq[4] / f) ** 2) for f in freq])
+    dirty = 0.004 * rng.normal(size=(8, n, n))
+    for _ in range(4):
+        cy, cx = rng.integers(8, n - 8, 2)
+        alpha = rng.uniform(-1.5, 0.5)
+        for c, f in enumerate(freq):
+            dirty[c] += (f / freq[4]) ** alpha * np.roll(psfs[c], (cy - n // 2, cx - n // 2), (0, 1))
+    w = x[:, None] ** np.arange(2 * nmoment)[None, :]
+    return (
+        np.einsum("cm,cyx->myx", w[:, :nmoment], dirty).astype(np.float32),
+        np.einsum("cm,cyx->myx", w, psfs).astype(np.float32),
+    )
+
+
+@pytest.mark.parametrize(
+    "findpeak,window,nmoment",
+    [("RASCIL", False, 3), ("CASA", False, 2), ("RASCIL", True, 3)],
+    ids=["rascil", "casa", "rascil-window"],
+)
+def test_msmfs_matches_plain(dev, findpeak, window, nmoment):
+    """K8 against msmfs_rows_plain on the same f32 stacks: the same rows
+    and residual, and one launch per lane."""
+    dirty, psf = _moment_inputs(nmoment)
+    n = dirty.shape[-1]
+    st = cleaners.msmfs_psf_stacks(torch.as_tensor(psf, device=dev), n, n, (0, 3, 10))
+    smres = cleaners.calculate_scale_moment_residual(
+        torch.as_tensor(dirty, device=dev) / st.pmax, st.scalestack
+    ).contiguous()
+    ws = None
+    if window:
+        w = torch.zeros((n, n), device=dev)
+        w[n // 4 + 1 : 3 * (n // 4), n // 4 + 1 : 3 * (n // 4)] = 1.0
+        ws = (cleaners.convolve_scalestack(st.scalestack, w) > 0.9).float()[None].contiguous()
+    kw = dict(gain=0.5, thresh=0.0, fracthresh=0.03, niter=150, findpeak=findpeak)
+    before = kernels.KERNELS["msmfs"].launches
+    rows, res = cleaners.msmfs_lanes(smres[None], st.canvas, st.hsmm, st.ihsmm, ws, **kw)
+    assert kernels.KERNELS["msmfs"].launches == before + 1
+    prow, pres = cleaners.msmfs_rows_plain(
+        smres.cpu(), st.canvas.cpu(), st.hsmm.cpu(), st.ihsmm.cpu(),
+        None if ws is None else ws[0].cpu(), **kw,
+    )
+    used = int((prow[:, 3] > 0).sum())
+    assert 0 < used < 150
+    torch.testing.assert_close(rows[0].cpu()[:, :4], prow[:, :4], rtol=0, atol=0)
+    _same((rows[0, :, 4:], res[0]), (prow[:, 4:], pres))
+
+
+def test_msmfs_ties_go_to_the_first_index(dev):
+    """Exact ties across the sweep's CTAs and scales: unit Hessians, equal
+    peaks at (31, 2), (30, 31) and (30, 30) of scale 1 and (5, 5) of
+    scale 2, each pick clearing only its own pixel; the kernel picks in
+    (scale, y, x) order, as the plain version does."""
+    ns, nm, n, pn = 3, 2, 40, 16
+    smres = torch.zeros((ns, nm, n, n), device=dev)
+    for s, y, x in ((2, 5, 5), (1, 31, 2), (1, 30, 31), (1, 30, 30)):
+        smres[s, 0, y, x] = 1.0
+    canvas = torch.zeros((ns, ns, 2 * nm - 1, pn, pn), device=dev)
+    for s in range(ns):
+        canvas[s, s, :, pn // 2, pn // 2] = 1.0
+    eye = torch.eye(nm, device=dev).expand(ns, nm, nm).contiguous()
+    rows, _ = cleaners.msmfs_lanes(
+        smres[None], canvas, eye, eye, gain=1.0, thresh=0.0, fracthresh=0.01, niter=4
+    )
+    picks = [tuple(int(v) for v in r[:3]) for r in rows[0].cpu()]
+    assert picks == [(30, 30, 1), (30, 31, 1), (31, 2, 1), (5, 5, 2)]

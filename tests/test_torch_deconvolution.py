@@ -140,7 +140,59 @@ def test_deconvolve_cube_msclean_matches_jax(window):
 
 
 def test_stokesiquv_image_and_mmclean_raise():
+    """A stokesIQUV image has four planes; mmclean on too few channels for
+    its moments (nchan <= 2 (nmoment - 1)) raises as in the JAX package."""
     im = create_image(32, 0.001, PC, polarisation_frame="stokesIQUV", device=CPU)
     assert im.pixels.shape == (1, 4, 32, 32)
-    with pytest.raises(NotImplementedError, match="S10"):
+    with pytest.raises(ValueError, match="nchan > 2"):
         deconvolve_cube(im, im, algorithm="mmclean")
+    with pytest.raises(ValueError, match="nchan > 2"):
+        deconvolve_cube(im, im, algorithm="mmclean", nmoment=2)
+
+
+def _spectral_cube(nchan, n, rng):
+    """A stokesI cube over 100-160 MHz: channel PSFs that narrow with
+    frequency, and point sources with spectral indices through them."""
+    freq = np.linspace(1.0e8, 1.6e8, nchan)
+    f0 = freq[nchan // 2]
+    psf = np.stack([_psf(2 * n, 2.5 * f0 / f) for f in freq])
+    dirty = np.zeros((nchan, 1, n, n))
+    for c, f in enumerate(freq):
+        pad = np.zeros((3 * n, 3 * n))
+        for (y, x), flux, alpha in zip(
+            rng.integers(n // 8, 7 * n // 8, (3, 2)), (2.0, 1.2, 0.7), (-0.7, 0.4, -1.2)
+        ):
+            pad[y : y + 2 * n, x : x + 2 * n] += flux * (f / f0) ** alpha * psf[c]
+        dirty[c, 0] = pad[n : 2 * n, n : 2 * n]
+    dirty += rng.normal(0, 0.003, dirty.shape)
+    psf_n = psf[:, None, n // 2 : n // 2 + n, n // 2 : n // 2 + n]
+    return freq, dirty, psf_n.copy()
+
+
+@pytest.mark.parametrize("window", [None, "quarter"])
+@pytest.mark.parametrize("nmoment", [2, 3])
+def test_deconvolve_cube_mmclean_matches_jax(nmoment, window):
+    """MSMFS through frequency moments on a 6-channel cube, in f64."""
+    rng = np.random.default_rng(44)
+    freq, dirty, psf = _spectral_cube(6, 64, rng)
+
+    def image(pix):
+        im = jax_create_image(64, 0.001, PC, frequency=freq, nchan=6)
+        return im.replace(pixels=jnp.asarray(pix))
+
+    kw = dict(algorithm="mmclean", nmoment=nmoment, niter=40,
+              fractional_threshold=0.01, scales=[0, 3, 10], window_shape=window)
+    jc, jr = jax_deconvolve_cube(image(dirty), image(psf), **kw)
+    pc, pr = deconvolve_cube(
+        interop.to_image(image(dirty), device=CPU),
+        interop.to_image(image(psf), device=CPU), **kw,
+    )
+    assert pc.pixels.dtype == torch.float64 and pc.pixels.shape == (6, 1, 64, 64)
+    _compare(jc, pc, 1e-8)
+    _compare(jr, pr, 1e-8)
+    with pytest.raises(NotImplementedError, match="S9"):
+        deconvolve_cube(
+            interop.to_image(image(dirty), device=CPU),
+            interop.to_image(image(psf), device=CPU),
+            interop.to_image(image(psf), device=CPU), **kw,
+        )
