@@ -43,9 +43,21 @@ Phases, each on lines of its own:
      (c) runs ``ical(algorithm="mmclean")`` on the cube corrupted with
      N(0, 0.4) "T" phases, 4 cycles, and prints the gain phase error;
      (d) runs ical with MSMFS on a small cube (the JAX package's fused-cube
-     test geometry) on the card and on the CPU, to the bounds of phase 7.
-Each of phases 4-6 and 8b-c resets the launch counters just before it
-and fails unless every kernel of its path launched. The script then
+     test geometry) on the card and on the CPU, to the bounds of phase 7;
+  9. the epsilon contract on the flagship observation with natural weights
+     and a 1.0 Jy source at 70% of the half-field, pixel (+360, +280) from
+     the centre; each run is held to the exact DFT computed on the host in
+     numpy f64 from the Visibility's own uvw. (a) the unit_tiles kernel
+     against its plain version on the entry streams of the fast-f32 row
+     (f32) and of the deep-f64 row (f64); (b) predict_visibility and
+     invert_visibility at epsilon 1e-3 (the fast-f32 row: the tiled core
+     path, unit_tiles); (c) at epsilon 1e-5 (the precise-f32 row: an
+     eskernel plan from host-f64 coordinates, grid and degrid); (d) at
+     epsilon 5e-7 on an f64 Visibility (the deep-f64 row: the tiled core
+     path in f64); (e) both without a plan and without epsilon, twice
+     each: the plan cache, against an explicit plan at padding 2.
+Each of phases 4-6, 8b-c and 9b-e resets the launch counters just before
+it and fails unless every kernel of its path launched. The script then
 prints the kernels JSON line (launches summed over those phases), the
 card line, and, last, the ``{"ok": true, ...}`` line. Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero before
@@ -118,7 +130,15 @@ KERNELS = {
         "ska_sdp_func_python_torch/csrc/msmfs.cu",
         "ska_sdp_func_python_tpu/ops/cleaners.py:1562",
     ),
+    # f32, against the plain version accumulated in f64 (atomics); the f64
+    # kernel is held to 1e-12 (UNIT_TILES_F64_TOL)
+    "unit_tiles": (
+        1e-5,
+        "ska_sdp_func_python_torch/csrc/unit_tiles.cu",
+        "ska_sdp_func_python_tpu/ops/gridding_pallas.py:34",
+    ),
 }
+UNIT_TILES_F64_TOL = 1e-12
 CLEAN = dict(niter=300, gain=0.2, fractional_threshold=0.01)
 SCALES = [0, 3, 10, 30]
 # source pixel offsets (dx, dy) from the centre at 1024^2, and fluxes (Jy)
@@ -143,6 +163,13 @@ SMALL_CUBE = dict(nants=14, rmax=300.0, ntimes=3, nchan=6, df=4e6, npixel=96,
 # tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_F32_S = 67e12
+PEAK_F64_S = 34e12
+
+# phase 9: the source's pixel offset (dx, dy) from the centre of the 1024^2
+# image (70% of the half-field, the adversarial position of the JAX
+# package's epsilon tests) and the three rows' epsilons
+SOURCE9 = (360, 280)
+EPS_FAST, EPS_PRECISE, EPS_DEEP = 1e-3, 1e-5, 5e-7
 
 
 def say(*args):
@@ -186,10 +213,11 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
-def bound(nbytes, nops):
+def bound(nbytes, nops, peak_ops=PEAK_F32_S):
     """(ms, what bounds it): the larger of the bytes over the card's memory
-    rate and the f32 operations over its peak f32 rate."""
-    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / PEAK_F32_S * 1e3
+    rate and the operations over the card's peak rate for their type (f32
+    by default)."""
+    tb, to = nbytes / PEAK_BYTES_S * 1e3, nops / peak_ops * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -949,6 +977,257 @@ def small_cube_matches_cpu(device):
         raise AssertionError("small cube mmclean: card and cpu disagree")
 
 
+def observation9(cfg, device, dtype, ntimes=76, npixel=1024, source=SOURCE9):
+    """Phase 9's observation: the flagship layout and hour angles with
+    natural weights, in ``dtype`` on ``device``, holding the exact DFT of
+    a 1.0 Jy source at SOURCE9, and the 1024^2 model image holding that
+    source. Returns (vis, model, oracle [ntime, nbaseline, 1, 1] complex128
+    on the host, the source's (ix, iy))."""
+    import torch
+
+    from ska_sdp_func_python_torch.models import create_visibility
+    from ska_sdp_func_python_torch.ops import create_image_from_visibility
+
+    vis = create_visibility(
+        cfg, np.linspace(-0.3, 0.3, ntimes), [1.2e8],
+        elevation_limit=np.deg2rad(15.0), dtype=dtype, device=device,
+    )
+    model = create_image_from_visibility(vis, npixel=npixel, oversampling=3.0, nchan=1)
+    ix, iy = npixel // 2 + source[0], npixel // 2 + source[1]
+    oracle = exact_dft(vis, model, ix, iy)
+    vis = vis.replace(vis=torch.as_tensor(oracle).to(device=device, dtype=vis.vis.dtype))
+    pixels = torch.zeros_like(model.pixels)
+    pixels[0, 0, iy, ix] = 1.0
+    return vis, model.replace(pixels=pixels), oracle, (ix, iy)
+
+
+def exact_dft(vis, model, ix, iy):
+    """exp(-2 pi i (u l + v m + w (n - 1))) of a 1.0 Jy source at pixel
+    (ix, iy), in numpy f64 on the host from the Visibility's own uvw."""
+    from ska_sdp_func_python_torch.models.visibility import C_M_S
+    from ska_sdp_func_python_torch.utils.coordinates import radec_to_lmn
+
+    ra, dec = model.pixel_to_radec(ix, iy)
+    l, m, n1 = radec_to_lmn(ra, dec, *vis.phasecentre)
+    f = vis.frequency.cpu().numpy().astype(np.float64)[0] / C_M_S
+    uvw = vis.uvw.cpu().numpy().astype(np.float64) * f
+    turns = uvw[..., 0] * l + uvw[..., 1] * m + uvw[..., 2] * n1
+    return np.exp(-2j * np.pi * turns)[..., None, None]
+
+
+def unit_stream9(vis, model, eps):
+    """The entry stream that ``invert_visibility(vis, model,
+    epsilon=eps)`` grids through unit_tiles, built as the core path
+    builds it, and its geometry."""
+    from ska_sdp_func_python_torch.ops import imaging as im
+    from ska_sdp_func_python_torch.ops.accuracy import gridding_params_for_epsilon
+    from ska_sdp_func_python_torch.ops.gridding import _es_beta
+    from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
+
+    acc = gridding_params_for_epsilon(eps, f64=im._is_f64(vis))
+    assert acc.gridder == "tiled" or acc.support != 8, acc
+    s = acc.support
+    npad = im._npad_for(model.npixel, acc.padding)
+    nw = im._nw_wkernel_for(vis, model, s)
+    if acc.coords == "host64":
+        u, ulo, v, vlo, w = im._prepix_rows(vis, model, slice(0, 1), npad)
+    else:
+        uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
+        u, v = im._pixels(uvw[:, 0], uvw[:, 1], npad, model.cellsize, False)
+        ulo = vlo = None
+        w = uvw[:, 2]
+    p0, frac, _ = im._w_planes(w, nw, "eskernel", w_support=s)
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    geo = dict(npixel=npad, tile=im._tile_for(npad), support=s,
+               beta=_es_beta(s, npad / model.npixel))
+    stream = entry_stream(
+        u, v, weighted, p0, frac, ulo, vlo, npixel=npad, support=s,
+        nplanes=nw, tile=geo["tile"], unit=im._UNIT_GRID, w_order=s,
+    )
+    return stream, geo
+
+
+def compare_unit_tiles(stream, geo, label, tol, peak_ops):
+    """unit_tiles against its plain version accumulated in f64 on the
+    same stream; times both. Returns the kernel row."""
+    import dataclasses
+
+    import torch
+
+    def f64(x):
+        return None if x is None else x.to(torch.float64)
+
+    ref_stream = dataclasses.replace(
+        stream, u=f64(stream.u), v=f64(stream.v), u_lo=f64(stream.u_lo),
+        v_lo=f64(stream.v_lo), vals=stream.vals.to(torch.complex128),
+    )
+    out = stream.grid(**geo)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    ref = ref_stream.grid(plain=True, **geo)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = float((out.to(torch.complex128) - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    del ref, out
+    n = int(stream.u.shape[0])
+    nunits = int(stream.unit_seg.shape[0])
+    s = geo["support"]
+    real = stream.u.element_size()
+    # bytes: every sorted entry's coordinates, residuals and value read
+    # once, the unit table read once, every plane grid written once;
+    # operations (window form): per entry 2 s ES taps (about 10 operations
+    # each) and s^2 tap products of a complex value by two real taps added
+    # into the tile (6 operations)
+    nbytes = (
+        n * (real * (2 + (2 if stream.u_lo is not None else 0)) + 2 * real)
+        + 12 * nunits + stream.nplanes * geo["npixel"] ** 2 * 2 * real
+    )
+    row = _row(
+        err, rel, timed(lambda: stream.grid(**geo), 5), plain_ms,
+        bound(nbytes, n * (6 * s * s + 20 * s), peak_ops),
+    )
+    say(
+        f"unit_tiles {label}: {n} entries in {nunits} units of at most "
+        f"{int(stream.unit_count.max())}, {stream.nplanes} planes of "
+        f"{geo['npixel']}^2, tile {geo['tile']}, support {s}: max abs err "
+        f"{err:.3e}, rel {rel:.3e} (tolerance {tol:g}); kernel {row['ms']:.3f} "
+        f"ms, plain (f64, one run) {plain_ms:.3f} ms, bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+    )
+    if not rel <= tol:
+        raise AssertionError(f"unit_tiles {label} disagrees with its plain version")
+    return row
+
+
+def run_epsilon(label, vis, model, oracle, source, eps, path_kernels):
+    """predict_visibility and invert_visibility with ``epsilon=eps`` on the
+    card, the launch counters reset just before and read just after;
+    gates the delivered predict error against the exact DFT (< eps), the
+    dirty image's peak on the source pixel and the path's launches.
+    Returns the counts."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        predict_visibility,
+    )
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pv = predict_visibility(vis, model, epsilon=eps)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dirty, _ = invert_visibility(vis, model, epsilon=eps)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    err = float(np.max(np.abs(pv.vis.cpu().numpy().astype(np.complex128) - oracle)))
+    img = dirty.pixels[0, 0].double().cpu().numpy()
+    iy, ix = np.unravel_index(int(np.argmax(img)), img.shape)
+    say(
+        f"{label} (epsilon {eps:g}, {tuple(vis.vis.shape)} {vis.vis.dtype}): "
+        f"predict {(t1 - t0) * 1e3:.1f} ms, delivered max error vs the exact "
+        f"DFT {err:.4e}; invert {(t2 - t1) * 1e3:.1f} ms, peak {img[iy, ix]:.6f} "
+        f"at ({ix}, {iy}) (source at {source}); launches {counts}"
+    )
+    if not np.isfinite(img).all() or not err < eps:
+        raise AssertionError(f"{label}: delivered error {err} not below {eps}")
+    if (ix, iy) != tuple(source):
+        raise AssertionError(f"{label}: dirty peak at {(ix, iy)}, source at {source}")
+    _launch_gate(label, counts, path_kernels)
+    return counts
+
+
+def run_plan_cache(vis, model):
+    """Phase 9e: invert_visibility and predict_visibility without a plan,
+    twice each: the second call of each reuses the plan the first put
+    into the cache. Held to an explicit plan at padding 2 (the padding of
+    a cache miss): predict bit for bit, invert to 1e-5 of its peak (the
+    grid kernel's atomics). Returns the counts of the four calls."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops import imaging as im
+
+    im._PLAN_CACHE.clear()
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    walls, plans = [], []
+    for fn in (im.invert_visibility, im.invert_visibility,
+               im.predict_visibility, im.predict_visibility):
+        t0 = time.perf_counter()
+        out = fn(vis, model)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+        plans.append([p for _, _, p in im._PLAN_CACHE.values()])
+        if fn is im.invert_visibility:
+            dirty = out[0].pixels
+        else:
+            pred = out.vis
+    counts = kernels.launch_counts()
+    if not all(len(p) == 1 and p[0] is plans[0][0] for p in plans):
+        raise AssertionError("plan cache: the calls did not share one cached plan")
+    explicit = im.make_visibility_plan(vis, model, padding=2)
+    pred_e = im.predict_visibility(vis, model, plan=explicit).vis
+    dirty_e = im.invert_visibility(vis, model, plan=explicit)[0].pixels
+    same = torch.equal(pred, pred_e)
+    derr = float((dirty - dirty_e).abs().max() / dirty_e.abs().max())
+    p0 = explicit.plans[0]
+    say(
+        f"plan cache: invert {walls[0]:.1f} then {walls[1]:.1f} ms, predict "
+        f"{walls[2]:.1f} then {walls[3]:.1f} ms (npad {p0.npad}, nw {p0.nw}); "
+        f"predict equals the explicit-plan predict bit for bit: {same}; "
+        f"invert {derr:.3e} of the peak from the explicit-plan invert; "
+        f"launches {counts}"
+    )
+    im._PLAN_CACHE.clear()
+    if not same or not derr <= 1e-5:
+        raise AssertionError("plan cache: the cached plan disagrees with the explicit one")
+    _launch_gate("plan cache", counts, ("grid", "degrid", "permute"))
+    return counts
+
+
+def run_epsilon_phase(cfg, device, **size):
+    """Phase 9 (``size``: observation9's ntimes, npixel and source).
+    Returns (unit_tiles kernel row, summed launch counts of 9b-e)."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops import imaging as im
+
+    t0 = time.perf_counter()
+    vis, model, oracle, source = observation9(cfg, device, torch.float32, **size)
+    say(f"epsilon observation: {vis.nvis} visibilities, f32, simulated in {time.perf_counter() - t0:.1f} s")
+    stream, geo = unit_stream9(vis, model, EPS_FAST)
+    row = compare_unit_tiles(stream, geo, "fast-f32 stream (f32)", KERNELS["unit_tiles"][0], PEAK_F32_S)
+    del stream
+    torch.cuda.empty_cache()
+    counts = [
+        run_epsilon("9b fast-f32", vis, model, oracle, source, EPS_FAST, ("unit_tiles",)),
+        run_epsilon("9c precise-f32", vis, model, oracle, source, EPS_PRECISE,
+                    ("grid", "degrid", "permute")),
+    ]
+    im._PLAN_CACHE.clear()
+    counts.append(run_plan_cache(vis, model))
+    del vis, model, oracle
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vis, model, oracle, source = observation9(cfg, device, torch.float64, **size)
+    say(f"epsilon observation: {vis.nvis} visibilities, f64, simulated in {time.perf_counter() - t0:.1f} s")
+    stream, geo = unit_stream9(vis, model, EPS_DEEP)
+    compare_unit_tiles(stream, geo, "deep-f64 stream (f64)", UNIT_TILES_F64_TOL, PEAK_F64_S)
+    del stream
+    torch.cuda.empty_cache()
+    counts.append(run_epsilon("9d deep-f64", vis, model, oracle, source, EPS_DEEP, ("unit_tiles",)))
+    del vis, model, oracle
+    torch.cuda.empty_cache()
+    return row, {k: sum(c[k] for c in counts) for k in counts[0]}
+
+
 def report_kernel(name, r):
     """Prints a kernel's comparison with its plain version, and fails if
     the error is above its tolerance."""
@@ -977,6 +1256,7 @@ def main() -> int:
     )
     from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
 
+    t_start = time.perf_counter()
     device = torch.device("cuda", 0)
     card = card_line()
     say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
@@ -1036,6 +1316,12 @@ def main() -> int:
         launches[name] += counts[name]
     report_kernel("msmfs", results["msmfs"])
     small_cube_matches_cpu(device)
+    torch.cuda.empty_cache()
+
+    results["unit_tiles"], counts = run_epsilon_phase(cfg, device)
+    for name in launches:
+        launches[name] += counts[name]
+    report_kernel("unit_tiles", results["unit_tiles"])
 
     say(json.dumps({
         "kernels": [
@@ -1055,6 +1341,7 @@ def main() -> int:
             for name in KERNELS
         ]
     }))
+    say(f"command: {time.perf_counter() - t_start:.1f} s")
     say(card)
     say(json.dumps({
         "ok": True,

@@ -23,10 +23,31 @@ __all__ = [
     "not_ported",
     "default_device",
     "resolve_device",
+    "plan_cache_size",
+    "set_plan_cache_size",
 ]
 
 torch.backends.cuda.matmul.allow_tf32 = False
 torch.backends.cudnn.allow_tf32 = False
+
+# Plans kept by invert_visibility/predict_visibility when no plan is
+# passed, keyed on the identity of the Visibility's uvw and frequency
+# tensors. Each holds the sorted plan on the device (~100 bytes per
+# visibility), so the default is small; 0 disables the cache.
+_PLAN_CACHE_SIZE: int = 2
+
+
+def plan_cache_size() -> int:
+    return _PLAN_CACHE_SIZE
+
+
+def set_plan_cache_size(n: int) -> None:
+    global _PLAN_CACHE_SIZE
+    _PLAN_CACHE_SIZE = int(n)
+    if _PLAN_CACHE_SIZE <= 0:
+        from .ops import imaging
+
+        imaging._PLAN_CACHE.clear()
 
 
 def real_of(dtype: torch.dtype) -> torch.dtype:

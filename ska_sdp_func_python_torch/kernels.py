@@ -194,6 +194,11 @@ KERNELS = {
         "ska_msmfs",
         [_P, _P, _P, _P, _P, _P, _P, *[_I] * 10, _F, _F, _F],
     ),
+    "unit_tiles": Kernel(
+        "unit_tiles",
+        "ska_unit_tiles",
+        [*[_P] * 9, *[_I] * 5, ctypes.c_double, _I],
+    ),
 }
 
 

@@ -72,10 +72,15 @@ def make_grid_plan(
     beta: float | None = None,
     u_lo=None,
     v_lo=None,
+    taps_scale=None,
 ) -> GridPlan:
     """Build a plan from fractional grid coordinates (same contract as the
     JAX package's ``make_grid_plan``). ``chunk`` is the most entries one
-    grid CTA takes; it changes only how the work is partitioned."""
+    grid CTA takes; it changes only how the work is partitioned.
+    ``u_lo``/``v_lo``: residuals of split (hi, lo) coordinates.
+    ``taps_scale``: optional [n] per-entry factor folded into the stored
+    u taps (the ES pair weight of an eskernel plan's entry copy), at no
+    cost to the kernels."""
     if support != 8:
         raise not_ported(f"support {support} plans", "S8")
     device = u_pix.device
@@ -124,6 +129,8 @@ def make_grid_plan(
     kv = _es_taps8(
         v_s, iv0_s, support, beta, lo=None if v_lo is None else v_lo[perm]
     )
+    if taps_scale is not None:
+        ku = (ku * taps_scale[perm].to(torch.float32)[:, None]).contiguous()
 
     counts = torch.bincount(seg_s[:n_in], minlength=nseg)[:nseg]
     starts = torch.cumsum(counts, 0) - counts

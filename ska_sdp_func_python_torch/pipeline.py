@@ -590,9 +590,11 @@ def _plan_and_psf(name: str, vis, model, context: str, kwargs: dict):
     if kwargs.pop("fused", True) is False:
         raise not_ported(f"the composed (fused=False) {name} path", "S7x")
     if kwargs.pop("use_plan", True) is False:
-        raise not_ported(f"{name} without an imaging plan", "S8")
+        # without a plan the JAX package runs the composed path
+        raise not_ported(f"the composed (use_plan=False) {name} path", "S7x")
     if kwargs.get("epsilon") is not None:
-        raise not_ported(f"{name}(epsilon=...)", "S8")
+        # the JAX pipelines do not pass epsilon to their plan
+        raise not_ported(f"{name}(epsilon=...)", "S7x")
     if vis.npol != 1 or model.npol != 1:
         raise not_ported(f"polarised {name} (npol > 1)", "S7x")
     ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}

@@ -10,7 +10,9 @@ Tolerances: ``permute_apply`` is bit-exact (elements are only moved);
 and ``msmfs`` give identical component positions and values to 1e-6
 relative (the same f32 operations in the same order); ``grid`` (atomics, run-to-run summation order; held against
 the plain version accumulated in f64) and ``degrid`` agree to 1e-5 of the
-maximum.
+maximum; ``unit_tiles`` (atomics) agrees with its plain version
+accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
+f64.
 """
 
 import numpy as np
@@ -27,6 +29,7 @@ from ska_sdp_func_python_torch.ops.gridding_fused import (
     grid_plain,
 )
 from ska_sdp_func_python_torch.ops.gridding_plan import make_grid_plan
+from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
 from ska_sdp_func_python_torch.ops.permute import (
     permute_apply,
     permute_apply_plain,
@@ -279,3 +282,77 @@ def test_msmfs_ties_go_to_the_first_index(dev):
     )
     picks = [tuple(int(v) for v in r[:3]) for r in rows[0].cpu()]
     assert picks == [(30, 30, 1), (30, 31, 1), (31, 2, 1), (5, 5, 2)]
+
+
+def _unit_stream(case, dtype, with_lo, dev):
+    """A tiled-gridder entry stream on ``dev`` in ``dtype`` (hi, lo pairs
+    of f64 positions for f32), and the same stream in f64 for the plain
+    version. Four linear w-planes at 256^2, tile 64."""
+    rng = np.random.default_rng(17)
+    npix = 256
+    if case == "random":
+        n = 20000
+        u64 = rng.uniform(-10, npix + 10, n)
+        v64 = rng.uniform(-10, npix + 10, n)
+        # integer hi with a negative residual: the tap window starts one
+        # cell lower than the hi coordinate's
+        u64[:200] = np.round(u64[:200]) - 3e-6
+        v64[100:300] = np.round(v64[100:300]) - 3e-6
+    elif case == "one_segment":
+        n = 3000
+        u64, v64 = np.full(n, 43.3), np.full(n, 77.7)
+    elif case == "single":
+        n = 1
+        u64, v64 = np.asarray([30.2]), np.asarray([99.9])
+    else:
+        n = 500
+        u64 = rng.uniform(-400, -100, n)
+        v64 = rng.uniform(npix + 100, npix + 400, n)
+    p0 = rng.integers(0, 3, n)
+    frac = rng.uniform(0, 1, n)
+    vals = rng.normal(size=n) + 1j * rng.normal(size=n)
+    if dtype == torch.float32:
+        u, v = u64.astype(np.float32), v64.astype(np.float32)
+        ulo, vlo = (u64 - u).astype(np.float32), (v64 - v).astype(np.float32)
+        vals = vals.astype(np.complex64)
+    else:
+        u, v = u64.copy(), v64.copy()
+        if case == "random":
+            u[:200], v[100:300] = np.round(u[:200]), np.round(v[100:300])
+        ulo = np.where(np.arange(n) < 300, -2e-9, rng.uniform(-1e-9, 1e-9, n))
+        vlo = ulo.copy()
+    if not with_lo:
+        ulo = vlo = None
+    out = []
+    for d, dt in ((dev, dtype), (dev, torch.float64)):
+        def t(a):
+            return None if a is None else torch.as_tensor(np.asarray(a, np.float64)).to(d, dt)
+        cd = torch.complex128 if dt == torch.float64 else torch.complex64
+        out.append(entry_stream(
+            t(u), t(v), torch.as_tensor(vals).to(d, cd), torch.as_tensor(p0).to(d),
+            t(frac), t(ulo), t(vlo), npixel=npix, support=8, nplanes=4, tile=64,
+            unit=256,
+        ))
+    return out
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("case", ["random", "one_segment", "single", "all_outside"])
+def test_unit_tiles_matches_plain(dev, case, dtype, with_lo):
+    """K9 against unit_tiles_plain accumulated in f64: f32 to 1e-5 of the
+    grid maximum, f64 to 1e-12; one launch per stream with units."""
+    stream, ref_stream = _unit_stream(case, dtype, with_lo, dev)
+    kw = dict(npixel=256, tile=64, support=8, beta=16.0)
+    before = kernels.KERNELS["unit_tiles"].launches
+    out = stream.grid(**kw)
+    torch.cuda.synchronize()
+    nunits = int(stream.unit_seg.shape[0])
+    assert kernels.KERNELS["unit_tiles"].launches == before + (1 if nunits else 0)
+    ref = ref_stream.grid(plain=True, **kw)
+    assert out.dtype == (torch.complex64 if dtype == torch.float32 else torch.complex128)
+    if case == "all_outside":
+        assert nunits == 0 and not out.abs().max() > 0 and not ref.abs().max() > 0
+        return
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()

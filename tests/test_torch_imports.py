@@ -19,7 +19,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
              "ska_sdp_func_python_tpu") and sys.modules[m] is not None)
 print(len(names), bad)
 assert not bad, bad
-assert "ska_sdp_func_python_torch.pipeline" in names
+for mod in ("pipeline", "ops.accuracy", "ops.gridding_tiled", "ops.imaging"):
+    assert "ska_sdp_func_python_torch." + mod in names, mod
 """
 
 
