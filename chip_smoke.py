@@ -19,7 +19,10 @@ Phases, each on lines of its own:
      card at the main path's geometry, with both times, the kernel's bound
      (the least time the card could take for the same work) and, where one
      PyTorch call computes the same function, that call's time; the
-     windowed Hogbom is checked against its plain version too;
+     windowed Hogbom is checked against its plain version too. The grid
+     kernel's row is the full flagship stream (9,942,016 entries), held
+     against the plain version accumulated in f64 in pieces of 1M entries;
+     a 1M-entry subset is held too;
   4. Hogbom ical: simulates the observation on the card, corrupts it with
      N(0, 0.4) phases, runs ``ical(algorithm="hogbom")`` with the launch
      counters reset, and prints per-cycle wall time and peak residual and
@@ -34,7 +37,8 @@ Phases, each on lines of its own:
      on the CPU (plain versions), for Hogbom and msclean (the latter to a
      fractional threshold of 0.05), held to the JAX package's
      fused-vs-composed bounds;
-  8. MSMFS cube: simulates the config-4 cube on the card and (a) holds the
+  8. MSMFS cube: simulates the config-4 cube on the card, holds the grid
+     kernel on one channel's launch (the cube cycle's shape) and (a) the
      msmfs kernel against its plain version on the cycle-0 moment stacks;
      (b) runs ``continuum_imaging(algorithm="mmclean")`` for 4 major
      cycles, printing each cycle's wall time and peak residual, and gates
@@ -58,8 +62,9 @@ Phases, each on lines of its own:
      each: the plan cache, against an explicit plan at padding 2.
 Each of phases 4-6, 8b-c and 9b-e resets the launch counters just before
 it and fails unless every kernel of its path launched. The script then
-prints the kernels JSON line (launches summed over those phases), the
-card line, and, last, the ``{"ok": true, ...}`` line. Any failure raises
+prints the grid and unit_tiles launches of each observation, the kernels
+JSON line (launches summed over those phases), the card line, and, last,
+the ``{"ok": true, ...}`` line. Any failure raises
 and exits non-zero; without a CUDA device it exits non-zero before
 printing any result.
 
@@ -360,6 +365,62 @@ def _row(err, rel, ms, plain_ms, bnd, library_ms=None):
     )
 
 
+def grid_plain_pieces(gp, vals, piece=1 << 20):
+    """grid_plain of plan ``gp`` over pieces of ``piece`` entries, summed:
+    the plain version at the full stream within the card's memory."""
+    import dataclasses
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import grid_plain
+
+    out = None
+    for a in range(0, gp.n_in, piece):
+        b = min(a + piece, gp.n_in)
+        sub = dataclasses.replace(
+            gp, iu0=gp.iu0[a:b], iv0=gp.iv0[a:b], plane=gp.plane[a:b],
+            frac=gp.frac[a:b], ku=gp.ku[a:b], kv=gp.kv[a:b], n=b - a, n_in=b - a,
+        )
+        g = grid_plain(sub, vals[a:b])
+        out = g if out is None else out.add_(g)
+    return out
+
+
+def grid_row(gp, vals, label, plain_reps=1):
+    """The grid kernel against its plain version accumulated in f64 (in
+    pieces) on plan ``gp`` and plan-ordered ``vals``; times both (the plain
+    version in f64) and prints the row with its bound. Returns the kernel
+    row."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import grid
+
+    ref = grid_plain_pieces(gp, vals.to(torch.complex128))
+    err = float((grid(gp, vals) - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    del ref
+    nchunks = int(gp.chunk_seg.shape[0])
+    grids_bytes = gp.nplanes * gp.npixel**2 * 8
+    # per entry: value, corner, plane fraction and 2 x 8 taps in (what
+    # gridding needs: not the kernel's walk order or chunk table); per tap
+    # one tap product and, on each of two planes, a complex scale and add
+    entry_bytes = 8 + 4 + 4 + 4 + 32 + 32
+    row = _row(
+        err, rel, timed(lambda: grid(gp, vals), 10),
+        timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128)), plain_reps),
+        bound(gp.n_in * entry_bytes + grids_bytes, gp.n_in * (64 * 9 + 5)),
+    )
+    say(
+        f"grid {label}: {gp.n_in} entries in {nchunks} chunks of at most "
+        f"{int(gp.chunk_count.max())}, {gp.nplanes} planes of {gp.npixel}^2, "
+        f"tile {gp.tile}: max abs err {err:.3e}, rel {rel:.3e} (tolerance "
+        f"{KERNELS['grid'][0]:g}); kernel {row['ms']:.4f} ms, plain (f64, in "
+        f"pieces) {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
+        f"({row['bound_by']})"
+    )
+    if not rel <= KERNELS["grid"][0]:
+        raise AssertionError(f"grid {label} disagrees with its plain version")
+    return row
+
+
 def compare_gridding(device, vis, plan):
     """grid, degrid and permute against their plain versions at the main
     path's geometry."""
@@ -368,8 +429,6 @@ def compare_gridding(device, vis, plan):
     from ska_sdp_func_python_torch.ops.gridding_fused import (
         degrid,
         degrid_plain,
-        grid,
-        grid_plain,
     )
     from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
     from ska_sdp_func_python_torch.ops.imaging import make_imaging_plan
@@ -393,26 +452,18 @@ def compare_gridding(device, vis, plan):
         full.gp.npixel, full.gp.nplanes, full.gp.tile
     )
     g = torch.Generator(device=device).manual_seed(1)
-    # the main path's grid input: weighted visibilities in plan order
-    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
-    vals = sort_values(sub, weighted[:n_sub])
+    # the main path's grid input: weighted visibilities in plan order;
     # reference: the plain version accumulated in f64 (its f32 form sums
-    # up to ~1e5 terms per cell one by one and is the less accurate side)
-    ref = grid_plain(sub, vals.to(torch.complex128))
-    res = grid(sub, vals)
-    err = float((res - ref).abs().max())
+    # up to ~1e5 terms per cell one by one and is the less accurate side).
+    # The row is the full flagship stream; the 1M subset is held too
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    grid_row(sub, sort_values(sub, weighted[:n_sub]), "1M subset", 3)
+    out["grid"] = grid_row(full.gp, sort_values(full.gp, weighted), "full stream")
     grids_bytes = sub.nplanes * sub.npixel**2 * 8
-    # per entry: value, corner, plane fraction and 2 x 8 taps in; per tap
-    # one tap product and, on each of two planes, a complex scale and add
-    entry_bytes = 8 + 4 + 4 + 4 + 32 + 32
-    out["grid"] = _row(
-        err, err / float(ref.abs().max()),
-        timed(lambda: grid(sub, vals), 10),
-        timed(lambda: grid_plain(sub, vals), 3),
-        bound(sub.n * entry_bytes + 12 * sub.chunk_seg.shape[0] + grids_bytes,
-              sub.n_in * (64 * 9 + 5)),
+    grids = torch.randn(
+        (sub.nplanes, sub.npixel, sub.npixel), generator=g, device=device,
+        dtype=torch.complex64,
     )
-    grids = torch.randn(ref.shape, generator=g, device=device, dtype=torch.complex64)
     ref = degrid_plain(sub, grids)
     res = degrid(sub, grids)
     err = float((res - ref).abs().max())
@@ -425,21 +476,17 @@ def compare_gridding(device, vis, plan):
         bound(grids_bytes + sub.n * (4 + 4 + 4 + 4 + 32 + 32 + 8),
               sub.n_in * (2 * (64 * 4 + 8 * 4) + 6)),
     )
-    del ref, res, grids, vals
-    full_vals = torch.randn(
-        full.gp.n, generator=g, device=device, dtype=torch.complex64
-    )
+    del ref, res, grids
     full_grids = torch.randn(
         (full.nw, full.npad, full.npad), generator=g, device=device,
         dtype=torch.complex64,
     )
-    grid_ms = timed(lambda: grid(full.gp, full_vals), 5)
     degrid_ms = timed(lambda: degrid(full.gp, full_grids), 5)
     say(
         f"full-size kernel times ({full.gp.n} entries, {full.nw} planes of "
-        f"{full.npad}^2): grid {grid_ms:.3f} ms, degrid {degrid_ms:.3f} ms"
+        f"{full.npad}^2): grid {out['grid']['ms']:.3f} ms, degrid {degrid_ms:.3f} ms"
     )
-    del full_vals, full_grids
+    del full_grids
     # permute: the full flagship permutation, one complex64 payload,
     # both directions
     perm = full.gp.perm
@@ -834,7 +881,7 @@ def cube_gates(label, current, peaks, offset, alpha, gate=True):
         )
 
 
-def compare_msmfs(vis, model):
+def compare_msmfs(vis, model, plan):
     """Phase 8a: the msmfs kernel against its plain version on the card, on
     the cycle-0 moment stacks of the cube's fused cycle (the moment images
     of the dirty cube and the moment PSFs over the moment-PSF peak)."""
@@ -842,14 +889,10 @@ def compare_msmfs(vis, model):
 
     from ska_sdp_func_python_torch.ops import cleaners as cl
     from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
-    from ska_sdp_func_python_torch.ops.imaging import (
-        invert_visibility,
-        make_visibility_plan,
-    )
+    from ska_sdp_func_python_torch.ops.imaging import invert_visibility
     from ska_sdp_func_python_torch.ops.taylor import moment_weights
 
     nm = CUBE_CLEAN["nmoment"]
-    plan = make_visibility_plan(vis, model, context="ng")
     psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
     dirty, _ = invert_visibility(vis, model, plan=plan)
     patch = bound_psf(psf, psf).pixels.to(torch.float32)
@@ -864,7 +907,7 @@ def compare_msmfs(vis, model):
     dpix = torch.einsum("cm,cpyx->mpyx", w_m, dirty.pixels.to(torch.float32)) / peak
     smres = cl.calculate_scale_moment_residual(dpix[:, 0] / st.pmax, st.scalestack)
     smres = smres.contiguous()
-    del plan, psf, dirty, patch
+    del psf, dirty, patch
     kw = dict(gain=0.7, thresh=0.0, fracthresh=CUBE_CLEAN["fractional_threshold"],
               niter=CUBE_CLEAN["niter"])
 
@@ -914,10 +957,13 @@ def compare_msmfs(vis, model):
 
 
 def run_cube(device):
-    """Phase 8: the MSMFS cube. Returns (kernel row of msmfs, summed launch
-    counts of 8b and 8c)."""
+    """Phase 8: the MSMFS cube. Holds the grid kernel on one channel's
+    launch (the cube cycle's per-channel shape). Returns (kernel row of
+    msmfs, summed launch counts of 8b and 8c)."""
     import torch
 
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
     from ska_sdp_func_python_torch.pipeline import continuum_imaging
 
     t0 = time.perf_counter()
@@ -928,7 +974,13 @@ def run_cube(device):
         f"{vis.nvis} visibilities, {model.npixel}^2 x {model.nchan} cube, "
         f"simulated in {time.perf_counter() - t0:.1f} s"
     )
-    row = compare_msmfs(vis, model)
+    plan = make_visibility_plan(vis, model, context="ng")
+    c = vis.nchan // 2
+    gp = plan.plans[c].gp
+    weighted = (vis.vis * vis.imaging_weight)[:, :, c, 0].reshape(-1).contiguous()
+    grid_row(gp, sort_values(gp, weighted), f"cube channel {c} (one channel's launch)")
+    row = compare_msmfs(vis, model, plan)
+    del plan, gp, weighted
     torch.cuda.empty_cache()
     (current, _, _), counts_b, peaks = run_logged(
         "msmfs continuum_imaging",
@@ -1295,6 +1347,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     launches = {name: 0 for name in KERNELS}
+    by_shape = {}
     for counts in (
         run_hogbom_ical(vis, model, phases),
         run_msclean_ical(vis, model, phases),
@@ -1302,6 +1355,7 @@ def main() -> int:
     ):
         for name in launches:
             launches[name] += counts[name]
+    by_shape["flagship ical and deconvolve_cube (phases 4-6)"] = dict(launches)
     del dirty, psf
     small_slice_matches_cpu(device, "hogbom")
     # msclean to a fractional threshold of 0.05: at 0.01 this small array's
@@ -1314,6 +1368,7 @@ def main() -> int:
     results["msmfs"], counts = run_cube(device)
     for name in launches:
         launches[name] += counts[name]
+    by_shape["config-4 cube (phases 8b-c)"] = counts
     report_kernel("msmfs", results["msmfs"])
     small_cube_matches_cpu(device)
     torch.cuda.empty_cache()
@@ -1321,7 +1376,10 @@ def main() -> int:
     results["unit_tiles"], counts = run_epsilon_phase(cfg, device)
     for name in launches:
         launches[name] += counts[name]
+    by_shape["epsilon observation (phases 9b-e)"] = counts
     report_kernel("unit_tiles", results["unit_tiles"])
+    for shape, counts in by_shape.items():
+        say(f"launches at the {shape}: grid {counts['grid']}, unit_tiles {counts['unit_tiles']}")
 
     say(json.dumps({
         "kernels": [

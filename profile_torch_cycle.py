@@ -17,7 +17,8 @@ prints:
   - the device busy time: the union of the kernel, memcpy and memset
     intervals inside that span (overlapping kernels count once), and the
     idle share 1 - busy / wall;
-  - the device time by kernel name.
+  - the device time by kernel name, with its launches and mean time per
+    launch (for the grid kernel: one launch per image channel).
 
 The chrome trace is written to ``<out>/cycle_trace.json``.
 
@@ -66,8 +67,9 @@ def stage(name, fn, reps=5):
 
 
 def busy_in(trace_path, window="cycle"):
-    """(wall_us, busy_us, {kernel: us}) of the ``window`` range of a chrome
-    trace; busy is the union of device intervals clipped to the window."""
+    """(wall_us, busy_us, {kernel: us}, {kernel: launches}) of the
+    ``window`` range of a chrome trace; busy is the union of device
+    intervals clipped to the window."""
     events = json.loads(Path(trace_path).read_text())["traceEvents"]
     win = [
         e for e in events
@@ -78,7 +80,7 @@ def busy_in(trace_path, window="cycle"):
         raise RuntimeError(f"expected one '{window}' range, found {len(win)}")
     lo = float(win[0]["ts"])
     hi = lo + float(win[0]["dur"])
-    spans, by_name = [], defaultdict(float)
+    spans, by_name, count = [], defaultdict(float), defaultdict(int)
     for e in events:
         if e.get("ph") != "X" or e.get("cat") not in _DEVICE_CATS:
             continue
@@ -87,6 +89,7 @@ def busy_in(trace_path, window="cycle"):
         if b > a:
             spans.append((a, b))
             by_name[e["name"]] += b - a
+            count[e["name"]] += 1
     if not spans:
         raise RuntimeError("no device activity in the profiled cycle")
     spans.sort()
@@ -98,7 +101,7 @@ def busy_in(trace_path, window="cycle"):
         else:
             cur_b = max(cur_b, b)
     busy += cur_b - cur_a
-    return hi - lo, busy, dict(by_name)
+    return hi - lo, busy, dict(by_name), dict(count)
 
 
 def main() -> int:
@@ -208,7 +211,7 @@ def main() -> int:
             torch.cuda.synchronize()
     trace = out_dir / "cycle_trace.json"
     prof.export_chrome_trace(str(trace))
-    wall, busy, by_name = busy_in(trace)
+    wall, busy, by_name, count = busy_in(trace)
     print(
         f"profiled cycle: wall {wall / 1e3:.3f} ms, device busy "
         f"{busy / 1e3:.3f} ms (union of kernel intervals), idle share "
@@ -216,7 +219,10 @@ def main() -> int:
     )
     total = sum(by_name.values())
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
-        print(f"  {us / 1e3:9.3f} ms  {100 * us / total:5.1f}%  {name[:70]}")
+        print(
+            f"  {us / 1e3:9.3f} ms  {100 * us / total:5.1f}%  {count[name]:5d} x "
+            f"{us / 1e3 / count[name]:8.4f} ms  {name[:70]}"
+        )
     return 0
 
 

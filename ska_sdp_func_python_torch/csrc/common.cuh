@@ -14,6 +14,24 @@
 // in the Python wrapper instead of silently never running.
 static inline int ska_last_error() { return (int)cudaGetLastError(); }
 
+// Asynchronous copies global -> shared (sm_80+): N bytes, N in {4, 8, 16},
+// both addresses N-aligned. A thread waits for its own copies with
+// ska_cp_async_wait_all(); a barrier then makes them visible to the block.
+template <int N>
+__device__ __forceinline__ void ska_cp_async(void* smem, const void* gmem) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
+  if (N == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(s), "l"(gmem), "n"(N));
+}
+__device__ __forceinline__ void ska_cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+__device__ __forceinline__ void ska_cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // (value, index) argmax step: the larger value wins, ties go to the
 // smaller index (the first index in the JAX package's argmax order).
 __device__ __forceinline__ void ska_better(float& v, int& i, float ov, int oi) {

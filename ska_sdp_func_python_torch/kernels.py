@@ -162,7 +162,7 @@ KERNELS = {
     "grid": Kernel(
         "grid",
         "ska_grid",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I],
+        [*[_P] * 11, _I, _I, _I, _I, _I],
     ),
     "degrid": Kernel(
         "degrid",

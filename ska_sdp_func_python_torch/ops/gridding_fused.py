@@ -77,6 +77,13 @@ def grid_plain(plan, vals: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1, npix, npix)
 
 
+def _check_taps_aligned(plan):
+    """The kernels read each entry's 8 taps as two 16-byte vectors."""
+    for name in ("ku", "kv"):
+        if getattr(plan, name).data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+
+
 def grid(plan, vals: torch.Tensor) -> torch.Tensor:
     """Grid plan-ordered complex64 values onto the complex64 plane grids
     ``[nplanes, npix, npix]`` (kernel K1+K2 on CUDA)."""
@@ -88,6 +95,7 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
     if vals.shape != (plan.n,):
         raise ValueError(f"vals: shape {tuple(vals.shape)}, expected ({plan.n},)")
     npix = plan.npixel
+    _check_taps_aligned(plan)
     # zero-filled: the kernel adds every tile into the grids atomically
     out = torch.zeros(
         (plan.nplanes, npix, npix), dtype=torch.complex64, device=dev
@@ -99,6 +107,7 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
         chk("frac", plan.frac, torch.float32, dev),
         chk("ku", plan.ku, torch.float32, dev),
         chk("kv", plan.kv, torch.float32, dev),
+        chk("korder", plan.korder, torch.int32, dev),
         chk("chunk_seg", plan.chunk_seg, torch.int32, dev),
         chk("chunk_start", plan.chunk_start, torch.int32, dev),
         chk("chunk_count", plan.chunk_count, torch.int32, dev),
@@ -147,9 +156,7 @@ def degrid(plan, grids: torch.Tensor) -> torch.Tensor:
     npix = plan.npixel
     if grids.shape != (plan.nplanes, npix, npix):
         raise ValueError(f"grids: shape {tuple(grids.shape)}")
-    for name in ("ku", "kv"):
-        if getattr(plan, name).data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
+    _check_taps_aligned(plan)
     out = torch.empty(plan.n, dtype=torch.complex64, device=dev)
     k.launch(
         chk("grids", grids, torch.complex64, dev),

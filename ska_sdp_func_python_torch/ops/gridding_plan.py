@@ -7,7 +7,9 @@ the JAX plan's order for the same tile. It keeps the permutation (sorted
 position -> original index), the per-entry window corners, plane indices,
 plane fractions and separable ES taps in plan order, and the segment
 bounds in the form the grid kernel's CTAs take them: every segment cut
-into chunks of at most ``chunk`` entries. Values move between natural and plan order through
+into chunks of at most ``chunk`` entries, and the grid kernel's own walk
+order within each segment (``korder``: by window corner, so that
+consecutive entries share cells). Values move between natural and plan order through
 ``permute.permute_apply`` (kernel K4) with the stored permutation, in
 place of the JAX package's rank-keyed sorts.
 """
@@ -24,6 +26,7 @@ from .permute import permute_apply
 
 __all__ = [
     "GridPlan",
+    "default_chunk",
     "make_grid_plan",
     "grid_with_plan",
     "degrid_with_plan",
@@ -48,6 +51,7 @@ class GridPlan:
     chunk_seg: torch.Tensor  # int32 [nchunks]
     chunk_start: torch.Tensor  # int32 [nchunks]
     chunk_count: torch.Tensor  # int32 [nchunks]
+    korder: torch.Tensor  # int32 [n_in]: the grid kernel's walk order
     n: int
     n_in: int
     npixel: int
@@ -56,6 +60,31 @@ class GridPlan:
     tile: int
     wstacked: bool
     beta: float | None = None
+
+
+# The default chunk: the largest power of two in [_CHUNK_MIN, _CHUNK_MAX]
+# that cuts the segments into at least _GRID_CTAS chunks, a few waves of
+# the grid kernel's 3 resident CTAs on each of an H100's 132 SMs. The
+# flagship (9.9M entries) keeps 2048; a config-4 cube channel (~294k
+# entries) gets 256 in place of ~150 CTAs at 2048.
+_CHUNK_MAX = 2048
+_CHUNK_MIN = 256
+_GRID_CTAS = 1024
+
+
+def default_chunk(counts: torch.Tensor) -> int:
+    """The default ``chunk`` for segments of ``counts`` entries."""
+    sizes = []
+    size = _CHUNK_MAX
+    while size >= _CHUNK_MIN:
+        sizes.append(size)
+        size //= 2
+    c = torch.tensor(sizes, device=counts.device, dtype=counts.dtype)
+    nchunks = ((counts[None, :] + c[:, None] - 1) // c[:, None]).sum(1)
+    for size, n in zip(sizes, nchunks.tolist()):
+        if n >= _GRID_CTAS:
+            return size
+    return _CHUNK_MIN
 
 
 def make_grid_plan(
@@ -68,7 +97,7 @@ def make_grid_plan(
     support: int = 8,
     nplanes: int = 1,
     tile: int = 64,
-    chunk: int = 2048,
+    chunk: int | None = None,
     beta: float | None = None,
     u_lo=None,
     v_lo=None,
@@ -76,7 +105,8 @@ def make_grid_plan(
 ) -> GridPlan:
     """Build a plan from fractional grid coordinates (same contract as the
     JAX package's ``make_grid_plan``). ``chunk`` is the most entries one
-    grid CTA takes; it changes only how the work is partitioned.
+    grid CTA takes (None: :func:`default_chunk`); it changes only how the
+    work is partitioned.
     ``u_lo``/``v_lo``: residuals of split (hi, lo) coordinates.
     ``taps_scale``: optional [n] per-entry factor folded into the stored
     u taps (the ES pair weight of an eskernel plan's entry copy), at no
@@ -134,6 +164,8 @@ def make_grid_plan(
 
     counts = torch.bincount(seg_s[:n_in], minlength=nseg)[:nseg]
     starts = torch.cumsum(counts, 0) - counts
+    if chunk is None:
+        chunk = default_chunk(counts)
     nch = (counts + chunk - 1) // chunk  # chunks per segment (0 if empty)
     chunk_seg = torch.repeat_interleave(
         torch.arange(nseg, device=device), nch
@@ -142,6 +174,11 @@ def make_grid_plan(
     k = torch.arange(chunk_seg.shape[0], device=device) - first[chunk_seg]
     chunk_start = starts[chunk_seg] + k * chunk
     chunk_count = torch.clamp(counts[chunk_seg] - k * chunk, max=chunk)
+
+    # the grid kernel walks each segment by window corner (row, then
+    # column): one stable argsort, segments stay where they are
+    key = (seg_s[:n_in].to(torch.int64) * npixel + iv0_s[:n_in]) * npixel
+    korder = torch.argsort(key + iu0_s[:n_in], stable=True)
 
     def i32(x):
         return x.to(torch.int32).contiguous()
@@ -157,6 +194,7 @@ def make_grid_plan(
         chunk_seg=i32(chunk_seg),
         chunk_start=i32(chunk_start),
         chunk_count=i32(chunk_count),
+        korder=i32(korder),
         n=n,
         n_in=n_in,
         npixel=npixel,

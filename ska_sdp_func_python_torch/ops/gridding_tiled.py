@@ -3,8 +3,9 @@
 Counterpart of ``ska_sdp_func_python_tpu/ops/gridding_tiled.py``. Each
 visibility becomes one entry per w-plane it feeds (none, nearest, linear,
 quadratic or ES-kernel w-weights), the entries are keyed on their (plane,
-v-tile, u-tile) segment and sorted once with a stable ``torch.argsort``,
-and the sorted stream is cut into units of at most ``unit`` entries of one
+v-tile, u-tile) segment and, within a segment, window corner (which K9's
+register sums need) and sorted once with a stable ``torch.argsort``, and
+the sorted stream is cut into units of at most ``unit`` entries of one
 segment. The JAX package carries the payloads through ``lax.sort`` and
 gathers them into padded ``[units, C]`` copies; here the payloads are
 gathered once through the permutation and read in place.
@@ -78,8 +79,9 @@ def _entries(
 
     Returns (segment id of every entry ``[ncop * n]`` int64, with ``ntot``
     for entries outside the grid; the entry weights ``[ncop * n]`` real or
-    None; ncop; ntot). Entry ``k * n + i`` is copy ``k`` of visibility
-    ``i``."""
+    None; ncop; ntot; the window corner of every entry within its segment
+    ``[ncop * n]`` int64, ``iv0 * npixel + iu0``). Entry ``k * n + i`` is
+    copy ``k`` of visibility ``i``."""
     if w_order == 2 and plane_idx is not None and nplanes < 3:
         # the 3-plane stencil clips the centre plane to [1, nplanes-2]
         raise ValueError(f"w_order=2 needs nplanes >= 3, got {nplanes}")
@@ -104,15 +106,16 @@ def _entries(
     iu0c = torch.clamp(iu0, 0, npixel - support)
     iv0c = torch.clamp(iv0, 0, npixel - support)
     base = (iv0c // tile) * nta + iu0c // tile
+    corner = iv0c * npixel + iu0c
     if plane_idx is None:
         ntot = ntiles
-        return torch.where(in_grid, base, ntot), None, 1, ntot
+        return torch.where(in_grid, base, ntot), None, 1, ntot, corner
     ntot = ntiles * nplanes
     p = plane_idx.to(torch.int64)
     rdtype = u_pix.dtype
     if plane_frac is None:
         # nearest plane: one entry per visibility
-        return torch.where(in_grid, p * ntiles + base, ntot), None, 1, ntot
+        return torch.where(in_grid, p * ntiles + base, ntot), None, 1, ntot, corner
     if w_order == 2:
         # quadratic 3-plane Lagrange stencil: plane_idx is the centre plane
         # and plane_frac the signed offset x in [-0.5, 0.5]
@@ -136,14 +139,17 @@ def _entries(
     tid = torch.cat(
         [torch.where(in_grid, (p + dj) * ntiles + base, ntot) for dj in offs]
     )
-    return tid, torch.cat(wts), len(offs), ntot
+    return tid, torch.cat(wts), len(offs), ntot, corner.repeat(len(offs))
 
 
-def _sorted_stream(tid_all, ntot):
-    """(permutation of the in-grid entries in segment order, their sorted
-    segment ids): one stable argsort; out-of-grid entries (key ntot) sort
-    last and are dropped."""
-    perm = torch.argsort(tid_all, stable=True)
+def _sorted_stream(tid_all, ntot, corner_all, npixel: int):
+    """(permutation of the in-grid entries in segment order and, within a
+    segment, in window-corner order (row, then column: consecutive entries
+    then share most cells of their windows, which K9's register sums
+    need), their sorted segment ids): one stable argsort of the keys of
+    :func:`_entries`; out-of-grid entries (segment ntot) sort last and are
+    dropped."""
+    perm = torch.argsort(tid_all * (npixel * npixel) + corner_all, stable=True)
     n_in = int((tid_all < ntot).sum())
     perm = perm[:n_in]
     return perm, tid_all[perm].contiguous()
@@ -255,6 +261,8 @@ def unit_tiles(
         raise ValueError(f"support {support}: the kernel takes even 2..16")
     if npixel % tile:
         raise ValueError(f"tile {tile} must divide npixel {npixel}")
+    if (u_lo is None) != (v_lo is None):
+        raise ValueError("u_lo and v_lo: give both or neither")
     k = kernels.KERNELS["unit_tiles"]
     chk = kernels.check_cuda_tensor
     n = u_s.shape[0]
@@ -333,14 +341,15 @@ def entry_stream(
     w_order: int = 1,
 ) -> EntryStream:
     """Sort the entries of (optionally w-stacked) visibilities by (plane,
-    v-tile, u-tile) segment and cut them into units of at most ``unit``
-    entries (arguments as :func:`tiled_grid`)."""
+    v-tile, u-tile) segment and window corner (:func:`_sorted_stream`) and
+    cut them into units of at most ``unit`` entries (arguments as
+    :func:`tiled_grid`)."""
     n = u_pix.shape[0]
-    tid, wts, _, ntot = _entries(
+    tid, wts, _, ntot, corner = _entries(
         u_pix, v_pix, plane_idx, plane_frac, npixel=npixel, support=support,
         nplanes=nplanes, tile=tile, w_order=w_order,
     )
-    perm, seg_s = _sorted_stream(tid, ntot)
+    perm, seg_s = _sorted_stream(tid, ntot, corner, npixel)
     src = perm % n  # the visibility of each sorted entry
     vals_s = vals[src]
     if wts is not None:
@@ -453,11 +462,11 @@ def tiled_degrid(
     nvis = u_pix.shape[0]
     rdtype = u_pix.dtype
     cdtype = torch.complex128 if rdtype == torch.float64 else torch.complex64
-    tid, wts, ncop, ntot = _entries(
+    tid, wts, ncop, ntot, corner = _entries(
         u_pix, v_pix, plane_idx, plane_frac, npixel=npixel, support=support,
         nplanes=nplanes, tile=tile, w_order=w_order,
     )
-    perm, seg_s = _sorted_stream(tid, ntot)
+    perm, seg_s = _sorted_stream(tid, ntot, corner, npixel)
     src = perm % nvis
     start, count, seg = _unit_table(seg_s, ntot, unit)
     buf = tile + support

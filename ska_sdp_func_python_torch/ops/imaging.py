@@ -80,12 +80,14 @@ __all__ = [
 ]
 
 # entries one unit of the tiled gridder takes. Gridding (one CTA of K9 a
-# unit): a cell's f32 sum is a sum within each unit (shared memory) of sums
-# across the units of its segment (global atomics); 4096 balances the two
-# at the flagship, where one segment holds 3.8M entries: 1.3e-6 of the grid
-# maximum against 1.4e-5 at 1024, in the kernel and its f32 plain version
-# alike, at the same kernel time (unit_tiles_units.py). Degridding (dense
-# unit matmuls): every unit is padded to the longest, so units stay short.
+# unit): a cell's f32 sum is a sum within each unit (register runs of at
+# most 64 entries, then the shared tile) of sums across the units of its
+# segment (global atomics). At the flagship, where one segment holds 3.8M
+# entries, 4096 keeps the kernel within 1e-6 of the grid maximum, and its
+# f32 plain version too, where 1024 took the plain version to 1.4e-5; the
+# kernel's time hardly depends on the unit (unit_tiles_units.py, PERF.md).
+# Degridding (dense unit matmuls): every unit is padded to the longest, so
+# units stay short.
 _UNIT_GRID = 4096
 _UNIT_DEGRID = 1024
 

@@ -77,6 +77,79 @@ def test_grid_and_degrid_match_plain(dev, wstacked):
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
+def _stress_coords(case, npix, rng, tile=64):
+    """f64 pixel coordinates (u, v) of one stress case for the register
+    gridders (grid, unit_tiles) on an npix^2 grid of ``tile``-pixel
+    tiles."""
+    if case == "one_cell":
+        # every entry on one point: the longest register runs
+        n = 20000
+        return np.full(n, 100.3), np.full(n, 77.6)
+    if case == "alternating":
+        # two distant cells of one tile, in turn: a cell change per entry
+        # in plan order
+        n = 6000
+        u = np.where(np.arange(n) % 2 == 0, tile + 3.2, 2 * tile - 2.1)
+        v = np.where(np.arange(n) % 2 == 0, tile + 6.4, 2 * tile - 6.9)
+        return u, v
+    if case == "lattice":
+        # one entry on every window corner of the grid: the most cell
+        # changes in the kernels' walk order
+        iv, iu = np.mgrid[3 : npix - 5, 3 : npix - 5]
+        return iu.ravel() + 0.37, iv.ravel() + 0.61
+    # windows on tile edges, in the halo and on the grid edges
+    edges = np.concatenate([np.arange(0, npix, tile) + d for d in (-1.5, -0.5, 0.5, 3.2, 3.9)])
+    edges = edges[(edges >= 3) & (edges <= npix - 5)]
+    uu, vv = np.meshgrid(edges, edges)
+    u, v = np.repeat(uu.ravel(), 5), np.repeat(vv.ravel(), 5)
+    return u + rng.uniform(0, 0.1, u.size), v + rng.uniform(0, 0.1, v.size)
+
+
+@pytest.mark.parametrize("wstacked", [True, False], ids=["wstacked", "one-plane"])
+@pytest.mark.parametrize("case", ["one_cell", "alternating", "lattice", "edges", "chunked"])
+def test_grid_stress_matches_plain(dev, case, wstacked):
+    """K1 (register runs) against grid_plain accumulated in f64, to 1e-5
+    of the grid maximum: long runs, a cell change per entry, windows on
+    tile and grid edges, and chunk boundaries inside segments with empty
+    segments between them (a chunk of 100 entries)."""
+    _grid_stress(dev, case, wstacked, 64)
+
+
+@pytest.mark.parametrize("wstacked", [True, False], ids=["wstacked", "one-plane"])
+@pytest.mark.parametrize("case", ["one_cell", "alternating", "lattice", "edges", "chunked"])
+@pytest.mark.parametrize("tile", [56, 8])
+def test_grid_stress_other_tiles_match_plain(dev, tile, case, wstacked):
+    """The stress cases of test_grid_stress_matches_plain at the tile's
+    other row strides: tile 56 (buf 64, the main path's: XOR-swizzled
+    rows) and tile 8 (buf 16: rows padded to 24)."""
+    _grid_stress(dev, case, wstacked, tile)
+
+
+def _grid_stress(dev, case, wstacked, tile):
+    rng = np.random.default_rng(23)
+    npix, nplanes = 4 * tile if tile > 8 else 256, 4
+    u, v = _stress_coords("edges" if case == "chunked" else case, npix, rng, tile)
+    n = u.size
+    if case == "chunked":
+        u, v = u[: n // 3], v[: n // 3]  # segments of the first tile row only
+        n = u.size
+    p0 = torch.as_tensor(rng.integers(0, nplanes - 1, n)).to(dev) if wstacked else None
+    frac = torch.as_tensor(rng.uniform(0, 1, n)).to(dev) if wstacked else None
+    plan = make_grid_plan(
+        torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, frac,
+        npixel=npix, nplanes=nplanes if wstacked else 1, tile=tile,
+        chunk=100 if case == "chunked" else None,
+    )
+    vals = rng.uniform(0.5, 1.5, n) * (1.0 + 0.5j) * np.exp(0.1j * rng.normal(size=n))
+    vals = torch.as_tensor(vals.astype(np.complex64)).to(dev)
+    before = kernels.KERNELS["grid"].launches
+    out = grid(plan, vals)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["grid"].launches == before + 1
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
 @pytest.mark.parametrize("inverse", [False, True])
 def test_permute_bit_exact(dev, inverse):
     n = 100003
@@ -354,5 +427,55 @@ def test_unit_tiles_matches_plain(dev, case, dtype, with_lo):
     if case == "all_outside":
         assert nunits == 0 and not out.abs().max() > 0 and not ref.abs().max() > 0
         return
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("support", [6, 8, 12, 16])
+@pytest.mark.parametrize("case", ["one_cell", "alternating", "lattice", "edges"])
+def test_unit_tiles_stress_matches_plain(dev, case, support, dtype, with_lo):
+    """K9 (register runs) against unit_tiles_plain accumulated in f64, f32
+    to 1e-5 of the grid maximum and f64 to 1e-12, at supports 6 and 8 (the
+    main path's) and 12 and 16 (the deep-f64-s12 and -s16 rows: two groups
+    and one group of a CTA): the longest runs, a cell change per entry,
+    windows on tile and grid edges;
+    a fifth of the coordinates are integers with a negative residual (the
+    tap window one cell lower)."""
+    rng = np.random.default_rng(29)
+    npix = 256
+    u64, v64 = _stress_coords(case, npix, rng)
+    n = u64.size
+    ints = np.arange(n) % 5 == 0
+    u64 = np.where(ints, np.round(u64), u64)
+    v64 = np.where(ints, np.round(v64), v64)
+    lo = np.where(ints, -3e-9 if dtype == torch.float64 else -3e-6, 0.0)
+    p0 = rng.integers(0, 3, n)
+    frac = rng.uniform(0, 1, n)
+    vals = rng.uniform(0.5, 1.5, n) * (1.0 + 0.5j) * np.exp(0.1j * rng.normal(size=n))
+    if dtype == torch.float32:
+        u, v = u64.astype(np.float32), v64.astype(np.float32)
+        vals = vals.astype(np.complex64)
+    else:
+        u, v = u64, v64
+    ulo = vlo = lo if with_lo else None
+    streams = []
+    for dt in (dtype, torch.float64):
+        def t(a):
+            return None if a is None else torch.as_tensor(np.asarray(a, np.float64)).to(dev, dt)
+        cd = torch.complex128 if dt == torch.float64 else torch.complex64
+        streams.append(entry_stream(
+            t(u), t(v), torch.as_tensor(vals).to(dev, cd), torch.as_tensor(p0).to(dev),
+            t(frac), t(ulo), t(vlo), npixel=npix, support=support, nplanes=4,
+            tile=64, unit=256,
+        ))
+    stream, ref_stream = streams
+    kw = dict(npixel=npix, tile=64, support=support, beta=2.3 * support)
+    before = kernels.KERNELS["unit_tiles"].launches
+    out = stream.grid(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["unit_tiles"].launches == before + 1
+    ref = ref_stream.grid(plain=True, **kw)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()

@@ -26,6 +26,7 @@ from ska_sdp_func_python_tpu.ops.imaging import (
 )
 from ska_sdp_func_python_torch import interop
 from ska_sdp_func_python_torch.ops.gridding_plan import (
+    default_chunk,
     degrid_with_plan,
     grid_with_plan,
     make_grid_plan,
@@ -159,3 +160,70 @@ def test_w_kernel_correction_matches_jax():
     )
     out = w_kernel_correction(64, 2e-3, 40.0, 8, torch.float64).numpy()
     np.testing.assert_allclose(out, ref, rtol=1e-10, atol=0)
+
+
+def _random_plan(chunk=None, n=40000, npix=256, tile=32, nplanes=5, seed=21):
+    rng = np.random.default_rng(seed)
+    # a dense core and a sparse outside, and entries outside the grid
+    u = np.concatenate([rng.normal(npix / 2, 12, n // 2), rng.uniform(-20, npix + 20, n // 2)])
+    v = np.concatenate([rng.normal(npix / 2, 12, n // 2), rng.uniform(-20, npix + 20, n // 2)])
+    return make_grid_plan(
+        torch.as_tensor(u), torch.as_tensor(v),
+        torch.as_tensor(rng.integers(0, nplanes - 1, n)),
+        torch.as_tensor(rng.uniform(0, 1, n)),
+        npixel=npix, nplanes=nplanes, tile=tile, chunk=chunk,
+    )
+
+
+def _segments(gp):
+    nta = gp.npixel // gp.tile
+    n = gp.n_in
+    return (gp.plane[:n].long() * nta + gp.iv0[:n].long() // gp.tile) * nta + (
+        gp.iu0[:n].long() // gp.tile
+    )
+
+
+@pytest.mark.parametrize("chunk", [None, 100, 2048])
+def test_chunks_cover_each_segment_in_order(chunk):
+    """The grid kernel's chunks cut every non-empty segment of the sorted
+    stream, in order, into runs of at most ``chunk`` entries (the default:
+    a power of two within the old bound of 2048)."""
+    gp = _random_plan(chunk)
+    seg = _segments(gp)
+    start, count = gp.chunk_start.long(), gp.chunk_count.long()
+    bound = 2048 if chunk is None else chunk
+    assert int(count.min()) > 0 and int(count.max()) <= bound
+    # contiguous and complete: each chunk starts where the last ended
+    assert int(start[0]) == 0 and torch.equal(start[1:], (start + count)[:-1])
+    assert int((start + count)[-1]) == gp.n_in
+    # each chunk lies in its segment, and segments follow in order
+    assert torch.equal(seg[start], gp.chunk_seg.long())
+    assert torch.equal(seg[start + count - 1], gp.chunk_seg.long())
+    assert bool((gp.chunk_seg[1:] >= gp.chunk_seg[:-1]).all())
+    if chunk is None:
+        assert int(count.max()) <= default_chunk(torch.bincount(seg))
+
+
+def test_default_chunk_fills_the_card():
+    """A few waves of CTAs at both main-path sizes: the flagship keeps
+    2048 entries a chunk, a cube channel's ~150 segments go down to 256."""
+    assert default_chunk(torch.full((2880,), 3452)) == 2048
+    assert default_chunk(torch.full((147,), 2000)) == 256
+    assert default_chunk(torch.full((147,), 7000)) == 1024
+    assert default_chunk(torch.full((3,), 10)) == 256
+
+
+def test_walk_order_is_a_corner_sort_within_segments():
+    """korder, which only the grid kernel reads, permutes the entries of
+    each segment into (row, column) window-corner order, stably; the plan
+    order itself is untouched."""
+    gp = _random_plan()
+    k = gp.korder.long()
+    assert torch.equal(torch.sort(k).values, torch.arange(gp.n_in))
+    seg = _segments(gp)
+    assert torch.equal(seg[k], seg)
+    key = (seg[k] * gp.npixel + gp.iv0[k]) * gp.npixel + gp.iu0[k]
+    assert bool((key[1:] >= key[:-1]).all())
+    tie = key[1:] == key[:-1]
+    assert bool((k[1:][tie] > k[:-1][tie]).all())
+    assert torch.equal(gp.perm, _random_plan(2048).perm)

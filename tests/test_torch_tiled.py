@@ -29,6 +29,8 @@ from ska_sdp_func_python_tpu.ops.imaging import (
     predict_core as jax_predict_core,
 )
 from ska_sdp_func_python_torch.ops.gridding_tiled import (
+    _entries,
+    entry_stream,
     sorted_seg_bounds,
     tiled_degrid,
     tiled_grid,
@@ -329,3 +331,39 @@ def test_core_prepix_split_coordinates_match_jax(rng):
     ))
     pout = predict_core(*(_t(a) for a in (*args, img, *lo)), **kw).numpy()
     assert np.max(np.abs(pout - pref)) <= 1e-10 * np.max(np.abs(pref))
+
+
+@pytest.mark.parametrize("w_order", [1, 6])
+def test_entry_stream_sorts_each_segment_by_corner(rng, w_order):
+    """The stream K9 walks: the in-grid entries of the segment-order sort,
+    each segment's entries permuted into (row, column) window-corner order
+    (stable), and the unit table over it unchanged."""
+    npix, tile, sup, nplanes = 128, 32, 6, 8
+    n = 3000
+    u = _t(rng.uniform(-10, npix + 10, n))
+    v = _t(rng.uniform(-10, npix + 10, n))
+    p0 = _t(rng.integers(0, nplanes - w_order, n))
+    frac = _t(rng.uniform(0, 1, n))
+    vals = _t(rng.normal(size=n) + 1j * rng.normal(size=n))
+    kw = dict(npixel=npix, support=sup, nplanes=nplanes, tile=tile, w_order=w_order)
+    stream = entry_stream(u, v, vals, p0, frac, unit=50, **kw)
+    tid, _, _, ntot, _ = _entries(u, v, p0, frac, **kw)
+    perm = torch.argsort(tid, stable=True)[: int((tid < ntot).sum())]
+    seg_s = tid[perm]
+    src = perm % n
+
+    def corner(pix):
+        i0 = torch.floor(pix).long() - (sup // 2 - 1)
+        return (i0.clamp(0, npix - sup))
+
+    seg = torch.repeat_interleave(stream.unit_seg, stream.unit_count).long()
+    assert torch.equal(seg, seg_s)
+    key = seg * npix * npix + corner(stream.v) * npix + corner(stream.u)
+    assert bool((key[1:] >= key[:-1]).all())
+    # the same entries (coordinates and weighted values) in every segment
+    for s_ in torch.unique(seg):
+        a = torch.stack([stream.u[seg == s_], stream.v[seg == s_]], 1)
+        b = torch.stack([u[src][seg_s == s_], v[src][seg_s == s_]], 1)
+        assert torch.equal(a[torch.argsort(a[:, 0])], b[torch.argsort(b[:, 0])])
+    assert stream.vals.shape == (int(seg.shape[0]),)
+    assert torch.equal(stream.unit_count.sum(), torch.tensor(int(seg.shape[0]), dtype=torch.int64))

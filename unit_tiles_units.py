@@ -8,8 +8,9 @@ size, and prints for each: the number of units, the kernel's time (CUDA
 events, mean of 5 runs after a warm-up), and the largest error of the
 kernel and of the plain version in f32 against the plain version in f64,
 relative to the grid maximum. A cell's f32 sum is a sum, within each unit,
-of its entries and, across the units of its segment, of the unit sums;
-the unit size sets both depths.
+of register runs of at most 64 entries (the kernel's run cap; the plain
+version sums a unit's entries in one matmul) and, across the units of its
+segment, of the unit sums; the unit size sets both depths.
 
 Usage: python3 unit_tiles_units.py [unit ...]   (default 1024 4096 16384)
 """
