@@ -19,14 +19,16 @@ Phases, each on lines of its own:
      card at the main path's geometry, with both times, the kernel's bound
      (the least time the card could take for the same work) and, where one
      PyTorch call computes the same function, that call's time; the
-     windowed Hogbom is checked against its plain version too. The grid
+     windowed Hogbom is checked against its plain version too, and each
+     Hogbom kernel prints its iterations, microseconds an iteration and
+     the per-iteration streaming figure. The grid
      kernel's row is the full flagship stream (9,942,016 entries), held
      against the plain version accumulated in f64 in pieces of 1M entries;
      a 1M-entry subset is held too;
   4. Hogbom ical: simulates the observation on the card, corrupts it with
      N(0, 0.4) phases, runs ``ical(algorithm="hogbom")`` with the launch
-     counters reset, and prints per-cycle wall time and peak residual and
-     the gain error;
+     counters reset, and prints per-cycle wall time and peak residual,
+     the gain error and each cycle's CLEAN iterations;
   5. msclean ical: the same observation through ``ical`` with its default
      deconvolver, msclean (scales 0, 3, 10, 30), 4 major cycles; also the
      model flux around each source;
@@ -39,7 +41,9 @@ Phases, each on lines of its own:
      fused-vs-composed bounds;
   8. MSMFS cube: simulates the config-4 cube on the card, holds the grid
      kernel on one channel's launch (the cube cycle's shape) and (a) the
-     msmfs kernel against its plain version on the cycle-0 moment stacks;
+     msmfs kernel against its plain version on the cycle-0 moment stacks,
+     and the Hogbom kernels (with and without the quarter window, and
+     complex) on the 64 dirty channels as 64 lanes of 256^2;
      (b) runs ``continuum_imaging(algorithm="mmclean")`` for 4 major
      cycles, printing each cycle's wall time and peak residual, and gates
      the peak's fall, the model flux around the source in channel 32 and
@@ -384,6 +388,30 @@ def grid_plain_pieces(gp, vals, piece=1 << 20):
     return out
 
 
+def grid_bound(gp):
+    """K1's bound on plan ``gp``: per entry its value, corner, plane
+    fraction and 2 x 8 taps in (what gridding needs: not the kernel's walk
+    order or chunk table) and the grids out; per tap one tap product and,
+    on each of two planes, a complex scale and add."""
+    grids_bytes = gp.nplanes * gp.npixel**2 * 8
+    return bound(gp.n_in * (8 + 4 + 4 + 4 + 32 + 32) + grids_bytes, gp.n_in * (64 * 9 + 5))
+
+
+def degrid_bound(gp):
+    """K3's bound on plan ``gp``: the grids in; per entry its corner,
+    plane, fraction and taps in and the value out; per plane 8 row sums of
+    8 complex-by-real products and one of 8."""
+    grids_bytes = gp.nplanes * gp.npixel**2 * 8
+    return bound(grids_bytes + gp.n * (4 + 4 + 4 + 4 + 32 + 32 + 8),
+                 gp.n_in * (2 * (64 * 4 + 8 * 4) + 6))
+
+
+def permute_bound(n):
+    """K4's bound on ``n`` complex64 elements: the index, the payload in
+    and out."""
+    return bound(n * (4 + 8 + 8), 0)
+
+
 def grid_row(gp, vals, label, plain_reps=1):
     """The grid kernel against its plain version accumulated in f64 (in
     pieces) on plan ``gp`` and plan-ordered ``vals``; times both (the plain
@@ -398,15 +426,10 @@ def grid_row(gp, vals, label, plain_reps=1):
     rel = err / float(ref.abs().max())
     del ref
     nchunks = int(gp.chunk_seg.shape[0])
-    grids_bytes = gp.nplanes * gp.npixel**2 * 8
-    # per entry: value, corner, plane fraction and 2 x 8 taps in (what
-    # gridding needs: not the kernel's walk order or chunk table); per tap
-    # one tap product and, on each of two planes, a complex scale and add
-    entry_bytes = 8 + 4 + 4 + 4 + 32 + 32
     row = _row(
         err, rel, timed(lambda: grid(gp, vals), 10),
         timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128)), plain_reps),
-        bound(gp.n_in * entry_bytes + grids_bytes, gp.n_in * (64 * 9 + 5)),
+        grid_bound(gp),
     )
     say(
         f"grid {label}: {gp.n_in} entries in {nchunks} chunks of at most "
@@ -459,7 +482,6 @@ def compare_gridding(device, vis, plan):
     weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
     grid_row(sub, sort_values(sub, weighted[:n_sub]), "1M subset", 3)
     out["grid"] = grid_row(full.gp, sort_values(full.gp, weighted), "full stream")
-    grids_bytes = sub.nplanes * sub.npixel**2 * 8
     grids = torch.randn(
         (sub.nplanes, sub.npixel, sub.npixel), generator=g, device=device,
         dtype=torch.complex64,
@@ -467,14 +489,11 @@ def compare_gridding(device, vis, plan):
     ref = degrid_plain(sub, grids)
     res = degrid(sub, grids)
     err = float((res - ref).abs().max())
-    # per entry: corner, plane, fraction, taps in and the value out; per
-    # plane 8 row sums of 8 complex-by-real products and one of 8
     out["degrid"] = _row(
         err, err / float(ref.abs().max()),
         timed(lambda: degrid(sub, grids), 10),
         timed(lambda: degrid_plain(sub, grids), 3),
-        bound(grids_bytes + sub.n * (4 + 4 + 4 + 4 + 32 + 32 + 8),
-              sub.n_in * (2 * (64 * 4 + 8 * 4) + 6)),
+        degrid_bound(sub),
     )
     del ref, res, grids
     full_grids = torch.randn(
@@ -484,7 +503,8 @@ def compare_gridding(device, vis, plan):
     degrid_ms = timed(lambda: degrid(full.gp, full_grids), 5)
     say(
         f"full-size kernel times ({full.gp.n} entries, {full.nw} planes of "
-        f"{full.npad}^2): grid {out['grid']['ms']:.3f} ms, degrid {degrid_ms:.3f} ms"
+        f"{full.npad}^2): grid {out['grid']['ms']:.3f} ms, degrid {degrid_ms:.3f} ms "
+        f"(bound {degrid_bound(full.gp)[0]:.4f} ms)"
     )
     del full_grids
     # permute: the full flagship permutation, one complex64 payload,
@@ -504,32 +524,27 @@ def compare_gridding(device, vis, plan):
         0.0, 0.0,
         timed(lambda: permute_apply(perm, x, inverse=True), 20),
         timed(lambda: permute_apply_plain(perm, x, inverse=True), 5),
-        bound(perm.shape[0] * (4 + 8 + 8), 0),
+        permute_bound(perm.shape[0]),
         timed(lambda: y.index_copy_(0, idx, x), 20),
     )
     return out
 
 
-def _hogbom_plain_on_card(d, p, w, kw):
-    """The plain Hogbom loop, run on the card's tensors."""
-    from ska_sdp_func_python_torch.ops.cleaners import (
-        _rows_to_image,
-        hogbom_rows_plain,
-    )
-
-    rows, res = hogbom_rows_plain(d[0], p[0], None if w is None else w[0], **kw)
-    return _rows_to_image(rows[None], *d.shape[-2:]), res[None], rows
-
-
 def _hogbom_bound(rows, ny, nx, py, px, planes=1, search_ops=2):
-    """Bytes: dirty and PSF in, residual and rows out, per plane; operations:
-    each used row's clipped footprint (one fused multiply-add a pixel and
-    plane) and one search over the image per iteration."""
-    used = [r for r in rows.tolist() if r[-1] > 0]
-    area = sum(footprint_area(int(r[0]), int(r[1]), ny, nx, py, px) for r in used)
-    nbytes = 4 * (2 * planes * ny * nx + py * px) + 4 * rows.numel()
-    nops = 2 * planes * area + search_ops * ny * nx * (len(used) + 1)
-    return bound(nbytes, nops), len(used)
+    """Bytes: dirty and PSF in, residual and rows out, per lane and plane;
+    operations: each used row's clipped footprint (one fused multiply-add
+    a pixel and plane) and one search over the image per iteration.
+    ``rows``: [lanes, niter, k], the last column 1 where used. Returns
+    (bound, iterations of the longest lane, footprint pixels of all)."""
+    nl = rows.shape[0]
+    used = [[r for r in lane if r[-1] > 0] for lane in rows.tolist()]
+    area = sum(
+        footprint_area(int(r[0]), int(r[1]), ny, nx, py, px) for lane in used for r in lane
+    )
+    nits = sum(len(lane) for lane in used)
+    nbytes = nl * (4 * (2 * planes * ny * nx + py * px)) + 4 * rows.numel()
+    nops = 2 * planes * area + search_ops * ny * nx * (nits + nl)
+    return bound(nbytes, nops), max(len(lane) for lane in used), area, nits
 
 
 def _check_clean(name, out, ref):
@@ -547,15 +562,104 @@ def _check_clean(name, out, ref):
     return err, rel
 
 
-def compare_cleaners(dirty, psf_patch):
-    """hogbom (with and without the quarter window), msclean and
-    hogbom_complex against their plain versions on the card, on the
-    cycle-0 dirty image and the bounded PSF."""
+def hogbom_case(label, kernel, planes, d, p, win, kw, plain_reps=3):
+    """K5 ("hogbom", one plane) or K6 ("hogbom_complex", Q and U) on the
+    lanes ``d`` (one [lanes, ny, nx] tensor a plane) with PSFs ``p`` and
+    window ``win``, against the plain loop run lane by lane on the card:
+    identical component positions, outputs within the kernel's tolerance.
+    Times both and prints the iterations, microseconds an iteration (over
+    the longest lane, which the launch waits for) and the per-iteration
+    streaming figure: one search read of every lane's planes (and window),
+    plus each footprint's PSF read and residual read-modify-write, over
+    3.35 TB/s. Returns the kernel's row."""
     import torch
 
     from ska_sdp_func_python_torch.ops import cleaners as cl
 
-    out = {}
+    nl, ny, nx = d[0].shape
+    py, px = p.shape[-2:]
+    lane_win = None if win is None else torch.broadcast_to(win, d[0].shape)
+
+    def w(i):
+        return None if lane_win is None else lane_win[i]
+
+    if planes == 1:
+        def run():
+            return cl.hogbom_lanes(d[0], p, win, **kw)
+
+        def plain():
+            out = [cl.hogbom_rows_plain(d[0][i], p[i], w(i), **kw) for i in range(nl)]
+            rows = torch.stack([o[0] for o in out])
+            return rows, (cl._rows_to_image(rows, ny, nx), torch.stack([o[1] for o in out]))
+    else:
+        def run():
+            return cl.hogbom_complex_lanes(d[0], d[1], p, win, **kw)
+
+        def plain():
+            out = [
+                cl.hogbom_complex_rows_plain(d[0][i], d[1][i], p[i], w(i), **kw)
+                for i in range(nl)
+            ]
+            rows = torch.stack([o[0] for o in out])
+            return rows, (
+                cl._rows_to_image(rows, ny, nx, col=2, used=4),
+                cl._rows_to_image(rows, ny, nx, col=3, used=4),
+                torch.stack([o[1] for o in out]), torch.stack([o[2] for o in out]),
+            )
+
+    rows, ref = plain()
+    out = run()
+    err, rel = _check_clean(label, out, ref)
+    if not rel <= KERNELS[kernel][0]:
+        raise AssertionError(f"{label} disagrees with its plain version: rel {rel}")
+    if lane_win is not None and float(out[0][lane_win == 0].abs().max()) != 0.0:
+        raise AssertionError(f"{label}: a component outside the window")
+    bnd, iters, area, nits = _hogbom_bound(
+        rows, ny, nx, py, px, planes=planes, search_ops=2 if planes == 1 else 5
+    )
+    row = _row(err, rel, timed(run, 5), timed(plain, plain_reps), bnd)
+    search = 4 * (planes + (win is not None)) * ny * nx * (nits + nl)
+    per_it_mb = (search + 4 * (1 + 2 * planes) * area) / max(iters, 1) / 1e6
+    say(
+        f"{label}: {nl} lane(s) of {ny}x{nx}, PSF {py}x{px}: {iters} iterations "
+        f"(longest lane; {nits} in all), {row['ms'] / max(iters, 1) * 1e3:.2f} us "
+        f"per iteration; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"max abs err {err:.3e}, rel {rel:.3e}; the search read plus the footprint "
+        f"read-modify-write is {per_it_mb:.2f} MB per iteration, "
+        f"{per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} us at 3.35 TB/s"
+    )
+    return row
+
+
+def hogbom_cases(label, dirty, psf_patch, kw, plain_reps=3):
+    """hogbom (with and without the quarter window) and hogbom_complex (on
+    the Q and U planes of the polarised sky of phase 6) on the lanes
+    ``dirty`` [lanes, ny, nx] with PSF patches [lanes, py, px]. Returns
+    the kernels' rows without the window."""
+    import torch
+
+    ny, nx = dirty.shape[-2:]
+    win = torch.zeros((ny, nx), device=dirty.device)
+    win[ny // 4 + 1 : 3 * (ny // 4), nx // 4 + 1 : 3 * (nx // 4)] = 1.0
+    out = {"hogbom": hogbom_case(f"hogbom {label}", "hogbom", 1, (dirty,),
+                                 psf_patch, None, kw, plain_reps)}
+    hogbom_case(f"hogbom {label}, quarter window", "hogbom", 1, (dirty,),
+                psf_patch, win, kw, plain_reps)
+    q = (POL_P * np.cos(2 * POL_CHI)) * dirty
+    u = (POL_P * np.sin(2 * POL_CHI)) * dirty
+    out["hogbom_complex"] = hogbom_case(
+        f"hogbom_complex {label}", "hogbom_complex", 2, (q, u), psf_patch, None,
+        kw, plain_reps,
+    )
+    return out
+
+
+def compare_cleaners(dirty, psf_patch):
+    """hogbom (with and without the quarter window), msclean and
+    hogbom_complex against their plain versions on the card, on the
+    cycle-0 dirty image and the bounded PSF."""
+    from ska_sdp_func_python_torch.ops import cleaners as cl
+
     ny, nx = dirty.shape[-2:]
     py, px = psf_patch.shape[-2:]
     d = dirty.reshape(1, ny, nx).contiguous()
@@ -564,24 +668,7 @@ def compare_cleaners(dirty, psf_patch):
         gain=CLEAN["gain"], thresh=0.0, niter=CLEAN["niter"],
         fracthresh=CLEAN["fractional_threshold"],
     )
-    kc, kr = cl.hogbom_lanes(d, p, **kw)
-    pc, pr, rows = _hogbom_plain_on_card(d, p, None, kw)
-    err, rel = _check_clean("hogbom", (kc, kr), (pc, pr))
-    bnd, nused = _hogbom_bound(rows, ny, nx, py, px)
-    out["hogbom"] = _row(
-        err, rel,
-        timed(lambda: cl.hogbom_lanes(d, p, **kw), 5),
-        timed(lambda: _hogbom_plain_on_card(d, p, None, kw), 5),
-        bnd,
-    )
-    win = torch.zeros_like(d)
-    win[:, ny // 4 + 1 : 3 * (ny // 4), nx // 4 + 1 : 3 * (nx // 4)] = 1.0
-    kc, kr = cl.hogbom_lanes(d, p, win, **kw)
-    pc, pr, _ = _hogbom_plain_on_card(d, p, win, kw)
-    werr, wrel = _check_clean("windowed hogbom", (kc, kr), (pc, pr))
-    if not wrel <= KERNELS["hogbom"][0] or float(kc[win == 0].abs().max()) != 0.0:
-        raise AssertionError(f"windowed hogbom disagrees: rel {wrel}")
-    say(f"kernel hogbom, quarter window: max abs err {werr:.3e}, rel err {wrel:.3e} ok")
+    out = hogbom_cases("flagship", d, p, kw)
 
     # msclean: the fused lane's stacks from the bounded PSF
     st = cl.msclean_psf_stacks(psf_patch.reshape(py, px), ny, nx, SCALES)
@@ -621,26 +708,6 @@ def compare_cleaners(dirty, psf_patch):
     )
     del st, res_stack, ms_args
 
-    # complex Hogbom on the Q and U planes of the polarised cube
-    q = (POL_P * np.cos(2 * POL_CHI)) * d
-    u = (POL_P * np.sin(2 * POL_CHI)) * d
-
-    def cx_plain():
-        rows, rq, ru = cl.hogbom_complex_rows_plain(q[0], u[0], p[0], **kw)
-        return rows, rq, ru
-
-    ko = cl.hogbom_complex_lanes(q, u, p, **kw)
-    prow, prq, pru = cx_plain()
-    pcq = cl._rows_to_image(prow[None], ny, nx, col=2, used=4)
-    pcu = cl._rows_to_image(prow[None], ny, nx, col=3, used=4)
-    err, rel = _check_clean("hogbom_complex", ko, (pcq, pcu, prq[None], pru[None]))
-    bnd, _ = _hogbom_bound(prow, ny, nx, py, px, planes=2, search_ops=5)
-    out["hogbom_complex"] = _row(
-        err, rel,
-        timed(lambda: cl.hogbom_complex_lanes(q, u, p, **kw), 5),
-        timed(cx_plain, 3),
-        bnd,
-    )
     return out
 
 
@@ -725,11 +792,32 @@ def run_ical(label, vis, model, phases, nmajor, path_kernels, **kw):
 
 
 def run_hogbom_ical(vis, model, phases):
-    """Phase 4: the Hogbom ical of the first slice, with its gates."""
-    counts, _, _, rpeak = run_ical(
-        "hogbom ical", vis, model, phases, 4,
-        ("grid", "degrid", "permute", "hogbom"), algorithm="hogbom", **CLEAN,
-    )
+    """Phase 4: the Hogbom ical of the first slice, with its gates. Each
+    cycle's CLEAN input is kept (a copy of the residual, 4 MB on the card)
+    and, after the run, the plain loop counts the iterations the kernel
+    ran on it (the two agree bit for bit, phase 3)."""
+    from ska_sdp_func_python_torch import pipeline
+    from ska_sdp_func_python_torch.ops import cleaners as cl
+
+    inputs = []
+
+    def recording(dirty, psf, window=None, **kw):
+        inputs.append((dirty.clone(), psf, window, kw))
+        return cl.hogbom_lanes(dirty, psf, window, **kw)
+
+    pipeline.hogbom_lanes = recording
+    try:
+        counts, _, _, rpeak = run_ical(
+            "hogbom ical", vis, model, phases, 4,
+            ("grid", "degrid", "permute", "hogbom"), algorithm="hogbom", **CLEAN,
+        )
+    finally:
+        pipeline.hogbom_lanes = cl.hogbom_lanes
+    iters = [
+        int(cl.hogbom_rows_plain(d[0], p[0], None if w is None else w[0], **kw)[0][:, 3].sum())
+        for d, p, w, kw in inputs
+    ]
+    say(f"hogbom ical: CLEAN iterations per cycle {iters}")
     if not abs(rpeak - 2.0) < 0.2:
         raise AssertionError(f"restored peak {rpeak} not within 0.2 of 2.0")
     return counts
@@ -881,23 +969,43 @@ def cube_gates(label, current, peaks, offset, alpha, gate=True):
         )
 
 
-def compare_msmfs(vis, model, plan):
+def channel_shapes(gp, label):
+    """K3 and K4 at one launch of the main path on plan ``gp``: degrid of
+    random grids, and the inverse permute of one complex64 payload; prints
+    times and bounds."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import degrid
+    from ska_sdp_func_python_torch.ops.permute import permute_apply
+
+    g = torch.Generator(device=gp.perm.device).manual_seed(2)
+    grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g,
+                        device=gp.perm.device, dtype=torch.complex64)
+    x = torch.randn(gp.perm.shape[0], generator=g, device=gp.perm.device,
+                    dtype=torch.complex64)
+    d_ms = timed(lambda: degrid(gp, grids), 20)
+    p_ms = timed(lambda: permute_apply(gp.perm, x, inverse=True), 20)
+    say(
+        f"{label}: degrid {gp.n} entries, {gp.nplanes} planes of {gp.npixel}^2: "
+        f"kernel {d_ms:.4f} ms, bound {degrid_bound(gp)[0]:.4f} ms; permute "
+        f"{gp.perm.shape[0]} complex64: kernel {p_ms:.4f} ms, bound "
+        f"{permute_bound(gp.perm.shape[0])[0]:.4f} ms"
+    )
+
+
+def compare_msmfs(model, dirty, patch):
     """Phase 8a: the msmfs kernel against its plain version on the card, on
     the cycle-0 moment stacks of the cube's fused cycle (the moment images
-    of the dirty cube and the moment PSFs over the moment-PSF peak)."""
+    of the dirty cube and the moment PSFs over the moment-PSF peak), from
+    the dirty cube and its bounded PSF patches."""
     import torch
 
     from ska_sdp_func_python_torch.ops import cleaners as cl
-    from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
-    from ska_sdp_func_python_torch.ops.imaging import invert_visibility
     from ska_sdp_func_python_torch.ops.taylor import moment_weights
 
     nm = CUBE_CLEAN["nmoment"]
-    psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
-    dirty, _ = invert_visibility(vis, model, plan=plan)
-    patch = bound_psf(psf, psf).pixels.to(torch.float32)
     w_m, w_p = (
-        moment_weights(model.frequency, None, k).to(device=vis.device, dtype=torch.float32)
+        moment_weights(model.frequency, None, k).to(device=dirty.pixels.device, dtype=torch.float32)
         for k in (nm, 2 * nm)
     )
     psf_t = torch.einsum("cm,cpyx->mpyx", w_p, patch)
@@ -907,7 +1015,6 @@ def compare_msmfs(vis, model, plan):
     dpix = torch.einsum("cm,cpyx->mpyx", w_m, dirty.pixels.to(torch.float32)) / peak
     smres = cl.calculate_scale_moment_residual(dpix[:, 0] / st.pmax, st.scalestack)
     smres = smres.contiguous()
-    del psf, dirty, patch
     kw = dict(gain=0.7, thresh=0.0, fracthresh=CUBE_CLEAN["fractional_threshold"],
               niter=CUBE_CLEAN["niter"])
 
@@ -962,8 +1069,12 @@ def run_cube(device):
     msmfs, summed launch counts of 8b and 8c)."""
     import torch
 
+    from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
     from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
-    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        make_visibility_plan,
+    )
     from ska_sdp_func_python_torch.pipeline import continuum_imaging
 
     t0 = time.perf_counter()
@@ -979,8 +1090,21 @@ def run_cube(device):
     gp = plan.plans[c].gp
     weighted = (vis.vis * vis.imaging_weight)[:, :, c, 0].reshape(-1).contiguous()
     grid_row(gp, sort_values(gp, weighted), f"cube channel {c} (one channel's launch)")
-    row = compare_msmfs(vis, model, plan)
-    del plan, gp, weighted
+    channel_shapes(gp, f"cube channel {c}")
+    psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
+    dirty, _ = invert_visibility(vis, model, plan=plan)
+    patch = bound_psf(psf, psf).pixels.to(torch.float32)
+    row = compare_msmfs(model, dirty, patch)
+    # the Hogbom kernels on one lane a channel (a Hogbom deconvolve_cube
+    # of this cube), at the flagship's CLEAN settings
+    hogbom_cases(
+        "config-4 cube", dirty.pixels[:, 0].to(torch.float32).contiguous(),
+        patch[:, 0].contiguous(),
+        dict(gain=CLEAN["gain"], thresh=0.0, niter=CLEAN["niter"],
+             fracthresh=CLEAN["fractional_threshold"]),
+        plain_reps=1,
+    )
+    del plan, gp, weighted, psf, dirty, patch
     torch.cuda.empty_cache()
     (current, _, _), counts_b, peaks = run_logged(
         "msmfs continuum_imaging",
@@ -1379,7 +1503,7 @@ def main() -> int:
     by_shape["epsilon observation (phases 9b-e)"] = counts
     report_kernel("unit_tiles", results["unit_tiles"])
     for shape, counts in by_shape.items():
-        say(f"launches at the {shape}: grid {counts['grid']}, unit_tiles {counts['unit_tiles']}")
+        say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
     say(json.dumps({
         "kernels": [

@@ -2,7 +2,8 @@
 ``chip_smoke.py`` does not time, and the cell changes of their register
 sums, on one NVIDIA GPU.
 
-Default: times the grid kernel (K1+K2) on the plans of ``chip_smoke.py``
+Default: times the grid kernel (K1+K2), with its bound, and degrid (K3)
+and permute (K4) on the plans of ``chip_smoke.py``
 phase 9c (the eskernel plan of ``invert_visibility(epsilon=1e-5)``: npad
 2048, tile 64) and phase 9e (the plan cache's plan, padding 2), and
 ``unit_tiles`` (K9) on the f64 streams of the deep-f64-s12 and -s16 rows
@@ -148,12 +149,16 @@ def times(dev):
         p = plan.plans[0]
         vals = sort_values(p.gp, weighted.repeat(p.ncopies))
         ms = cs.timed(lambda: grid(p.gp, vals), 5)
+        # the bounds and the K3/K4 shapes come from a chip_smoke.py that has them
+        bnd = f", bound {cs.grid_bound(p.gp)[0]:.4f} ms" if hasattr(cs, "grid_bound") else ""
         print(
             f"grid {label}: {p.gp.n_in} entries, {p.gp.nplanes} planes of "
-            f"{p.gp.npixel}^2, tile {p.gp.tile}: kernel {ms:.4f} ms",
+            f"{p.gp.npixel}^2, tile {p.gp.tile}: kernel {ms:.4f} ms{bnd}",
             flush=True,
         )
         del vals
+        if hasattr(cs, "channel_shapes"):
+            cs.channel_shapes(p.gp, label)
     del vis, model, weighted, eskernel
     im._PLAN_CACHE.clear()
     torch.cuda.empty_cache()

@@ -33,6 +33,7 @@ __all__ = [
     "load_library",
     "reset_launch_counts",
     "launch_counts",
+    "query",
     "check_cuda_tensor",
 ]
 
@@ -177,7 +178,7 @@ KERNELS = {
     "hogbom": Kernel(
         "hogbom",
         "ska_hogbom",
-        [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F],
+        [*[_P] * 6, *[_I] * 9, _F, _F, _F],
     ),
     "msclean": Kernel(
         "msclean",
@@ -187,7 +188,7 @@ KERNELS = {
     "hogbom_complex": Kernel(
         "hogbom_complex",
         "ska_hogbom_complex",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F],
+        [*[_P] * 8, *[_I] * 9, _F, _F, _F],
     ),
     "msmfs": Kernel(
         "msmfs",
@@ -200,6 +201,15 @@ KERNELS = {
         [*[_P] * 9, *[_I] * 5, ctypes.c_double, _I],
     ),
 }
+
+
+def query(symbol: str, *args: int) -> int:
+    """Call a C helper of the library that takes ints and returns one (a
+    device property, not a launch: nothing is counted)."""
+    fn = getattr(load_library(), symbol)
+    fn.argtypes = [_I] * len(args)
+    fn.restype = _I
+    return fn(*args)
 
 
 def reset_launch_counts() -> None:

@@ -55,6 +55,7 @@ __all__ = [
     "hogbom",
     "hogbom_lanes",
     "hogbom_rows_plain",
+    "hogbom_split",
     "hogbom_complex",
     "hogbom_complex_lanes",
     "hogbom_complex_rows_plain",
@@ -187,6 +188,40 @@ def _f32(t):
     return None if t is None else t.to(torch.float32).contiguous()
 
 
+def hogbom_split(nlanes: int, ny: int, resident: int) -> tuple[int, int, int]:
+    """How the Hogbom kernels (K5, K6) spread ``nlanes`` lanes of ``ny``
+    rows over ``resident`` CTAs, the most that can be resident on the card
+    at once (their launch is cooperative): (lanes per launch, CTAs per
+    lane, rows per CTA). The lanes of a launch share the resident CTAs, each
+    lane on a band of whole rows per CTA; when the lanes outnumber the
+    CTAs, they go in launches of ``resident`` lanes of one CTA each."""
+    rows = max(ny, 1)
+    per_launch = max(1, min(nlanes, resident))
+    band = -(-rows // min(max(1, resident // per_launch), rows))
+    return per_launch, -(-rows // band), band
+
+
+# resident CTAs of the K5 (0) and K6 (1) kernels, by (kind, device index)
+_HOGBOM_RESIDENT: dict = {}
+
+
+def _hogbom_launch_geometry(kind: int, nl: int, ny: int, dev):
+    """The split of :func:`hogbom_split` for the card of ``dev``, and the
+    kernel's scratch: two parity buffers of 8-word partials per CTA and one
+    barrier counter per lane."""
+    key = (kind, dev.index)
+    if key not in _HOGBOM_RESIDENT:
+        with torch.cuda.device(dev):
+            n = kernels.query("ska_hogbom_resident", kind)
+        if n <= 0:
+            msg = kernels.load_library().ska_error_string(-n).decode()
+            raise RuntimeError(f"hogbom: no cooperative launch on {dev}: {msg}")
+        _HOGBOM_RESIDENT[key] = n
+    split = hogbom_split(nl, ny, _HOGBOM_RESIDENT[key])
+    nwords = 16 * split[0] * split[1] + split[0]
+    return split, torch.empty(nwords, dtype=torch.int32, device=dev)
+
+
 def hogbom_lanes(
     dirty: torch.Tensor,
     psf: torch.Tensor,
@@ -222,13 +257,16 @@ def hogbom_lanes(
     res = torch.empty_like(dirty)
     rows = torch.empty((nl, niter, 4), dtype=torch.float32, device=dev)
     win = _f32(win)
+    split, scratch = _hogbom_launch_geometry(0, nl, ny, dev)
     kernels.KERNELS["hogbom"].launch(
         chk("dirty", dirty, torch.float32, dev),
         chk("psf", psf, torch.float32, dev),
         None if win is None else chk("window", win, torch.float32, dev),
         res.data_ptr(),
         rows.data_ptr(),
+        scratch.data_ptr(),
         nl,
+        *split,
         ny,
         nx,
         py,
@@ -354,6 +392,7 @@ def hogbom_complex_lanes(
         ru = torch.empty_like(dirty_u)
         rows = torch.empty((nl, niter, 5), dtype=torch.float32, device=dev)
         win = _f32(win)
+        split, scratch = _hogbom_launch_geometry(1, nl, ny, dev)
         kernels.KERNELS["hogbom_complex"].launch(
             chk("dirty_q", dirty_q, torch.float32, dev),
             chk("dirty_u", dirty_u, torch.float32, dev),
@@ -362,7 +401,9 @@ def hogbom_complex_lanes(
             rq.data_ptr(),
             ru.data_ptr(),
             rows.data_ptr(),
+            scratch.data_ptr(),
             nl,
+            *split,
             ny,
             nx,
             py,

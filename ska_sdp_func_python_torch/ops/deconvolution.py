@@ -295,7 +295,8 @@ def convert_clean_beam_to_pixels(model: Image, clean_beam: dict):
 
 def fit_psf(psf: Image) -> dict:
     """Fit a 2-D Gaussian to the central 15x15 pixels of the PSF on the
-    host (scipy least squares). Returns {bmaj, bmin, bpa} in degrees."""
+    host (scipy least squares). Returns {bmaj, bmin, bpa} in degrees; where
+    the fit fails or raises, a 1-pixel beam, as the JAX package does."""
     from scipy.optimize import least_squares
 
     npixel = psf.pixels.shape[3]
@@ -314,15 +315,17 @@ def fit_psf(psf: Image) -> dict:
         )
 
     p0 = [float(z.max()), float(x.mean()), float(y.mean()), 1.5, 1.5, 0.0]
-    sol = least_squares(
-        lambda p: (gauss2d(p, x, y) - z).ravel(), p0, method="lm"
-    )
-    sx, sy, th = abs(sol.x[3]), abs(sol.x[4]), sol.x[5]
-    if sx <= 0.0 or sy <= 0.0 or not sol.success:
+    try:
+        sol = least_squares(
+            lambda p: (gauss2d(p, x, y) - z).ravel(), p0, method="lm"
+        )
+        beam_pixels = (abs(sol.x[3]), abs(sol.x[4]), sol.x[5])
+        fitted = sol.success and beam_pixels[0] > 0.0 and beam_pixels[1] > 0.0
+    except Exception:  # e.g. non-finite pixels in the PSF core
+        fitted = False
+    if not fitted:
         log.warning("fit_psf: fit failed, using 1 pixel stddev")
         beam_pixels = (1.0, 1.0, 0.0)
-    else:
-        beam_pixels = (sx, sy, th)
     return convert_clean_beam_to_degrees(psf, beam_pixels)
 
 

@@ -5,7 +5,8 @@ plain versions on the CPU, with the JAX package's ``hogbom`` and
 Tolerances: identical component positions; against the XLA loops in f32,
 component values and the residual to 1e-6 relative; in f64, 1e-8 of the
 maxima; against the TPU complex kernel in interpret mode, 1e-6 (its
-search rounds the modulus differently).
+search rounds the modulus differently). Also the split of lanes over the
+CTAs of the Hogbom kernels' cooperative launch (``hogbom_split``).
 """
 
 import numpy as np
@@ -17,7 +18,7 @@ from ska_sdp_func_python_tpu.ops.cleaners import hogbom as jax_hogbom
 from ska_sdp_func_python_tpu.ops.cleaners import (
     hogbom_complex as jax_hogbom_complex,
 )
-from ska_sdp_func_python_torch.ops.cleaners import hogbom, hogbom_complex
+from ska_sdp_func_python_torch.ops.cleaners import hogbom, hogbom_complex, hogbom_split
 
 
 def _psf(n, sigma=2.5):
@@ -160,3 +161,25 @@ def test_fms_rounds_once_like_a_fused_multiply_add():
     once = _fms(torch.tensor([c]), torch.tensor([a]), torch.tensor([b]))
     assert twice == np.float32(1.0)
     assert once.item() == np.float32(1 + 2.0**-23)
+
+
+@pytest.mark.parametrize(
+    "nlanes,ny,resident,expect",
+    [
+        (1, 1024, 528, (1, 512, 2)),  # the flagship: every resident CTA
+        (64, 256, 528, (64, 8, 32)),  # a config-4 cube: 8 CTAs a lane
+        (200, 128, 528, (200, 2, 64)),
+        (3, 100, 528, (3, 100, 1)),  # no band shorter than a row
+        (1, 1000, 396, (1, 334, 3)),  # ny not a multiple of the band
+        (2000, 256, 528, (528, 1, 256)),  # more lanes than CTAs
+        (0, 64, 528, (1, 64, 1)),
+    ],
+)
+def test_hogbom_split_spreads_lanes_over_resident_ctas(nlanes, ny, resident, expect):
+    """The Hogbom kernels' cooperative grid: never more CTAs than can be
+    resident, every CTA a non-empty band of whole rows, the bands covering
+    the image."""
+    per_launch, ctas, band = hogbom_split(nlanes, ny, resident)
+    assert (per_launch, ctas, band) == expect
+    assert per_launch * ctas <= resident
+    assert (ctas - 1) * band < ny <= ctas * band

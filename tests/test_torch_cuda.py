@@ -5,6 +5,10 @@ imports only the port, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
+The Hogbom kernels (K5, K6) run one cooperative grid per launch; their
+stress cases range from every resident CTA on one lane to one CTA per
+lane over two launches.
+
 Tolerances: ``permute_apply`` is bit-exact (elements are only moved);
 ``hogbom`` (with and without a window), ``hogbom_complex``, ``msclean``
 and ``msmfs`` give identical component positions and values to 1e-6
@@ -224,6 +228,135 @@ def test_hogbom_complex_matches_plain(dev, window):
     )
     assert torch.equal(out[0].cpu() != 0, ref[0] != 0)
     _same(out, ref)
+
+
+def _resident(kind):
+    return kernels.query("ska_hogbom_resident", kind)
+
+
+def _hogbom_case(case, kind):
+    """(dirty [lanes, ny, nx], psf [lanes, py, px], window or None, kw) of
+    a Hogbom stress case: lane counts from every resident CTA on one lane
+    to one CTA per lane in two launches, ties across CTA bands, footprints
+    clipped at corners and edges, PSF patches of 2 ny, a stop at the first
+    iteration, a window inside one band, a band height that does not divide
+    ny."""
+    nl, ny, nx, py, niter, seed = 1, 128, 128, 64, 300, 21
+    thresh, bumps, window = 0.0, None, None
+    if case == "lanes3":
+        nl = 3
+    elif case == "lanes200":
+        nl, ny, nx, py, niter = 200, 64, 64, 32, 60
+    elif case == "lanes_over_resident":
+        nl, ny, nx, py, niter = _resident(kind) + 5, 32, 32, 16, 30
+    elif case == "tie":  # equal peaks in rows 10 and 90: (10, 50) first
+        bumps = [(90, 20), (10, 100), (10, 50)]
+    elif case == "edges":
+        bumps = [(0, 0), (127, 127), (0, 64), (64, 127), (127, 3)]
+    elif case == "psf_2ny":
+        py = 256
+    elif case == "stop0":
+        thresh = 100.0
+    elif case == "window_band":
+        window = (slice(40, 41), slice(10, 100))
+    elif case == "ragged":
+        # the smallest ny > resident / 2 whose band height does not divide it
+        res = _resident(kind) // 2
+        ny = next(n for n in range(res + 1, 4 * res)
+                  if n % cleaners.hogbom_split(2, n, _resident(kind))[2])
+        nl, nx = 2, 48
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[:py, :py] - py // 2
+    psf = np.exp(-(xx**2 + yy**2) / 8.0).astype(np.float32)
+    if bumps is None:
+        dirty = 0.01 * rng.normal(size=(nl, ny, nx)).astype(np.float32)
+        for lane in range(nl):
+            for _ in range(4):
+                cy, cx = rng.integers(0, ny, 1)[0], rng.integers(0, nx, 1)[0]
+                dirty[lane, max(cy - 3, 0) : cy + 3, max(cx - 3, 0) : cx + 3] += (
+                    rng.uniform(0.5, 1.5)
+                )
+    else:
+        dirty = np.zeros((nl, ny, nx), np.float32)
+        for by, bx in bumps:
+            dirty[:, by, bx] = 1.0
+    win = None
+    if window is not None:
+        win = np.zeros((nl, ny, nx), np.float32)
+        win[:, window[0], window[1]] = 1.0
+    kw = dict(gain=0.2, thresh=thresh, niter=niter, fracthresh=0.01)
+    return dirty, np.broadcast_to(psf, (nl, py, py)).copy(), win, kw
+
+
+HOGBOM_CASES = ["lanes1", "lanes3", "lanes200", "lanes_over_resident", "tie",
+                "edges", "psf_2ny", "stop0", "window_band", "ragged"]
+
+
+@pytest.mark.parametrize("case", HOGBOM_CASES)
+def test_hogbom_grid_loop_matches_plain(dev, case):
+    """K5 on its cooperative grid against the plain loop: identical
+    component positions, values and residuals to 1e-6 relative, one
+    counted launch per call."""
+    dirty, psf, win, kw = _hogbom_case(case, 0)
+    d, p = (torch.as_tensor(a, device=dev) for a in (dirty, psf))
+    w = None if win is None else torch.as_tensor(win, device=dev)
+    before = kernels.KERNELS["hogbom"].launches
+    comps, res = hogbom_lanes(d, p, w, **kw)
+    assert kernels.KERNELS["hogbom"].launches == before + 1
+    rc, rr = hogbom_lanes(d.cpu(), p.cpu(), None if w is None else w.cpu(), **kw)
+    comps, res = comps.cpu(), res.cpu()
+    assert torch.equal(comps != 0, rc != 0)
+    torch.testing.assert_close(comps, rc, rtol=1e-6, atol=0.0)
+    torch.testing.assert_close(res, rr, rtol=0.0, atol=1e-6 * float(rr.abs().max()))
+    if case == "tie":  # the first index of three equal peaks comes first
+        first, _ = hogbom_lanes(d, p, w, **{**kw, "niter": 1})
+        assert torch.equal(first[0].nonzero().cpu(), torch.tensor([[10, 50]]))
+    if case == "stop0":
+        assert int((comps != 0).sum()) == 1
+    if case == "window_band":
+        assert float(comps[:, :40].abs().max()) == 0.0
+        assert float(comps[:, 41:].abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("case", HOGBOM_CASES)
+def test_hogbom_complex_grid_loop_matches_plain(dev, case):
+    """K6 on the same cases, U a shifted copy of Q: identical component
+    positions, values and residuals to 1e-6 of their maxima."""
+    dq, psf, win, kw = _hogbom_case(case, 1)
+    du = 0.6 * np.roll(dq, 7, axis=1)
+    if case == "tie":
+        du = np.zeros_like(dq)
+    q, u, p = (torch.as_tensor(a, device=dev) for a in (dq, du, psf))
+    w = None if win is None else torch.as_tensor(win, device=dev)
+    before = kernels.KERNELS["hogbom_complex"].launches
+    out = cleaners.hogbom_complex_lanes(q, u, p, w, **kw)
+    assert kernels.KERNELS["hogbom_complex"].launches == before + 1
+    ref = cleaners.hogbom_complex_lanes(
+        q.cpu(), u.cpu(), p.cpu(), None if w is None else w.cpu(), **kw
+    )
+    assert torch.equal(out[0].cpu() != 0, ref[0] != 0)
+    _same(out, ref)
+    if case == "tie":
+        first = cleaners.hogbom_complex_lanes(q, u, p, w, **{**kw, "niter": 1})[0]
+        assert torch.equal(first[0].nonzero().cpu(), torch.tensor([[10, 50]]))
+    if case == "stop0":
+        assert int((out[0] != 0).sum()) == 1
+
+
+def test_hogbom_refuses_a_grid_larger_than_resident(dev):
+    """A cooperative grid that cannot be resident is refused, and the
+    wrapper raises: no smaller grid and no plain version is taken."""
+    d = torch.zeros((1, 64, 64), device=dev)
+    p = torch.ones((1, 8, 8), device=dev)
+    rows = torch.empty((1, 10, 4), device=dev)
+    scratch = torch.zeros(1 << 20, dtype=torch.int32, device=dev)
+    too_many = _resident(0) + 1
+    with pytest.raises(RuntimeError, match="kernel hogbom failed"):
+        kernels.KERNELS["hogbom"].launch(
+            d.data_ptr(), p.data_ptr(), None, torch.empty_like(d).data_ptr(),
+            rows.data_ptr(), scratch.data_ptr(), 1, 1, too_many, 1, 64, 64, 8, 8,
+            10, 0.2, 0.0, 0.01,
+        )
 
 
 @pytest.mark.parametrize("window", [False, True], ids=["plain", "window+sensitivity"])

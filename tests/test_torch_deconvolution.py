@@ -2,7 +2,11 @@
 JAX package's, for the three ported algorithms, with clean windows.
 
 Both sides get the same numpy cube through ``interop.to_image``.
-Tolerances: windows identical; Hogbom and complex Hogbom in f32 (their
+``fit_psf``: on a PSF with a non-finite core pixel both packages fall
+back to the same 1-pixel beam; on a noise-free elliptical Gaussian the
+port's fit returns that beam to 5e-3 relative (bmaj, bmin) and 0.05 deg
+(bpa, modulo 180), the accuracy of its fit from a circular start
+(``BEAM_RTOL``). Tolerances: windows identical; Hogbom and complex Hogbom in f32 (their
 kernels' type): identical component positions, components and residuals
 to 1e-5 of the cube maximum (the JAX complex loop rounds its complex
 division and modulus differently); msclean in f64 to 1e-8.
@@ -17,10 +21,16 @@ from ska_sdp_func_python_tpu.models.image import create_image as jax_create_imag
 from ska_sdp_func_python_tpu.ops.deconvolution import (
     deconvolve_cube as jax_deconvolve_cube,
     find_window as jax_find_window,
+    fit_psf as jax_fit_psf,
 )
 from ska_sdp_func_python_torch import interop
 from ska_sdp_func_python_torch.models.image import create_image
-from ska_sdp_func_python_torch.ops.deconvolution import deconvolve_cube, find_window
+from ska_sdp_func_python_torch.ops.deconvolution import (
+    deconvolve_cube,
+    find_window,
+    fit_psf,
+    restore_cube,
+)
 
 CPU = torch.device("cpu")
 PC = (0.0, np.deg2rad(-35.0))
@@ -196,3 +206,75 @@ def test_deconvolve_cube_mmclean_matches_jax(nmoment, window):
             interop.to_image(image(psf), device=CPU),
             interop.to_image(image(psf), device=CPU), **kw,
         )
+
+
+_FWHM = np.sqrt(8.0 * np.log(2.0))
+
+
+def _beam_psf(n, beam, cellsize=0.001):
+    """A peak-1 f32 PSF [1, 1, n, n] that is exactly the clean beam
+    ``beam`` ({bmaj, bmin, bpa} deg): stddev bmin along x and bmaj along y
+    rotated by bpa, the Gaussian ``restore_cube`` convolves with."""
+    sx = np.deg2rad(beam["bmin"]) / (cellsize * _FWHM)
+    sy = np.deg2rad(beam["bmaj"]) / (cellsize * _FWHM)
+    th = np.deg2rad(beam["bpa"])
+    yy, xx = np.mgrid[0:n, 0:n] - n // 2
+    ct, st = np.cos(th), np.sin(th)
+    a = ct**2 / (2 * sx**2) + st**2 / (2 * sy**2)
+    b = st * ct * (1 / (2 * sx**2) - 1 / (2 * sy**2))
+    c = st**2 / (2 * sx**2) + ct**2 / (2 * sy**2)
+    psf = np.exp(-(a * xx**2 + 2 * b * xx * yy + c * yy**2))
+    return psf[None, None].astype(np.float32)
+
+
+def _nan_core_psf(n=64):
+    psf = _beam_psf(n, {"bmaj": 0.4, "bmin": 0.25, "bpa": 20.0})
+    psf[0, 0, n // 2 + 3, n // 2 - 5] = np.nan  # inside the central 15x15
+    return psf
+
+
+def test_fit_psf_non_finite_core_falls_back_as_jax():
+    psf = _nan_core_psf()
+    ref = jax_fit_psf(_image(psf, "stokesI"))
+    out = fit_psf(interop.to_image(_image(psf, "stokesI"), device=CPU))
+    one_pixel = np.rad2deg(0.001 * _FWHM)
+    for k in ("bmaj", "bmin", "bpa"):
+        assert out[k] == pytest.approx(float(ref[k]), rel=1e-12)
+    assert out["bmaj"] == pytest.approx(one_pixel) and out["bmin"] == pytest.approx(one_pixel)
+
+
+def test_restore_cube_with_non_finite_psf_core_completes():
+    psf = interop.to_image(_image(_nan_core_psf(), "stokesI"), device=CPU)
+    model = np.zeros((1, 1, 64, 64), np.float32)
+    model[0, 0, 20, 40] = 1.5
+    model = interop.to_image(_image(model, "stokesI"), device=CPU)
+    out = restore_cube(model, psf, residual=model)
+    assert torch.isfinite(out.pixels).all()
+    # the 1-pixel beam restores the point to its own flux
+    assert float(out.pixels[0, 0, 20, 40]) == pytest.approx(3.0, rel=1e-5)
+
+
+# the fit starts from a circular beam, where its angle has no gradient; its
+# first steps move the angle by ~1e6 rad and Levenberg-Marquardt then stops
+# on its step tolerance short of the minimum: 1e-6 off on the first beam,
+# up to 3.2e-3 (bmaj, bmin) and 0.02 deg (bpa) on the narrower ones
+BEAM_RTOL, BPA_TOL = 5e-3, 0.05
+
+
+@pytest.mark.parametrize(
+    "beam",
+    [
+        {"bmaj": 0.40, "bmin": 0.25, "bpa": 30.0},
+        {"bmaj": 0.55, "bmin": 0.30, "bpa": -65.0},
+        {"bmaj": 0.45, "bmin": 0.20, "bpa": -65.0},
+        {"bmaj": 0.45, "bmin": 0.20, "bpa": 40.0},
+    ],
+    ids=["bpa30", "bpa-65", "narrow-bpa-65", "narrow-bpa40"],
+)
+def test_fit_psf_recovers_elliptical_beam(beam):
+    psf = interop.to_image(_image(_beam_psf(64, beam), "stokesI"), device=CPU)
+    out = fit_psf(psf)
+    assert out["bmaj"] == pytest.approx(beam["bmaj"], rel=BEAM_RTOL)
+    assert out["bmin"] == pytest.approx(beam["bmin"], rel=BEAM_RTOL)
+    dpa = (out["bpa"] - beam["bpa"] + 90.0) % 180.0 - 90.0
+    assert abs(dpa) < BPA_TOL
