@@ -21,10 +21,13 @@ Phases, each on lines of its own:
      PyTorch call computes the same function, that call's time; the
      windowed Hogbom is checked against its plain version too, and each
      Hogbom kernel prints its iterations, microseconds an iteration and
-     the per-iteration streaming figure. The grid
-     kernel's row is the full flagship stream (9,942,016 entries), held
-     against the plain version accumulated in f64 in pieces of 1M entries;
-     a 1M-entry subset is held too;
+     the per-iteration streaming figure. The grid and degrid kernels'
+     rows are the full flagship stream (9,942,016 entries), held against
+     their plain versions in pieces of 1M entries (grid's accumulated in
+     f64); a 1M-entry subset is held too. The permute row moves values
+     from plan to natural order as the main path does, a gather through
+     the plan's inverse permutation, timed beside the same move as a
+     scatter;
   4. Hogbom ical: simulates the observation on the card, corrupts it with
      N(0, 0.4) phases, runs ``ical(algorithm="hogbom")`` with the launch
      counters reset, and prints per-cycle wall time and peak residual,
@@ -40,7 +43,11 @@ Phases, each on lines of its own:
      fractional threshold of 0.05), held to the JAX package's
      fused-vs-composed bounds;
   8. MSMFS cube: simulates the config-4 cube on the card, holds the grid
-     kernel on one channel's launch (the cube cycle's shape) and (a) the
+     kernel on one channel's launch (the cube cycle's shape), the degrid
+     kernel's one launch over the 64 channel plans against the
+     per-channel plain version and the permute kernel's (plan to natural
+     order, natural to plan order, and from one shared source) bit for bit,
+     and (a) the
      msmfs kernel against its plain version on the cycle-0 moment stacks,
      and the Hogbom kernels (with and without the quarter window, and
      complex) on the 64 dirty channels as 64 lanes of 256^2;
@@ -50,6 +57,10 @@ Phases, each on lines of its own:
      the spectral index from the channel-0 and channel-63 model fluxes;
      (c) runs ``ical(algorithm="mmclean")`` on the cube corrupted with
      N(0, 0.4) "T" phases, 4 cycles, and prints the gain phase error;
+     (b) and (c) print their launches per kernel and fail if degrid ran
+     more than once per (cycle with a model, polarisation) or permute more
+     than twice per (cycle, polarisation) and once per polarisation for the
+     workspace: the channel legs are batched;
      (d) runs ical with MSMFS on a small cube (the JAX package's fused-cube
      test geometry) on the card and on the CPU, to the bounds of phase 7;
   9. the epsilon contract on the flagship observation with natural weights
@@ -397,18 +408,43 @@ def grid_bound(gp):
     return bound(gp.n_in * (8 + 4 + 4 + 4 + 32 + 32) + grids_bytes, gp.n_in * (64 * 9 + 5))
 
 
-def degrid_bound(gp):
-    """K3's bound on plan ``gp``: the grids in; per entry its corner,
-    plane, fraction and taps in and the value out; per plane 8 row sums of
-    8 complex-by-real products and one of 8."""
-    grids_bytes = gp.nplanes * gp.npixel**2 * 8
-    return bound(grids_bytes + gp.n * (4 + 4 + 4 + 4 + 32 + 32 + 8),
-                 gp.n_in * (2 * (64 * 4 + 8 * 4) + 6))
+def degrid_bound(gp, nchan=1):
+    """K3's bound on plan ``gp`` (or a stack of ``nchan`` channel plans,
+    whose ``n_in`` is a tensor): the grids in; per entry its corner,
+    plane, fraction and taps in and the value out; per in-grid entry and
+    plane 8 row sums of 8 complex-by-real products and one of 8."""
+    grids_bytes = nchan * gp.nplanes * gp.npixel**2 * 8
+    n_in = int(gp.n_in.sum()) if hasattr(gp.n_in, "sum") else gp.n_in
+    return bound(grids_bytes + nchan * gp.n * (4 + 4 + 4 + 4 + 32 + 32 + 8),
+                 n_in * (2 * (64 * 4 + 8 * 4) + 6))
 
 
-def permute_bound(n):
+def degrid_plain_pieces(gp, grids, piece=1 << 20):
+    """degrid_plain of plan ``gp`` over pieces of ``piece`` entries: the
+    plain version at the full stream within the card's memory."""
+    import dataclasses
+
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import degrid_plain
+
+    out = torch.zeros(gp.n, dtype=torch.complex64, device=grids.device)
+    for a in range(0, gp.n_in, piece):
+        b = min(a + piece, gp.n_in)
+        sub = dataclasses.replace(
+            gp, iu0=gp.iu0[a:b], iv0=gp.iv0[a:b], plane=gp.plane[a:b],
+            frac=gp.frac[a:b], ku=gp.ku[a:b], kv=gp.kv[a:b], n=b - a, n_in=b - a,
+        )
+        out[a:b] = degrid_plain(sub, grids)
+    return out
+
+
+def permute_bound(n, shared=0):
     """K4's bound on ``n`` complex64 elements: the index, the payload in
-    and out."""
+    and out; with a ``shared`` source of that many elements, the source
+    read once in place of ``n`` elements in."""
+    if shared:
+        return bound(n * (4 + 8) + shared * 8, 0)
     return bound(n * (4 + 8 + 8), 0)
 
 
@@ -482,34 +518,38 @@ def compare_gridding(device, vis, plan):
     weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
     grid_row(sub, sort_values(sub, weighted[:n_sub]), "1M subset", 3)
     out["grid"] = grid_row(full.gp, sort_values(full.gp, weighted), "full stream")
+    # degrid: the full flagship stream (9.9M entries) against the plain
+    # version in pieces; the 1M subset held too
     grids = torch.randn(
-        (sub.nplanes, sub.npixel, sub.npixel), generator=g, device=device,
-        dtype=torch.complex64,
-    )
-    ref = degrid_plain(sub, grids)
-    res = degrid(sub, grids)
-    err = float((res - ref).abs().max())
-    out["degrid"] = _row(
-        err, err / float(ref.abs().max()),
-        timed(lambda: degrid(sub, grids), 10),
-        timed(lambda: degrid_plain(sub, grids), 3),
-        degrid_bound(sub),
-    )
-    del ref, res, grids
-    full_grids = torch.randn(
         (full.nw, full.npad, full.npad), generator=g, device=device,
         dtype=torch.complex64,
     )
-    degrid_ms = timed(lambda: degrid(full.gp, full_grids), 5)
+    ref = degrid_plain(sub, grids)
+    err = float((degrid(sub, grids) - ref).abs().max())
+    say(
+        f"degrid 1M subset: {sub.n} entries: max abs err {err:.3e}, rel "
+        f"{err / float(ref.abs().max()):.3e} (tolerance {KERNELS['degrid'][0]:g})"
+    )
+    if not err <= KERNELS["degrid"][0] * float(ref.abs().max()):
+        raise AssertionError("degrid 1M subset disagrees with its plain version")
+    ref = degrid_plain_pieces(full.gp, grids)
+    err = float((degrid(full.gp, grids) - ref).abs().max())
+    out["degrid"] = _row(
+        err, err / float(ref.abs().max()),
+        timed(lambda: degrid(full.gp, grids), 20),
+        timed(lambda: degrid_plain_pieces(full.gp, grids), 1),
+        degrid_bound(full.gp),
+    )
+    del ref, grids
     say(
         f"full-size kernel times ({full.gp.n} entries, {full.nw} planes of "
-        f"{full.npad}^2): grid {out['grid']['ms']:.3f} ms, degrid {degrid_ms:.3f} ms "
-        f"(bound {degrid_bound(full.gp)[0]:.4f} ms)"
+        f"{full.npad}^2): grid {out['grid']['ms']:.3f} ms, degrid "
+        f"{out['degrid']['ms']:.4f} ms (bound {out['degrid']['bound_ms']:.4f} ms)"
     )
-    del full_grids
-    # permute: the full flagship permutation, one complex64 payload,
-    # both directions
-    perm = full.gp.perm
+    # permute: the full flagship permutation, one complex64 payload, both
+    # directions; plan -> natural order (the row) is a gather through the
+    # plan's inverse permutation, timed beside the same move as a scatter
+    perm, iperm = full.gp.perm, full.gp.iperm
     x = torch.randn(perm.shape[0], generator=g, device=device, dtype=torch.complex64)
     for inv in (False, True):
         same = torch.equal(
@@ -518,14 +558,24 @@ def compare_gridding(device, vis, plan):
         )
         if not same:
             raise AssertionError(f"permute (inverse={inv}) is not bit-exact")
+    if not torch.equal(permute_apply(iperm, x), permute_apply_plain(perm, x, inverse=True)):
+        raise AssertionError("permute: the gather through the inverse permutation differs")
     idx = perm.long()
     y = torch.empty_like(x)
     out["permute"] = _row(
         0.0, 0.0,
-        timed(lambda: permute_apply(perm, x, inverse=True), 20),
-        timed(lambda: permute_apply_plain(perm, x, inverse=True), 5),
+        timed(lambda: permute_apply(iperm, x), 20),
+        timed(lambda: permute_apply_plain(iperm, x), 5),
         permute_bound(perm.shape[0]),
         timed(lambda: y.index_copy_(0, idx, x), 20),
+    )
+    say(
+        f"permute flagship ({perm.shape[0]} complex64), plan -> natural order: "
+        f"a gather through the inverse permutation {out['permute']['ms']:.4f} ms, "
+        f"as a scatter {timed(lambda: permute_apply(perm, x, inverse=True), 20):.4f} ms; "
+        f"natural -> plan order (a gather) {timed(lambda: permute_apply(perm, x), 20):.4f} ms; "
+        f"bound {out['permute']['bound_ms']:.4f} ms; with a 32-byte sector for "
+        f"each random 8-byte access {perm.shape[0] * (4 + 8 + 32) / PEAK_BYTES_S * 1e3:.4f} ms"
     )
     return out
 
@@ -624,6 +674,7 @@ def hogbom_case(label, kernel, planes, d, p, win, kw, plain_reps=3):
         f"{label}: {nl} lane(s) of {ny}x{nx}, PSF {py}x{px}: {iters} iterations "
         f"(longest lane; {nits} in all), {row['ms'] / max(iters, 1) * 1e3:.2f} us "
         f"per iteration; kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
         f"max abs err {err:.3e}, rel {rel:.3e}; the search read plus the footprint "
         f"read-modify-write is {per_it_mb:.2f} MB per iteration, "
         f"{per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} us at 3.35 TB/s"
@@ -993,6 +1044,84 @@ def channel_shapes(gp, label):
     )
 
 
+def stack_shapes(plan, label):
+    """K3 and K4 at the cube cycle's launches: one launch over the plan
+    stack of every channel. The 64-channel degrid of random grids is held
+    against the per-channel plain version (1e-5 of the largest |value|),
+    the stacked permutes (inverse, forward, and forward from one shared
+    source, as the cycle moves the model and the gain factors) bit for bit
+    against the plain version; prints times and bounds."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import (
+        degrid_stack,
+        degrid_stack_plain,
+    )
+    from ska_sdp_func_python_torch.ops.permute import (
+        permute_apply,
+        permute_apply_plain,
+    )
+
+    st = plan.stack
+    dev = st.perm.device
+    g = torch.Generator(device=dev).manual_seed(3)
+    grids = torch.randn((st.nchan, st.nplanes, st.npixel, st.npixel), generator=g,
+                        device=dev, dtype=torch.complex64)
+    ref = degrid_stack_plain(st, grids)
+    err = float((degrid_stack(st, grids) - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    del ref
+    d_ms = timed(lambda: degrid_stack(st, grids), 20)
+    d_bound = degrid_bound(st, st.nchan)
+    say(
+        f"{label}: degrid, one launch over {st.nchan} channels of {st.n} entries "
+        f"({int(st.n_in.sum())} in the grid), {st.nplanes} planes of "
+        f"{st.npixel}^2: max abs err {err:.3e}, rel {rel:.3e} against the "
+        f"per-channel plain version (tolerance {KERNELS['degrid'][0]:g}); kernel "
+        f"{d_ms:.4f} ms, bound {d_bound[0]:.4f} ms ({d_bound[1]})"
+    )
+    if not rel <= KERNELS["degrid"][0]:
+        raise AssertionError(f"{label}: stacked degrid disagrees with its plain version")
+    del grids
+    x = torch.randn((st.nchan, st.n), generator=g, device=dev, dtype=torch.complex64)
+    f = torch.randn(st.n, generator=g, device=dev, dtype=torch.complex64)
+    times = {}
+    for name, p, src, inv, sh in (
+        ("plan -> natural (gather through the inverse)", st.iperm, x, False, ()),
+        ("plan -> natural as a scatter", st.perm, x, True, ()),
+        ("natural -> plan", st.perm, x, False, ()),
+        ("natural -> plan from one shared source", st.perm, f, False, (0,)),
+    ):
+        if not torch.equal(permute_apply(p, src, inverse=inv, shared=sh),
+                           permute_apply_plain(p, src, inverse=inv, shared=sh)):
+            raise AssertionError(f"{label}: stacked permute ({name}) is not bit-exact")
+        times[name] = timed(lambda: permute_apply(p, src, inverse=inv, shared=sh), 20)
+    if not torch.equal(permute_apply(st.iperm, x), permute_apply(st.perm, x, inverse=True)):
+        raise AssertionError(f"{label}: the gather through the inverse differs")
+    total = st.nchan * st.n
+    say(
+        f"{label}: permute, one launch over {st.nchan} channels of {st.n} "
+        f"complex64, bit-exact: " + ", ".join(f"{k} {v:.4f} ms" for k, v in times.items())
+        + f"; bound {permute_bound(total)[0]:.4f} ms, from the shared [{st.n}] "
+        f"source {permute_bound(total, st.n)[0]:.4f} ms"
+    )
+
+
+def _cube_launch_gate(label, counts, nmajor, npol=1):
+    """The cube cycle's degrid and permute legs batch the channels: at most
+    one degrid launch per (major cycle with a model, polarisation), two
+    permutes per (major cycle, polarisation) and one per polarisation for
+    the workspace, whatever the channel count."""
+    most = {"degrid": (nmajor - 1) * npol, "permute": (2 * nmajor + 1) * npol}
+    say(
+        f"{label}: launches per kernel {counts}; degrid at most "
+        f"{most['degrid']}, permute at most {most['permute']}"
+    )
+    over = {k: counts[k] for k, m in most.items() if counts[k] > m}
+    if over:
+        raise AssertionError(f"{label}: more launches than the batched legs make: {over}")
+
+
 def compare_msmfs(model, dirty, patch):
     """Phase 8a: the msmfs kernel against its plain version on the card, on
     the cycle-0 moment stacks of the cube's fused cycle (the moment images
@@ -1091,6 +1220,7 @@ def run_cube(device):
     weighted = (vis.vis * vis.imaging_weight)[:, :, c, 0].reshape(-1).contiguous()
     grid_row(gp, sort_values(gp, weighted), f"cube channel {c} (one channel's launch)")
     channel_shapes(gp, f"cube channel {c}")
+    stack_shapes(plan, "config-4 cube")
     psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
     dirty, _ = invert_visibility(vis, model, plan=plan)
     patch = bound_psf(psf, psf).pixels.to(torch.float32)
@@ -1111,6 +1241,7 @@ def run_cube(device):
         lambda: continuum_imaging(vis, model, nmajor=4, context="ng", **CUBE_CLEAN),
         4, ("grid", "degrid", "msmfs"),
     )
+    _cube_launch_gate("msmfs continuum_imaging", counts_b, 4)
     cube_gates("msmfs continuum_imaging", current, peaks, CUBE["offset"], CUBE["alpha"])
     del current
     corrupted, phases = corrupt(vis, 0.4)
@@ -1119,6 +1250,7 @@ def run_cube(device):
         "msmfs ical", corrupted, model, phases, 4,
         ("grid", "degrid", "permute", "msmfs"), **CUBE_CLEAN,
     )
+    _cube_launch_gate("msmfs ical", counts_c, 4)
     # printed, not gated: the self-cal residual keeps the calibration error
     cube_gates("msmfs ical", current, peaks, CUBE["offset"], CUBE["alpha"], gate=False)
     return row, {k: counts_b[k] + counts_c[k] for k in counts_b}

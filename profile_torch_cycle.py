@@ -8,7 +8,8 @@ channels, 18.8M visibilities, a 256^2 cube, 3 moments) corrupted with
 N(0, 0.4) "T" phases; runs four major cycles of
 ``pipeline._fused_selfcal_cycle`` (printing each cycle's wall time and
 StefCal iteration count), times each stage of a steady cycle on its own
-(synchronised, averaged; each stage summed over the image channels), and
+(synchronised, averaged; predict and the permutes one launch each over
+all image channels, the invert stages summed over the channels), and
 profiles one more cycle with ``torch.profiler``. From that trace it
 prints:
 
@@ -43,10 +44,9 @@ from ska_sdp_func_python_torch.ops.calibration_chain import (
 )
 from ska_sdp_func_python_torch.ops.gridding_plan import grid_with_plan
 from ska_sdp_func_python_torch.ops.imaging import (
-    invert_visibility,
     invert_with_plan,
     make_visibility_plan,
-    predict_with_plan,
+    predict_with_stack,
     uv_grids_to_dirty,
 )
 from ska_sdp_func_python_torch.ops.permute import permute_apply
@@ -127,10 +127,9 @@ def main() -> int:
         _, vis, model, _ = cs.simulate(dev, rmax=40000.0, ntimes=76, npixel=1024)
         clean = dict(algorithm=args.algorithm, scales=cs.SCALES, **cs.CLEAN)
     plan = make_visibility_plan(vis, model, context="ng")
-    psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
     ws = P._FusedSelfCal(
         vis, model, plan, None, ["T"], create_calibration_controls(), "mean",
-        200, 1e-6, psf, **clean,
+        200, 1e-6, **clean,
     )
     gains = [ws.gt0s[0].gain]
     gwts = [ws.gt0s[0].weight]
@@ -159,40 +158,40 @@ def main() -> int:
         calls[0] = 0
     solvers._gain_substitution_scalar = substitution
 
-    # each stage runs over every image channel (polarisation 0, stokesI)
+    # each stage runs over every image channel (polarisation 0, stokesI):
+    # predict and the permutes as one launch for all channels, the invert
+    # leg channel by channel
     plans = plan.plans
     chans = range(len(plans))
+    perm = plan.stack.perm
     ms = stage(
         "predict (fft head + degrid)",
-        lambda: [predict_with_plan(plans[c], mp[c, 0], to_sorted=True) for c in chans],
+        lambda: predict_with_stack(plan, mp[:, 0], to_sorted=True),
     )
     mv = stage(
         "permute model -> natural",
-        lambda: [permute_apply(plans[c].gp.perm, ms[c], inverse=True) for c in chans],
+        lambda: permute_apply(plan.stack.iperm, ms),
     )
     ntime = ws.cal[0]["w_t"].shape[1]
-    mvis = torch.stack([m.reshape(ntime, -1) for m in mv], dim=2)[..., None]
+    mvis = mv.reshape(len(plans), ntime, -1).permute(1, 2, 0)[..., None]
     inv = stage(
         "solve (normal equations + StefCal + factors)",
         lambda: P._solve_terms(ws, ws.cfg, gains, mvis), reps=2,
     )[3]
     fac = inv[:, :, 0, 0].reshape(-1).contiguous()
-    f = stage(
-        "permute factors -> plan",
-        lambda: [permute_apply(plans[c].gp.perm, fac) for c in chans],
-    )
-    rs = [ws.obs_s[c][0] * f[c] - ms[c] for c in chans]
+    f = stage("permute factors -> plan", lambda: permute_apply(perm, fac, shared=(0,)))
+    rs = ws.obs_s[0] * f - ms
     d = stage(
         "invert (grid + fft tail)",
         lambda: [
-            invert_with_plan(plans[c], rs[c], ws.wgt_s[c][0], values_sorted=True)
+            invert_with_plan(plans[c], rs[c], ws.wgt_s[0][c], values_sorted=True)
             for c in chans
         ],
     )
     gr = stage(
         "  grid only",
         lambda: [
-            grid_with_plan(plans[c].gp, rs[c] * ws.wgt_s[c][0], values_sorted=True)
+            grid_with_plan(plans[c].gp, rs[c] * ws.wgt_s[0][c], values_sorted=True)
             for c in chans
         ],
     )

@@ -168,12 +168,12 @@ KERNELS = {
     "degrid": Kernel(
         "degrid",
         "ska_degrid",
-        [_P, _P, _P, _P, _P, _P, _P, _P, _L, _L, _I, _I],
+        [*[_P] * 9, _L, _P, _L, _I, _I, _I, _I],
     ),
     "permute": Kernel(
         "permute",
         "ska_permute",
-        [_P, _L, _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P],
+        [_P, _L, _I, _I, _I, _I, _I, *[_P] * 8],
     ),
     "hogbom": Kernel(
         "hogbom",

@@ -10,7 +10,8 @@ the eight separable ES taps of each axis as ``[n, 8]`` arrays.
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the hand-written kernel (``csrc/grid.cu``,
-``csrc/degrid.cu``) or raises.
+``csrc/degrid.cu``) or raises. :func:`degrid_stack` degrids every channel
+of a stack of plans (``gridding_plan.GridPlanStack``) in one launch.
 """
 
 from __future__ import annotations
@@ -19,7 +20,14 @@ import torch
 
 from .. import kernels
 
-__all__ = ["grid", "grid_plain", "degrid", "degrid_plain"]
+__all__ = [
+    "grid",
+    "grid_plain",
+    "degrid",
+    "degrid_plain",
+    "degrid_stack",
+    "degrid_stack_plain",
+]
 
 
 def _es_taps8(pix, i0, support: int, beta: float | None = None, lo=None):
@@ -145,31 +153,76 @@ def degrid_plain(plan, grids: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def degrid_stack_plain(stack, grids: torch.Tensor) -> torch.Tensor:
+    """Plain version of :func:`degrid_stack`: :func:`degrid_plain` on each
+    channel's plan in turn. Returns [nchan, n] complex64."""
+    return torch.stack(
+        [degrid_plain(gp, grids[c]) for c, gp in enumerate(stack.plans)]
+    )
+
+
+def _launch_degrid(src, grids, nchan: int, n_in_ptr, n_in0: int):
+    """One K3 launch over the ``nchan`` channels of ``src`` (a plan, or a
+    stack of them); returns [nchan, n] complex64."""
+    dev = grids.device
+    chk = kernels.check_cuda_tensor
+    npix = src.npixel
+    if grids.shape != (nchan, src.nplanes, npix, npix):
+        raise ValueError(
+            f"grids: shape {tuple(grids.shape)}, expected "
+            f"{(nchan, src.nplanes, npix, npix)}"
+        )
+    if nchan > 65535:
+        raise ValueError(f"{nchan} channels; one launch takes at most 65535")
+    if src.nplanes * npix * npix >= 2**31:
+        raise ValueError(f"{src.nplanes} planes of {npix}^2: a window offset exceeds int32")
+    lead = (src.n,) if src.perm.ndim == 1 else (nchan, src.n)
+    for name in ("iu0", "iv0", "plane", "frac"):
+        if getattr(src, name).shape != lead:
+            raise ValueError(f"{name}: shape {tuple(getattr(src, name).shape)}")
+    walk = (src.n_in,) if src.perm.ndim == 1 else lead
+    if src.korder.shape != walk:
+        raise ValueError(f"korder: shape {tuple(src.korder.shape)}, expected {walk}")
+    for name in ("ku", "kv"):
+        if getattr(src, name).shape != (*lead, 8):
+            raise ValueError(f"{name}: shape {tuple(getattr(src, name).shape)}")
+    _check_taps_aligned(src)
+    out = torch.empty((nchan, src.n), dtype=torch.complex64, device=dev)
+    kernels.KERNELS["degrid"].launch(
+        chk("grids", grids, torch.complex64, dev),
+        chk("iu0", src.iu0, torch.int32, dev),
+        chk("iv0", src.iv0, torch.int32, dev),
+        chk("plane", src.plane, torch.int32, dev),
+        chk("frac", src.frac, torch.float32, dev),
+        chk("ku", src.ku, torch.float32, dev),
+        chk("kv", src.kv, torch.float32, dev),
+        chk("korder", src.korder, torch.int32, dev),
+        n_in_ptr,
+        n_in0,
+        out.data_ptr(),
+        src.n,
+        nchan,
+        npix,
+        src.nplanes,
+        1 if src.wstacked else 0,
+    )
+    return out
+
+
 def degrid(plan, grids: torch.Tensor) -> torch.Tensor:
     """Degrid plan-ordered complex64 values from the plane grids (kernel
     K3 on CUDA)."""
     if grids.device.type == "cpu":
         return degrid_plain(plan, grids)
-    dev = grids.device
-    k = kernels.KERNELS["degrid"]
-    chk = kernels.check_cuda_tensor
-    npix = plan.npixel
-    if grids.shape != (plan.nplanes, npix, npix):
-        raise ValueError(f"grids: shape {tuple(grids.shape)}")
-    _check_taps_aligned(plan)
-    out = torch.empty(plan.n, dtype=torch.complex64, device=dev)
-    k.launch(
-        chk("grids", grids, torch.complex64, dev),
-        chk("iu0", plan.iu0, torch.int32, dev),
-        chk("iv0", plan.iv0, torch.int32, dev),
-        chk("plane", plan.plane, torch.int32, dev),
-        chk("frac", plan.frac, torch.float32, dev),
-        chk("ku", plan.ku, torch.float32, dev),
-        chk("kv", plan.kv, torch.float32, dev),
-        out.data_ptr(),
-        plan.n,
-        plan.n_in,
-        npix,
-        1 if plan.wstacked else 0,
-    )
-    return out
+    return _launch_degrid(plan, grids[None], 1, None, plan.n_in)[0]
+
+
+def degrid_stack(stack, grids: torch.Tensor) -> torch.Tensor:
+    """Degrid every channel of a plan stack (``gridding_plan.GridPlanStack``)
+    from its grids ``[nchan, nplanes, npix, npix]`` complex64 in one launch
+    (kernel K3 on CUDA); returns [nchan, n] complex64, each channel in its
+    plan's order, zero for its out-of-grid entries."""
+    if grids.device.type == "cpu":
+        return degrid_stack_plain(stack, grids)
+    n_in = kernels.check_cuda_tensor("n_in", stack.n_in, torch.int32, grids.device)
+    return _launch_degrid(stack, grids, stack.nchan, n_in, 0)

@@ -12,6 +12,12 @@ order within each segment (``korder``: by window corner, so that
 consecutive entries share cells). Values move between natural and plan order through
 ``permute.permute_apply`` (kernel K4) with the stored permutation, in
 place of the JAX package's rank-keyed sorts.
+
+A :class:`GridPlanStack` holds the per-entry arrays that the degrid (K3)
+and permute (K4) kernels read for one plan per channel, stacked
+``[nchan, n]``, so that one launch serves every channel of a cube (the
+JAX package vmaps over channel-stacked plans); each channel's
+:class:`GridPlan` holds views into the stack, so nothing is stored twice.
 """
 
 from __future__ import annotations
@@ -26,7 +32,10 @@ from .permute import permute_apply
 
 __all__ = [
     "GridPlan",
+    "GridPlanStack",
+    "STACKED",
     "default_chunk",
+    "stack_views",
     "make_grid_plan",
     "grid_with_plan",
     "degrid_with_plan",
@@ -42,6 +51,7 @@ class GridPlan:
     (the TPU plan's trash segment)."""
 
     perm: torch.Tensor  # int32 [n]: original index of each sorted entry
+    iperm: torch.Tensor  # int32 [n]: sorted position of each original entry
     iu0: torch.Tensor  # int32 [n] clipped window corner (u)
     iv0: torch.Tensor  # int32 [n] clipped window corner (v)
     plane: torch.Tensor  # int32 [n] lower w-plane
@@ -60,6 +70,91 @@ class GridPlan:
     tile: int
     wstacked: bool
     beta: float | None = None
+
+
+# the per-entry arrays of a plan that K3 and K4 read, stacked over channels
+# (korder, [n_in] a channel, in rows of n)
+STACKED = ("perm", "iperm", "iu0", "iv0", "plane", "frac", "ku", "kv", "korder")
+
+
+def stack_views(store: dict, nchan: int, c: int, n: int | None = None, **arrays) -> dict:
+    """Copies each named array into row ``c`` of the stacked array of the
+    same name in ``store`` (zero-filled ``[nchan, n, ...]`` at its first
+    row, ``n`` the array's length if None; a shorter array fills the head
+    of its row) and returns the filled rows, views of the stack, by name."""
+    rows = {}
+    for name, a in arrays.items():
+        if name not in store:
+            shape = (nchan, a.shape[0] if n is None else n, *a.shape[1:])
+            store[name] = torch.zeros(shape, dtype=a.dtype, device=a.device)
+        row = store[name][c]
+        if a.shape[0] > row.shape[0] or a.shape[1:] != row.shape[1:] or a.dtype != row.dtype:
+            raise ValueError(
+                f"{name}: channel {c} has {tuple(a.shape)} {a.dtype}, the stack "
+                f"rows {tuple(row.shape)} {row.dtype}"
+            )
+        rows[name] = row[: a.shape[0]].copy_(a)
+    return rows
+
+
+@dataclass(frozen=True)
+class GridPlanStack:
+    """The :data:`STACKED` arrays of one plan per channel, ``[nchan, n]``
+    (``[nchan, n, 8]`` for the taps; ``korder``, the walk order of the
+    grid and degrid kernels, ragged in ``n_in``, fills the head of its
+    row), and the channel plans, whose arrays of those names are views
+    into them. Every channel has the same ``n`` entries, grid size and
+    w-planes; ``n_in`` is an int32 ``[nchan]`` tensor on the plans'
+    device. The chunk tables, ragged and read only by the grid kernel,
+    stay per channel."""
+
+    perm: torch.Tensor
+    iperm: torch.Tensor
+    iu0: torch.Tensor
+    iv0: torch.Tensor
+    plane: torch.Tensor
+    frac: torch.Tensor
+    ku: torch.Tensor
+    kv: torch.Tensor
+    korder: torch.Tensor
+    n_in: torch.Tensor
+    plans: tuple
+    n: int
+    npixel: int
+    nplanes: int
+    wstacked: bool
+
+    @property
+    def nchan(self) -> int:
+        return len(self.plans)
+
+    @classmethod
+    def of(cls, store: dict, plans) -> "GridPlanStack":
+        """The stack of ``plans``, whose :data:`STACKED` arrays are the rows
+        of ``store`` (filled by :func:`stack_views`)."""
+        plans = tuple(plans)
+        p0 = plans[0]
+        for c, gp in enumerate(plans):
+            if (gp.n, gp.npixel, gp.nplanes, gp.wstacked) != (
+                p0.n, p0.npixel, p0.nplanes, p0.wstacked
+            ):
+                raise ValueError(f"channel {c}: plan geometry differs from channel 0")
+            for name in STACKED:
+                view = getattr(gp, name)
+                if view.numel() and view.data_ptr() != store[name][c].data_ptr():
+                    raise ValueError(f"channel {c}: {name} is not a view of the stack")
+        n_in = torch.tensor(
+            [gp.n_in for gp in plans], dtype=torch.int32, device=p0.perm.device
+        )
+        return cls(
+            **{name: store[name] for name in STACKED},
+            n_in=n_in,
+            plans=plans,
+            n=p0.n,
+            npixel=p0.npixel,
+            nplanes=p0.nplanes,
+            wstacked=p0.wstacked,
+        )
 
 
 # The default chunk: the largest power of two in [_CHUNK_MIN, _CHUNK_MAX]
@@ -183,8 +278,14 @@ def make_grid_plan(
     def i32(x):
         return x.to(torch.int32).contiguous()
 
+    # plan -> natural order is a gather through the inverse permutation:
+    # on the card a gather with coalesced writes is faster than the
+    # scatter (K4 at the flagship, PERF.md)
+    iperm = torch.empty_like(perm)
+    iperm[perm] = torch.arange(n, device=device, dtype=perm.dtype)
     return GridPlan(
         perm=i32(perm),
+        iperm=i32(iperm),
         iu0=i32(iu0_s),
         iv0=i32(iv0_s),
         plane=i32(p0[perm]),
@@ -213,9 +314,7 @@ def sort_values(plan: GridPlan, vals: torch.Tensor) -> torch.Tensor:
 
 def unsort_values(plan: GridPlan, vals_sorted: torch.Tensor) -> torch.Tensor:
     """Plan order -> natural order, as complex64."""
-    return permute_apply(
-        plan.perm, vals_sorted.to(torch.complex64), inverse=True
-    )
+    return permute_apply(plan.iperm, vals_sorted.to(torch.complex64))
 
 
 def grid_with_plan(

@@ -7,7 +7,9 @@ Counterpart of ``ska_sdp_func_python_tpu/ops/imaging.py``. Two routes:
   ones (split (hi, lo) f32 pairs for an f32 Visibility, f64 coordinates
   for an f64 one); an FFT tail on ``torch.fft`` with the w-beam multiply
   and plane sum over the central ``npixel^2`` only, and the ES grid
-  correction;
+  correction. The plans of a Visibility's channels keep what degrid and
+  permute read in one stack (``GridPlanStack``), so a cube's predict is
+  one batched FFT head, one K3 and one K4 launch;
 - the core path (``invert_core``/``predict_core``): one call grids or
   degrids one (channel, polarisation) block, through the tiled gridder
   (``gridding_tiled``, kernel K9) in the precision of its inputs, or
@@ -26,6 +28,7 @@ package::
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -46,13 +49,18 @@ from ..models.visibility import C_M_S, Visibility
 from .accuracy import gridding_params_for_epsilon, nw_for_epsilon
 from .fft import extract_mid, fft, ifft, pad_mid
 from .gridding import _es_beta, es_kernel, grid_correction
+from .gridding_fused import degrid_stack
 from .gridding_plan import (
+    STACKED,
     GridPlan,
+    GridPlanStack,
     degrid_with_plan,
     grid_with_plan,
     make_grid_plan,
+    stack_views,
 )
 from .gridding_tiled import tiled_degrid, tiled_grid
+from .permute import permute_apply
 from .pswf import w_beam
 from .visibility_ops import phaserotate_visibility
 
@@ -70,6 +78,8 @@ __all__ = [
     "predict_core",
     "VisibilityImagingPlan",
     "make_visibility_plan",
+    "image_to_uv_grids_stack",
+    "predict_with_stack",
     "invert_visibility",
     "predict_visibility",
     "predict_ng",
@@ -639,7 +649,11 @@ def predict_with_plan(
 
 @dataclass(frozen=True)
 class VisibilityImagingPlan:
-    """The :class:`ImagingPlan` set for one (Visibility, Image) pair."""
+    """The :class:`ImagingPlan` set for one (Visibility, Image) pair. With
+    one entry copy per visibility (every plan but eskernel's), ``stack``
+    holds the channel plans' degrid and permute arrays stacked (each
+    plan's are views into it) and ``corr_c``, ``wb_r`` and ``wb_i`` the
+    channels' image-side arrays ``[nchan, ...]`` (each plan's, views)."""
 
     plans: tuple  # one ImagingPlan per image channel
     support: int
@@ -648,6 +662,40 @@ class VisibilityImagingPlan:
     mfs: bool
     npixel: int
     nchan: int
+    stack: GridPlanStack | None = None
+    corr_c: torch.Tensor | None = None  # [nchan, npixel, npixel]
+    wb_r: torch.Tensor | None = None  # [nchan, nw, npixel, npixel]
+    wb_i: torch.Tensor | None = None
+
+
+def image_to_uv_grids_stack(
+    plan: VisibilityImagingPlan, images: torch.Tensor
+) -> torch.Tensor:
+    """:func:`image_to_uv_grids` of every channel of a stacked plan set at
+    once: ``images`` [nchan, npixel, npixel] -> [nchan, nplanes, npad,
+    npad] (one batched FFT)."""
+    p0 = plan.plans[0]
+    z = (images / plan.corr_c).to(complex_of(images.dtype))
+    if p0.do_wstacking and p0.nw > 1:
+        zc = z[:, None] * torch.complex(plan.wb_r, -plan.wb_i).to(z.dtype)
+        return fft(pad_mid(zc, p0.npad))
+    return fft(pad_mid(z, p0.npad))[:, None]
+
+
+def predict_with_stack(
+    plan: VisibilityImagingPlan, images: torch.Tensor, *, to_sorted: bool = False
+) -> torch.Tensor:
+    """:func:`predict_with_plan` of every channel of a stacked plan set:
+    ``images`` [nchan, npixel, npixel] -> [nchan, n] complex64 (each
+    channel in its plan's order with ``to_sorted=True``), through one
+    batched FFT head, one degrid launch (K3) and, for natural order, one
+    permute launch (K4)."""
+    st = plan.stack
+    if st is None:
+        raise ValueError("the plan set has no channel stack (eskernel plans)")
+    grids = image_to_uv_grids_stack(plan, images)
+    vals = degrid_stack(st, grids.to(torch.complex64).contiguous())
+    return vals if to_sorted else permute_apply(st.iperm, vals)
 
 
 def _nw_for(vis: Visibility, im: Image, do_wstacking: bool, nw=None) -> int:
@@ -744,8 +792,10 @@ def make_visibility_plan(
         uvw_l = vis.uvw_lambda
     else:
         raise ValueError(f"coords must be 'device' or 'host64', got {coords!r}")
-    plans = tuple(
-        make_imaging_plan(
+    nchan = model.nchan
+    plans, store, tails = [], {}, {}
+    for c in range(nchan):
+        ip = make_imaging_plan(
             uvw_l[:, :, c, 0].reshape(-1),
             uvw_l[:, :, c, 1].reshape(-1),
             uvw_l[:, :, c, 2].reshape(-1),
@@ -760,16 +810,28 @@ def make_visibility_plan(
             dtype=vis.uvw.dtype,
             device=vis.device,
         )
-        for c in range(model.nchan)
-    )
+        if ip.ncopies == 1:
+            # each channel's arrays move into the stack as it is built, so
+            # the plan set is never held twice
+            gp = dataclasses.replace(ip.gp, **stack_views(
+                store, nchan, c, ip.gp.n, **{k: getattr(ip.gp, k) for k in STACKED}
+            ))
+            ip = dataclasses.replace(ip, gp=gp, **stack_views(
+                tails, nchan, c,
+                **{k: getattr(ip, k) for k in ("corr_c", "wb_r", "wb_i")
+                   if getattr(ip, k) is not None},
+            ))
+        plans.append(ip)
     return VisibilityImagingPlan(
-        plans=plans,
+        plans=tuple(plans),
         support=support,
         nw=nwp,
         do_wstacking=do_wstacking,
         mfs=False,
         npixel=model.npixel,
-        nchan=model.nchan,
+        nchan=nchan,
+        stack=GridPlanStack.of(store, [p.gp for p in plans]) if store else None,
+        **tails,
     )
 
 
@@ -997,27 +1059,36 @@ def predict_visibility(
     newvis = torch.zeros(
         vis.vis.shape[:3] + (npol_img,), dtype=cdtype, device=vis.device
     )
-    for chan in range(nchan_img):
-        fsel = slice(None) if mfs else slice(chan, chan + 1)
-        tb_shape = newvis[:, :, fsel, 0].shape
-        if plan is None:
-            uu, ulo, vv, vlo, ww = _core_rows(vis, model, uvw_l, fsel, kwargs)
+    if plan is not None and plan.stack is not None:
+        # every channel in one batched head, degrid and permute
+        ntime, nbl = newvis.shape[:2]
         for pol in range(npol_img):
-            if plan is not None:
-                vals = predict_with_plan(plan.plans[chan], model.pixels[chan, pol])
-            else:
-                vals = predict_core(
-                    uu, vv, ww, model.pixels[chan, pol], ulo, vlo,
-                    cellsize=model.cellsize,
-                    support=support,
-                    nw=nwp,
-                    do_wstacking=do_wstacking,
-                    padding=kwargs.get("padding") or 2,
-                    gridder=kwargs.get("gridder"),
-                    w_interp=kwargs.get("w_interp", "linear"),
-                    prepix=bool(kwargs.get("prepix")),
-                )
-            newvis[:, :, fsel, pol] += vals.reshape(tb_shape).to(cdtype)
+            vals = predict_with_stack(plan, model.pixels[:, pol])
+            newvis[:, :, :nchan_img, pol] = (
+                vals.reshape(nchan_img, ntime, nbl).permute(1, 2, 0).to(cdtype)
+            )
+    else:
+        for chan in range(nchan_img):
+            fsel = slice(None) if mfs else slice(chan, chan + 1)
+            tb_shape = newvis[:, :, fsel, 0].shape
+            if plan is None:
+                uu, ulo, vv, vlo, ww = _core_rows(vis, model, uvw_l, fsel, kwargs)
+            for pol in range(npol_img):
+                if plan is not None:
+                    vals = predict_with_plan(plan.plans[chan], model.pixels[chan, pol])
+                else:
+                    vals = predict_core(
+                        uu, vv, ww, model.pixels[chan, pol], ulo, vlo,
+                        cellsize=model.cellsize,
+                        support=support,
+                        nw=nwp,
+                        do_wstacking=do_wstacking,
+                        padding=kwargs.get("padding") or 2,
+                        gridder=kwargs.get("gridder"),
+                        w_interp=kwargs.get("w_interp", "linear"),
+                        prepix=bool(kwargs.get("prepix")),
+                    )
+                newvis[:, :, fsel, pol] += vals.reshape(tb_shape).to(cdtype)
     newvis = convert_pol_frame(
         newvis, model.polarisation_frame, vis.polarisation_frame
     )

@@ -3,15 +3,18 @@
 Counterpart of the fused path of ``ska_sdp_func_python_tpu/pipeline.py``:
 ``ical`` and ``continuum_imaging`` build one imaging plan per image
 channel, take the PSF through them, build a plan-sorted workspace and run
-:func:`_fused_selfcal_cycle` once per major cycle. One cycle, for every
-image channel in turn:
+:func:`_fused_selfcal_cycle` once per major cycle. One cycle:
 
-1. degrids the model image in that channel's plan order (kernel K3);
-2. moves the model into natural order (kernel K4, inverse);
-3. (all channels together) forms the product-form normal equations and
-   runs the StefCal solve; ``continuum_imaging`` leaves this out;
-4. moves the inverse gain factors into plan order (kernel K4, forward);
-5. inverts the residual in plan order (kernels K1+K2, FFT tail);
+1. degrids the model image of every channel in that channel's plan order
+   (one batched FFT head and one launch of kernel K3 for all channels);
+2. moves the model into natural order (one launch of kernel K4, a gather
+   through the inverse permutations);
+3. forms the product-form normal equations over all channels and runs
+   the StefCal solve; ``continuum_imaging`` leaves this out;
+4. moves the inverse gain factors into every channel's plan order (one
+   launch of kernel K4, forward, from one shared source);
+5. inverts each channel's residual in plan order in turn (kernels K1+K2,
+   FFT tail);
 6. CLEANs the residual cube: msclean (kernel K7, the default) or Hogbom
    (K5) per (channel, polarisation) plane, or MSMFS (``algorithm=
    "mmclean"``, kernel K8) on the cube's frequency moments, with an
@@ -53,10 +56,10 @@ from .ops.deconvolution import (
 )
 from .ops.gain_ops import _gain_row_of_time
 from .ops.imaging import (
-    invert_visibility,
     invert_with_plan,
     make_visibility_plan,
-    predict_with_plan,
+    normalise_sumwt,
+    predict_with_stack,
     shift_vis_to_image,
 )
 from .ops.permute import permute_apply
@@ -94,20 +97,38 @@ class _SortedWorkspace:
         # invariant under the phase shift, so gains solve in the image frame)
         self.ms_nat = ms
         self.fw_nat = svis.flagged_weight
-        # obs_s[chan][pol], wgt_s[chan][pol]: each stream's values and
-        # weights move in one launch, by its channel plan's permutation
+        # each (channel, polarisation)'s sum of imaging weights
+        self.sumwt = wgt.sum(dim=(0, 1))
+        # obs_s[pol], wgt_s[pol]: [nchan, n], each channel in its plan's
+        # order; a polarisation's values and weights of every channel move
+        # in one launch, by the plan stack's permutations
         self.obs_s, self.wgt_s = [], []
-        for c, cplan in enumerate(plan.plans):
-            moved = [
-                permute_apply(
-                    cplan.gp.perm,
-                    ms[:, :, c, p].reshape(-1).to(torch.complex64).contiguous(),
-                    wgt[:, :, c, p].reshape(-1).to(torch.float32).contiguous(),
-                )
-                for p in range(self.npol)
-            ]
-            self.obs_s.append([m[0] for m in moved])
-            self.wgt_s.append([m[1] for m in moved])
+        for p in range(self.npol):
+            obs, w = permute_apply(
+                plan.stack.perm,
+                _channel_rows(ms[..., p]).to(torch.complex64).contiguous(),
+                _channel_rows(wgt[..., p]).to(torch.float32).contiguous(),
+            )
+            self.obs_s.append(obs)
+            self.wgt_s.append(w)
+
+
+def _channel_rows(x: torch.Tensor) -> torch.Tensor:
+    """[time, baseline, chan] -> [chan, time * baseline]: each channel's
+    values in natural order, the payload layout of a plan stack."""
+    return x.permute(2, 0, 1).reshape(x.shape[2], -1)
+
+
+def _workspace_psf(ws: _SortedWorkspace, model: Image) -> Image:
+    """The PSF (unit amplitude in the first polarisation) that
+    ``invert_visibility(dopsf=True)`` gives on the workspace's plans: the
+    invert leg on its plan-ordered weights as the values, which need no
+    second sort, normalised by the workspace's sums of weights."""
+    pixels = torch.zeros_like(model.pixels)
+    for c, ip in enumerate(ws.plan.plans):
+        dirty, _ = invert_with_plan(ip, ws.wgt_s[0][c], values_sorted=True)
+        pixels[c, 0] = dirty.to(pixels.dtype)
+    return normalise_sumwt(model.replace(pixels=pixels), ws.sumwt)
 
 
 class _FusedTermCfg(typing.NamedTuple):
@@ -151,10 +172,10 @@ class _FusedSelfCal(_SortedWorkspace):
         normalise_gains,
         solver_niter: int,
         solver_tol: float,
-        psf: Image,
         **clean_kwargs,
     ):
         super().__init__(vis, model, plan, components)
+        psf = self.psf = _workspace_psf(self, model)
         if list(terms) != ["T"]:
             raise not_ported(f"calibration terms {terms!r} (only 'T')", "S7x")
         if controls["T"].get("shape") != "scalar":
@@ -391,56 +412,52 @@ def _fused_selfcal_cycle(
 
     It serves one image channel (the JAX package's
     ``_fused_selfcal_cycle``) and a cube (``_fused_selfcal_cycle_cube``)
-    alike: each channel's legs run on that channel's plan in turn, the
-    solve takes the model visibilities of all channels as ``[time,
-    baseline, chan, pol]``, and the "T" factors, one per (time, baseline),
-    serve every channel."""
+    alike: the predict and permute legs run over the plan stack of all
+    channels at once (the JAX package vmaps them over the channel-stacked
+    plans), the solve takes the model visibilities of all channels as
+    ``[time, baseline, chan, pol]``, the "T" factors, one per (time,
+    baseline), serve every channel, and the invert leg runs on each
+    channel's plan in turn."""
     cfg = ws.cfg
-    plans = ws.plan.plans
+    plan = ws.plan
+    perm = plan.stack.perm
     nchan, npol = cfg.nchan, cfg.npol
+    # [nchan, n] per polarisation, each channel in its plan's order
     model_s = [
-        [
-            predict_with_plan(plans[c], model_pixels[c, p], to_sorted=True)
-            if with_model
-            else ws.obs_s[c][p] * 0.0
-            for p in range(npol)
-        ]
-        for c in range(nchan)
+        predict_with_stack(plan, model_pixels[:, p], to_sorted=True)
+        if with_model
+        else ws.obs_s[p] * 0.0
+        for p in range(npol)
     ]
 
     any_cal = any(do_cal)
     if any_cal:
         ntime, nbl = ws.cal[0]["w_t"].shape[1], ws.a1.shape[0]
-        chans = [
-            torch.stack(
-                [
-                    permute_apply(
-                        plans[c].gp.perm, model_s[c][p], inverse=True
-                    ).reshape(ntime, nbl)
-                    for p in range(npol)
-                ],
-                dim=-1,
-            )
-            for c in range(nchan)
-        ]
-        mvis = torch.stack(chans, dim=2)  # [t, b, nchan, npol]
+        mvis = torch.stack(
+            [
+                permute_apply(plan.stack.iperm, model_s[p]).reshape(nchan, ntime, nbl)
+                for p in range(npol)
+            ],
+            dim=-1,
+        ).permute(1, 2, 0, 3)  # [t, b, nchan, npol]
         gains, gwts, gress, inv_tot = _solve_terms(ws, cfg, gains, mvis)
 
-    ny = nx = plans[0].npixel
+    ny = nx = plan.npixel
     device = model_pixels.device
     pixels = torch.zeros((nchan, npol, ny, nx), dtype=torch.float32, device=device)
     sumwt = torch.zeros((nchan, npol), dtype=torch.float32, device=device)
-    for c in range(nchan):
-        perm = plans[c].gp.perm
-        for p in range(npol):
-            if any_cal:
-                f_p = inv_tot[:, :, 0, p].reshape(-1)
-                corr = ws.obs_s[c][p] * permute_apply(perm, f_p.contiguous())
-            else:
-                corr = ws.obs_s[c][p]
-            resid_s = corr - model_s[c][p]
+    for p in range(npol):
+        if any_cal:
+            # one (time, baseline) factor serves every channel: a shared
+            # source of the stacked permute
+            f_p = inv_tot[:, :, 0, p].reshape(-1).contiguous()
+            corr = ws.obs_s[p] * permute_apply(perm, f_p, shared=(0,))
+        else:
+            corr = ws.obs_s[p]
+        resid_s = corr - model_s[p]
+        for c in range(nchan):
             dirty, swt = invert_with_plan(
-                plans[c], resid_s, ws.wgt_s[c][p], values_sorted=True
+                plan.plans[c], resid_s[c], ws.wgt_s[p][c], values_sorted=True
             )
             pixels[c, p] = dirty.to(torch.float32)
             sumwt[c, p] = swt
@@ -477,10 +494,10 @@ def ical(
         controls = create_calibration_controls()
     if checkpoint_path is not None or state is not None:
         raise not_ported("ical checkpoints (SelfCalState)", "S7x")
-    plan, psf = _plan_and_psf("ical", vis, model, context, kwargs)
+    plan = _plan_for("ical", vis, model, context, kwargs)
     return _ical_fused(
         vis, model, components, nmajor, calibration_context, controls,
-        plan, psf, **kwargs,
+        plan, **kwargs,
     )
 
 
@@ -492,7 +509,6 @@ def _ical_fused(
     terms: str,
     controls,
     plan,
-    psf,
     solver_niter: int = 200,
     tol: float = 1e-6,
     **kwargs,
@@ -501,7 +517,7 @@ def _ical_fused(
     cycle, with a host fetch of the peak residual only for logging."""
     ws = _FusedSelfCal(
         vis, model, plan, components, list(terms), controls, "mean",
-        solver_niter, tol, psf, **kwargs,
+        solver_niter, tol, **kwargs,
     )
     gains = [gt.gain for gt in ws.gt0s]
     gwts = [gt.weight for gt in ws.gt0s]
@@ -520,7 +536,7 @@ def _ical_fused(
     current = model.replace(pixels=model_px.to(model.pixels.dtype))
     residual = model.replace(pixels=res_px) if res_px is not None else None
     gaintables = ws.gaintables(gains, gwts, gress)
-    restored = _restore_with_components(current, psf, residual, components)
+    restored = _restore_with_components(current, ws.psf, residual, components)
     return current, residual, restored, gaintables
 
 
@@ -539,10 +555,10 @@ def continuum_imaging(
 
     :return: (model Image, residual Image, restored Image)
     """
-    plan, psf = _plan_and_psf("continuum_imaging", vis, model, context, kwargs)
+    plan = _plan_for("continuum_imaging", vis, model, context, kwargs)
     ws = _FusedSelfCal(
         vis, model, plan, components, ["T"], create_calibration_controls(),
-        None, 1, 1e-6, psf, **kwargs,
+        None, 1, 1e-6, **kwargs,
     )
     gains = [ws.gt0s[0].gain]
     gwts = [ws.gt0s[0].weight]
@@ -561,7 +577,7 @@ def continuum_imaging(
             )
     current = model.replace(pixels=model_px.to(model.pixels.dtype))
     residual = model.replace(pixels=res_px) if res_px is not None else None
-    restored = _restore_with_components(current, psf, residual, components)
+    restored = _restore_with_components(current, ws.psf, residual, components)
     return current, residual, restored
 
 
@@ -581,12 +597,11 @@ def _check_algorithm(model: Image, kwargs: dict) -> None:
         raise ValueError(f"fused clean: unsupported algorithm {algorithm}")
 
 
-def _plan_and_psf(name: str, vis, model, context: str, kwargs: dict):
+def _plan_for(name: str, vis, model, context: str, kwargs: dict):
     """What ``ical`` and ``continuum_imaging`` share before their cycles:
     the checks of the ported configuration (the workspace checks the
-    CLEAN algorithm), one plan per image channel and the PSF through
-    them. Takes the imaging keywords out of
-    ``kwargs``. Returns (plan, psf)."""
+    CLEAN algorithm) and one plan per image channel (the workspace takes
+    the PSF through them). Takes the imaging keywords out of ``kwargs``."""
     if kwargs.pop("fused", True) is False:
         raise not_ported(f"the composed (fused=False) {name} path", "S7x")
     if kwargs.pop("use_plan", True) is False:
@@ -598,11 +613,7 @@ def _plan_and_psf(name: str, vis, model, context: str, kwargs: dict):
     if vis.npol != 1 or model.npol != 1:
         raise not_ported(f"polarised {name} (npol > 1)", "S7x")
     ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
-    plan = make_visibility_plan(vis, model, context=context, **ikw)
-    psf, _ = invert_visibility(
-        vis, model, dopsf=True, context=context, plan=plan, **ikw
-    )
-    return plan, psf
+    return make_visibility_plan(vis, model, context=context, **ikw)
 
 
 def _restore_with_components(current, psf, residual, components):

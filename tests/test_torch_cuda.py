@@ -13,11 +13,15 @@ Tolerances: ``permute_apply`` is bit-exact (elements are only moved);
 ``hogbom`` (with and without a window), ``hogbom_complex``, ``msclean``
 and ``msmfs`` give identical component positions and values to 1e-6
 relative (the same f32 operations in the same order); ``grid`` (atomics, run-to-run summation order; held against
-the plain version accumulated in f64) and ``degrid`` agree to 1e-5 of the
-maximum; ``unit_tiles`` (atomics) agrees with its plain version
+the plain version accumulated in f64) and ``degrid`` (one entry's f32
+sums in another order: rows per lane, then a shuffle reduction) agree to
+1e-5 of the maximum, for one plan and for a stack of channel plans in one
+launch; ``unit_tiles`` (atomics) agrees with its plain version
 accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
 f64.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -29,10 +33,17 @@ from ska_sdp_func_python_torch.ops.cleaners import hogbom_lanes
 from ska_sdp_func_python_torch.ops.gridding_fused import (
     degrid,
     degrid_plain,
+    degrid_stack,
+    degrid_stack_plain,
     grid,
     grid_plain,
 )
-from ska_sdp_func_python_torch.ops.gridding_plan import make_grid_plan
+from ska_sdp_func_python_torch.ops.gridding_plan import (
+    STACKED,
+    GridPlanStack,
+    make_grid_plan,
+    stack_views,
+)
 from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
 from ska_sdp_func_python_torch.ops.permute import (
     permute_apply,
@@ -40,6 +51,20 @@ from ska_sdp_func_python_torch.ops.permute import (
 )
 
 pytestmark = pytest.mark.cuda
+
+
+def _stack(plans):
+    """The plans' arrays copied into a channel stack, as
+    ``make_visibility_plan`` builds it (``stack_views`` per channel, then
+    ``GridPlanStack.of``); the stack's channel plans are new views."""
+    store = {}
+    views = [
+        dataclasses.replace(gp, **stack_views(
+            store, len(plans), c, gp.n, **{k: getattr(gp, k) for k in STACKED}
+        ))
+        for c, gp in enumerate(plans)
+    ]
+    return GridPlanStack.of(store, views)
 
 
 @pytest.fixture
@@ -171,6 +196,133 @@ def test_permute_bit_exact(dev, inverse):
     ref = permute_apply_plain(perm, b, a, a, b, inverse=inverse)
     for o, r in zip(out, ref):
         assert torch.equal(o, r)
+
+
+def _channel_coords(kind, npix, n, rng, tile):
+    """f64 pixel coordinates of one channel of a stack: on the window
+    corners clipped at the grid edge (0 and npix - 8), wholly outside the
+    grid (n_in 0), window corners in one tile (one long segment, so that
+    a warp's 32 walk positions and its 4 groups' windows overlap), wholly
+    inside (n_in n), or spread past its edges."""
+    if kind == "dense":
+        return rng.uniform(tile + 3, 2 * tile + 3, n), rng.uniform(tile + 3, 2 * tile + 3, n)
+    if kind == "edges":
+        lo, hi = rng.uniform(3, 4, n), rng.uniform(npix - 5, npix - 4, n)
+        pick = rng.integers(0, 2, (2, n)) == 1
+        return np.where(pick[0], lo, hi), np.where(pick[1], hi, lo)
+    if kind == "outside":
+        return rng.uniform(-40, -10, n), rng.uniform(npix + 10, npix + 40, n)
+    if kind == "inside":
+        return rng.uniform(8, npix - 9, n), rng.uniform(8, npix - 9, n)
+    return rng.uniform(-10, npix + 10, n), rng.uniform(-10, npix + 10, n)
+
+
+def _plan_stack(dev, nchan, tile, frac, n=3000, nplanes=4):
+    """A stack of ``nchan`` channel plans on a (4 tile)^2 grid, channel
+    kinds in turn edges, outside, dense, inside, spread; ``frac``
+    "random", "zero" or "one" (w-stacked), or None (one plane)."""
+    rng = np.random.default_rng(nchan * 100 + tile)
+    npix = 4 * tile
+    kinds = ("edges", "outside", "dense", "inside", "spread")
+    plans = []
+    for c in range(nchan):
+        u, v = _channel_coords(kinds[c % len(kinds)], npix, n, rng, tile)
+        p0 = f = None
+        if frac is not None:
+            p0 = torch.as_tensor(rng.integers(0, nplanes - 1, n)).to(dev)
+            f = {"random": torch.as_tensor(rng.uniform(0, 1, n)),
+                 "zero": torch.zeros(n, dtype=torch.float64),
+                 "one": torch.ones(n, dtype=torch.float64)}[frac].to(dev)
+        plans.append(make_grid_plan(
+            torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, f,
+            npixel=npix, nplanes=nplanes if frac is not None else 1, tile=tile,
+        ))
+    return _stack(plans)
+
+
+@pytest.mark.parametrize(
+    "frac", ["random", "zero", "one", None],
+    ids=["wstacked", "frac0", "frac1", "one-plane"],
+)
+@pytest.mark.parametrize("tile", [56, 64])
+@pytest.mark.parametrize("nchan", [1, 3, 64])
+def test_degrid_stack_matches_plain(dev, nchan, tile, frac):
+    """K3 over a stack of channel plans in one launch against the
+    per-channel plain version, to 1e-5 of the largest |value|: ragged
+    n_in (0 and n among them, and warps of 32 walk positions that straddle
+    n_in), clipped corners, one dense segment and entries spread over many,
+    plane fractions 0 and 1; and on one channel's plan alone."""
+    st = _plan_stack(dev, nchan, tile, frac)
+    n_in = st.n_in.tolist()
+    if nchan > 1:
+        assert 0 in n_in and st.n in n_in
+    g = torch.Generator(device=dev).manual_seed(nchan + tile)
+    grids = torch.randn((nchan, st.nplanes, st.npixel, st.npixel), generator=g,
+                        device=dev, dtype=torch.complex64)
+    before = kernels.KERNELS["degrid"].launches
+    out = degrid_stack(st, grids)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["degrid"].launches == before + 1
+    ref = degrid_stack_plain(st, grids)
+    assert out.shape == ref.shape == (nchan, st.n)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    for c, k in enumerate(n_in):
+        assert not out[c, k:].any()
+    one = degrid(st.plans[0], grids[0])
+    assert (one - ref[0]).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["forward", "inverse", "shared"])
+def test_permute_stack_bit_exact(dev, mode):
+    """K4 over 64 channel permutations in one launch, bit-exact with the
+    plain version: mixed f32 and complex64 payloads, and (forward) one
+    [n] source shared by every channel."""
+    nchan, n = 64, 10007
+    perm = torch.stack([torch.randperm(n, device=dev) for _ in range(nchan)]).to(torch.int32)
+    a = torch.randn((nchan, n), device=dev)
+    b = torch.randn((nchan, n), device=dev, dtype=torch.complex64)
+    f = torch.randn(n, device=dev, dtype=torch.complex64)
+    payloads = (b, f, a, f.real.contiguous()) if mode == "shared" else (b, a, a, b)
+    shared = (1, 3) if mode == "shared" else ()
+    inverse = mode == "inverse"
+    before = kernels.KERNELS["permute"].launches
+    out = permute_apply(perm, *payloads, inverse=inverse, shared=shared)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["permute"].launches == before + 1
+    ref = permute_apply_plain(perm, *payloads, inverse=inverse, shared=shared)
+    for o, r in zip(out, ref, strict=True):
+        assert o.shape == (nchan, n) and torch.equal(o, r)
+
+
+def test_stack_kernels_refuse_bad_inputs(dev):
+    """Mismatched shapes, a misaligned tap view and planes too large for
+    the kernel's 32-bit window offsets raise before a launch."""
+    st = _plan_stack(dev, 3, 64, "random")
+    grids = torch.zeros((3, st.nplanes, st.npixel, st.npixel), device=dev,
+                        dtype=torch.complex64)
+    with pytest.raises(ValueError, match="grids: shape"):
+        degrid_stack(st, grids[:2])
+    with pytest.raises(ValueError, match="grids: shape"):
+        degrid(st.plans[0], grids[0, :1])
+    gp = st.plans[1]
+    spill = torch.empty(gp.ku.numel() + 1, device=dev)
+    ku = spill[1:].view(gp.ku.shape)
+    ku.copy_(gp.ku)
+    with pytest.raises(ValueError, match="not 16-byte aligned"):
+        degrid(dataclasses.replace(gp, ku=ku), grids[1])
+    # planes whose window offsets pass int32 (a zero-stride grid stands in)
+    big = torch.zeros((), device=dev, dtype=torch.complex64).expand(8, 16384, 16384)
+    with pytest.raises(ValueError, match="exceeds int32"):
+        degrid(dataclasses.replace(gp, npixel=16384, nplanes=8), big)
+    x = torch.zeros(st.n, device=dev)
+    with pytest.raises(ValueError, match="payload 0 shape"):
+        permute_apply(st.perm, x)
+    with pytest.raises(ValueError, match="shared source"):
+        permute_apply(st.perm, x, inverse=True, shared=(0,))
+    with pytest.raises(ValueError, match="payload 0 shape"):
+        permute_apply(st.perm, x[1:], shared=(0,))
+    with pytest.raises(ValueError, match="payload 0 shape"):
+        permute_apply(st.perm[0], torch.zeros((3, st.n), device=dev))
 
 
 def _clean_inputs(ny=128, py=64, seed=9):
