@@ -21,7 +21,11 @@ Phases, each on lines of its own:
      PyTorch call computes the same function, that call's time; the
      windowed Hogbom is checked against its plain version too, and each
      Hogbom kernel prints its iterations, microseconds an iteration and
-     the per-iteration streaming figure. The grid and degrid kernels'
+     the per-iteration streaming figure; msclean and msmfs are held bit for
+     bit in rows, residual stack and the component image or moment model
+     they build themselves (against the plain rows' rebuild), and print
+     microseconds per used iteration beside their per-iteration footprint
+     reads and the barrier floor of their loop. The grid and degrid kernels'
      rows are the full flagship stream (9,942,016 entries), held against
      their plain versions in pieces of 1M entries (grid's accumulated in
      f64); a 1M-entry subset is held too. The permute row moves values
@@ -33,8 +37,9 @@ Phases, each on lines of its own:
      counters reset, and prints per-cycle wall time and peak residual,
      the gain error and each cycle's CLEAN iterations;
   5. msclean ical: the same observation through ``ical`` with its default
-     deconvolver, msclean (scales 0, 3, 10, 30), 4 major cycles; also the
-     model flux around each source;
+     deconvolver, msclean (scales 0, 3, 10, 30), 4 major cycles, one
+     msclean launch per CLEAN call; also the model flux around each
+     source;
   6. deconvolve_cube: a stokesIQUV cube made from the flagship dirty image
      and PSF, with one fractional polarisation (p 0.2, angle 30 deg, v
      0.02), through ``algorithm="hogbom-complex"``;
@@ -60,7 +65,8 @@ Phases, each on lines of its own:
      (b) and (c) print their launches per kernel and fail if degrid ran
      more than once per (cycle with a model, polarisation) or permute more
      than twice per (cycle, polarisation) and once per polarisation for the
-     workspace: the channel legs are batched;
+     workspace (the channel legs are batched), or msmfs other than once
+     per CLEAN call;
      (d) runs ical with MSMFS on a small cube (the JAX package's fused-cube
      test geometry) on the card and on the CPU, to the bounds of phase 7;
   9. the epsilon contract on the flagship observation with natural weights
@@ -88,6 +94,7 @@ Usage: python3 chip_smoke.py
 
 from __future__ import annotations
 
+import contextlib
 import json
 import logging
 import os
@@ -111,9 +118,9 @@ os.environ.setdefault("MKL_DYNAMIC", "FALSE")
 # maximum, source, the TPU kernel it replaces). grid: held against the
 # plain version accumulated in f64, since atomics change the f32 summation
 # order from run to run; degrid: f32 sums in another order; permute moves
-# elements and must be bit-exact; hogbom, msclean and hogbom_complex: the
-# same f32 operations in the same order; msmfs: the same, against the
-# residual's maximum.
+# elements and must be bit-exact; hogbom and hogbom_complex: the same f32
+# operations in the same order; msclean and msmfs: bit for bit in rows,
+# residual and the kernel's component image or moment model.
 KERNELS = {
     "grid": (
         1e-5,
@@ -136,7 +143,7 @@ KERNELS = {
         "ska_sdp_func_python_tpu/ops/cleaners.py:165",
     ),
     "msclean": (
-        1e-6,
+        0.0,
         "ska_sdp_func_python_torch/csrc/msclean.cu",
         "ska_sdp_func_python_tpu/ops/cleaners.py:1024 (and :903)",
     ),
@@ -146,7 +153,7 @@ KERNELS = {
         "ska_sdp_func_python_tpu/ops/cleaners.py:517 (and :433)",
     ),
     "msmfs": (
-        1e-6,
+        0.0,
         "ska_sdp_func_python_torch/csrc/msmfs.cu",
         "ska_sdp_func_python_tpu/ops/cleaners.py:1562",
     ),
@@ -724,42 +731,91 @@ def compare_cleaners(dirty, psf_patch):
     # msclean: the fused lane's stacks from the bounded PSF
     st = cl.msclean_psf_stacks(psf_patch.reshape(py, px), ny, nx, SCALES)
     res_stack = cl.convolve_scalestack(st.scalestack, d[0] / st.pmax)[None].contiguous()
-    ms_args = (res_stack, st.psf_ss[None], st.coupling_diag[None])
+    ms_args = (res_stack, st.psf_ss[None], st.coupling_diag[None], st.pscalestack[None])
 
     def ms_kernel():
         return cl.msclean_lanes(*ms_args, **kw)
 
     def ms_plain():
-        return cl.msclean_rows_plain(
+        rows, res = cl.msclean_rows_plain(
             res_stack[0], st.psf_ss, st.coupling_diag, **kw
         )
+        return rows, res, cl.msclean_rows_to_comps(rows, st.pscalestack, ny, nx)
 
-    krows, kres = ms_kernel()
-    prows, pres = ms_plain()
-    kcomp = cl.msclean_rows_to_comps(krows[0], st.pscalestack, ny, nx)
-    pcomp = cl.msclean_rows_to_comps(prows, st.pscalestack, ny, nx)
-    err, rel = _check_clean("msclean", (kcomp, kres[0]), (pcomp, pres))
+    krows, kres, kcomp = ms_kernel()
+    prows, pres, pcomp = ms_plain()
+    err, rel = _check_exact(
+        "msclean", (krows[0], kcomp[0], kres[0]), (prows, pcomp, pres)
+    )
     ns = len(SCALES)
     used = [r for r in prows.tolist() if r[4] > 0]
     area = sum(footprint_area(int(r[0]), int(r[1]), ny, nx, py, px) for r in used)
     nscales_used = len({int(r[2]) for r in used})
+    # bytes: the stack in and out, the component image out, the PSF stacks
+    # and blobs of the scales picked in, the rows out; operations: each
+    # footprint's update of every scale plane and of the component image,
+    # and one search of the stack (a division and a comparison a pixel) per
+    # iteration and at the start
     ms_bnd = bound(
-        4 * (2 * ns * ny * nx + ns * nscales_used * py * px + ns) + 4 * prows.numel(),
-        2 * ns * area + 3 * ns * ny * nx * (len(used) + 1),
+        4 * (2 * ns * ny * nx + ny * nx + (ns + 1) * nscales_used * py * px + ns)
+        + 4 * prows.numel(),
+        2 * (ns + 1) * area + 3 * ns * ny * nx * (len(used) + 1),
     )
     ms_ms = timed(ms_kernel, 5)
     out["msclean"] = _row(err, rel, ms_ms, timed(ms_plain, 2), ms_bnd)
-    per_it_mb = (ns * ny * nx * 4 + 2 * ns * area * 4 / max(len(used), 1)) / 1e6
+    # the floor: the same loop on one 1024^2 plane with a 1x1 PSF, so that
+    # one band changes per iteration, over 300 iterations that all run
+    floor = clean_floor("msclean")
+    # per iteration the footprint of psf_ss[:, ms] and pscalestack[ms] is read
+    # from device memory; the stack and the component image stay on chip
+    per_it_mb = 4 * (ns + 1) * area / max(len(used), 1) / 1e6
     say(
         f"msclean: {len(used)} iterations at {ny}x{nx}, {ns} scales, PSF "
-        f"{py}x{px}: {ms_ms / max(len(used), 1) * 1e3:.2f} us per iteration; "
-        f"the stack streamed once per iteration plus the footprint read-"
-        f"modify-write is {per_it_mb:.1f} MB, {per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} "
-        f"us at 3.35 TB/s"
+        f"{py}x{px}: {ms_ms / max(len(used), 1) * 1e3:.2f} us per used iteration; "
+        f"the footprint reads of psf_ss[:, ms] and pscalestack[ms] are "
+        f"{per_it_mb:.1f} MB per iteration, {per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} "
+        f"us at 3.35 TB/s; barrier floor {floor:.2f} us per iteration"
     )
     del st, res_stack, ms_args
 
     return out
+
+
+def clean_floor(name):
+    """Microseconds per iteration of the msclean (K7) or msmfs (K8) loop
+    where each iteration does almost nothing but its barrier and pick: one
+    scale (and one moment) of the flagship's 1024^2 (msclean) or the cube's
+    256^2 (msmfs), a 1x1 PSF so that one band changes per iteration, and no
+    threshold, over 300 iterations that all run."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops import cleaners as cl
+
+    dev = torch.device("cuda", 0)
+    g = torch.Generator(device=dev).manual_seed(3)
+    kw = dict(gain=0.2, thresh=0.0, niter=300, fracthresh=0.0)
+    one = torch.ones((1, 1, 1), device=dev)
+    if name == "msclean":
+        res = torch.rand((1, 1, 1024, 1024), generator=g, device=dev) + 1.0
+        args = (res, one[None, None], one[0], one[None])
+        ms = timed(lambda: cl.msclean_lanes(*args, **kw), 5)
+    else:
+        res = torch.rand((1, 1, 1, 256, 256), generator=g, device=dev) + 1.0
+        args = (res, one[None, None], one, one, one)
+        ms = timed(lambda: cl.msmfs_lanes(*args, **kw), 5)
+    return ms / 300 * 1e3
+
+
+def _check_exact(name, out, ref):
+    """The kernel's outputs bit for bit against the plain version's.
+    Returns (max abs err, rel err), both 0."""
+    import torch
+
+    for o, r in zip(out, ref):
+        if not torch.equal(o, r):
+            diff = float((o - r).abs().max())
+            raise AssertionError(f"{name}: differs from its plain version by {diff}")
+    return 0.0, 0.0
 
 
 class _CycleLog(logging.Handler):
@@ -874,12 +930,44 @@ def run_hogbom_ical(vis, model, phases):
     return counts
 
 
+@contextlib.contextmanager
+def counting_calls(name):
+    """Counts the calls of ``pipeline.<name>`` (the fused CLEAN lane's
+    entry) while the context is open: yields a list that receives one entry
+    per call."""
+    from ska_sdp_func_python_torch import pipeline
+
+    calls, fn = [], getattr(pipeline, name)
+
+    def counted(*args, **kw):
+        calls.append(1)
+        return fn(*args, **kw)
+
+    setattr(pipeline, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(pipeline, name, fn)
+
+
+def _one_launch_per_call(label, counts, kernel, calls):
+    """The CLEAN kernel ran one launch per CLEAN call of the cycle."""
+    say(f"{label}: {kernel} launches {counts[kernel]} for {len(calls)} CLEAN calls")
+    if counts[kernel] != len(calls):
+        raise AssertionError(
+            f"{label}: {counts[kernel]} {kernel} launches for {len(calls)} CLEAN calls"
+        )
+
+
 def run_msclean_ical(vis, model, phases):
-    """Phase 5: ical with its default deconvolver, msclean."""
-    counts, peaks, current, _ = run_ical(
-        "msclean ical", vis, model, phases, 4,
-        ("grid", "degrid", "permute", "msclean"), scales=SCALES, **CLEAN,
-    )
+    """Phase 5: ical with its default deconvolver, msclean: one msclean
+    launch per CLEAN call."""
+    with counting_calls("msclean_with_stacks") as calls:
+        counts, peaks, current, _ = run_ical(
+            "msclean ical", vis, model, phases, 4,
+            ("grid", "degrid", "permute", "msclean"), scales=SCALES, **CLEAN,
+        )
+    _one_launch_per_call("msclean ical", counts, "msclean", calls)
     n = model.npixel
     px = current.pixels[0, 0].detach().cpu().numpy()
     yy, xx = np.mgrid[0:n, 0:n]
@@ -1148,46 +1236,47 @@ def compare_msmfs(model, dirty, patch):
               niter=CUBE_CLEAN["niter"])
 
     def kernel():
-        return cl.msmfs_lanes(smres[None], st.canvas, st.hsmm, st.ihsmm, **kw)
+        return cl.msmfs_lanes(
+            smres[None], st.canvas, st.hsmm, st.ihsmm, st.pscalestack, **kw
+        )
 
     def plain():
-        return cl.msmfs_rows_plain(smres, st.canvas, st.hsmm, st.ihsmm, **kw)
+        rows, res = cl.msmfs_rows_plain(smres, st.canvas, st.hsmm, st.ihsmm, **kw)
+        return rows, res, cl.msmfs_rows_to_model(rows, st.pscalestack, ny, nx)
 
-    (krows, kres), (prows, pres) = kernel(), plain()
-    if not torch.equal(krows[0, :, :4], prows[:, :4]):
-        raise AssertionError("msmfs: component rows differ from the plain version")
-    kmodel = cl.msmfs_rows_to_model(krows[0], st.pscalestack, ny, nx)
-    pmodel = cl.msmfs_rows_to_model(prows, st.pscalestack, ny, nx)
-    err = max(
-        float((kres[0] - pres).abs().max()), float((kmodel - pmodel).abs().max()),
-        float((krows[0, :, 4:] - prows[:, 4:]).abs().max()),
+    (krows, kres, kmodel), (prows, pres, pmodel) = kernel(), plain()
+    err, rel = _check_exact(
+        "msmfs", (krows[0], kres[0], kmodel[0]), (prows, pres, pmodel)
     )
-    rel = err / float(pres.abs().max())
     ns = len(SCALES)
     py, px = st.canvas.shape[-2:]
     used = [r for r in prows.tolist() if r[3] > 0]
     area = sum(footprint_area(int(r[0]), int(r[1]), ny, nx, py, px) for r in used)
     stack = ns * nm * ny * nx
-    # bytes: the stack in and out, the compact canvas, Hessian and inverse
-    # in, the rows out; operations: the moment-0 criterion (nm products,
-    # nm - 1 sums) and its comparison over the stack once per search, and
-    # nm sums of nm products for every moment plane of every scale over
-    # each pick's footprint
+    # bytes: the stack in and out, the moment model out, the compact canvas,
+    # blobs, Hessian and inverse in, the rows out; operations: the moment-0
+    # criterion (nm products, nm - 1 sums) and its comparison over the stack
+    # once per search, nm sums of nm products for every moment plane of
+    # every scale and 2 nm for the model over each pick's footprint
     bnd = bound(
-        4 * (2 * stack + ns * ns * (2 * nm - 1) * py * px + 2 * ns * nm * nm)
+        4 * (2 * stack + nm * ny * nx + ns * ns * (2 * nm - 1) * py * px
+             + ns * py * px + 2 * ns * nm * nm)
         + 4 * prows.numel(),
-        (2 * nm + 1) * ns * ny * nx * (len(used) + 1) + 2 * nm * ns * nm * area,
+        (2 * nm + 1) * ns * ny * nx * (len(used) + 1) + 2 * nm * (ns * nm + 1) * area,
     )
     ms = timed(kernel, 5)
     out = _row(err, rel, ms, timed(plain, 2), bnd)
+    floor = clean_floor("msmfs")
     per_it = max(len(used), 1)
-    per_it_mb = (4 * stack + 4 * ns * (2 * nm + 2 * nm - 1) * area / per_it) / 1e6
+    # per iteration canvas[ms] and pscalestack[ms] over the footprint are
+    # read from device memory; the stack and the model stay on chip
+    per_it_mb = 4 * (ns * (2 * nm - 1) + 1) * area / per_it / 1e6
     say(
         f"msmfs: {len(used)} iterations at {ny}x{nx}, {ns} scales, {nm} moments, "
-        f"PSF {py}x{px}: {ms / per_it * 1e3:.2f} us per iteration; the stack "
-        f"streamed once per iteration plus the footprint read-modify-write and "
-        f"its canvas rows is {per_it_mb:.2f} MB, "
-        f"{per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} us at 3.35 TB/s"
+        f"PSF {py}x{px}: {ms / per_it * 1e3:.2f} us per used iteration; the "
+        f"footprint reads of canvas[ms] and pscalestack[ms] are {per_it_mb:.2f} MB "
+        f"per iteration, {per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} us at 3.35 TB/s; "
+        f"barrier floor {floor:.2f} us per iteration"
     )
     return out
 
@@ -1236,21 +1325,25 @@ def run_cube(device):
     )
     del plan, gp, weighted, psf, dirty, patch
     torch.cuda.empty_cache()
-    (current, _, _), counts_b, peaks = run_logged(
-        "msmfs continuum_imaging",
-        lambda: continuum_imaging(vis, model, nmajor=4, context="ng", **CUBE_CLEAN),
-        4, ("grid", "degrid", "msmfs"),
-    )
+    with counting_calls("msmfs_with_stacks") as calls:
+        (current, _, _), counts_b, peaks = run_logged(
+            "msmfs continuum_imaging",
+            lambda: continuum_imaging(vis, model, nmajor=4, context="ng", **CUBE_CLEAN),
+            4, ("grid", "degrid", "msmfs"),
+        )
     _cube_launch_gate("msmfs continuum_imaging", counts_b, 4)
+    _one_launch_per_call("msmfs continuum_imaging", counts_b, "msmfs", calls)
     cube_gates("msmfs continuum_imaging", current, peaks, CUBE["offset"], CUBE["alpha"])
     del current
     corrupted, phases = corrupt(vis, 0.4)
     del vis
-    counts_c, peaks, current, _ = run_ical(
-        "msmfs ical", corrupted, model, phases, 4,
-        ("grid", "degrid", "permute", "msmfs"), **CUBE_CLEAN,
-    )
+    with counting_calls("msmfs_with_stacks") as calls:
+        counts_c, peaks, current, _ = run_ical(
+            "msmfs ical", corrupted, model, phases, 4,
+            ("grid", "degrid", "permute", "msmfs"), **CUBE_CLEAN,
+        )
     _cube_launch_gate("msmfs ical", counts_c, 4)
+    _one_launch_per_call("msmfs ical", counts_c, "msmfs", calls)
     # printed, not gated: the self-cal residual keeps the calibration error
     cube_gates("msmfs ical", current, peaks, CUBE["offset"], CUBE["alpha"], gate=False)
     return row, {k: counts_b[k] + counts_c[k] for k in counts_b}

@@ -32,6 +32,52 @@ __device__ __forceinline__ void ska_cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
+// The `ctas` CTAs of one lane of a cooperative launch wait for each other:
+// thread 0 of each makes the CTA's writes visible, arrives on the lane's
+// counter and waits until it reaches `target` (the CTAs times the barriers
+// so far). Lanes do not wait for each other.
+__device__ __forceinline__ void ska_lane_barrier(int* bar, int target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    atomicAdd(bar, 1);
+    while (*(volatile int*)bar < target) {
+    }
+    __threadfence();
+  }
+  __syncthreads();
+}
+
+// CTAs of `fn` that a cooperative launch of `threads` threads with `smem`
+// bytes of dynamic shared memory each can keep resident on the current
+// device: the SMs times the occupancy of one SM at that size. Sets the
+// kernel's dynamic shared-memory limit to `smem` (and prefers shared memory
+// over L1) first; returns 0 when the card refuses that much for one CTA,
+// and minus the CUDA error on any other failure.
+static inline int ska_coop_resident(const void* fn, int threads, int smem) {
+  int dev = 0, sms = 0, coop = 0, per_sm = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess && smem > 0) {
+    if (cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem) !=
+        cudaSuccess) {
+      cudaGetLastError();
+      return 0;
+    }
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  }
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, fn, threads, (size_t)smem);
+  if (e != cudaSuccess) {
+    cudaGetLastError();
+    return -(int)e;
+  }
+  return sms * per_sm;
+}
+
 // (value, index) argmax step: the larger value wins, ties go to the
 // smaller index (the first index in the JAX package's argmax order).
 __device__ __forceinline__ void ska_better(float& v, int& i, float ov, int oi) {

@@ -86,21 +86,6 @@ __device__ __forceinline__ float search_key(const float* v, bool win, float wv) 
   return win ? fabsf(__fmul_rn(v[0], wv)) : fabsf(v[0]);
 }
 
-// The `ctas` CTAs of a lane wait for each other: thread 0 of each makes
-// the CTA's writes visible, arrives on the lane's counter and waits until
-// it reaches `target` (the CTAs times the barriers so far).
-__device__ __forceinline__ void lane_barrier(int* bar, int target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1);
-    while (*(volatile int*)bar < target) {
-    }
-    __threadfence();
-  }
-  __syncthreads();
-}
-
 // The first-index argmax of the `ctas` partials at `part`; every thread of
 // the CTA gets the peak's index and residual values (index INT_MAX if no
 // partial has one). The value travels with the partial, so the winning
@@ -268,7 +253,7 @@ __global__ void __launch_bounds__(kThreads, 2) hogbom_loop(const Args a) {
     part0[kPart * c + 4] = amax;
     part0[kPart * c + 5] = pmax;
   }
-  lane_barrier(bar, a.ctas);
+  ska_lane_barrier(bar, a.ctas);
 
   int bidx;
   float val[NP];
@@ -318,7 +303,7 @@ __global__ void __launch_bounds__(kThreads, 2) hogbom_loop(const Args a) {
     for (int k = 0; k < NP; ++k) nv[k] = __fmaf_rn(-m[k], psf_c, val[k]);
     const float mag = kComplex ? hypotf(nv[0], nv[NP - 1]) : fabsf(nv[0]);
     if (mag < stop || it + 1 == a.niter) break;
-    lane_barrier(bar, (it + 2) * a.ctas);
+    ska_lane_barrier(bar, (it + 2) * a.ctas);
     lane_peak<NP>(next, a.ctas, bidx, val, s_v, s_i, s_val);
   }
 }
@@ -362,20 +347,8 @@ int run(Args a, int nlanes, int per_launch, void* scratch, cudaStream_t s) {
 // the current device at once: the SMs times the occupancy of one SM.
 // Returns minus the CUDA error on failure.
 SKA_EXPORT int ska_hogbom_resident(int cplx) {
-  int dev = 0, sms = 0, coop = 0, per_sm = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
-  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
-  if (e == cudaSuccess)
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, cplx ? (const void*)hogbom_loop<true> : (const void*)hogbom_loop<false>,
-        kThreads, 0);
-  if (e != cudaSuccess) {
-    cudaGetLastError();
-    return -(int)e;
-  }
-  return sms * per_sm;
+  return ska_coop_resident(
+      cplx ? (const void*)hogbom_loop<true> : (const void*)hogbom_loop<false>, kThreads, 0);
 }
 
 // dirty, res [nlanes, ny, nx]; psf [nlanes, py, px]; window as dirty or

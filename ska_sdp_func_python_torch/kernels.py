@@ -183,7 +183,7 @@ KERNELS = {
     "msclean": Kernel(
         "msclean",
         "ska_msclean",
-        [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F, _F, _F],
+        [*[_P] * 10, *[_I] * 11, _F, _F, _F],
     ),
     "hogbom_complex": Kernel(
         "hogbom_complex",
@@ -193,7 +193,7 @@ KERNELS = {
     "msmfs": Kernel(
         "msmfs",
         "ska_msmfs",
-        [_P, _P, _P, _P, _P, _P, _P, *[_I] * 10, _F, _F, _F],
+        [*[_P] * 10, *[_I] * 13, _F, _F, _F],
     ),
     "unit_tiles": Kernel(
         "unit_tiles",

@@ -27,11 +27,14 @@ package's XLA loops are kept exactly:
   once |mval[0]| < absthresh (no 0.9 factor), absthresh taken once from
   the initial scale-0, moment-0 residual.
 
-Every loop leaves its components as rows, which one function per
-algorithm turns into component images, so a kernel and its plain version
-share that step. On CUDA each loop is a hand-written kernel
-(``csrc/hogbom.cu``, ``csrc/msclean.cu``); on the CPU the plain version
-beside it runs.
+Every loop leaves its components as rows. On CUDA each loop is one
+cooperative launch of a hand-written kernel (``csrc/hogbom.cu``,
+``csrc/msclean.cu``, ``csrc/msmfs.cu``); the Hogbom rows are scattered
+into component images, and the msclean and MSMFS kernels build their
+component image and moment model themselves, bit for bit as
+:func:`msclean_rows_to_comps` and :func:`msmfs_rows_to_model` rebuild
+them from the rows. On the CPU the plain version beside each kernel runs
+and its rows rebuild the images.
 
 Rounding: the JAX package's CPU loops (XLA) contract every residual
 update ``res - patch * m`` into one fused multiply-subtract, at f32 as
@@ -56,6 +59,7 @@ __all__ = [
     "hogbom_lanes",
     "hogbom_rows_plain",
     "hogbom_split",
+    "clean_split",
     "hogbom_complex",
     "hogbom_complex_lanes",
     "hogbom_complex_rows_plain",
@@ -189,10 +193,10 @@ def _f32(t):
 
 
 def hogbom_split(nlanes: int, ny: int, resident: int) -> tuple[int, int, int]:
-    """How the Hogbom kernels (K5, K6) spread ``nlanes`` lanes of ``ny``
-    rows over ``resident`` CTAs, the most that can be resident on the card
-    at once (their launch is cooperative): (lanes per launch, CTAs per
-    lane, rows per CTA). The lanes of a launch share the resident CTAs, each
+    """How the cooperative CLEAN kernels (K5, K6; K7 and K8 through
+    :func:`clean_split`) spread ``nlanes`` lanes of ``ny`` rows over
+    ``resident`` CTAs, the most that can be resident on the card at once:
+    (lanes per launch, CTAs per lane, rows per CTA). The lanes of a launch share the resident CTAs, each
     lane on a band of whole rows per CTA; when the lanes outnumber the
     CTAs, they go in launches of ``resident`` lanes of one CTA each."""
     rows = max(ny, 1)
@@ -201,24 +205,76 @@ def hogbom_split(nlanes: int, ny: int, resident: int) -> tuple[int, int, int]:
     return per_launch, -(-rows // band), band
 
 
-# resident CTAs of the K5 (0) and K6 (1) kernels, by (kind, device index)
-_HOGBOM_RESIDENT: dict = {}
+def clean_split(
+    nlanes: int, ny: int, row_bytes: int, resident
+) -> tuple[int, int, int, int]:
+    """How the msclean and MSMFS kernels (K7, K8) spread ``nlanes`` lanes
+    of ``ny`` rows over the CTAs of their cooperative launch, each CTA
+    holding its band of rows in shared memory: (lanes per launch, CTAs per
+    lane, rows per CTA, dynamic shared memory per CTA in bytes).
+
+    ``row_bytes`` is the shared memory one image row of a band takes (the
+    row in every plane of the stack and of the component output);
+    ``resident(smem)`` is the number of CTAs that can be resident with
+    ``smem`` bytes each, 0 when the card refuses that much for one CTA
+    (``smem`` 0: the kernel whose bands stay in device memory). The split
+    is :func:`hogbom_split`'s, first over the CTAs resident without shared
+    memory and then over those resident at its bands' size, until the
+    lanes' CTAs fit. Where no band fits (a stack beyond the card's shared
+    memory), the bands stay in device memory: shared memory 0."""
+    first = split = hogbom_split(nlanes, ny, resident(0))
+    while True:
+        smem = split[2] * row_bytes
+        n = resident(smem)
+        if n <= 0:
+            return (*first, 0)
+        if split[0] * split[1] <= n:
+            return (*split, smem)
+        split = hogbom_split(nlanes, ny, n)
+
+
+# resident CTAs of the cooperative kernels, by (query, its arguments,
+# device index)
+_RESIDENT: dict = {}
+
+
+def _resident(symbol: str, dev, *args: int) -> int:
+    """The card's answer to the resident query ``symbol(*args)``, cached;
+    raises on a CUDA error."""
+    key = (symbol, args, dev.index)
+    if key not in _RESIDENT:
+        with torch.cuda.device(dev):
+            n = kernels.query(symbol, *args)
+        if n < 0:
+            msg = kernels.load_library().ska_error_string(-n).decode()
+            raise RuntimeError(f"{symbol}: no cooperative launch on {dev}: {msg}")
+        _RESIDENT[key] = n
+    return _RESIDENT[key]
 
 
 def _hogbom_launch_geometry(kind: int, nl: int, ny: int, dev):
     """The split of :func:`hogbom_split` for the card of ``dev``, and the
     kernel's scratch: two parity buffers of 8-word partials per CTA and one
     barrier counter per lane."""
-    key = (kind, dev.index)
-    if key not in _HOGBOM_RESIDENT:
-        with torch.cuda.device(dev):
-            n = kernels.query("ska_hogbom_resident", kind)
-        if n <= 0:
-            msg = kernels.load_library().ska_error_string(-n).decode()
-            raise RuntimeError(f"hogbom: no cooperative launch on {dev}: {msg}")
-        _HOGBOM_RESIDENT[key] = n
-    split = hogbom_split(nl, ny, _HOGBOM_RESIDENT[key])
+    n = _resident("ska_hogbom_resident", dev, kind)
+    if n <= 0:
+        raise RuntimeError(f"hogbom: no CTA can be resident on {dev}")
+    split = hogbom_split(nl, ny, n)
     nwords = 16 * split[0] * split[1] + split[0]
+    return split, torch.empty(nwords, dtype=torch.int32, device=dev)
+
+
+def _clean_launch_geometry(symbol, variant, nl, ny, row_bytes, part_words, dev):
+    """The split of :func:`clean_split` for the card of ``dev`` and the
+    resident query ``symbol(*variant, smem)``, and the kernel's scratch:
+    two parity buffers of ``part_words``-word partials per CTA and one
+    barrier counter per lane."""
+    split = clean_split(
+        nl, ny, row_bytes, lambda smem: _resident(symbol, dev, *variant, smem)
+    )
+    if _resident(symbol, dev, *variant, split[3]) <= 0:
+        raise RuntimeError(f"{symbol}: no CTA can be resident on {dev}")
+    nwords = 2 * part_words * split[0] * split[1] + split[0]
     return split, torch.empty(nwords, dtype=torch.int32, device=dev)
 
 
@@ -584,6 +640,7 @@ def msclean_lanes(
     res_stack: torch.Tensor,
     psf_ss: torch.Tensor,
     coupling_diag: torch.Tensor,
+    pscalestack: torch.Tensor,
     windowstack: torch.Tensor | None = None,
     sensitivity: torch.Tensor | None = None,
     *,
@@ -594,10 +651,14 @@ def msclean_lanes(
 ):
     """The msclean minor-cycle loop on a batch of lanes: residual stacks
     ``[lanes, ns, ny, nx]``, cross-scale PSF stacks ``[lanes, ns, ns, py,
-    px]``, coupling diagonals ``[lanes, ns]``, optional window stacks
-    ``[lanes, ns, ny, nx]`` and sensitivity images ``[lanes, ny, nx]``.
-    Returns (rows ``[lanes, niter, 5]``, residual stacks). On CUDA each
-    lane is one run of kernel K7 (f32)."""
+    px]``, coupling diagonals ``[lanes, ns]``, scale blobs at PSF size
+    ``[lanes, ns, py, px]``, optional window stacks ``[lanes, ns, ny, nx]``
+    and sensitivity images ``[lanes, ny, nx]``. Returns (rows ``[lanes,
+    niter, 5]``, residual stacks, component images ``[lanes, ny, nx]``).
+
+    On CUDA all lanes are one call of kernel K7 (f32), counted as one
+    launch; it emits the component images itself. On the CPU each lane
+    runs the plain loop and its rows rebuild the image."""
     nl, ns, ny, nx = res_stack.shape
     py, px = psf_ss.shape[-2:]
 
@@ -613,54 +674,65 @@ def msclean_lanes(
             )
             for i in range(nl)
         ]
-        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+        comps = [
+            msclean_rows_to_comps(o[0], pscalestack[i], ny, nx)
+            for i, o in enumerate(out)
+        ]
+        return (
+            torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]),
+            torch.stack(comps),
+        )
     dev = res_stack.device
     chk = kernels.check_cuda_tensor
-    if psf_ss.shape[:3] != (nl, ns, ns) or coupling_diag.shape != (nl, ns):
+    if (
+        psf_ss.shape[:3] != (nl, ns, ns)
+        or coupling_diag.shape != (nl, ns)
+        or pscalestack.shape != (nl, ns, py, px)
+    ):
         raise ValueError(
             f"shapes: res_stack {tuple(res_stack.shape)}, psf_ss "
-            f"{tuple(psf_ss.shape)}, coupling_diag {tuple(coupling_diag.shape)}"
+            f"{tuple(psf_ss.shape)}, coupling_diag {tuple(coupling_diag.shape)}, "
+            f"pscalestack {tuple(pscalestack.shape)}"
         )
     _check_psf(res_stack.shape, psf_ss.shape)
     if ns * ny * nx >= 2**31:
         raise ValueError(f"res_stack: {tuple(res_stack.shape)} exceeds int32 indexing")
-    chk("res_stack", res_stack, torch.float32, dev)
-    chk("psf_ss", psf_ss, torch.float32, dev)
-    chk("coupling_diag", coupling_diag, torch.float32, dev)
     for name, t in (("windowstack", windowstack), ("sensitivity", sensitivity)):
         if t is not None:
             chk(name, t, torch.float32, dev)
-    res = res_stack.clone()
+    res = torch.empty_like(res_stack)
+    comps = torch.empty((nl, ny, nx), dtype=torch.float32, device=dev)
     rows = torch.empty((nl, niter, 5), dtype=torch.float32, device=dev)
-    # per-CTA (value, index) partials of the grid-wide search, one CTA per
-    # few rows of the stack, plus the loop state
-    nparts = min(ns * ny, _MSCLEAN_MAX_PARTS)
-    scratch = torch.empty(16 + 3 * nparts, dtype=torch.int32, device=dev)
-    for i in range(nl):
-        kernels.KERNELS["msclean"].launch(
-            res[i].data_ptr(),
-            psf_ss[i].data_ptr(),
-            coupling_diag[i].data_ptr(),
-            None if windowstack is None else windowstack[i].data_ptr(),
-            None if sensitivity is None else sensitivity[i].data_ptr(),
-            rows[i].data_ptr(),
-            scratch.data_ptr(),
-            nparts,
-            ns,
-            ny,
-            nx,
-            py,
-            px,
-            int(niter),
-            float(gain),
-            float(thresh),
-            float(fracthresh),
-        )
-    return rows, res
-
-
-# at most this many CTAs share one sweep of the stack (8 per SM of an H100)
-_MSCLEAN_MAX_PARTS = 1056
+    # a band row: the row in every scale plane and in the component image
+    variant = (int(windowstack is not None) + 2 * int(sensitivity is not None),)
+    split, scratch = _clean_launch_geometry(
+        "ska_msclean_resident", variant, nl, ny, 4 * (ns + 1) * nx, 4, dev
+    )
+    kernels.KERNELS["msclean"].launch(
+        chk("res_stack", res_stack, torch.float32, dev),
+        chk("psf_ss", psf_ss, torch.float32, dev),
+        chk("coupling_diag", coupling_diag, torch.float32, dev),
+        None if windowstack is None else windowstack.data_ptr(),
+        None if sensitivity is None else sensitivity.data_ptr(),
+        chk("pscalestack", pscalestack, torch.float32, dev),
+        res.data_ptr(),
+        comps.data_ptr(),
+        rows.data_ptr(),
+        scratch.data_ptr(),
+        nl,
+        *split,
+        ns,
+        ny,
+        nx,
+        py,
+        px,
+        int(niter),
+        float(gain),
+        float(thresh),
+        float(fracthresh),
+    )
+    return rows, res, comps
 
 
 class MSCleanStacks(typing.NamedTuple):
@@ -704,7 +776,6 @@ def msclean_with_stacks(
 ):
     """msclean of ``dirty`` with the PSF's stacks already built. Returns
     (comps, residual)."""
-    ny, nx = dirty.shape
     dt = stacks.psf_ss.dtype
     ldirty = dirty.to(dt) / stacks.pmax
     res_stack = convolve_scalestack(stacks.scalestack, ldirty).to(dt)
@@ -714,10 +785,11 @@ def msclean_with_stacks(
             convolve_scalestack(stacks.scalestack, window.to(dt)) > 0.9
         ).to(dt)[None].contiguous()
     sens = None if sensitivity is None else sensitivity.to(dt)[None].contiguous()
-    rows, res = msclean_lanes(
+    _, res, comps = msclean_lanes(
         res_stack[None].contiguous(),
         stacks.psf_ss[None],
         stacks.coupling_diag[None],
+        stacks.pscalestack[None],
         windowstack,
         sens,
         gain=gain,
@@ -725,8 +797,7 @@ def msclean_with_stacks(
         fracthresh=fracthresh,
         niter=niter,
     )
-    comps = msclean_rows_to_comps(rows[0], stacks.pscalestack, ny, nx)
-    return comps, stacks.pmax * res[0, 0]
+    return comps[0], stacks.pmax * res[0, 0]
 
 
 def msclean(
@@ -900,8 +971,6 @@ def msmfs_rows_plain(
     return rows, res
 
 
-# at most this many CTAs share one sweep of the stack (8 per SM of an H100)
-_MSMFS_MAX_PARTS = 1056
 # the kernel keeps each pixel's moments in registers
 _MSMFS_MAX_MOMENTS = 6
 
@@ -911,6 +980,7 @@ def msmfs_lanes(
     canvas: torch.Tensor,
     hsmm: torch.Tensor,
     ihsmm: torch.Tensor,
+    pscalestack: torch.Tensor,
     windowstack: torch.Tensor | None = None,
     *,
     gain: float,
@@ -921,16 +991,24 @@ def msmfs_lanes(
 ):
     """The MSMFS minor-cycle loop on a batch of lanes that share one PSF:
     scale-moment residuals ``[lanes, ns, nm, ny, nx]``, the compact canvas
-    ``[ns, ns, 2nm-1, py, px]``, Hessian and inverse ``[ns, nm, nm]``,
-    optional window stacks ``[lanes, ns, ny, nx]``. Returns (rows
-    ``[lanes, niter, 4 + nm]``, residual stacks). On CUDA each lane is one
-    run of kernel K8 (f32)."""
+    ``[ns, ns, 2nm-1, py, px]``, Hessian and inverse ``[ns, nm, nm]``, the
+    scale blobs at PSF size ``[ns, py, px]``, optional window stacks
+    ``[lanes, ns, ny, nx]``. Returns (rows ``[lanes, niter, 4 + nm]``,
+    residual stacks, moment models ``[lanes, nm, ny, nx]``).
+
+    On CUDA all lanes are one call of kernel K8 (f32), counted as one
+    launch; it emits the moment models itself. On the CPU each lane runs
+    the plain loop and its rows rebuild the model."""
     nl, ns, nm, ny, nx = smres.shape
     py, px = canvas.shape[-2:]
-    if canvas.shape[:3] != (ns, ns, 2 * nm - 1) or ihsmm.shape != (ns, nm, nm):
+    if (
+        canvas.shape[:3] != (ns, ns, 2 * nm - 1)
+        or ihsmm.shape != (ns, nm, nm)
+        or pscalestack.shape != (ns, py, px)
+    ):
         raise ValueError(
             f"shapes: smres {tuple(smres.shape)}, canvas {tuple(canvas.shape)}, "
-            f"ihsmm {tuple(ihsmm.shape)}"
+            f"ihsmm {tuple(ihsmm.shape)}, pscalestack {tuple(pscalestack.shape)}"
         )
     if smres.device.type == "cpu":
         out = [
@@ -942,7 +1020,12 @@ def msmfs_lanes(
             )
             for i in range(nl)
         ]
-        return torch.stack([o[0] for o in out]), torch.stack([o[1] for o in out])
+        models = [msmfs_rows_to_model(o[0], pscalestack, ny, nx) for o in out]
+        return (
+            torch.stack([o[0] for o in out]),
+            torch.stack([o[1] for o in out]),
+            torch.stack(models),
+        )
     dev = smres.device
     chk = kernels.check_cuda_tensor
     _check_psf(smres.shape, canvas.shape)
@@ -950,45 +1033,44 @@ def msmfs_lanes(
         raise ValueError(f"msmfs kernel: {nm} moments, at most {_MSMFS_MAX_MOMENTS}")
     if ns * nm * ny * nx >= 2**31:
         raise ValueError(f"smres: {tuple(smres.shape)} exceeds int32 indexing")
-    chk("smres", smres, torch.float32, dev)
-    chk("canvas", canvas, torch.float32, dev)
-    chk("hsmm", hsmm, torch.float32, dev)
-    chk("ihsmm", ihsmm, torch.float32, dev)
     if windowstack is not None:
         chk("windowstack", windowstack, torch.float32, dev)
-    res = smres.clone()
+    res = torch.empty_like(smres)
+    model = torch.empty((nl, nm, ny, nx), dtype=torch.float32, device=dev)
     rows = torch.empty((nl, niter, 4 + nm), dtype=torch.float32, device=dev)
-    # the sweep's CTAs each take a few rows of one scale; per CTA two
-    # (value, index) partials and the initial peak, plus the loop state
-    rows_per_cta = -(-ny // min(ny, max(1, _MSMFS_MAX_PARTS // ns)))
-    ctas_per_scale = -(-ny // rows_per_cta)
-    scratch = torch.empty(
-        32 + 5 * ns * ctas_per_scale, dtype=torch.int32, device=dev
+    casa = int(findpeak == "CASA")
+    # a band row: the row in every (scale, moment) plane and in the model;
+    # a partial: the criterion's head and (|sol0|, index, moments) a scale
+    split, scratch = _clean_launch_geometry(
+        "ska_msmfs_resident", (nm, casa), nl, ny, 4 * (ns + 1) * nm * nx,
+        4 + ns * (2 + nm), dev,
     )
-    for i in range(nl):
-        kernels.KERNELS["msmfs"].launch(
-            res[i].data_ptr(),
-            canvas.data_ptr(),
-            hsmm.data_ptr(),
-            ihsmm.data_ptr(),
-            None if windowstack is None else windowstack[i].data_ptr(),
-            rows[i].data_ptr(),
-            scratch.data_ptr(),
-            ctas_per_scale,
-            rows_per_cta,
-            ns,
-            nm,
-            ny,
-            nx,
-            py,
-            px,
-            int(niter),
-            int(findpeak == "CASA"),
-            float(gain),
-            float(thresh),
-            float(fracthresh),
-        )
-    return rows, res
+    kernels.KERNELS["msmfs"].launch(
+        chk("smres", smres, torch.float32, dev),
+        chk("canvas", canvas, torch.float32, dev),
+        chk("hsmm", hsmm, torch.float32, dev),
+        chk("ihsmm", ihsmm, torch.float32, dev),
+        None if windowstack is None else windowstack.data_ptr(),
+        chk("pscalestack", pscalestack, torch.float32, dev),
+        res.data_ptr(),
+        model.data_ptr(),
+        rows.data_ptr(),
+        scratch.data_ptr(),
+        nl,
+        *split,
+        ns,
+        nm,
+        ny,
+        nx,
+        py,
+        px,
+        int(niter),
+        casa,
+        float(gain),
+        float(thresh),
+        float(fracthresh),
+    )
+    return rows, res, model
 
 
 def msmfs_rows_to_model(rows, pscalestack, ny: int, nx: int):
@@ -1067,7 +1149,7 @@ def msmfs_with_stacks(
     """MSMFS of the moment images ``dirty [nm, ny, nx]`` with the PSF's
     stacks already built, with an optional ``[ny, nx]`` window. Returns
     (moment model, moment residual), both ``[nm, ny, nx]``."""
-    nm, ny, nx = dirty.shape
+    nm = dirty.shape[0]
     if stacks.ihsmm.shape[-1] != nm:
         raise ValueError(
             f"{nm} moment images for a {stacks.ihsmm.shape[-1]}-moment PSF"
@@ -1081,11 +1163,12 @@ def msmfs_with_stacks(
         windowstack = (
             convolve_scalestack(stacks.scalestack, window.to(dt)) > 0.9
         ).to(dt)[None].contiguous()
-    rows, res = msmfs_lanes(
+    _, res, model = msmfs_lanes(
         smres[None].contiguous(),
         stacks.canvas,
         stacks.hsmm,
         stacks.ihsmm,
+        stacks.pscalestack,
         windowstack,
         gain=gain,
         thresh=thresh,
@@ -1093,8 +1176,7 @@ def msmfs_with_stacks(
         niter=niter,
         findpeak=findpeak,
     )
-    model = msmfs_rows_to_model(rows[0], stacks.pscalestack, ny, nx)
-    return model, stacks.pmax * res[0, 0]
+    return model[0], stacks.pmax * res[0, 0]
 
 
 def msmfsclean(

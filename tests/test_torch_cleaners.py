@@ -18,7 +18,12 @@ from ska_sdp_func_python_tpu.ops.cleaners import hogbom as jax_hogbom
 from ska_sdp_func_python_tpu.ops.cleaners import (
     hogbom_complex as jax_hogbom_complex,
 )
-from ska_sdp_func_python_torch.ops.cleaners import hogbom, hogbom_complex, hogbom_split
+from ska_sdp_func_python_torch.ops.cleaners import (
+    clean_split,
+    hogbom,
+    hogbom_complex,
+    hogbom_split,
+)
 
 
 def _psf(n, sigma=2.5):
@@ -183,3 +188,69 @@ def test_hogbom_split_spreads_lanes_over_resident_ctas(nlanes, ny, resident, exp
     assert (per_launch, ctas, band) == expect
     assert per_launch * ctas <= resident
     assert (ctas - 1) * band < ny <= ctas * band
+
+
+# the H100's opt-in shared memory per CTA, and its shared memory per SM
+SMEM_CTA, SMEM_SM = 227 * 1024, 228 * 1024
+
+
+def _h100(blocks):
+    """Resident CTAs of a cooperative kernel on a model of the H100: 132
+    SMs, each with 228 KB of shared memory of which a CTA reserves 1 KB
+    and may use at most 227 KB, and at most ``blocks`` CTAs an SM by threads
+    and registers (2 for K7 and K8)."""
+
+    def resident(smem):
+        if smem > SMEM_CTA:
+            return 0
+        return 132 * min(blocks, SMEM_SM // (smem + 1024))
+
+    return resident
+
+
+@pytest.mark.parametrize(
+    "nlanes,ny,row_bytes,expect",
+    [
+        # K7 at the flagship: 4 scales + the component image of 1024 columns
+        (1, 1024, 4 * 5 * 1024, (1, 256, 4, 81920)),
+        # K8 on the config-4 cube: (4 scales + the model) x 3 moments x 256
+        (1, 256, 4 * 5 * 3 * 256, (1, 256, 1, 15360)),
+        (3, 128, 4 * 5 * 128, (3, 64, 2, 5120)),
+        # a band of 3 rows leaves one CTA an SM: 5 rows on 132 CTAs fit
+        (1, 600, 40000, (1, 120, 5, 200000)),
+        # more lanes than CTAs: two launches, one CTA a lane
+        (269, 16, 4 * 3 * 16, (264, 1, 16, 3072)),
+        # 4 x 2048^2 and 64 lanes of 4 x 256^2 exceed the card's shared memory
+        (1, 2048, 4 * 5 * 2048, (1, 256, 8, 0)),
+        (64, 256, 4 * 5 * 256, (64, 4, 64, 0)),
+    ],
+)
+def test_clean_split_holds_bands_in_shared_memory(nlanes, ny, row_bytes, expect):
+    """The msclean and MSMFS kernels' cooperative grid: the split of
+    hogbom_split over the CTAs resident at the bands' shared-memory size,
+    or, where a band cannot fit, over the CTAs resident without it, with
+    the bands in device memory (shared memory 0)."""
+    resident = _h100(2)
+    per_launch, ctas, band, smem = clean_split(nlanes, ny, row_bytes, resident)
+    assert (per_launch, ctas, band, smem) == expect
+    if smem:
+        assert smem == band * row_bytes <= SMEM_CTA
+        assert per_launch * ctas <= resident(smem)
+    else:
+        assert band * row_bytes > SMEM_CTA or per_launch * ctas > resident(band * row_bytes)
+        assert per_launch * ctas <= resident(0)
+
+
+@pytest.mark.parametrize("ny", [1, 7, 100, 1000, 1024])
+@pytest.mark.parametrize("nlanes", [1, 5, 300])
+def test_clean_split_bands_own_every_row_once(nlanes, ny):
+    """CTA c of a lane owns rows [c * band, min(ny, (c + 1) * band)): every
+    band non-empty, the bands disjoint and covering the image."""
+    per_launch, ctas, band, smem = clean_split(nlanes, ny, 4 * 5 * 256, _h100(2))
+    owner = np.full(ny, -1)
+    for c in range(ctas):
+        rows = np.arange(c * band, min(ny, (c + 1) * band))
+        assert rows.size > 0 and (owner[rows] == -1).all()
+        owner[rows] = c
+    assert (owner >= 0).all()
+    assert per_launch == min(max(nlanes, 1), 264)

@@ -5,14 +5,17 @@ imports only the port, so it also runs where JAX is absent:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 
-The Hogbom kernels (K5, K6) run one cooperative grid per launch; their
-stress cases range from every resident CTA on one lane to one CTA per
-lane over two launches.
+The CLEAN kernels (K5, K6, K7, K8) run one cooperative grid per call;
+their stress cases range from every resident CTA on one lane to one CTA
+per lane over two launches.
 
 Tolerances: ``permute_apply`` is bit-exact (elements are only moved);
-``hogbom`` (with and without a window), ``hogbom_complex``, ``msclean``
-and ``msmfs`` give identical component positions and values to 1e-6
-relative (the same f32 operations in the same order); ``grid`` (atomics, run-to-run summation order; held against
+``hogbom`` (with and without a window) and ``hogbom_complex`` give
+identical component positions and values to 1e-6 relative (the same f32
+operations in the same order); ``msclean`` and ``msmfs`` on the same f32
+stacks agree bit for bit in rows, residuals and the kernels' component
+images and moment models (``msclean_with_stacks`` from the FFTs of each
+device to 1e-6); ``grid`` (atomics, run-to-run summation order; held against
 the plain version accumulated in f64) and ``degrid`` (one entry's f32
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
@@ -534,6 +537,135 @@ def test_msclean_matches_plain(dev, window):
     _same(out, ref)
 
 
+def _bit_equal(out, ref):
+    for o, r in zip(out, ref):
+        o = o.cpu()
+        assert bool(torch.isfinite(r).all())
+        assert torch.equal(o, r), float((o - r).abs().max())
+
+
+def _split(symbol, variant, nl, ny, row_bytes, dev):
+    """The launch split the wrapper takes on this card (clean_split)."""
+    return cleaners.clean_split(
+        nl, ny, row_bytes, lambda smem: cleaners._resident(symbol, dev, *variant, smem)
+    )
+
+
+def _gauss(n, sigma2=8.0):
+    y, x = np.mgrid[:n, :n] - n // 2
+    return np.exp(-(x**2 + y**2) / sigma2).astype(np.float32)
+
+
+def _bumps(rng, nl, ny, nx, margin=0):
+    out = 0.01 * rng.normal(size=(nl, ny, nx)).astype(np.float32)
+    for lane in range(nl):
+        for _ in range(4):
+            cy = rng.integers(margin, ny - margin)
+            cx = rng.integers(margin, nx - margin)
+            out[lane, max(cy - 3, 0) : cy + 3, max(cx - 3, 0) : cx + 3] += rng.uniform(0.5, 1.5)
+    return out
+
+
+MSCLEAN_CASES = ["lanes1", "lanes3", "lanes_over_resident", "stop0", "all_niter",
+                 "window_sens", "device_band"]
+
+
+def _msclean_case(case, dev):
+    """(res_stack, psf_ss, coupling_diag, pscalestack, windowstack,
+    sensitivity, kw) of an msclean stress case, f32 on the CPU: one and
+    three lanes, more lanes than resident CTAs (two launches), a stop at
+    iteration 0, a loop that uses all of niter, a window stack with a
+    sensitivity image, and a 4 x 2048^2 stack whose bands stay in device
+    memory."""
+    nl, n, pn, scales, niter = 1, 128, 64, (0, 3, 10, 30), 120
+    kw = dict(gain=0.2, thresh=0.0, fracthresh=0.01)
+    if case == "lanes3":
+        nl = 3
+    elif case == "lanes_over_resident":
+        nl = kernels.query("ska_msclean_resident", 0, 0) + 5
+        n, pn, scales, niter = 16, 8, (0, 3), 8
+    elif case == "stop0":
+        kw["thresh"] = 100.0
+    elif case == "all_niter":
+        kw["fracthresh"], niter = 0.0, 60
+    elif case == "device_band":
+        n, niter = 2048, 4
+    rng = np.random.default_rng(31)
+    st = cleaners.msclean_psf_stacks(torch.as_tensor(_gauss(pn)), n, n, scales)
+    dirty = torch.as_tensor(_bumps(rng, nl, n, n))
+    res_stack = torch.stack(
+        [cleaners.convolve_scalestack(st.scalestack, d / st.pmax) for d in dirty]
+    ).float().contiguous()
+    ns = len(scales)
+    win = sens = None
+    if case == "window_sens":
+        win = torch.zeros((nl, ns, n, n))
+        win[:, :, 16:112, 8:100] = 1.0
+        win[:, 1:, 40:60] = 0.0
+        sens = torch.linspace(0.5, 1.5, n * n).reshape(1, n, n)
+    lanes = lambda t: t[None].expand(nl, *t.shape).contiguous()  # noqa: E731
+    return (res_stack, lanes(st.psf_ss), lanes(st.coupling_diag), lanes(st.pscalestack),
+            win, sens, dict(kw, niter=niter))
+
+
+@pytest.mark.parametrize("case", MSCLEAN_CASES)
+def test_msclean_loop_matches_plain(dev, case):
+    """K7 on its cooperative grid against the plain loop on the same f32
+    stacks: rows, residual stacks and the kernel's component images
+    bit for bit (the images against msclean_rows_to_comps of the plain
+    rows), one counted launch per call."""
+    args = _msclean_case(case, dev)
+    *stacks, kw = args
+    nl, ns, n, _ = stacks[0].shape
+    variant = (int(stacks[4] is not None) + 2 * int(stacks[5] is not None),)
+    per_launch, _, _, smem = _split("ska_msclean_resident", variant, nl, n,
+                                    4 * (ns + 1) * n, dev)
+    if case == "lanes_over_resident":
+        assert per_launch < nl
+    assert (smem == 0) == (case == "device_band")
+    on_card = [None if t is None else t.to(dev) for t in stacks]
+    before = kernels.KERNELS["msclean"].launches
+    out = cleaners.msclean_lanes(*on_card, **kw)
+    assert kernels.KERNELS["msclean"].launches == before + 1
+    ref = cleaners.msclean_lanes(*stacks, **kw)
+    _bit_equal(out, ref)
+    used = (ref[0][..., 4] > 0).sum(dim=-1)
+    if case == "stop0":
+        assert int(used.max()) == 0 and float(out[2].abs().max()) == 0.0
+    elif case == "all_niter":
+        assert bool((used == kw["niter"]).all())
+    else:
+        assert int(used.min()) > 0
+
+
+def test_msclean_ties_go_to_the_first_index(dev):
+    """Exact ties within a band and across a band boundary: unit coupling,
+    a delta PSF per scale, equal peaks at the last row of band 0 (columns 6
+    and 7), the first row of band 1 and scale 1's (0, 0); each pick clears
+    only its own pixel, and the kernel picks in (scale, y, x) order, as the
+    plain version does, bit for bit."""
+    ns, n, pn = 2, 40, 16
+    band = _split("ska_msclean_resident", (0,), 1, n, 4 * (ns + 1) * n, dev)[2]
+    assert band < n
+    res = torch.zeros((1, ns, n, n))
+    for s, y, x in ((1, 0, 0), (0, band, 3), (0, band - 1, 7), (0, band - 1, 6)):
+        res[0, s, y, x] = 1.0
+    psf_ss = torch.zeros((1, ns, ns, pn, pn))
+    blobs = torch.zeros((1, ns, pn, pn))
+    for s in range(ns):
+        psf_ss[0, s, s, pn // 2, pn // 2] = 1.0
+        blobs[0, s, pn // 2, pn // 2] = 1.0
+    cd = torch.ones((1, ns))
+    kw = dict(gain=1.0, thresh=0.0, fracthresh=0.01, niter=6)
+    before = kernels.KERNELS["msclean"].launches
+    out = cleaners.msclean_lanes(res.to(dev), psf_ss.to(dev), cd.to(dev), blobs.to(dev), **kw)
+    assert kernels.KERNELS["msclean"].launches == before + 1
+    ref = cleaners.msclean_lanes(res, psf_ss, cd, blobs, **kw)
+    _bit_equal(out, ref)
+    picks = [tuple(int(v) for v in r[:3]) for r in out[0][0].cpu() if r[4] > 0]
+    assert picks == [(band - 1, 6, 0), (band - 1, 7, 0), (band, 3, 0), (0, 0, 1)]
+
+
 @pytest.mark.parametrize("algorithm", ["hogbom-complex", "msclean"])
 def test_deconvolve_cube_window_on_card_matches_cpu(dev, algorithm):
     """deconvolve_cube with the quarter window on the card (kernels) and on
@@ -567,26 +699,65 @@ def test_deconvolve_cube_window_on_card_matches_cpu(dev, algorithm):
         torch.testing.assert_close(a, b, rtol=0.0, atol=1e-5 * float(b.abs().max()))
 
 
-def _moment_inputs(nmoment, n=96, seed=13):
-    """f32 moment images [nmoment, n, n] and moment PSFs [2 nmoment, n, n]
-    of an 8-channel cube over 100-163 MHz (PSF narrowing with frequency,
-    sources with spectral indices)."""
+def _moment_inputs(nmoment, n=96, seed=13, nchan=8, span=0.63, nl=1):
+    """f32 moment images [nl, nmoment, n, n] and moment PSFs [2 nmoment, n,
+    n] of an nchan-channel cube over 100 MHz to (1 + span) 100 MHz (PSF
+    narrowing with frequency, sources with spectral indices), a different
+    sky for each of the nl lanes."""
     rng = np.random.default_rng(seed)
-    freq = np.linspace(1.0e8, 1.63e8, 8)
-    x = (freq - freq[4]) / freq[4]
+    freq = np.linspace(1.0e8, 1.0e8 * (1.0 + span), nchan)
+    f0 = freq[nchan // 2]
+    x = (freq - f0) / f0
     yy, xx = np.mgrid[:n, :n] - n // 2
-    psfs = np.stack([np.exp(-(yy**2 + xx**2) / (2.5 * freq[4] / f) ** 2) for f in freq])
-    dirty = 0.004 * rng.normal(size=(8, n, n))
-    for _ in range(4):
-        cy, cx = rng.integers(8, n - 8, 2)
-        alpha = rng.uniform(-1.5, 0.5)
-        for c, f in enumerate(freq):
-            dirty[c] += (f / freq[4]) ** alpha * np.roll(psfs[c], (cy - n // 2, cx - n // 2), (0, 1))
+    psfs = np.stack([np.exp(-(yy**2 + xx**2) / (2.5 * f0 / f) ** 2) for f in freq])
     w = x[:, None] ** np.arange(2 * nmoment)[None, :]
+    lanes = []
+    margin = max(n // 12, 1)
+    for _ in range(nl):
+        dirty = 0.004 * rng.normal(size=(nchan, n, n))
+        for _ in range(4):
+            cy, cx = rng.integers(margin, n - margin, 2)
+            alpha = rng.uniform(-1.5, 0.5)
+            for c, f in enumerate(freq):
+                dirty[c] += (f / f0) ** alpha * np.roll(psfs[c], (cy - n // 2, cx - n // 2), (0, 1))
+        lanes.append(np.einsum("cm,cyx->myx", w[:, :nmoment], dirty))
     return (
-        np.einsum("cm,cyx->myx", w[:, :nmoment], dirty).astype(np.float32),
+        np.stack(lanes).astype(np.float32),
         np.einsum("cm,cyx->myx", w, psfs).astype(np.float32),
     )
+
+
+def _msmfs_stacks(dirty, psf, scales, window):
+    """The MSMFS stacks of ``msmfs_with_stacks`` in f32 on the CPU: the
+    PSF's stacks, the scale-moment residuals [nl, ns, nm, ny, nx] and the
+    window stack of a centred window, or None."""
+    n = dirty.shape[-1]
+    st = cleaners.msmfs_psf_stacks(torch.as_tensor(psf), n, n, scales)
+    smres = torch.stack([
+        cleaners.calculate_scale_moment_residual(torch.as_tensor(d) / st.pmax, st.scalestack)
+        for d in dirty
+    ]).float().contiguous()
+    ws = None
+    if window:
+        w = torch.zeros((n, n))
+        w[n // 4 + 1 : 3 * (n // 4), n // 4 + 1 : 3 * (n // 4)] = 1.0
+        ws = (cleaners.convolve_scalestack(st.scalestack, w) > 0.9).float()
+        ws = ws[None].expand(dirty.shape[0], *ws.shape).contiguous()
+    return st, smres, ws
+
+
+def _check_msmfs(dev, st, smres, ws, kw):
+    """K8 against the plain loop on the same f32 stacks: rows, residuals
+    and the kernel's moment models bit for bit (the models against
+    msmfs_rows_to_model of the plain rows), one counted launch per call.
+    Returns the kernel's outputs."""
+    stacks = (smres, st.canvas, st.hsmm, st.ihsmm, st.pscalestack, ws)
+    on_card = [None if t is None else t.to(dev) for t in stacks]
+    before = kernels.KERNELS["msmfs"].launches
+    out = cleaners.msmfs_lanes(*on_card, **kw)
+    assert kernels.KERNELS["msmfs"].launches == before + 1
+    _bit_equal(out, cleaners.msmfs_lanes(*stacks, **kw))
+    return out
 
 
 @pytest.mark.parametrize(
@@ -595,50 +766,94 @@ def _moment_inputs(nmoment, n=96, seed=13):
     ids=["rascil", "casa", "rascil-window"],
 )
 def test_msmfs_matches_plain(dev, findpeak, window, nmoment):
-    """K8 against msmfs_rows_plain on the same f32 stacks: the same rows
-    and residual, and one launch per lane."""
+    """K8 against msmfs_rows_plain on the same f32 stacks: the same rows,
+    residual and moment model bit for bit, and one launch per call."""
     dirty, psf = _moment_inputs(nmoment)
-    n = dirty.shape[-1]
-    st = cleaners.msmfs_psf_stacks(torch.as_tensor(psf, device=dev), n, n, (0, 3, 10))
-    smres = cleaners.calculate_scale_moment_residual(
-        torch.as_tensor(dirty, device=dev) / st.pmax, st.scalestack
-    ).contiguous()
-    ws = None
-    if window:
-        w = torch.zeros((n, n), device=dev)
-        w[n // 4 + 1 : 3 * (n // 4), n // 4 + 1 : 3 * (n // 4)] = 1.0
-        ws = (cleaners.convolve_scalestack(st.scalestack, w) > 0.9).float()[None].contiguous()
+    st, smres, ws = _msmfs_stacks(dirty, psf, (0, 3, 10), window)
     kw = dict(gain=0.5, thresh=0.0, fracthresh=0.03, niter=150, findpeak=findpeak)
-    before = kernels.KERNELS["msmfs"].launches
-    rows, res = cleaners.msmfs_lanes(smres[None], st.canvas, st.hsmm, st.ihsmm, ws, **kw)
-    assert kernels.KERNELS["msmfs"].launches == before + 1
-    prow, pres = cleaners.msmfs_rows_plain(
-        smres.cpu(), st.canvas.cpu(), st.hsmm.cpu(), st.ihsmm.cpu(),
-        None if ws is None else ws[0].cpu(), **kw,
-    )
-    used = int((prow[:, 3] > 0).sum())
+    rows = _check_msmfs(dev, st, smres, ws, kw)[0]
+    used = int((rows[0, :, 3] > 0).sum())
     assert 0 < used < 150
-    torch.testing.assert_close(rows[0].cpu()[:, :4], prow[:, :4], rtol=0, atol=0)
-    _same((rows[0, :, 4:], res[0]), (prow[:, 4:], pres))
+
+
+MSMFS_CASES = ["lanes3", "lanes_over_resident", "stop0", "all_niter", "casa_nm1",
+               "casa_nm6", "rascil_nm6", "device_band"]
+
+
+@pytest.mark.parametrize("case", MSMFS_CASES)
+def test_msmfs_loop_matches_plain(dev, case):
+    """K8's stress cases, bit for bit against the plain loop: three lanes
+    in one call, more lanes than resident CTAs (two launches), a stop at
+    iteration 0, a loop that uses all of niter, CASA's criterion at 1 and
+    6 moments, RASCIL's at 6 with a window, and a 4 scales x 3 moments x
+    1024^2 stack whose bands stay in device memory."""
+    nm, n, scales, window, niter = 3, 96, (0, 3, 10), False, 150
+    kw = dict(gain=0.5, thresh=0.0, fracthresh=0.03, findpeak="RASCIL")
+    inputs = {}
+    if case == "lanes3":
+        inputs["nl"] = 3
+    elif case == "lanes_over_resident":
+        nm, n, scales, niter = 2, 16, (0, 3), 6
+        inputs["nl"] = kernels.query("ska_msmfs_resident", nm, 0, 0) + 5
+    elif case == "stop0":
+        kw["thresh"] = 100.0
+    elif case == "all_niter":
+        kw["fracthresh"], niter = 0.0, 60
+    elif case == "casa_nm1":
+        nm, kw["findpeak"] = 1, "CASA"
+    elif case in ("casa_nm6", "rascil_nm6"):
+        nm, niter, window = 6, 80, case == "rascil_nm6"
+        inputs.update(nchan=16, span=1.0)
+        if case == "casa_nm6":
+            kw["findpeak"] = "CASA"
+    elif case == "device_band":
+        n, scales, niter = 1024, (0, 3, 10, 30), 4
+    dirty, psf = _moment_inputs(nm, n=n, **inputs)
+    if case == "device_band":
+        psf = psf[:, n // 2 - 64 : n // 2 + 64, n // 2 - 64 : n // 2 + 64].copy()
+    st, smres, ws = _msmfs_stacks(dirty, psf, scales, window)
+    nl, ns = smres.shape[:2]
+    casa = int(kw["findpeak"] == "CASA")
+    per_launch, _, _, smem = _split("ska_msmfs_resident", (nm, casa), nl, n,
+                                    4 * (ns + 1) * nm * n, dev)
+    if case == "lanes_over_resident":
+        assert per_launch < nl
+    assert (smem == 0) == (case == "device_band")
+    rows = _check_msmfs(dev, st, smres, ws, dict(kw, niter=niter))[0].cpu()
+    used = (rows[..., 3] > 0).sum(dim=-1)
+    if case == "stop0":
+        assert int(used.max()) == 0
+    elif case == "all_niter":
+        assert bool((used == niter).all())
+    else:
+        assert int(used.min()) > 0
 
 
 def test_msmfs_ties_go_to_the_first_index(dev):
-    """Exact ties across the sweep's CTAs and scales: unit Hessians, equal
+    """Exact ties across the kernel's bands and scales: unit Hessians, equal
     peaks at (31, 2), (30, 31) and (30, 30) of scale 1 and (5, 5) of
-    scale 2, each pick clearing only its own pixel; the kernel picks in
-    (scale, y, x) order, as the plain version does."""
+    scale 2, each pick clearing only its own pixel, rows 30 and 31 in
+    different bands; the kernel picks in (scale, y, x) order, as the plain
+    version does, bit for bit."""
     ns, nm, n, pn = 3, 2, 40, 16
-    smres = torch.zeros((ns, nm, n, n), device=dev)
+    band = _split("ska_msmfs_resident", (nm, 0), 1, n, 4 * (ns + 1) * nm * n, dev)[2]
+    assert 30 // band != 31 // band
+    smres = torch.zeros((1, ns, nm, n, n))
     for s, y, x in ((2, 5, 5), (1, 31, 2), (1, 30, 31), (1, 30, 30)):
-        smres[s, 0, y, x] = 1.0
-    canvas = torch.zeros((ns, ns, 2 * nm - 1, pn, pn), device=dev)
+        smres[0, s, 0, y, x] = 1.0
+    canvas = torch.zeros((ns, ns, 2 * nm - 1, pn, pn))
+    blobs = torch.zeros((ns, pn, pn))
     for s in range(ns):
         canvas[s, s, :, pn // 2, pn // 2] = 1.0
-    eye = torch.eye(nm, device=dev).expand(ns, nm, nm).contiguous()
-    rows, _ = cleaners.msmfs_lanes(
-        smres[None], canvas, eye, eye, gain=1.0, thresh=0.0, fracthresh=0.01, niter=4
-    )
-    picks = [tuple(int(v) for v in r[:3]) for r in rows[0].cpu()]
+        blobs[s, pn // 2, pn // 2] = 1.0
+    eye = torch.eye(nm).expand(ns, nm, nm).contiguous()
+    kw = dict(gain=1.0, thresh=0.0, fracthresh=0.01, niter=4)
+    args = (smres, canvas, eye, eye, blobs)
+    before = kernels.KERNELS["msmfs"].launches
+    out = cleaners.msmfs_lanes(*(t.to(dev) for t in args), **kw)
+    assert kernels.KERNELS["msmfs"].launches == before + 1
+    _bit_equal(out, cleaners.msmfs_lanes(*args, **kw))
+    picks = [tuple(int(v) for v in r[:3]) for r in out[0][0].cpu()]
     assert picks == [(30, 30, 1), (30, 31, 1), (31, 2, 1), (5, 5, 2)]
 
 

@@ -135,13 +135,14 @@ def test_msclean_rows_rebuild_components():
     dirty = torch.as_tensor(_sky(n, _gauss(pn), [(3, 44, 2.0), (30, 20, 1.0)], rng, 0.001))
     st = pcl.msclean_psf_stacks(psf, n, n, SCALES)
     res_stack = pcl.convolve_scalestack(st.scalestack, dirty / st.pmax)
-    rows, _ = pcl.msclean_lanes(
-        res_stack[None], st.psf_ss[None], st.coupling_diag[None],
+    rows, _, lane_comps = pcl.msclean_lanes(
+        res_stack[None], st.psf_ss[None], st.coupling_diag[None], st.pscalestack[None],
         gain=0.2, thresh=0.0, fracthresh=0.01, niter=25,
     )
     used = rows[0, :, 4] > 0
     assert 0 < int(used.sum()) <= 25
     comps = pcl.msclean_rows_to_comps(rows[0], st.pscalestack, n, n)
+    assert torch.equal(lane_comps[0], comps)
     # reference: each blob placed on a zero canvas of twice the image size
     # and cut out around the peak (the JAX package's padded-canvas slice)
     ref = np.zeros((n, n))
@@ -186,3 +187,70 @@ def test_msclean_loop_rounds_as_the_jax_loop_f32():
     np.testing.assert_array_equal(res.numpy(), np.asarray(jres))
     comps = pcl.msclean_rows_to_comps(rows, st.pscalestack, n, n)
     np.testing.assert_array_equal(comps.numpy() != 0, np.asarray(jc) != 0)
+
+
+@pytest.mark.parametrize("window", [False, True], ids=["plain", "window+sensitivity"])
+def test_msclean_with_stacks_matches_jax(window):
+    """The fused cycle's entry, ``msclean_with_stacks``, on the CPU: the
+    component image is the one the rows rebuilt before the kernel built it
+    (``msclean_rows_to_comps`` of the plain rows), and matches the JAX
+    package's XLA loop in f64 (identical positions, 1e-8 of the maxima)."""
+    rng = np.random.default_rng(23)
+    n, pn = 96, 48
+    psf = _gauss(pn, ring=0.05)
+    dirty = _sky(n, psf, [(30, 40, 2.0), (70, 60, 1.1), (8, 88, 1.6)], rng, 0.005)
+    win = sens = None
+    if window:
+        win = np.zeros((n, n))
+        win[16:90, 10:80] = 1.0
+        sens = rng.uniform(0.5, 1.5, (n, n))
+    kw = dict(gain=0.1, niter=40, fracthresh=0.01)
+    jc, jr = jcl.msclean(
+        jnp.asarray(dirty), jnp.asarray(psf),
+        None if win is None else jnp.asarray(win),
+        None if sens is None else jnp.asarray(sens),
+        use_pallas=False, scales=SCALES, **kw,
+    )
+    st = pcl.msclean_psf_stacks(torch.as_tensor(psf), n, n, SCALES)
+    t = lambda a: None if a is None else torch.as_tensor(a)  # noqa: E731
+    pc, pr = pcl.msclean_with_stacks(st, t(dirty), t(win), t(sens), thresh=0.0, **kw)
+    jc, jr = np.asarray(jc), np.asarray(jr)
+    np.testing.assert_array_equal(pc.numpy() != 0.0, jc != 0.0)
+    np.testing.assert_allclose(pc.numpy(), jc, rtol=0, atol=1e-8 * np.abs(jc).max())
+    np.testing.assert_allclose(pr.numpy(), jr, rtol=0, atol=1e-8 * np.abs(jr).max())
+    res_stack = pcl.convolve_scalestack(st.scalestack, t(dirty) / st.pmax)
+    ws = None
+    if window:
+        ws = (pcl.convolve_scalestack(st.scalestack, t(win)) > 0.9).double()
+    rows, _ = pcl.msclean_rows_plain(
+        res_stack, st.psf_ss, st.coupling_diag, ws,
+        None if sens is None else t(sens), thresh=0.0, **kw,
+    )
+    assert torch.equal(pc, pcl.msclean_rows_to_comps(rows, st.pscalestack, n, n))
+
+
+def test_msclean_lanes_are_independent():
+    """Two lanes in one call give what each gives alone: rows, residual
+    stacks and component images."""
+    rng = np.random.default_rng(29)
+    n, pn = 48, 32
+    psf = torch.as_tensor(_gauss(pn))
+    st = pcl.msclean_psf_stacks(psf, n, n, SCALES)
+    stacks = [
+        pcl.convolve_scalestack(
+            st.scalestack,
+            torch.as_tensor(_sky(n, _gauss(pn), [(y, x, 1.5)], rng, 0.002)) / st.pmax,
+        )
+        for y, x in ((12, 30), (40, 8))
+    ]
+    two = lambda t: torch.stack([t, t])  # noqa: E731
+    kw = dict(gain=0.2, thresh=0.0, fracthresh=0.01, niter=30)
+    both = pcl.msclean_lanes(
+        torch.stack(stacks), two(st.psf_ss), two(st.coupling_diag), two(st.pscalestack), **kw
+    )
+    for i, res_stack in enumerate(stacks):
+        one = pcl.msclean_lanes(
+            res_stack[None], st.psf_ss[None], st.coupling_diag[None], st.pscalestack[None], **kw
+        )
+        for a, b in zip(both, one):
+            assert torch.equal(a[i], b[0])

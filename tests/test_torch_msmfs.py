@@ -162,12 +162,13 @@ def test_msmfs_rows_rebuild_the_moment_model():
     times gain * mval[n] for moment n, clipped at the edges, in emission
     order."""
     st, smres = _plain_inputs(n=48)
-    rows, _ = pcl.msmfs_lanes(
-        smres[None], st.canvas, st.hsmm, st.ihsmm, gain=0.5, thresh=0.0,
-        fracthresh=0.01, niter=20,
+    rows, _, lane_model = pcl.msmfs_lanes(
+        smres[None], st.canvas, st.hsmm, st.ihsmm, st.pscalestack, gain=0.5,
+        thresh=0.0, fracthresh=0.01, niter=20,
     )
     assert 0 < int((rows[0, :, 3] > 0).sum()) <= 20
     model = pcl.msmfs_rows_to_model(rows[0], st.pscalestack, 48, 48)
+    assert torch.equal(lane_model[0], model)
     n, pn = 48, st.pscalestack.shape[-1]
     ref = np.zeros((2, n, n))
     blobs = st.pscalestack.numpy()
@@ -263,3 +264,30 @@ def test_hessian_inverse_is_taken_in_f64():
     ref = torch.linalg.inv(st.hsmm.double()).float()
     assert torch.equal(st.ihsmm, ref)
     assert float(torch.linalg.cond(st.hsmm.double()).max()) > 1e3
+
+
+@pytest.mark.parametrize("findpeak", ["RASCIL", "CASA"])
+def test_msmfs_with_stacks_matches_jax(findpeak):
+    """The fused cycle's entry, ``msmfs_with_stacks``, on the CPU: the
+    moment model is the one the rows rebuilt before the kernel built it
+    (``msmfs_rows_to_model`` of the plain rows), and matches the JAX
+    package's XLA loop in f64 (identical positions, 1e-8 of the maxima)."""
+    dirty, psf = _moment_problem(2)
+    n = dirty.shape[-1]
+    kw = dict(gain=0.3, niter=40, fracthresh=0.01, findpeak=findpeak)
+    jm, jr = jcl.msmfsclean(
+        jnp.asarray(dirty), jnp.asarray(psf), use_pallas=False, scales=SCALES, **kw
+    )
+    st = pcl.msmfs_psf_stacks(torch.as_tensor(psf), n, n, SCALES)
+    pm, pr = pcl.msmfs_with_stacks(st, torch.as_tensor(dirty), thresh=0.0, **kw)
+    jm, jr = np.asarray(jm), np.asarray(jr)
+    np.testing.assert_array_equal(pm.numpy() != 0.0, jm != 0.0)
+    np.testing.assert_allclose(pm.numpy(), jm, rtol=0, atol=1e-8 * np.abs(jm).max())
+    np.testing.assert_allclose(pr.numpy(), jr, rtol=0, atol=1e-8 * np.abs(jr).max())
+    smres = pcl.calculate_scale_moment_residual(
+        torch.as_tensor(dirty) / st.pmax, st.scalestack
+    )
+    rows, _ = pcl.msmfs_rows_plain(
+        smres, st.canvas, st.hsmm, st.ihsmm, thresh=0.0, **kw
+    )
+    assert torch.equal(pm, pcl.msmfs_rows_to_model(rows, st.pscalestack, n, n))
