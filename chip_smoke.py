@@ -81,8 +81,29 @@ Phases, each on lines of its own:
      epsilon 5e-7 on an f64 Visibility (the deep-f64 row: the tiled core
      path in f64); (e) both without a plan and without epsilon, twice
      each: the plan cache, against an explicit plan at padding 2.
-Each of phases 4-6, 8b-c and 9b-e resets the launch counters just before
-it and fails unless every kernel of its path launched. The script then
+ 10. calibration (after phase 7 on the flagship and after phase 8 on the
+     cube): (a) the flagship observation also corrupted by "G" gains in
+     60 s bins (amplitude 1 + N(0, 0.05), phase N(0, 0.1)) through
+     ``ical(calibration_context="TG")`` with msclean, fused and composed
+     (``fused=False``), 4 cycles each, printing each cycle's wall time and
+     peak residual, each term's StefCal time, the T*G phase and G
+     amplitude errors against the truth, and holding the two paths to
+     the JAX package's "TG" bounds (residual peaks 0.02, restored peaks
+     0.05); (b) the config-4 cube corrupted by "T" phases N(0, 0.4) and a
+     "B" table (phase N(0, 0.25), amplitude 1 + N(0, 0.1) per station and
+     channel) through ``ical(algorithm="mmclean",
+     calibration_context="TB")``, fused and composed: the spectral index
+     within 0.15 of -0.7 on both, the B gains within 0.5 of the truth per
+     channel and within 2e-2 between the paths, residual peaks within
+     2e-2; (c) on the card and on the CPU, to the bounds of phase 7: the
+     composed "TG" ical of phase 7's observation with the 2.0 Jy source
+     given as a sky component, and the fused "TB" ical of the JAX
+     package's bandpass test cube (4 channels, Hogbom to a fractional
+     threshold of 0.2, where the picks are not near-ties); then a checkpoint
+     resume on the card (2 cycles saved, resumed to 4) equal to the
+     uninterrupted run to 1e-6.
+Each of phases 4-6, 8b-c, 9b-e and 10a-b resets the launch counters just
+before it and fails unless every kernel of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
 the ``{"ok": true, ...}`` line. Any failure raises
@@ -185,6 +206,18 @@ INDEX_TOL = 0.15
 # the small cube of the JAX package's fused-cube test (test_composite.py)
 SMALL_CUBE = dict(nants=14, rmax=300.0, ntimes=3, nchan=6, df=4e6, npixel=96,
                   oversampling=4.0, offset=(7, -4), alpha=-0.7, weighting="natural")
+
+# phase 10: the corruptions (jones type, timeslice s, phase sigma rad,
+# amplitude sigma) of the calibration runs; the JAX package's "TG"
+# fused-vs-composed bounds (test_composite.py:497-505: residual peaks,
+# restored peaks) and bandpass bound (test_bandpass.py:245-251: B gains,
+# residual peaks); its bandpass test cube (test_bandpass.py:179-200)
+G_TERM = ("G", 60.0, 0.1, 0.05)
+B_TERM = ("B", 1e5, 0.25, 0.1)
+TG_RESIDUAL_TOL, TG_RESTORED_TOL = 0.02, 0.05
+TB_TOL = 2e-2
+BANDPASS_CUBE = dict(nants=10, rmax=300.0, ntimes=3, nchan=4, df=1e6, npixel=64,
+                     oversampling=4.0, offset=(7, -5), alpha=0.0, weighting="natural")
 
 # NVIDIA H100 SXM published peaks at 700 W: HBM and f32 outside the
 # tensor cores
@@ -1083,7 +1116,7 @@ def cube_gates(label, current, peaks, offset, alpha, gate=True):
     the model flux within 10 px of the source in the middle channel within
     0.2 of 2.0 Jy; the spectral index from the first and last channels'
     model fluxes within INDEX_TOL of the sky's. With ``gate`` False the
-    numbers are only printed."""
+    numbers are only printed. Returns the spectral index."""
     freq = np.asarray(current.frequency)
     nchan = len(freq)
     f_mid = model_flux_near(current, nchan // 2, offset)
@@ -1097,7 +1130,7 @@ def cube_gates(label, current, peaks, offset, alpha, gate=True):
         f"{peaks[0]:.6f} -> {peaks[-1]:.6f}"
     )
     if not gate:
-        return
+        return index
     if not peaks[-1] < 0.1 * peaks[0]:
         raise AssertionError(f"{label}: last peak not below 0.1x the first: {peaks}")
     if not abs(f_mid - 2.0) < 0.2:
@@ -1106,6 +1139,7 @@ def cube_gates(label, current, peaks, offset, alpha, gate=True):
         raise AssertionError(
             f"{label}: spectral index {index} not within {INDEX_TOL} of {alpha}"
         )
+    return index
 
 
 def channel_shapes(gp, label):
@@ -1376,6 +1410,314 @@ def small_cube_matches_cpu(device):
     )
     if not (dg < 1e-4 and abs(res_a - res_b) < 1e-3 * res_b):
         raise AssertionError("small cube mmclean: card and cpu disagree")
+
+
+def corrupt_terms(vis, terms, seed):
+    """``vis`` times one gaintable per term of ``terms``, each (jones type,
+    timeslice, phase sigma in rad, amplitude sigma): gains (1 + N(0, amp))
+    exp(i N(0, phase)) per (interval, station, solution channel). Returns
+    (corrupted vis, {jones type: true gains [ntab, nants, nchan]
+    complex128})."""
+    import torch
+
+    from ska_sdp_func_python_torch.models import create_gaintable_from_visibility
+    from ska_sdp_func_python_torch.ops import apply_gaintable
+
+    rng = np.random.default_rng(seed)
+    truth = {}
+    for jones_type, timeslice, phase, amp in terms:
+        gt = create_gaintable_from_visibility(vis, jones_type=jones_type, timeslice=timeslice)
+        shape = gt.gain.shape[:3]
+        g = (1.0 + rng.normal(0, amp, shape)) * np.exp(1j * rng.normal(0, phase, shape))
+        gain = torch.as_tensor(g[..., None, None], device=vis.device).to(gt.gain.dtype)
+        vis = apply_gaintable(vis, gt.replace(gain=gain.contiguous()))
+        truth[jones_type] = g
+    return vis, truth
+
+
+def gains_of(gt):
+    """A scalar gaintable's gains [ntab, nants, nchan] as complex128."""
+    return gt.gain.detach().cpu().numpy()[..., 0, 0].astype(np.complex128)
+
+
+def referenced(g, mean_one=False):
+    """Gains [ntab, nants, nchan] with station 0's phase taken out of every
+    (interval, channel) and, with ``mean_one``, divided by their mean
+    amplitude: the gauge freedoms of a solve."""
+    g = g * np.exp(-1j * np.angle(g[:, :1]))
+    return g / np.mean(np.abs(g)) if mean_one else g
+
+
+def channel_phase_error(solved, true):
+    """The largest |solved - true| of each channel's referenced,
+    mean-amplitude-1 gains (the JAX package's bandpass check)."""
+    return max(
+        float(np.max(np.abs(referenced(solved[..., c:c + 1], True)
+                            - referenced(true[..., c:c + 1], True))))
+        for c in range(solved.shape[2])
+    )
+
+
+@contextlib.contextmanager
+def solve_timer(context):
+    """Times every StefCal solve (``solve_gains_core``, synchronised before
+    and after) of the fused and the composed cycle while the context is
+    open; yields {term: [ms, ...]}, the solves going to the terms of
+    ``context`` in turn (every term solves in every cycle)."""
+    import torch
+
+    from ska_sdp_func_python_torch import pipeline
+    from ska_sdp_func_python_torch.ops import solvers
+
+    fn = solvers.solve_gains_core
+    times = {t: [] for t in context}
+    calls = []
+
+    def timed_solve(*args, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        times[context[len(calls) % len(context)]].append((time.perf_counter() - t0) * 1e3)
+        calls.append(1)
+        return out
+
+    pipeline.solve_gains_core = solvers.solve_gains_core = timed_solve
+    try:
+        yield times
+    finally:
+        pipeline.solve_gains_core = solvers.solve_gains_core = fn
+
+
+def _steady_solves(label, times):
+    """Prints each term's StefCal time per cycle; the steady mean leaves
+    out cycle 0, whose model is empty."""
+    say(f"{label}: StefCal ms per cycle " + "; ".join(
+        f"{t} " + ", ".join(f"{v:.2f}" for v in ms) + f" (steady mean {np.mean(ms[1:]):.2f})"
+        for t, ms in times.items()
+    ))
+
+
+def run_tg_flagship(vis, model, t_phases):
+    """Phase 10a: the flagship observation (its "T" phases from
+    N(0, 0.4)) also corrupted by "G" gains in 60 s bins, through
+    ``ical(calibration_context="TG")`` with msclean, fused and composed, 4
+    cycles each. Gates: the peak residual falls, each restored peak within
+    0.2 of 2.0 Jy, the two paths within the JAX package's "TG" bounds
+    (residual peaks 0.02, restored peaks 0.05), every kernel of each path
+    launched. Prints the G amplitude and phase errors and the combined
+    T*G phase error against the truth. Returns the summed launch
+    counts."""
+    from ska_sdp_func_python_torch.ops.gain_ops import _gain_row_of_time
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    corrupted, truth = corrupt_terms(vis, [G_TERM], seed=43)
+    out, total = {}, None
+    for label, fused in (("fused", True), ("composed", False)):
+        name = f"TG ical {label}"
+        with solve_timer("TG") as times:
+            (_, res, restored, gts), counts, peaks = run_logged(
+                name,
+                lambda: ical(corrupted, model, nmajor=4, calibration_context="TG",
+                             context="ng", fused=fused, scales=SCALES, **CLEAN),
+                4, ("grid", "degrid", "permute", "msclean"),
+            )
+        _steady_solves(name, times)
+        g = gains_of(gts["G"])
+        rows = _gain_row_of_time(vis.time, gts["G"].time, gts["G"].interval)[0]
+        rows = rows.cpu().numpy()
+        tg = referenced(gains_of(gts["T"]) * g[rows])
+        true_tg = referenced(np.exp(1j * t_phases) * truth["G"][rows])
+        err = np.angle(tg * np.conj(true_tg))
+        has = gts["G"].weight.detach().cpu().numpy()[:, 0, 0, 0, 0] > 0
+        gs, gt = referenced(g[has], True), referenced(truth["G"][has], True)
+        amp = np.abs(gs) - np.abs(gt)
+        gph = np.angle(gs * np.conj(gt))
+        rpeak = float(restored.pixels.max())
+        say(
+            f"{name}: G vs truth ({int(has.sum())} of {len(has)} bins with data; "
+            f"station 0's phase out, mean amplitude 1): amplitude error max "
+            f"{np.max(np.abs(amp)):.3e}, rms {np.sqrt(np.mean(amp**2)):.3e}; phase "
+            f"error max {np.max(np.abs(gph)):.3e} rad, rms "
+            f"{np.sqrt(np.mean(gph**2)):.3e} (one integration a bin: T takes "
+            f"the phase of both terms); T*G phase error max "
+            f"{np.max(np.abs(err)):.3e} rad, rms {np.sqrt(np.mean(err**2)):.3e}; "
+            f"restored peak {rpeak:.4f} (source 2.0 Jy)"
+        )
+        if not abs(rpeak - 2.0) < 0.2:
+            raise AssertionError(f"{name}: restored peak {rpeak} not within 0.2 of 2.0")
+        out[label] = (peaks[-1], rpeak)
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    (rf, sf), (rc, sc) = out["fused"], out["composed"]
+    say(
+        f"TG ical fused vs composed: residual peak {rf:.6f} vs {rc:.6f} (bound "
+        f"{TG_RESIDUAL_TOL}), restored peak {sf:.4f} vs {sc:.4f} (bound {TG_RESTORED_TOL})"
+    )
+    if not (abs(rf - rc) < TG_RESIDUAL_TOL and abs(sf - sc) < TG_RESTORED_TOL):
+        raise AssertionError("TG ical: the fused and composed paths disagree")
+    return total
+
+
+def run_tb_cube(device):
+    """Phase 10b: the config-4 cube corrupted by "T" phases N(0, 0.4) per
+    integration and a "B" table (one interval; per station and channel
+    phase N(0, 0.25), amplitude 1 + N(0, 0.1)), through ``ical(algorithm=
+    "mmclean", calibration_context="TB")``, fused and composed, 4 cycles
+    each. Gates: the spectral index within INDEX_TOL of the sky's on
+    both, each channel's B phases within 0.5 of the truth, the two paths'
+    B phases within TB_TOL and their residual peaks within TB_TOL, every
+    kernel of each path launched (and the fused cube's batched legs).
+    Returns the summed launch counts."""
+    import torch
+
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    vis, model = simulate_cube(device, **CUBE)
+    corrupted, truth = corrupt_terms(vis, [("T", None, 0.4, 0.0), B_TERM], seed=44)
+    del vis
+    out, total = {}, None
+    for label, fused in (("fused", True), ("composed", False)):
+        name = f"TB ical {label}"
+        with solve_timer("TB") as times:
+            (current, res, _, gts), counts, peaks = run_logged(
+                name,
+                lambda: ical(corrupted, model, nmajor=4, calibration_context="TB",
+                             context="ng", fused=fused, **CUBE_CLEAN),
+                4, ("grid", "degrid", "permute", "msmfs"),
+            )
+        _steady_solves(name, times)
+        if fused:
+            _cube_launch_gate(name, counts, 4)
+        index = cube_gates(name, current, peaks, CUBE["offset"], CUBE["alpha"], gate=False)
+        b = gains_of(gts["B"])
+        berr = channel_phase_error(b, truth["B"])
+        say(f"{name}: B gains vs truth, largest per-channel difference {berr:.4f} (bound 0.5)")
+        if not abs(index - CUBE["alpha"]) < INDEX_TOL:
+            raise AssertionError(f"{name}: spectral index {index} not within {INDEX_TOL}")
+        if not berr < 0.5:
+            raise AssertionError(f"{name}: B gains {berr} from the truth")
+        out[label] = (b, peaks[-1])
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+        del current, res, gts
+        torch.cuda.empty_cache()
+    (bf, rf), (bc, rc) = out["fused"], out["composed"]
+    apart = channel_phase_error(bf, bc)
+    say(
+        f"TB ical fused vs composed: B gains {apart:.3e} apart (bound {TB_TOL}), "
+        f"residual peak {rf:.6f} vs {rc:.6f} (bound {TB_TOL})"
+    )
+    if not (apart < TB_TOL and abs(rf - rc) < TB_TOL):
+        raise AssertionError("TB ical: the fused and composed paths disagree")
+    return total
+
+
+def tg_slice(device, **kw):
+    """The composed "TG" ical with a sky component on ``device``: phase
+    7's small observation also corrupted by "G" gains in 60 s bins, the
+    2.0 Jy source given as a SkyComponents (restored by
+    ``restore_skycomponent``), Hogbom, 3 cycles. Returns (referenced
+    gains {T, G}, model, residual, restored, components, launch counts)."""
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.models import SkyComponents
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    _, vis, model, _ = simulate(device, rmax=600.0, ntimes=8, npixel=256)
+    vis, _ = corrupt_terms(vis, [G_TERM], seed=43)
+    n = model.npixel
+    comps = SkyComponents.from_lists(
+        [model.pixel_to_radec(n // 2, n // 2)], [[[2.0]]], vis.frequency, device=device
+    )
+    kernels.reset_launch_counts()
+    d, r, s, g = ical(
+        vis, model, components=comps, nmajor=3, calibration_context="TG",
+        context="ng", algorithm="hogbom", **{**dict(fused=False), **CLEAN, **kw},
+    )
+    gains = {t: referenced(gains_of(g[t])) for t in "TG"}
+    return gains, d, r, s, comps, kernels.launch_counts()
+
+
+def tb_slice(device):
+    """The fused "TB" ical on the bandpass cube of the JAX package's test
+    (test_bandpass.py:179-200) on ``device``, Hogbom, 4 cycles, each CLEAN
+    to a fractional threshold of 0.2 (the test's 0.01 runs all 300
+    iterations into sidelobe peaks that tie below f32 rounding: there the
+    card's and the CPU's gains came out 1.1e-6 apart in one run and
+    1.4e-3 in another, and either device alone moved between the two
+    outcomes). Returns (referenced gains {T, B}, residual, launch
+    counts)."""
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    vis, model = simulate_cube(device, **BANDPASS_CUBE)
+    vis, _ = corrupt_terms(vis, [B_TERM], seed=45)
+    kernels.reset_launch_counts()
+    _, r, _, g = ical(
+        vis, model, nmajor=4, calibration_context="TB", context="ng",
+        algorithm="hogbom", niter=300, gain=0.2, fractional_threshold=0.2,
+    )
+    return {t: referenced(gains_of(g[t])) for t in "TB"}, r, kernels.launch_counts()
+
+
+def slices_agree(label, gains_a, res_a, gains_b, res_b):
+    """Phase 7's bounds between a card run and a CPU run: referenced gains
+    within 1e-4, peak residuals within 1e-3 relative. Returns the printed
+    numbers."""
+    dg = max(float(np.max(np.abs(gains_a[t] - gains_b[t]))) for t in gains_a)
+    ra, rb = float(res_a.pixels.abs().max()), float(res_b.pixels.abs().max())
+    say(f"{label} card vs cpu: gains {dg:.2e} (bound 1e-4), residual peak "
+        f"{ra:.6f} vs {rb:.6f} (bound 1e-3 rel)")
+    if not (dg < 1e-4 and abs(ra - rb) < 1e-3 * rb):
+        raise AssertionError(f"{label}: card and cpu disagree")
+
+
+def small_calibration_slices(device):
+    """Phase 10c: the composed "TG" ical with a sky component and the
+    fused "TB" bandpass cube on the card and on the CPU, to phase 7's
+    bounds (the restored peaks with the CPU run's clean beam within 0.05),
+    and a checkpoint resume on the card (2 cycles saved, then ``state=``
+    to 4) equal to the uninterrupted run to 1e-6."""
+    import tempfile
+
+    import torch
+
+    from ska_sdp_func_python_torch.ops.deconvolution import restore_cube
+    from ska_sdp_func_python_torch.ops.skycomponent_ops import restore_skycomponent
+    from ska_sdp_func_python_torch.pipeline import SelfCalState, ical
+
+    runs = {dev: tg_slice(dev) for dev in (device, "cpu")}
+    (ga, da, ra, _, ca, counts), (gb, _, rb, sb, _, _) = runs[device], runs["cpu"]
+    _launch_gate("small TG composed", counts, ("grid", "degrid", "permute", "hogbom"))
+    slices_agree("small TG composed with a component", ga, ra, gb, rb)
+    beam = dict(zip(("bmaj", "bmin", "bpa"), np.rad2deg(sb.clean_beam)))
+    peak_a = float(restore_skycomponent(
+        restore_cube(da, residual=ra, clean_beam=beam), ca, beam).pixels.max())
+    peak_b = float(sb.pixels.max())
+    say(f"small TG composed: restored with one beam {peak_a:.4f} vs {peak_b:.4f} (bound 0.05)")
+    if not abs(peak_a - peak_b) < 0.05:
+        raise AssertionError("small TG composed: restored peaks disagree")
+
+    runs = {dev: tb_slice(dev) for dev in (device, "cpu")}
+    (ga, ra, counts), (gb, rb, _) = runs[device], runs["cpu"]
+    _launch_gate("small TB fused", counts, ("grid", "degrid", "permute", "hogbom"))
+    slices_agree("small TB fused cube", ga, ra, gb, rb)
+
+    _, vis, model, _ = simulate(device, rmax=600.0, ntimes=8, npixel=256)
+    vis, _ = corrupt_terms(vis, [G_TERM], seed=43)
+    kw = dict(calibration_context="TG", context="ng", algorithm="hogbom", **CLEAN)
+    full = ical(vis, model, nmajor=4, **kw)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "selfcal.pkl")
+        ical(vis, model, nmajor=2, checkpoint_path=path, **kw)
+        state = SelfCalState.load(path, device=device)
+    resumed = ical(vis, model, nmajor=4, state=state, **kw)
+    dm = float((resumed[0].pixels - full[0].pixels).abs().max())
+    dr = abs(float(resumed[1].pixels.abs().max()) - float(full[1].pixels.abs().max()))
+    say(f"checkpoint resume at cycle 2 of 4 (fused TG, card): model {dm:.3e}, "
+        f"residual peak {dr:.3e} from the uninterrupted run (bound 1e-6)")
+    if not (dm < 1e-6 and dr < 1e-6):
+        raise AssertionError("checkpoint resume differs from the uninterrupted run")
+    del vis, model, full, resumed
+    torch.cuda.empty_cache()
 
 
 def observation9(cfg, device, dtype, ntimes=76, npixel=1024, source=SOURCE9):
@@ -1711,6 +2053,10 @@ def main() -> int:
     # clean goes on to PSF-sidelobe structure where peaks tie to 1e-5, below
     # the f32 difference between the card's and the CPU's dirty images
     small_slice_matches_cpu(device, "msclean", fractional_threshold=0.05)
+    counts = run_tg_flagship(vis, model, phases)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["flagship TG ical (phase 10a)"] = counts
     del vis, model
     torch.cuda.empty_cache()
 
@@ -1720,6 +2066,12 @@ def main() -> int:
     by_shape["config-4 cube (phases 8b-c)"] = counts
     report_kernel("msmfs", results["msmfs"])
     small_cube_matches_cpu(device)
+    torch.cuda.empty_cache()
+    counts = run_tb_cube(device)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["config-4 cube TB ical (phase 10b)"] = counts
+    small_calibration_slices(device)
     torch.cuda.empty_cache()
 
     results["unit_tiles"], counts = run_epsilon_phase(cfg, device)

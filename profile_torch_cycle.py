@@ -176,7 +176,8 @@ def main() -> int:
     mvis = mv.reshape(len(plans), ntime, -1).permute(1, 2, 0)[..., None]
     inv = stage(
         "solve (normal equations + StefCal + factors)",
-        lambda: P._solve_terms(ws, ws.cfg, gains, mvis), reps=2,
+        lambda: P._solve_terms(ws, ws.cfg, gains, gwts, gress, (True,), mvis),
+        reps=2,
     )[3]
     fac = inv[:, :, 0, 0].reshape(-1).contiguous()
     f = stage("permute factors -> plan", lambda: permute_apply(perm, fac, shared=(0,)))

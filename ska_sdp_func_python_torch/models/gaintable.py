@@ -66,10 +66,9 @@ def _solution_intervals(time, integration_time, timeslice):
 def create_gaintable_from_visibility(
     vis, jones_type: str = "T", timeslice=None
 ) -> GainTable:
-    """A unit gaintable matching ``vis``, on its device. Only the
-    single-channel scalar ("T"/"G") tables of stokesI data are ported."""
-    if jones_type == "B":
-        raise not_ported("bandpass ('B') gaintables", "S7x")
+    """A unit gaintable matching ``vis``, on its device: "T" and "G" get
+    one solution channel at the mean frequency, "B" one per visibility
+    channel. Only the scalar tables of stokesI data are ported."""
     if vis.npol != 1:
         raise not_ported("gaintables for npol > 1", "S7x")
     device = vis.device
@@ -78,15 +77,20 @@ def create_gaintable_from_visibility(
         vis.time.cpu().numpy(), vis.integration_time.cpu().numpy(), timeslice
     )
     ntab = len(centres)
-    shape = (ntab, vis.nants, 1, 1, 1)
+    if jones_type == "B":
+        frequency = vis.frequency.to(rdtype)
+    else:
+        frequency = torch.as_tensor(
+            [float(vis.frequency.mean())], device=device
+        ).to(rdtype)
+    nchan = frequency.shape[0]
+    shape = (ntab, vis.nants, nchan, 1, 1)
     return GainTable(
         gain=torch.ones(shape, dtype=complex_of(rdtype), device=device),
         weight=torch.ones(shape, dtype=rdtype, device=device),
-        residual=torch.zeros((ntab, 1, 1, 1), dtype=rdtype, device=device),
+        residual=torch.zeros((ntab, nchan, 1, 1), dtype=rdtype, device=device),
         time=torch.as_tensor(centres, device=device).to(rdtype),
         interval=torch.as_tensor(widths, device=device).to(rdtype),
-        frequency=torch.as_tensor(
-            [float(vis.frequency.mean())], device=device
-        ).to(rdtype),
+        frequency=frequency.clone(),
         jones_type=jones_type,
     )

@@ -55,6 +55,20 @@ class Image:
         m = (np.asarray(iy, np.float64) - ny // 2) * self.cellsize
         return l, m
 
+    def lm_to_pixel(self, l, m):
+        """(l, m) -> fractional pixel (ix, iy), in host f64."""
+        ny, nx = self.pixels.shape[-2:]
+        ix = nx // 2 - np.asarray(l, np.float64) / self.cellsize
+        iy = ny // 2 + np.asarray(m, np.float64) / self.cellsize
+        return ix, iy
+
+    def radec_to_pixel(self, ra, dec):
+        """World (rad) -> fractional pixel (ix, iy) by the SIN projection."""
+        from ..utils.coordinates import radec_to_lmn
+
+        l, m, _ = radec_to_lmn(ra, dec, self.phasecentre[0], self.phasecentre[1])
+        return self.lm_to_pixel(l, m)
+
     def pixel_to_radec(self, ix, iy):
         from ..utils.coordinates import lmn_to_radec
 

@@ -2,11 +2,16 @@
 Hopper kernels: grid, degrid, permute, hogbom, hogbom_complex, msclean,
 msmfs)."""
 
-from .calibration_chain import create_calibration_controls
+from .calibration_chain import (
+    apply_calibration_chain,
+    calibrate_chain,
+    create_calibration_controls,
+    solve_calibrate_chain,
+)
 from .cleaners import hogbom
 from .deconvolution import bound_psf, fit_psf, restore_cube
-from .dft import dft_skycomponent_visibility
-from .gain_ops import apply_gaintable
+from .dft import dft_skycomponent_visibility, idft_visibility_skycomponent
+from .gain_ops import apply_gaintable, concatenate_gaintables, multiply_gaintables
 from .gridding_plan import degrid_with_plan, grid_with_plan, make_grid_plan
 from .imaging import (
     create_image_from_visibility,
@@ -18,16 +23,24 @@ from .imaging import (
     predict_with_plan,
 )
 from .permute import permute_apply
-from .solvers import solve_gains_core
+from .skycomponent_ops import restore_skycomponent
+from .solvers import build_normal_equations, solve_gaintable, solve_gains_core
+from .visibility_ops import divide_visibility, subtract_visibility
 
 __all__ = [
+    "apply_calibration_chain",
+    "calibrate_chain",
     "create_calibration_controls",
+    "solve_calibrate_chain",
     "hogbom",
     "bound_psf",
     "fit_psf",
     "restore_cube",
     "dft_skycomponent_visibility",
+    "idft_visibility_skycomponent",
     "apply_gaintable",
+    "concatenate_gaintables",
+    "multiply_gaintables",
     "degrid_with_plan",
     "grid_with_plan",
     "make_grid_plan",
@@ -39,5 +52,10 @@ __all__ = [
     "predict_visibility",
     "predict_with_plan",
     "permute_apply",
+    "restore_skycomponent",
+    "build_normal_equations",
+    "solve_gaintable",
     "solve_gains_core",
+    "divide_visibility",
+    "subtract_visibility",
 ]

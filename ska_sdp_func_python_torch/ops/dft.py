@@ -1,4 +1,5 @@
-"""Direct Fourier transform predict of sky components.
+"""Direct Fourier transform predict of sky components, and its inverse
+(component fluxes from visibilities).
 
 Counterpart of ``ska_sdp_func_python_tpu/ops/dft.py``. Plain PyTorch: the
 JAX package left this to XLA as two contractions, and the port leaves it
@@ -22,6 +23,7 @@ __all__ = [
     "extract_direction_and_flux",
     "dft_kernel",
     "dft_skycomponent_visibility",
+    "idft_visibility_skycomponent",
 ]
 
 
@@ -59,23 +61,31 @@ def _split_lmn(l, m, n1, cdtype):
     return torch.from_numpy(np.stack([lmn64, np.zeros_like(lmn64)], axis=-1))
 
 
+def _turns(uvw, lmn):
+    """Phase turns ``[t, b, f, c]`` of every (visibility, component)
+    from the (hi, lo) pair ``lmn`` ``[c, 3, 2]``: the hi part through the
+    mod-1 compensated dot, the lo part (|uvw . lo| << 1 turn) as a plain
+    product."""
+    rdtype = uvw.dtype
+    turns = frac_dot_turns(
+        uvw[..., None, :], lmn[..., 0].to(rdtype)[None, None, None]
+    )
+    return turns + torch.einsum("tbfs,cs->tbfc", uvw, lmn[..., 1].to(rdtype))
+
+
 def dft_kernel(direction_cosines, vfluxes, uvw_lambda):
     """V[t,b,f,p] = sum_c S[c,f,p] exp(-2 pi i uvw[t,b,f,:] . lmn[c,:]).
 
     ``direction_cosines`` is ``[c, 3]`` or the (hi, lo) pair ``[c, 3, 2]``.
     """
     rdtype = real_of(vfluxes.dtype)
-    lo = None
-    if direction_cosines.ndim == 3:
-        lo = direction_cosines[..., 1]
-        direction_cosines = direction_cosines[..., 0]
     uvw = uvw_lambda.to(rdtype)
-    turns = frac_dot_turns(
-        uvw[..., None, :], direction_cosines.to(rdtype)[None, None, None]
-    )  # [t, b, f, c]
-    if lo is not None:
-        # |uvw . lo| << 1 turn: a plain product is exact enough
-        turns = turns + torch.einsum("tbfs,cs->tbfc", uvw, lo.to(rdtype))
+    if direction_cosines.ndim == 3:
+        turns = _turns(uvw, direction_cosines)
+    else:
+        turns = frac_dot_turns(
+            uvw[..., None, :], direction_cosines.to(rdtype)[None, None, None]
+        )  # [t, b, f, c]
     phase = (-2.0 * np.pi) * turns
     phasor = torch.polar(torch.ones_like(phase), phase).to(vfluxes.dtype)
     return torch.einsum("tbfc,cfp->tbfp", phasor, vfluxes)
@@ -90,3 +100,27 @@ def dft_skycomponent_visibility(
     lmn, vflux = extract_direction_and_flux(sc, vis)
     new_vis = dft_kernel(lmn, vflux, vis.uvw_lambda)
     return vis.replace(vis=new_vis.to(vis.vis.dtype))
+
+
+def idft_visibility_skycomponent(vis: Visibility, sc: SkyComponents):
+    """Component fluxes from the visibilities: the weighted sum of V
+    times the conjugate phasor of each component's direction, over the
+    sum of weights, per (channel, polarisation). Returns (components with
+    that flux, weights ``[nchan, npol]``)."""
+    if sc is None:
+        return sc, None
+    if sc.polarisation_frame != vis.polarisation_frame:
+        raise not_ported("component polarisation conversion", "S7x")
+    l, m, n1 = radec_to_lmn(
+        sc.direction[:, 0], sc.direction[:, 1], *vis.phasecentre
+    )
+    rdtype = real_of(vis.vis.dtype)
+    lmn = _split_lmn(l, m, n1, vis.vis.dtype).to(vis.device)
+    phase = (-2.0 * np.pi) * _turns(vis.uvw_lambda.to(rdtype), lmn)
+    conj_phasor = torch.polar(torch.ones_like(phase), -phase).to(vis.vis.dtype)
+    fw = vis.flagged_weight
+    flux = torch.einsum("tbfp,tbfc->cfp", fw * vis.flagged_vis, conj_phasor)
+    weight = fw.sum(dim=(0, 1))  # [nchan, npol]
+    ok = weight[None] > 0.0
+    flux = torch.where(ok, flux / torch.where(ok, weight[None], 1.0), 0.0).real
+    return sc.replace(flux=flux.to(sc.flux.dtype)), weight

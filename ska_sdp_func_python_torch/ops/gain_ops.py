@@ -1,7 +1,8 @@
-"""Gain application for scalar (stokesI) gains.
+"""Gain application and gaintable algebra for scalar (stokesI) gains.
 
 Counterpart of ``ska_sdp_func_python_tpu/ops/gain_ops.py``; the 2x2 Jones
-paths raise.
+paths raise. A gaintable has one solution channel ("T", "G"), which
+serves every visibility channel, or one per visibility channel ("B").
 """
 
 from __future__ import annotations
@@ -12,7 +13,7 @@ from ..config import not_ported
 from ..models.gaintable import GainTable
 from ..models.visibility import Visibility
 
-__all__ = ["apply_gaintable"]
+__all__ = ["apply_gaintable", "multiply_gaintables", "concatenate_gaintables"]
 
 
 def _gain_row_of_time(vis_time, gt_time, gt_interval):
@@ -58,4 +59,28 @@ def apply_gaintable(
     return vis.replace(
         vis=torch.where(keep, applied.to(vis.vis.dtype), vis.vis),
         weight=torch.where(keep, new_wt, vis.weight),
+    )
+
+
+def multiply_gaintables(
+    gt: GainTable, dgt: GainTable, time_tolerance: float = 1e-3
+) -> GainTable:
+    """gt * dgt, gains and weights elementwise."""
+    if gt.nrec == dgt.nrec == 2:
+        raise not_ported("multiplying 2x2 Jones gaintables", "S7x")
+    if not gt.nrec == dgt.nrec == 1:
+        raise ValueError("Gain tables have different structures")
+    return gt.replace(gain=gt.gain * dgt.gain, weight=gt.weight * dgt.weight)
+
+
+def concatenate_gaintables(gt_list) -> GainTable:
+    """Concatenate gaintables along time."""
+    if not gt_list:
+        raise ValueError("GainTable list is empty")
+
+    def cat(name):
+        return torch.cat([getattr(g, name) for g in gt_list], dim=0)
+
+    return gt_list[0].replace(
+        **{k: cat(k) for k in ("gain", "weight", "residual", "time", "interval")}
     )

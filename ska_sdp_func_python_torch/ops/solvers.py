@@ -1,9 +1,9 @@
-"""Batched StefCal gain solver, scalar path.
+"""Batched StefCal gain solver, scalar path, and the gaintable solve.
 
 Counterpart of ``ne_index_map``, ``_gain_substitution_scalar``,
-``_solve_scalar_one`` and ``solve_gains_core`` in
-``ska_sdp_func_python_tpu/ops/solvers.py``. Plain PyTorch, as the JAX
-package left it to XLA. All solution intervals iterate together; an
+``_solve_scalar_one``, ``solve_gains_core``, ``build_normal_equations``
+and ``solve_gaintable`` in ``ska_sdp_func_python_tpu/ops/solvers.py``.
+Plain PyTorch, as the JAX package left it to XLA. All solution intervals iterate together; an
 interval whose update changed by less than ``tol`` (or that reached
 ``niter``) freezes while the others go on, exactly as the JAX
 ``vmap``-ed ``while_loop`` does. The iteration order, the 0.5 damping,
@@ -16,8 +16,16 @@ import numpy as np
 import torch
 
 from ..config import not_ported
+from ..models.gaintable import GainTable, create_gaintable_from_visibility
+from ..models.visibility import Visibility
+from .visibility_ops import divide_visibility
 
-__all__ = ["ne_index_map", "solve_gains_core"]
+__all__ = [
+    "ne_index_map",
+    "solve_gains_core",
+    "build_normal_equations",
+    "solve_gaintable",
+]
 
 
 def ne_index_map(a1, a2, nants):
@@ -137,8 +145,11 @@ def solve_gains_core(
     :param xwt: matching real weights
     :param gain0: ``[nsol, nants, nchan, nrec, nrec]`` initial gains
     :return: (gain, gwt, residual)
+
+    ``crosspol`` selects the matrix lane, which needs npol 4; at npol 1
+    the scalar lane runs, as in the JAX package.
     """
-    if npol != 1 or crosspol:
+    if npol != 1:
         raise not_ported("matrix (npol > 1) gain solves", "S7x")
     ok = xwt > 0.0
     xn = torch.where(ok, x / torch.where(ok, xwt, 1.0), 0.0)
@@ -147,3 +158,117 @@ def solve_gains_core(
     return _solve_scalar(
         xn, wn, gain0, niter, tol, phase_only, refant, damping
     )
+
+
+def _interval_weights(time, gt_time, gt_interval, dtype):
+    """Solution-interval membership ``[nsol, ntime]``, inclusive at both
+    ends (an interval's edge time belongs to both neighbours)."""
+    t = time[None, :]
+    lo = (gt_time - gt_interval / 2)[:, None]
+    hi = (gt_time + gt_interval / 2)[:, None]
+    return ((t >= lo) & (t <= hi)).to(dtype)
+
+
+def assemble_normal_equations(xb, wb, ne_idx, nants):
+    """Antenna-pair matrices from per-baseline sums ``xb``/``wb``
+    ``[nsol, nbl, nchan, npol]``: one gather per array through
+    :func:`ne_index_map`. Returns (x, xwt) ``[nsol, nants, nants, nchan,
+    npol]``."""
+    nsol, _, nchan, npol = xb.shape
+    ext = torch.cat([xb.conj(), xb, torch.zeros_like(xb[:, :1])], dim=1)
+    x = ext[:, ne_idx].reshape(nsol, nants, nants, nchan, npol)
+    extw = torch.cat([wb, wb, torch.zeros_like(wb[:, :1])], dim=1)
+    xwt = extw[:, ne_idx].reshape(nsol, nants, nants, nchan, npol)
+    return x, xwt
+
+
+def build_normal_equations(point_vis: Visibility, gain_table: GainTable):
+    """Per solution interval, the sums of vis * weight over its times (and
+    over the channels when the table has one channel; per channel for a
+    "B" table), placed in the ``[nants, nants]`` antenna matrix with the
+    conjugate across the diagonal.
+
+    :return: (x ``[nsol, nants, nants, nchan_sol, npol]``, xwt alike)
+    """
+    w_t = _interval_weights(
+        point_vis.time, gain_table.time, gain_table.interval,
+        point_vis.weight.dtype,
+    )
+    fw = point_vis.flagged_weight
+    xw = point_vis.vis * fw
+    if gain_table.nchan == 1:
+        xb = torch.einsum("st,tbfp->sbp", w_t.to(xw.dtype), xw)[:, :, None, :]
+        wb = torch.einsum("st,tbfp->sbp", w_t, fw)[:, :, None, :]
+    else:
+        xb = torch.einsum("st,tbfp->sbfp", w_t.to(xw.dtype), xw)
+        wb = torch.einsum("st,tbfp->sbfp", w_t, fw)
+    ne_idx = torch.as_tensor(
+        ne_index_map(
+            point_vis.antenna1.cpu().numpy(),
+            point_vis.antenna2.cpu().numpy(),
+            point_vis.nants,
+        ),
+        device=xb.device,
+    ).long()
+    return assemble_normal_equations(xb, wb, ne_idx, point_vis.nants)
+
+
+def finish_solution(gain, gwt, residual, xwt, phase_only, normalise_gains):
+    """What every solve does after StefCal: intervals with no data keep
+    unit gain and zero weight and residual; amplitude solves are divided
+    by the mean (or median) gain amplitude over the whole table."""
+    has_data = torch.sum(xwt.abs(), dim=(1, 2, 3, 4)) > 0.0
+    hd = has_data[:, None, None, None, None]
+    gain = torch.where(hd, gain, torch.ones_like(gain))
+    gwt = torch.where(hd, gwt, torch.zeros_like(gwt))
+    residual = torch.where(has_data[:, None, None, None], residual, 0.0)
+    if normalise_gains in ("mean", "median") and not phase_only:
+        a = gain.abs()
+        gabs = a.mean() if normalise_gains == "mean" else _median(a)
+        gain = gain / gabs
+    return gain, gwt, residual
+
+
+def _median(x):
+    """numpy's median (the mean of the two middle values for an even
+    count); torch.median takes the lower one."""
+    s = torch.sort(x.reshape(-1)).values
+    n = s.shape[0]
+    return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+
+
+def solve_gaintable(
+    vis: Visibility,
+    modelvis: Visibility | None = None,
+    gain_table: GainTable | None = None,
+    phase_only: bool = True,
+    niter: int = 200,
+    tol: float = 1e-6,
+    crosspol: bool = False,
+    normalise_gains: str | None = "mean",
+    jones_type: str = "T",
+    timeslice=None,
+) -> GainTable:
+    """Solve a gaintable that fits ``vis`` to ``modelvis`` (a point source
+    at the phase centre when None), warm-started from ``gain_table``'s
+    gains when one is given."""
+    point_vis = divide_visibility(vis, modelvis) if modelvis is not None else vis
+    if gain_table is None:
+        gain_table = create_gaintable_from_visibility(
+            vis, jones_type=jones_type, timeslice=timeslice
+        )
+    x, xwt = build_normal_equations(point_vis, gain_table)
+    gain, gwt, residual = solve_gains_core(
+        x,
+        xwt,
+        gain_table.gain,
+        niter=niter,
+        tol=tol,
+        phase_only=phase_only,
+        crosspol=crosspol,
+        npol=vis.npol,
+    )
+    gain, gwt, residual = finish_solution(
+        gain, gwt, residual, xwt, phase_only, normalise_gains
+    )
+    return gain_table.replace(gain=gain, weight=gwt, residual=residual)

@@ -1,7 +1,7 @@
-"""Visibility phase rotation.
+"""Visibility phase rotation and arithmetic.
 
-Counterpart of the phasor and phase-rotation functions of
-``ska_sdp_func_python_tpu/ops/visibility_ops.py``.
+Counterpart of the phasor, phase-rotation, subtract and divide functions
+of ``ska_sdp_func_python_tpu/ops/visibility_ops.py``.
 """
 
 from __future__ import annotations
@@ -13,7 +13,12 @@ from ..config import expi, frac_dot_turns, not_ported
 from ..models.visibility import Visibility
 from ..utils.coordinates import radec_to_lmn
 
-__all__ = ["calculate_visibility_phasor", "phaserotate_visibility"]
+__all__ = [
+    "calculate_visibility_phasor",
+    "phaserotate_visibility",
+    "subtract_visibility",
+    "divide_visibility",
+]
 
 
 def calculate_visibility_phasor(direction, vis: Visibility) -> torch.Tensor:
@@ -41,3 +46,21 @@ def phaserotate_visibility(
     if inverse:
         return vis.replace(vis=vis.vis * phasor)
     return vis.replace(vis=vis.vis * phasor.conj())
+
+
+def subtract_visibility(vis: Visibility, model_vis: Visibility) -> Visibility:
+    """vis - model_vis."""
+    return vis.replace(vis=vis.vis - model_vis.vis)
+
+
+def divide_visibility(vis: Visibility, modelvis: Visibility) -> Visibility:
+    """Point-source-equivalent visibility X = V_obs / V_model with weight
+    |V_model|^2 w; the model's flagged samples count as zero model."""
+    mflag = (1 - modelvis.flags).to(modelvis.weight.dtype)
+    mvis = modelvis.vis * mflag
+    xwt = mvis.abs() ** 2 * vis.flagged_weight
+    ok = xwt > 0.0
+    x = torch.where(
+        ok, vis.flagged_vis / torch.where(ok, mvis, torch.ones_like(mvis)), 0.0
+    )
+    return vis.replace(vis=x.to(vis.vis.dtype), weight=xwt.to(vis.weight.dtype))

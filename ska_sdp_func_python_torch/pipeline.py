@@ -1,44 +1,61 @@
-"""The fused self-calibration and continuum-imaging major cycles.
+"""The self-calibration and continuum-imaging major cycles.
 
-Counterpart of the fused path of ``ska_sdp_func_python_tpu/pipeline.py``:
-``ical`` and ``continuum_imaging`` build one imaging plan per image
-channel, take the PSF through them, build a plan-sorted workspace and run
-:func:`_fused_selfcal_cycle` once per major cycle. One cycle:
+Counterpart of ``ska_sdp_func_python_tpu/pipeline.py``. ``ical`` and
+``continuum_imaging`` run one of two device paths, both through the
+card's kernels:
 
-1. degrids the model image of every channel in that channel's plan order
-   (one batched FFT head and one launch of kernel K3 for all channels);
-2. moves the model into natural order (one launch of kernel K4, a gather
-   through the inverse permutations);
-3. forms the product-form normal equations over all channels and runs
-   the StefCal solve; ``continuum_imaging`` leaves this out;
-4. moves the inverse gain factors into every channel's plan order (one
-   launch of kernel K4, forward, from one shared source);
-5. inverts each channel's residual in plan order in turn (kernels K1+K2,
-   FFT tail);
-6. CLEANs the residual cube: msclean (kernel K7, the default) or Hogbom
-   (K5) per (channel, polarisation) plane, or MSMFS (``algorithm=
-   "mmclean"``, kernel K8) on the cube's frequency moments, with an
-   optional clean window.
+- the fused cycle (the default wherever it applies): one plan per image
+  channel, the PSF through them, a plan-sorted workspace, and
+  :func:`_fused_selfcal_cycle` once per major cycle. One cycle:
+
+  1. degrids the model image of every channel in that channel's plan
+     order (one batched FFT head and one launch of kernel K3 for all
+     channels) and adds the sky components' visibilities;
+  2. moves the model into natural order (one launch of kernel K4, a
+     gather through the inverse permutations);
+  3. solves the calibration context's terms in turn ("T", "G", "B"):
+     product-form normal equations over the running corrected
+     visibilities and the StefCal solve; ``continuum_imaging`` leaves
+     this out;
+  4. moves the inverse gain factors into every channel's plan order (one
+     launch of kernel K4: from one shared source while every term has
+     one solution channel, else per channel);
+  5. inverts each channel's residual in plan order in turn (kernels
+     K1+K2, FFT tail);
+  6. CLEANs the residual cube: msclean (kernel K7, the default) or Hogbom
+     (K5) per (channel, polarisation) plane, or MSMFS (``algorithm=
+     "mmclean"``, kernel K8) on the cube's frequency moments, with an
+     optional clean window;
+
+- the composed cycle (``fused=False``, a ``"matrix"`` control, or no
+  plan): predict, ``calibrate_chain`` warm-started from the previous
+  cycle's tables, subtract, invert and ``deconvolve_cube``, each a call
+  of the public API. With a plan (the default) predict and invert run
+  K3, K4 and K1 on it; with ``use_plan=False`` the imaging API serves
+  them (its plan cache on the card, the core path on the CPU).
 
 The port covers stokesI, one or more image channels (one per visibility
-channel), a single "T" (phase-only, scalar) term, and no sky components.
-Every other branch raises and names the ROADMAP slice that brings it.
+channel), and sky components in the model. Polarised data and
+``epsilon=`` raise and name the ROADMAP slice that brings them.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
+import pickle
 import typing
 from typing import Optional
 
 import torch
 
-from .config import not_ported
-from .models.gaintable import create_gaintable_from_visibility
+from .config import not_ported, resolve_device
+from .models.components import SkyComponents
+from .models.gaintable import GainTable, create_gaintable_from_visibility
 from .models.image import Image
 from .models.polarisation import convert_pol_frame
 from .models.visibility import Visibility
-from .ops.calibration_chain import create_calibration_controls
+from .ops.calibration_chain import calibrate_chain, create_calibration_controls
 from .ops.cleaners import (
     hogbom_lanes,
     msclean_psf_stacks,
@@ -50,47 +67,133 @@ from .ops.deconvolution import (
     _lane_psfs,
     bound_psf,
     common_arguments,
+    deconvolve_cube,
     find_window,
     fit_psf,
     restore_cube,
 )
+from .ops.dft import dft_skycomponent_visibility
 from .ops.gain_ops import _gain_row_of_time
 from .ops.imaging import (
+    invert_visibility,
     invert_with_plan,
     make_visibility_plan,
     normalise_sumwt,
+    predict_visibility,
     predict_with_stack,
     shift_vis_to_image,
 )
 from .ops.permute import permute_apply
-from .ops.solvers import ne_index_map, solve_gains_core
+from .ops.skycomponent_ops import restore_skycomponent
+from .ops.solvers import (
+    _interval_weights,
+    assemble_normal_equations,
+    finish_solution,
+    ne_index_map,
+    solve_gains_core,
+)
 from .ops.taylor import moment_weights
+from .ops.visibility_ops import subtract_visibility
 
 log = logging.getLogger("ska-sdp-func-python-torch")
 
-__all__ = ["ical", "continuum_imaging"]
+__all__ = ["ical", "continuum_imaging", "SelfCalState"]
 
 _MMCLEAN = ("msmfsclean", "mfsmsclean", "mmclean")
 
 
+def _to_host(obj) -> dict:
+    """A dataclass's fields with every tensor as a numpy copy, and the
+    names of those fields."""
+    fields, tensors = {}, []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if torch.is_tensor(v):
+            v = v.detach().cpu().numpy()
+            tensors.append(f.name)
+        fields[f.name] = v
+    return {"fields": fields, "tensors": tensors}
+
+
+def _from_host(cls, blob: dict, device):
+    fields = dict(blob["fields"])
+    for name in blob["tensors"]:
+        fields[name] = torch.as_tensor(fields[name], device=device)
+    return cls(**fields)
+
+
+@dataclasses.dataclass
+class SelfCalState:
+    """Checkpointable self-cal state: (model, gaintables, cycle index).
+
+    The file holds numpy copies of the model and the gaintables, in the
+    port's own format (a JAX package checkpoint pickles that package's
+    classes)."""
+
+    model: Image
+    gaintables: dict
+    cycle: int
+
+    def save(self, path: str) -> None:
+        blob = {
+            "model": _to_host(self.model),
+            "gaintables": {k: _to_host(v) for k, v in self.gaintables.items()},
+            "cycle": int(self.cycle),
+        }
+        with open(path, "wb") as fh:
+            pickle.dump(blob, fh)
+
+    @classmethod
+    def load(cls, path: str, device=None) -> "SelfCalState":
+        """The state saved at ``path``, its tensors on ``device`` (None:
+        the CUDA card)."""
+        device = resolve_device(device)
+        with open(path, "rb") as fh:
+            blob = pickle.load(fh)
+        return cls(
+            model=_from_host(Image, blob["model"], device),
+            gaintables={
+                k: _from_host(GainTable, v, device)
+                for k, v in blob["gaintables"].items()
+            },
+            cycle=blob["cycle"],
+        )
+
+    def export_gaintables(self, path: str) -> None:
+        raise not_ported("standalone gaintable files", "S12")
+
+    @classmethod
+    def import_gaintables(cls, model, path: str, cycle: int = 0):
+        raise not_ported("standalone gaintable files", "S12")
+
+
 class _SortedWorkspace:
     """Image-frame, plan-sorted visibility workspace: the observed values
-    and weights of every (channel, polarisation) are moved into that
-    channel plan's order once, so a major cycle never sorts them again."""
+    and weights of every (channel, polarisation), and the visibilities of
+    the sky components, are moved into that channel plan's order once, so
+    a major cycle never sorts them again."""
 
     def __init__(self, vis, model, plan, components=None):
-        if components is not None and components.ncomp > 0:
-            raise not_ported("sky components in the fused cycle", "S7x")
         if plan.nchan != vis.nchan:
             raise ValueError(
-                f"the fused cycle images every visibility channel: {vis.nchan} "
-                f"channels, {plan.nchan} image channels"
+                f"the sorted workspace images every visibility channel: "
+                f"{vis.nchan} channels, {plan.nchan} image channels"
             )
         svis = shift_vis_to_image(vis, model)
         ms = convert_pol_frame(
             svis.flagged_vis, vis.polarisation_frame, model.polarisation_frame
         )
         wgt = svis.flagged_imaging_weight
+        comp_ms = None
+        if components is not None and components.ncomp > 0:
+            cvis = dft_skycomponent_visibility(
+                vis.replace(vis=torch.zeros_like(vis.vis)), components
+            )
+            comp_ms = convert_pol_frame(
+                shift_vis_to_image(cvis, model).vis,
+                vis.polarisation_frame,
+                model.polarisation_frame,
+            )
         self.plan = plan
         self.npol = ms.shape[-1]
         # natural-order arrays for the solver leg (V_obs / V_model is
@@ -99,18 +202,71 @@ class _SortedWorkspace:
         self.fw_nat = svis.flagged_weight
         # each (channel, polarisation)'s sum of imaging weights
         self.sumwt = wgt.sum(dim=(0, 1))
-        # obs_s[pol], wgt_s[pol]: [nchan, n], each channel in its plan's
-        # order; a polarisation's values and weights of every channel move
+        # obs_s[pol], wgt_s[pol], comp_s[pol]: [nchan, n], each channel in
+        # its plan's order; a polarisation's payloads of every channel move
         # in one launch, by the plan stack's permutations
         self.obs_s, self.wgt_s = [], []
+        self.comp_s = None if comp_ms is None else []
         for p in range(self.npol):
-            obs, w = permute_apply(
-                plan.stack.perm,
+            rows = [
                 _channel_rows(ms[..., p]).to(torch.complex64).contiguous(),
                 _channel_rows(wgt[..., p]).to(torch.float32).contiguous(),
+            ]
+            if comp_ms is not None:
+                rows.append(
+                    _channel_rows(comp_ms[..., p]).to(torch.complex64).contiguous()
+                )
+            moved = permute_apply(plan.stack.perm, *rows)
+            self.obs_s.append(moved[0])
+            self.wgt_s.append(moved[1])
+            if comp_ms is not None:
+                self.comp_s.append(moved[2])
+
+    def model_sorted(self, pixels: torch.Tensor, with_model: bool) -> list:
+        """Per polarisation, the plan-ordered model visibilities ``[nchan,
+        n]``: the degrid of ``pixels`` ``[nchan, npol, ny, nx]`` (when
+        ``with_model``) plus the components'. None where both are absent."""
+        out = []
+        for p in range(self.npol):
+            m = (
+                predict_with_stack(self.plan, pixels[:, p], to_sorted=True)
+                if with_model
+                else None
             )
-            self.obs_s.append(obs)
-            self.wgt_s.append(w)
+            if self.comp_s is not None:
+                m = self.comp_s[p] if m is None else m + self.comp_s[p]
+            out.append(m)
+        return out
+
+    def invert_sorted(self, resid_s: list, dtype) -> tuple:
+        """The invert leg on each channel's plan in turn: plan-ordered
+        residuals ``[nchan, n]`` per polarisation -> (dirty pixels
+        ``[nchan, npol, ny, nx]`` in ``dtype``, sums of weights ``[nchan,
+        npol]``)."""
+        plan = self.plan
+        nchan, ny = plan.nchan, plan.npixel
+        device = resid_s[0].device
+        pixels = torch.zeros((nchan, self.npol, ny, ny), dtype=dtype, device=device)
+        sumwt = torch.zeros((nchan, self.npol), dtype=torch.float32, device=device)
+        for p in range(self.npol):
+            for c in range(nchan):
+                dirty, swt = invert_with_plan(
+                    plan.plans[c], resid_s[p][c], self.wgt_s[p][c], values_sorted=True
+                )
+                pixels[c, p] = dirty.to(dtype)
+                sumwt[c, p] = swt
+        return pixels, sumwt
+
+    def residual_invert(self, template: Image, pixels, with_model: bool):
+        """One sort-free leg of the composed continuum cycle: predict in
+        plan order, subtract, invert. Returns (normalised residual Image,
+        sumwt)."""
+        model_s = self.model_sorted(pixels, with_model)
+        resid_s = [
+            o if m is None else o - m for o, m in zip(self.obs_s, model_s)
+        ]
+        dirty, sumwt = self.invert_sorted(resid_s, template.pixels.dtype)
+        return normalise_sumwt(template.replace(pixels=dirty), sumwt), sumwt
 
 
 def _channel_rows(x: torch.Tensor) -> torch.Tensor:
@@ -132,9 +288,17 @@ def _workspace_psf(ws: _SortedWorkspace, model: Image) -> Image:
 
 
 class _FusedTermCfg(typing.NamedTuple):
+    """One letter of the calibration context."""
+
     name: str
     phase_only: bool
     first_selfcal: int
+    # one solution channel per visibility channel ("B"): the normal
+    # equations keep the channel axis, the inverse factors are per channel
+    per_chan: bool = False
+    # a "matrix" control: the matrix lane, which needs npol 4 (the scalar
+    # lane runs at npol 1, as in solve_gains_core)
+    crosspol: bool = False
 
 
 class _FusedCfg(typing.NamedTuple):
@@ -154,12 +318,14 @@ class _FusedCfg(typing.NamedTuple):
 
 
 class _FusedSelfCal(_SortedWorkspace):
-    """Device-resident workspace of :func:`_fused_selfcal_cycle` for the
-    ported configuration: one "T" term, stokesI, one or more channels,
-    msclean, Hogbom or MSMFS with an optional clean window. What CLEAN
-    derives from the PSF alone (the msclean scale stacks per plane; the
-    MSMFS moment weights, moment-PSF peak and moment stacks) is built here
-    once, not in every cycle."""
+    """Device-resident workspace of :func:`_fused_selfcal_cycle`: stokesI,
+    one or more channels, sky components, a chain of diagonal terms
+    ("T", "G", "B"), msclean, Hogbom or MSMFS with an optional clean
+    window. Per term it holds the unit gaintable and the interval
+    membership of each integration; what CLEAN derives from the PSF alone
+    (the msclean scale stacks per plane; the MSMFS moment weights,
+    moment-PSF peak and moment stacks) is built here once, not in every
+    cycle."""
 
     def __init__(
         self,
@@ -176,12 +342,7 @@ class _FusedSelfCal(_SortedWorkspace):
     ):
         super().__init__(vis, model, plan, components)
         psf = self.psf = _workspace_psf(self, model)
-        if list(terms) != ["T"]:
-            raise not_ported(f"calibration terms {terms!r} (only 'T')", "S7x")
-        if controls["T"].get("shape") != "scalar":
-            raise not_ported("non-scalar 'T' controls", "S7x")
         algorithm = clean_kwargs.get("algorithm", "msclean")
-        _check_algorithm(model, clean_kwargs)
         win = find_window(
             model,
             clean_kwargs.get("window_shape"),
@@ -193,22 +354,31 @@ class _FusedSelfCal(_SortedWorkspace):
             else torch.broadcast_to(win.to(torch.float32), model.pixels.shape)
         )
         device = vis.device
-        self.gt0s, self.cal = [], []
-        gt0 = create_gaintable_from_visibility(
-            vis, jones_type="T", timeslice=controls["T"]["timeslice"]
-        )
-        t = vis.time[None, :]
-        lo = (gt0.time - gt0.interval / 2)[:, None]
-        hi = (gt0.time + gt0.interval / 2)[:, None]
-        row_idx, has_row = _gain_row_of_time(vis.time, gt0.time, gt0.interval)
-        self.gt0s.append(gt0)
-        self.cal.append(
-            {
-                "w_t": ((t >= lo) & (t <= hi)).to(vis.weight.dtype),
-                "row_idx": row_idx,
-                "has_row": has_row,
-            }
-        )
+        self.gt0s, self.cal, term_cfgs = [], [], []
+        for name in terms:
+            gt0 = create_gaintable_from_visibility(
+                vis, jones_type=name, timeslice=controls[name]["timeslice"]
+            )
+            row_idx, has_row = _gain_row_of_time(vis.time, gt0.time, gt0.interval)
+            self.gt0s.append(gt0)
+            self.cal.append(
+                {
+                    "w_t": _interval_weights(
+                        vis.time, gt0.time, gt0.interval, vis.weight.dtype
+                    ),
+                    "row_idx": row_idx,
+                    "has_row": has_row,
+                }
+            )
+            term_cfgs.append(
+                _FusedTermCfg(
+                    name=name,
+                    phase_only=controls[name]["phase_only"],
+                    first_selfcal=controls[name]["first_selfcal"],
+                    per_chan=gt0.gain.shape[2] > 1,
+                    crosspol=controls[name].get("shape") == "matrix",
+                )
+            )
         self.a1 = vis.antenna1.long()
         self.a2 = vis.antenna2.long()
         self.ne_idx = torch.as_tensor(
@@ -249,13 +419,7 @@ class _FusedSelfCal(_SortedWorkspace):
         self.cfg = _FusedCfg(
             nchan=plan.nchan,
             npol=self.npol,
-            terms=(
-                _FusedTermCfg(
-                    name="T",
-                    phase_only=controls["T"]["phase_only"],
-                    first_selfcal=controls["T"]["first_selfcal"],
-                ),
-            ),
+            terms=tuple(term_cfgs),
             normalise_gains=normalise_gains,
             solver_niter=solver_niter,
             solver_tol=solver_tol,
@@ -277,63 +441,58 @@ class _FusedSelfCal(_SortedWorkspace):
         }
 
 
-def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, mvis):
-    """The diagonal lane of the term solves for the one scalar term:
-    product-form normal equations ``x*w = V conj(V_model) w``,
-    ``xwt = |V_model|^2 w`` from the natural-order visibilities, the
-    batched StefCal solve, and the per-(time, baseline, pol) inverse
-    factors V' = V / (g1 conj(g2)). Returns (gains, gain weights,
-    residuals, inverse factors [ntime, nbl, 1, npol])."""
-    term = cfg.terms[0]
+def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, mvis):
+    """The diagonal lane of the term solves, term after term of the
+    context: product-form normal equations ``x*w = V conj(V_model) w``,
+    ``xwt = |V_model|^2 w`` from the running corrected natural-order
+    visibilities (summed over the channels, or per channel for a "B"
+    term), the batched StefCal solve, and the per-(time, baseline,
+    channel, pol) inverse factors V' = V / (g1 conj(g2)), which correct
+    the visibilities before the next term and multiply into the total.
+    Returns (gains, gain weights, residuals, total inverse factors
+    ``[ntime, nbl, Fc, npol]``, Fc 1 or nchan)."""
     npol = cfg.npol
-    cal = ws.cal[0]
     fw, corrected = ws.fw_nat, ws.ms_nat
-    xe = corrected * mvis.conj() * fw
+    gains, gwts, gress = list(gains), list(gwts), list(gress)
     we = (mvis.real**2 + mvis.imag**2) * fw
-    w_t = cal["w_t"]
-    xb = torch.einsum("st,tbfp->sbp", w_t.to(xe.dtype), xe)[:, :, None, :]
-    wb = torch.einsum("st,tbfp->sbp", w_t.to(we.dtype), we)[:, :, None, :]
-    nsol = w_t.shape[0]
-    nants = gains[0].shape[1]
-    # antenna-pair assembly as one gather per array (ne_index_map)
-    ext = torch.cat([xb.conj(), xb, torch.zeros_like(xb[:, :1])], dim=1)
-    x = ext[:, ws.ne_idx].reshape(nsol, nants, nants, 1, npol)
-    extw = torch.cat([wb, wb, torch.zeros_like(wb[:, :1])], dim=1)
-    xwt = extw[:, ws.ne_idx].reshape(nsol, nants, nants, 1, npol)
-    has_data = torch.sum(xwt.abs(), dim=(1, 2, 3, 4)) > 0.0
-
-    gain_new, gwt, gres = solve_gains_core(
-        x,
-        xwt,
-        gains[0],
-        niter=cfg.solver_niter,
-        tol=cfg.solver_tol,
-        phase_only=term.phase_only,
-        npol=npol,
-    )
-    hd = has_data[:, None, None, None, None]
-    gain_new = torch.where(hd, gain_new, torch.ones_like(gain_new))
-    gwt = torch.where(hd, gwt, torch.zeros_like(gwt))
-    gres = torch.where(has_data[:, None, None, None], gres, 0.0)
-    if cfg.normalise_gains in ("mean", "median") and not term.phase_only:
-        gabs = (
-            gain_new.abs().mean()
-            if cfg.normalise_gains == "mean"
-            else gain_new.abs().median()
+    inv_tot = None
+    for it, term in enumerate(cfg.terms):
+        if not do_cal[it]:
+            continue
+        cal = ws.cal[it]
+        xe = corrected * mvis.conj() * fw
+        w_t = cal["w_t"]
+        if term.per_chan:
+            xb = torch.einsum("st,tbfp->sbfp", w_t.to(xe.dtype), xe)
+            wb = torch.einsum("st,tbfp->sbfp", w_t.to(we.dtype), we)
+        else:
+            xb = torch.einsum("st,tbfp->sbp", w_t.to(xe.dtype), xe)[:, :, None, :]
+            wb = torch.einsum("st,tbfp->sbp", w_t.to(we.dtype), we)[:, :, None, :]
+        x, xwt = assemble_normal_equations(xb, wb, ws.ne_idx, gains[it].shape[1])
+        gain_new, gwt, gres = solve_gains_core(
+            x,
+            xwt,
+            gains[it],
+            niter=cfg.solver_niter,
+            tol=cfg.solver_tol,
+            phase_only=term.phase_only,
+            crosspol=term.crosspol,
+            npol=npol,
         )
-        gain_new = gain_new / gabs
-
-    gg = gain_new[cal["row_idx"]]  # [ntime, nants, 1, 1, 1]
-    hr = cal["has_row"][:, None, None]
-    g1 = gg[:, ws.a1, :, 0, 0]
-    g2 = gg[:, ws.a2, :, 0, 0]
-    sm = g1 * g2.conj()  # [ntime, nbl, 1]
-    m2 = sm.real**2 + sm.imag**2
-    ok = m2 > 0.0
-    inv_p = torch.where(ok, sm.conj() / torch.where(ok, m2, 1.0), 0.0)
-    # rows outside every solution interval stay uncorrected
-    inv = torch.where(hr, inv_p, torch.ones_like(inv_p))
-    return [gain_new], [gwt], [gres], inv[..., None]
+        gains[it], gwts[it], gress[it] = finish_solution(
+            gain_new, gwt, gres, xwt, term.phase_only, cfg.normalise_gains
+        )
+        gg = gains[it][cal["row_idx"]]  # [ntime, nants, Fc, 1, 1]
+        sm = gg[:, ws.a1, :, 0, 0] * gg[:, ws.a2, :, 0, 0].conj()  # [t, b, Fc]
+        m2 = sm.real**2 + sm.imag**2
+        ok = m2 > 0.0
+        inv_p = torch.where(ok, sm.conj() / torch.where(ok, m2, 1.0), 0.0)
+        # rows outside every solution interval stay uncorrected
+        hr = cal["has_row"][:, None, None]
+        inv = torch.where(hr, inv_p, torch.ones_like(inv_p))[..., None]
+        corrected = corrected * inv
+        inv_tot = inv if inv_tot is None else inv_tot * inv
+    return gains, gwts, gress, inv_tot
 
 
 def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
@@ -405,18 +564,17 @@ def _fused_selfcal_cycle(
     do_cal: tuple,
     with_model: bool,
 ):
-    """One self-cal major cycle in the plan-sorted domain: model degrid,
-    back-permute, normal equations and StefCal solve, factor permute,
-    residual invert, CLEAN. Returns (model_pixels, gains, gwts, gress,
-    residual, sumwt, peak).
+    """One self-cal major cycle in the plan-sorted domain: model degrid
+    plus the components, back-permute, normal equations and StefCal solve
+    of each active term, factor permute, residual invert, CLEAN. Returns
+    (model_pixels, gains, gwts, gress, residual, sumwt, peak).
 
     It serves one image channel (the JAX package's
     ``_fused_selfcal_cycle``) and a cube (``_fused_selfcal_cycle_cube``)
     alike: the predict and permute legs run over the plan stack of all
     channels at once (the JAX package vmaps them over the channel-stacked
     plans), the solve takes the model visibilities of all channels as
-    ``[time, baseline, chan, pol]``, the "T" factors, one per (time,
-    baseline), serve every channel, and the invert leg runs on each
+    ``[time, baseline, chan, pol]``, and the invert leg runs on each
     channel's plan in turn."""
     cfg = ws.cfg
     plan = ws.plan
@@ -424,10 +582,8 @@ def _fused_selfcal_cycle(
     nchan, npol = cfg.nchan, cfg.npol
     # [nchan, n] per polarisation, each channel in its plan's order
     model_s = [
-        predict_with_stack(plan, model_pixels[:, p], to_sorted=True)
-        if with_model
-        else ws.obs_s[p] * 0.0
-        for p in range(npol)
+        ws.obs_s[p] * 0.0 if m is None else m
+        for p, m in enumerate(ws.model_sorted(model_pixels, with_model))
     ]
 
     any_cal = any(do_cal)
@@ -440,27 +596,26 @@ def _fused_selfcal_cycle(
             ],
             dim=-1,
         ).permute(1, 2, 0, 3)  # [t, b, nchan, npol]
-        gains, gwts, gress, inv_tot = _solve_terms(ws, cfg, gains, mvis)
+        gains, gwts, gress, inv_tot = _solve_terms(
+            ws, cfg, gains, gwts, gress, do_cal, mvis
+        )
 
-    ny = nx = plan.npixel
-    device = model_pixels.device
-    pixels = torch.zeros((nchan, npol, ny, nx), dtype=torch.float32, device=device)
-    sumwt = torch.zeros((nchan, npol), dtype=torch.float32, device=device)
+    resid_s = []
     for p in range(npol):
-        if any_cal:
+        if not any_cal:
+            corr = ws.obs_s[p]
+        elif inv_tot.shape[2] == 1:
             # one (time, baseline) factor serves every channel: a shared
             # source of the stacked permute
             f_p = inv_tot[:, :, 0, p].reshape(-1).contiguous()
             corr = ws.obs_s[p] * permute_apply(perm, f_p, shared=(0,))
         else:
-            corr = ws.obs_s[p]
-        resid_s = corr - model_s[p]
-        for c in range(nchan):
-            dirty, swt = invert_with_plan(
-                plan.plans[c], resid_s[c], ws.wgt_s[p][c], values_sorted=True
-            )
-            pixels[c, p] = dirty.to(torch.float32)
-            sumwt[c, p] = swt
+            # a "B" term makes the factors differ per channel: one payload
+            # row per channel
+            f_p = _channel_rows(inv_tot[..., p]).contiguous()
+            corr = ws.obs_s[p] * permute_apply(perm, f_p)
+        resid_s.append(corr - model_s[p])
+    pixels, sumwt = ws.invert_sorted(resid_s, torch.float32)
     okw = sumwt > 0.0
     scale = torch.where(okw, 1.0 / torch.where(okw, sumwt, 1.0), 0.0)
     residual = pixels * scale[:, :, None, None]
@@ -474,31 +629,84 @@ def _fused_selfcal_cycle(
 def ical(
     vis: Visibility,
     model: Image,
-    components=None,
+    components: Optional[SkyComponents] = None,
     nmajor: int = 5,
     calibration_context: str = "T",
     controls: Optional[dict] = None,
     context: str = "ng",
     checkpoint_path: Optional[str] = None,
-    state=None,
+    state: Optional[SelfCalState] = None,
     **kwargs,
 ):
-    """ICAL: iterative calibration + imaging self-cal loop, fused path, on
-    one image channel or a cube (one image channel per visibility
-    channel). ``algorithm`` is "msclean" (the default), "hogbom" or
-    "mmclean" (MSMFS, which needs ``nchan > 2 (nmoment - 1)``).
+    """ICAL: iterative calibration + imaging self-cal loop, on one image
+    channel or a cube (one image channel per visibility channel).
+    ``algorithm`` is "msclean" (the default), "hogbom" or "mmclean"
+    (MSMFS, which needs ``nchan > 2 (nmoment - 1)``).
+    ``calibration_context`` orders the terms of ``controls`` ("T", "G",
+    "B"). ``fused`` (default: wherever it applies) chooses the fused
+    cycle, ``use_plan=False`` the composed cycle on the imaging API's own
+    routes. With ``checkpoint_path`` each cycle saves a
+    :class:`SelfCalState`; ``state`` resumes from one.
 
     :return: (model Image, residual Image, restored Image, gaintables dict)
     """
     if controls is None:
         controls = create_calibration_controls()
-    if checkpoint_path is not None or state is not None:
-        raise not_ported("ical checkpoints (SelfCalState)", "S7x")
-    plan = _plan_for("ical", vis, model, context, kwargs)
-    return _ical_fused(
-        vis, model, components, nmajor, calibration_context, controls,
-        plan, **kwargs,
+    fused, plan, ikw = _setup("ical", vis, model, context, kwargs)
+    can_fuse = plan is not None and all(
+        controls[c]["shape"] in ("scalar", "vector") for c in calibration_context
     )
+    if _fuse(fused, can_fuse):
+        return _ical_fused(
+            vis, model, components, nmajor, calibration_context, controls,
+            plan, checkpoint_path, state, **kwargs,
+        )
+    if fused:
+        log.warning(
+            "ical: fused=True requested but this configuration is not "
+            "fusable (plan=%s, algorithm=%r, window=%r, context=%r, "
+            "npol=%d/%d) — falling back to the composed path",
+            plan is not None,
+            kwargs.get("algorithm", "msclean"),
+            kwargs.get("window_shape"),
+            calibration_context,
+            vis.npol,
+            model.npol,
+        )
+    psf, _ = invert_visibility(vis, model, dopsf=True, context=context, plan=plan, **ikw)
+    log.info("ical[composed]: PSF ready, %d visibilities", vis.nvis)
+    if state is not None:
+        current, gaintables, start = state.model, state.gaintables, state.cycle
+    else:
+        current = model.replace(pixels=torch.zeros_like(model.pixels))
+        gaintables, start = None, 0
+    residual = None
+    for cycle in range(start, nmajor):
+        # the model is non-zero once a minor cycle has added components
+        mvis = _predict_model(
+            vis, current, components, context, cycle > 0, plan=plan, **ikw
+        )
+        cvis, gaintables = calibrate_chain(
+            vis,
+            mvis,
+            gaintables=gaintables,
+            calibration_context=calibration_context,
+            controls=controls,
+            iteration=cycle,
+        )
+        rvis = subtract_visibility(cvis, mvis)
+        residual, _ = invert_visibility(rvis, model, context=context, plan=plan, **ikw)
+        comp, _ = deconvolve_cube(residual, psf, **kwargs)
+        current = current.replace(pixels=current.pixels + comp.pixels)
+        if log.isEnabledFor(logging.INFO):
+            log.info(
+                "ical[composed]: cycle %d peak residual %.6f",
+                cycle, float(residual.pixels.abs().max()),
+            )
+        if checkpoint_path is not None:
+            SelfCalState(current, gaintables, cycle + 1).save(checkpoint_path)
+    restored = _restore_with_components(current, psf, residual, components)
+    return current, residual, restored, gaintables
 
 
 def _ical_fused(
@@ -509,6 +717,8 @@ def _ical_fused(
     terms: str,
     controls,
     plan,
+    checkpoint_path,
+    state,
     solver_niter: int = 200,
     tol: float = 1e-6,
     **kwargs,
@@ -519,13 +729,18 @@ def _ical_fused(
         vis, model, plan, components, list(terms), controls, "mean",
         solver_niter, tol, **kwargs,
     )
-    gains = [gt.gain for gt in ws.gt0s]
-    gwts = [gt.weight for gt in ws.gt0s]
-    gress = [gt.residual for gt in ws.gt0s]
-    model_px = torch.zeros_like(model.pixels, dtype=torch.float32)
+    if state is None:
+        start, tables = 0, ws.gt0s
+        model_px = torch.zeros_like(model.pixels, dtype=torch.float32)
+    else:
+        start, tables = state.cycle, [state.gaintables[t] for t in terms]
+        model_px = state.model.pixels.to(torch.float32)
+    gains = [gt.gain for gt in tables]
+    gwts = [gt.weight for gt in tables]
+    gress = [gt.residual for gt in tables]
     res_px = None
     log.info("ical[fused]: workspace ready, %d visibilities", vis.nvis)
-    for cycle in range(nmajor):
+    for cycle in range(start, nmajor):
         do_cal = tuple(cycle >= t.first_selfcal for t in ws.cfg.terms)
         model_px, gains, gwts, gress, res_px, _, peak = _fused_selfcal_cycle(
             ws, model_px, gains, gwts, gress,
@@ -533,6 +748,12 @@ def _ical_fused(
         )
         if log.isEnabledFor(logging.INFO):
             log.info("ical[fused]: cycle %d peak residual %.6f", cycle, float(peak))
+        if checkpoint_path is not None:
+            SelfCalState(
+                model.replace(pixels=model_px.to(model.pixels.dtype)),
+                ws.gaintables(gains, gwts, gress),
+                cycle + 1,
+            ).save(checkpoint_path)
     current = model.replace(pixels=model_px.to(model.pixels.dtype))
     residual = model.replace(pixels=res_px) if res_px is not None else None
     gaintables = ws.gaintables(gains, gwts, gress)
@@ -545,17 +766,57 @@ def continuum_imaging(
     model: Image,
     nmajor: int = 5,
     context: str = "ng",
-    components=None,
+    components: Optional[SkyComponents] = None,
     **kwargs,
 ):
-    """Major/minor-cycle CLEAN imaging without self-calibration, fused
-    path: :func:`_fused_selfcal_cycle` with the calibration leg left out,
-    on one image channel or a cube. ``algorithm`` as for :func:`ical`;
-    "mmclean" on a cube is MSMFS continuum imaging.
+    """Major/minor-cycle CLEAN imaging without self-calibration, on one
+    image channel or a cube: :func:`_fused_selfcal_cycle` with the
+    calibration leg left out, or (``fused=False``) the composed cycle on
+    the sorted workspace, or (``use_plan=False``) on the imaging API's own
+    routes. ``algorithm`` as for :func:`ical`; "mmclean" on a cube is
+    MSMFS continuum imaging.
 
     :return: (model Image, residual Image, restored Image)
     """
-    plan = _plan_for("continuum_imaging", vis, model, context, kwargs)
+    fused, plan, ikw = _setup("continuum_imaging", vis, model, context, kwargs)
+    if _fuse(fused, plan is not None):
+        return _continuum_fused(vis, model, nmajor, components, plan, **kwargs)
+    if fused:
+        log.warning(
+            "continuum_imaging: fused=True requested but this "
+            "configuration is not fusable (plan=%s, algorithm=%r, "
+            "window=%r) — falling back to the composed path",
+            plan is not None,
+            kwargs.get("algorithm", "msclean"),
+            kwargs.get("window_shape"),
+        )
+    psf, _ = invert_visibility(vis, model, dopsf=True, context=context, plan=plan, **ikw)
+    ws = None if plan is None else _SortedWorkspace(vis, model, plan, components)
+    log.info("continuum_imaging[composed]: PSF ready, %d visibilities", vis.nvis)
+    current = model.replace(pixels=torch.zeros_like(model.pixels))
+    residual = None
+    for cycle in range(nmajor):
+        if ws is not None:
+            residual, _ = ws.residual_invert(model, current.pixels, cycle > 0)
+        else:
+            mvis = _predict_model(
+                vis, current, components, context, cycle > 0, plan=None, **ikw
+            )
+            residual, _ = invert_visibility(
+                subtract_visibility(vis, mvis), model, context=context, **ikw
+            )
+        comp, _ = deconvolve_cube(residual, psf, **kwargs)
+        current = current.replace(pixels=current.pixels + comp.pixels)
+        if log.isEnabledFor(logging.INFO):
+            log.info(
+                "continuum_imaging[composed]: cycle %d peak residual %.6f",
+                cycle, float(residual.pixels.abs().max()),
+            )
+    restored = _restore_with_components(current, psf, residual, components)
+    return current, residual, restored
+
+
+def _continuum_fused(vis, model, nmajor, components, plan, **kwargs):
     ws = _FusedSelfCal(
         vis, model, plan, components, ["T"], create_calibration_controls(),
         None, 1, 1e-6, **kwargs,
@@ -581,8 +842,15 @@ def continuum_imaging(
     return current, residual, restored
 
 
+def _fuse(fused, can_fuse: bool) -> bool:
+    """Whether the fused cycle runs: by default wherever it can; asked for
+    where it cannot, the caller warns and the composed cycle runs. Both
+    are device paths."""
+    return can_fuse if fused is None else bool(fused) and can_fuse
+
+
 def _check_algorithm(model: Image, kwargs: dict) -> None:
-    """The fused cycle's CLEAN algorithms: msclean, Hogbom, and MSMFS,
+    """The pipelines' CLEAN algorithms: msclean, Hogbom, and MSMFS,
     which needs more image channels than its moments' polynomial order
     (``nchan > 2 (nmoment - 1)``, as in ``deconvolve_cube``)."""
     algorithm = kwargs.get("algorithm", "msclean")
@@ -594,34 +862,52 @@ def _check_algorithm(model: Image, kwargs: dict) -> None:
                 f"({model.nchan} > {2 * (nmoment - 1)})"
             )
     elif algorithm not in ("hogbom", "msclean"):
-        raise ValueError(f"fused clean: unsupported algorithm {algorithm}")
+        raise ValueError(f"unsupported algorithm {algorithm}")
 
 
-def _plan_for(name: str, vis, model, context: str, kwargs: dict):
+def _setup(name: str, vis, model, context: str, kwargs: dict):
     """What ``ical`` and ``continuum_imaging`` share before their cycles:
-    the checks of the ported configuration (the workspace checks the
-    CLEAN algorithm) and one plan per image channel (the workspace takes
-    the PSF through them). Takes the imaging keywords out of ``kwargs``."""
-    if kwargs.pop("fused", True) is False:
-        raise not_ported(f"the composed (fused=False) {name} path", "S7x")
-    if kwargs.pop("use_plan", True) is False:
-        # without a plan the JAX package runs the composed path
-        raise not_ported(f"the composed (use_plan=False) {name} path", "S7x")
+    the checks of the ported configuration and of the CLEAN algorithm,
+    and, unless ``use_plan=False``, one plan per image channel on either
+    device (on the CPU the kernels' plain versions run on it). Takes the
+    path and imaging keywords out of ``kwargs``. Returns (fused, plan or
+    None, imaging keywords)."""
+    fused = kwargs.pop("fused", None)
+    use_plan = kwargs.pop("use_plan", None)
     if kwargs.get("epsilon") is not None:
         # the JAX pipelines do not pass epsilon to their plan
         raise not_ported(f"{name}(epsilon=...)", "S7x")
     if vis.npol != 1 or model.npol != 1:
         raise not_ported(f"polarised {name} (npol > 1)", "S7x")
+    _check_algorithm(model, kwargs)
     ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
-    return make_visibility_plan(vis, model, context=context, **ikw)
+    plan = (
+        None
+        if use_plan is False
+        else make_visibility_plan(vis, model, context=context, **ikw)
+    )
+    return fused, plan, ikw
+
+
+def _predict_model(vis, model, components, context, model_nonzero, **ikw):
+    """Model visibilities: the predict of ``model`` when it is non-zero
+    (``model_nonzero``, tracked on the host) plus the components' DFT."""
+    mvis = vis.replace(vis=torch.zeros_like(vis.vis))
+    if model_nonzero:
+        mvis = predict_visibility(mvis, model, context=context, **ikw)
+    if components is not None and components.ncomp > 0:
+        cvis = dft_skycomponent_visibility(
+            vis.replace(vis=torch.zeros_like(vis.vis)), components
+        )
+        mvis = mvis.replace(vis=mvis.vis + cvis.vis)
+    return mvis
 
 
 def _restore_with_components(current, psf, residual, components):
-    """Restore the model with the fitted clean beam and add the residual
-    (sky components are not ported yet)."""
-    if components is not None and components.ncomp > 0:
-        raise not_ported("restoring sky components", "S7x")
+    """Restore the model with the fitted clean beam, add the residual and
+    the components as clean-beam Gaussians."""
     clean_beam = fit_psf(psf)
-    return restore_cube(
-        current, psf=psf, residual=residual, clean_beam=clean_beam
-    )
+    restored = restore_cube(current, psf=psf, residual=residual, clean_beam=clean_beam)
+    if components is not None and components.ncomp > 0:
+        restored = restore_skycomponent(restored, components, clean_beam)
+    return restored

@@ -21,10 +21,15 @@ sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
 launch; ``unit_tiles`` (atomics) agrees with its plain version
 accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
-f64.
+f64. The calibration paths (the composed "TG" ical with a sky component,
+the fused "TB" bandpass cube) launch their kernels on the card and agree
+with the CPU run to the slice bounds: referenced gains 1e-4, peak
+residual 1e-3 relative.
 """
 
 import dataclasses
+import os
+import sys
 
 import numpy as np
 import pytest
@@ -979,3 +984,30 @@ def test_unit_tiles_stress_matches_plain(dev, case, support, dtype, with_lo):
     ref = ref_stream.grid(plain=True, **kw)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()
+
+
+def _chip_smoke():
+    """``chip_smoke.py`` at the checkout's root: its small calibration
+    slices run the same observation on any device."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    import chip_smoke
+
+    return chip_smoke
+
+
+def test_composed_tg_ical_with_component_on_card_matches_cpu(dev):
+    cs = _chip_smoke()
+    ga, _, ra, _, _, counts = cs.tg_slice(dev)
+    assert all(counts[k] > 0 for k in ("grid", "degrid", "permute", "hogbom")), counts
+    gb, _, rb, _, _, _ = cs.tg_slice("cpu")
+    cs.slices_agree("composed TG", ga, ra, gb, rb)
+
+
+def test_fused_tb_cube_on_card_matches_cpu(dev):
+    cs = _chip_smoke()
+    ga, ra, counts = cs.tb_slice(dev)
+    assert all(counts[k] > 0 for k in ("grid", "degrid", "permute", "hogbom")), counts
+    gb, rb, _ = cs.tb_slice("cpu")
+    cs.slices_agree("fused TB cube", ga, ra, gb, rb)

@@ -315,12 +315,20 @@ def test_plan_cache_evicts_least_recent(benign):
 @pytest.mark.parametrize("kw", [{"use_plan": False}, {"epsilon": 1e-5}],
                          ids=["use_plan=False", "epsilon"])
 def test_pipelines_refuse_planless_and_epsilon(benign, kw):
-    """Without a plan the JAX pipelines run the composed path, and they
-    do not pass epsilon to their plan: both come with ROADMAP slice S7x."""
+    """Without a plan the pipelines run the composed cycle on the imaging
+    API's own routes (the core path on the CPU), as the JAX pipelines do;
+    they refuse epsilon, which the JAX pipelines do not pass to their
+    plan (ROADMAP slice S7x)."""
     from ska_sdp_func_python_torch.pipeline import continuum_imaging, ical
 
     vis, vis_dft, model = benign
     pvis, pmodel = _port(vis_dft, model)
     for entry in (ical, continuum_imaging):
-        with pytest.raises(NotImplementedError, match="S7x"):
-            entry(pvis, pmodel, nmajor=1, **kw)
+        if "epsilon" in kw:
+            with pytest.raises(NotImplementedError, match="S7x"):
+                entry(pvis, pmodel, nmajor=1, **kw)
+            continue
+        out = entry(pvis, pmodel, nmajor=1, algorithm="hogbom", niter=50, **kw)
+        for im in out[:3]:
+            assert bool(torch.isfinite(im.pixels).all())
+        assert float(out[1].pixels.abs().max()) < float(out[2].pixels.max())
