@@ -102,8 +102,35 @@ Phases, each on lines of its own:
      threshold of 0.2, where the picks are not near-ties); then a checkpoint
      resume on the card (2 cycles saved, resumed to 4) equal to the
      uninterrupted run to 1e-6.
-Each of phases 4-6, 8b-c, 9b-e and 10a-b resets the launch counters just
-before it and fails unless every kernel of its path launched. The script then
+ 11. polarisation and multi-frequency synthesis (after phase 10): (a) the
+     flagship layout with linear visibilities (9,942,016 rows x 4
+     polarisations) of the three sources at fractional Q and U, given as
+     stokesIQUV components that seed the sky, a linear 1024^2 model, "T"
+     phases N(0, 0.4) on both receptors, through ``ical`` with msclean,
+     fused and composed, 3 cycles each: residual peak below 0.2, the
+     restored XX at the sources within 0.2 of their I, each receptor's
+     gain phases within 0.05 rad of the truth, the restored peaks of the
+     two paths within 0.05 and their gains within 1e-4, and the fused
+     cycle's launches (grid once a
+     (cycle, polarisation) and once for the PSF, degrid once a (cycle with
+     a model, polarisation), permute once a polarisation for the
+     workspace and once a leg of a cycle); K4 with four payloads in one
+     launch held bit for bit; (b) the same sky with 8% leakage and 5%
+     amplitudes through a "matrix" "T" (amplitude and phase) with Hogbom,
+     fused and composed: residual peaks within 1e-3 and gains within 1e-4
+     of each other, the Mueller leg's time and the cycle's peak memory
+     (below 12 GiB) printed, K5 held on the first CLEAN call's four lanes;
+     (c) the config-4 cube's 64 channels imaged to one MFS channel of
+     256^2: K1, K3 and K4 on the MFS plan's one row of 18,800,640 entries
+     and K7 on the MFS dirty image against their plain versions, the MFS
+     invert within 1e-5 of the sum of its channels' (same plan geometry),
+     ``continuum_imaging`` and a "TB" ``ical`` with msclean, fused and
+     composed, 3 cycles each, at the bounds of phases 7 and 10b; (d) a
+     "matrix" "T" + "B" ical of the bandpass cube's layout in the linear
+     frame imaged MFS, on the card and on the CPU, to phase 7's bounds.
+Each of phases 4-6, 8b-c, 9b-e, 10a-b and 11a-c resets the launch
+counters just before it and fails unless every kernel of its path
+launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
 the ``{"ok": true, ...}`` line. Any failure raises
@@ -218,6 +245,27 @@ TG_RESIDUAL_TOL, TG_RESTORED_TOL = 0.02, 0.05
 TB_TOL = 2e-2
 BANDPASS_CUBE = dict(nants=10, rmax=300.0, ntimes=3, nchan=4, df=1e6, npixel=64,
                      oversampling=4.0, offset=(7, -5), alpha=0.0, weighting="natural")
+
+# phase 11: the polarised flagship's fractional Q and U (every source);
+# the share of each source's flux given as the stokesIQUV components that
+# seed the sky (with the PSF in the first polarisation only, CLEAN never
+# models the second receptor, so the seed carries YY; CLEAN finds the rest
+# of XX, 0.2 (I + Q) = 0.46 Jy at the brightest source, and must leave
+# below a tenth of it); the full-Jones run's leakage, and the JAX package's
+# bounds (test_composite.py:556-562, npol-4 diagonal: the restored peaks
+# 0.05 apart, and the phase-referenced gains 1e-4 of its other
+# fused-vs-composed tests; :820-823, full Jones: residual peaks 1e-3,
+# gains 1e-4); the MFS image against the sum of its channels; the small
+# npol-4 "matrix" "T" + "B" MFS slice (the bandpass cube's layout at the
+# JAX test's 128^2, Hogbom to a fractional threshold of 0.2)
+POL_FRAC_Q, POL_FRAC_U = 0.15, 0.075
+SEED_FRACTION = 0.8
+LEAK = 0.08
+NPOL4_XX_RESIDUAL, NPOL4_RESTORED_TOL = 0.046, 0.05
+JONES_RESIDUAL_TOL, JONES_GAIN_TOL = 1e-3, 1e-4
+MFS_TOL = 1e-5
+PEAK_MEMORY_GB = 12.0
+SMALL_JONES = dict(BANDPASS_CUBE, npixel=128)
 
 # NVIDIA H100 SXM published peaks at 700 W: HBM and f32 outside the
 # tensor cores
@@ -479,13 +527,14 @@ def degrid_plain_pieces(gp, grids, piece=1 << 20):
     return out
 
 
-def permute_bound(n, shared=0):
-    """K4's bound on ``n`` complex64 elements: the index, the payload in
-    and out; with a ``shared`` source of that many elements, the source
-    read once in place of ``n`` elements in."""
+def permute_bound(n, shared=0, npay=1):
+    """K4's bound on ``n`` indices moving ``npay`` complex64 payloads: the
+    index read once, each payload in and out; with a ``shared`` source of
+    that many elements, the source read once in place of ``n`` elements
+    in."""
     if shared:
-        return bound(n * (4 + 8) + shared * 8, 0)
-    return bound(n * (4 + 8 + 8), 0)
+        return bound(n * 4 + npay * (n * 8 + shared * 8), 0)
+    return bound(n * 4 + npay * n * (8 + 8), 0)
 
 
 def grid_row(gp, vals, label, plain_reps=1):
@@ -749,8 +798,6 @@ def compare_cleaners(dirty, psf_patch):
     """hogbom (with and without the quarter window), msclean and
     hogbom_complex against their plain versions on the card, on the
     cycle-0 dirty image and the bounded PSF."""
-    from ska_sdp_func_python_torch.ops import cleaners as cl
-
     ny, nx = dirty.shape[-2:]
     py, px = psf_patch.shape[-2:]
     d = dirty.reshape(1, ny, nx).contiguous()
@@ -760,9 +807,22 @@ def compare_cleaners(dirty, psf_patch):
         fracthresh=CLEAN["fractional_threshold"],
     )
     out = hogbom_cases("flagship", d, p, kw)
+    out["msclean"] = msclean_case("msclean", d[0], psf_patch.reshape(py, px), kw)
+    return out
 
-    # msclean: the fused lane's stacks from the bounded PSF
-    st = cl.msclean_psf_stacks(psf_patch.reshape(py, px), ny, nx, SCALES)
+
+def msclean_case(label, dirty, psf_patch, kw, with_floor=True):
+    """K7 against its plain version on the card, bit for bit in rows,
+    residual stack and component image, on ``dirty`` [ny, nx] with the
+    fused lane's stacks from the bounded PSF; times both, prints the
+    microseconds per used iteration (and, ``with_floor``, the loop's
+    barrier floor at the flagship's size). Returns the kernel's row."""
+    from ska_sdp_func_python_torch.ops import cleaners as cl
+
+    ny, nx = dirty.shape
+    py, px = psf_patch.shape
+    d = dirty.reshape(1, ny, nx).contiguous()
+    st = cl.msclean_psf_stacks(psf_patch, ny, nx, SCALES)
     res_stack = cl.convolve_scalestack(st.scalestack, d[0] / st.pmax)[None].contiguous()
     ms_args = (res_stack, st.psf_ss[None], st.coupling_diag[None], st.pscalestack[None])
 
@@ -795,23 +855,23 @@ def compare_cleaners(dirty, psf_patch):
         2 * (ns + 1) * area + 3 * ns * ny * nx * (len(used) + 1),
     )
     ms_ms = timed(ms_kernel, 5)
-    out["msclean"] = _row(err, rel, ms_ms, timed(ms_plain, 2), ms_bnd)
+    row = _row(err, rel, ms_ms, timed(ms_plain, 2), ms_bnd)
     # the floor: the same loop on one 1024^2 plane with a 1x1 PSF, so that
     # one band changes per iteration, over 300 iterations that all run
-    floor = clean_floor("msclean")
+    floor = f"; barrier floor {clean_floor('msclean'):.2f} us per iteration" if with_floor else ""
     # per iteration the footprint of psf_ss[:, ms] and pscalestack[ms] is read
     # from device memory; the stack and the component image stay on chip
     per_it_mb = 4 * (ns + 1) * area / max(len(used), 1) / 1e6
     say(
-        f"msclean: {len(used)} iterations at {ny}x{nx}, {ns} scales, PSF "
-        f"{py}x{px}: {ms_ms / max(len(used), 1) * 1e3:.2f} us per used iteration; "
+        f"{label}: {len(used)} iterations at {ny}x{nx}, {ns} scales, PSF "
+        f"{py}x{px}, bit-exact: kernel {ms_ms:.4f} ms, plain {row['plain_ms']:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); "
+        f"{ms_ms / max(len(used), 1) * 1e3:.2f} us per used iteration; "
         f"the footprint reads of psf_ss[:, ms] and pscalestack[ms] are "
         f"{per_it_mb:.1f} MB per iteration, {per_it_mb * 1e6 / PEAK_BYTES_S * 1e6:.2f} "
-        f"us at 3.35 TB/s; barrier floor {floor:.2f} us per iteration"
+        f"us at 3.35 TB/s{floor}"
     )
-    del st, res_stack, ms_args
-
-    return out
+    return row
 
 
 def clean_floor(name):
@@ -1720,6 +1780,478 @@ def small_calibration_slices(device):
     torch.cuda.empty_cache()
 
 
+def simulate_polarised(cfg, device, ntimes=76, npixel=1024):
+    """Phase 11's flagship: phase 4's layout, hour angles and uniform
+    weights with linear visibilities (9,942,016 rows x 4 polarisations) of
+    the three SOURCES at fractional Q and U, a linear 1024^2 model, and
+    SEED_FRACTION of each source as stokesIQUV components. Returns (vis,
+    model, seed components)."""
+    from ska_sdp_func_python_torch.models import SkyComponents, create_visibility
+    from ska_sdp_func_python_torch.ops import (
+        create_image_from_visibility,
+        dft_skycomponent_visibility,
+    )
+    from ska_sdp_func_python_torch.ops.weighting import weight_visibility
+
+    vis = create_visibility(
+        cfg, np.linspace(-0.3, 0.3, ntimes), [1.2e8], polarisation_frame="linear",
+        elevation_limit=np.deg2rad(15.0), device=device,
+    )
+    model = create_image_from_visibility(vis, npixel=npixel, oversampling=3.0, nchan=1)
+    scale = npixel / 1024
+    dirs = [
+        [float(c) for c in model.pixel_to_radec(npixel // 2 + int(dx * scale),
+                                                npixel // 2 + int(dy * scale))]
+        for dx, dy, _ in SOURCES
+    ]
+    fluxes = np.asarray([[[f, POL_FRAC_Q * f, POL_FRAC_U * f, 0.0]] for _, _, f in SOURCES])
+
+    def components(scale):
+        return SkyComponents.from_lists(dirs, scale * fluxes, vis.frequency,
+                                        polarisation_frame="stokesIQUV", device=device)
+
+    vis = dft_skycomponent_visibility(vis, components(1.0))
+    return (weight_visibility(vis, model, weighting="uniform"), model,
+            components(SEED_FRACTION))
+
+
+def corrupt_jones(vis, phase, amp=0.0, leak=0.0, seed=47, jones_type="T", timeslice=None):
+    """``vis`` times 2x2 Jones per (interval, station, solution channel):
+    both receptors (1 + N(0, amp)) exp(i N(0, phase)) (the same draw, as
+    the JAX tests' ``_simulate_gaintable``), and with ``leak`` off-diagonal
+    leakage leak (N + i N) and conj(that) * 0.7 (test_composite.py:789-797).
+    Returns (corrupted vis, true gains [ntab, nants, nchan, 2, 2]
+    complex128)."""
+    import torch
+
+    from ska_sdp_func_python_torch.models import create_gaintable_from_visibility
+    from ska_sdp_func_python_torch.ops import apply_gaintable
+
+    rng = np.random.default_rng(seed)
+    gt = create_gaintable_from_visibility(vis, jones_type=jones_type, timeslice=timeslice)
+    shape = gt.gain.shape[:3]
+    g = (1.0 + rng.normal(0, amp, shape)) * np.exp(1j * rng.normal(0, phase, shape))
+    true = np.zeros(shape + (2, 2), complex)
+    true[..., 0, 0] = true[..., 1, 1] = g
+    if leak:
+        lk = leak * (rng.normal(size=shape) + 1j * rng.normal(size=shape))
+        true[..., 0, 1], true[..., 1, 0] = lk, np.conj(lk) * 0.7
+    gain = torch.as_tensor(true, device=vis.device).to(gt.gain.dtype)
+    return apply_gaintable(vis, gt.replace(gain=gain)), true
+
+
+def receptor_phase_error(solved, true):
+    """Max and rms phase error (rad) of each receptor's solved gain against
+    the truth, both referenced to station 0."""
+    g = solved.detach().cpu().numpy()
+    errs = []
+    for r in range(2):
+        s, t = g[..., 0, r, r], true[..., 0, r, r]
+        s = s * np.exp(-1j * np.angle(s[:, :1]))
+        t = t * np.exp(-1j * np.angle(t[:, :1]))
+        errs.append(np.angle(s * np.conj(t)))
+    err = np.stack(errs)
+    return float(np.max(np.abs(err))), float(np.sqrt(np.mean(err**2)))
+
+
+@contextlib.contextmanager
+def mueller_timer():
+    """Times the Mueller leg of the fused cycle (the full-Jones inverse
+    and every Mueller apply, synchronised before and after) while the
+    context is open; yields a list of ms per call."""
+    import torch
+
+    from ska_sdp_func_python_torch import pipeline
+
+    times, fns = [], (pipeline._crosspol_inverse, pipeline._mueller_apply)
+
+    def timed_call(fn):
+        def call(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return call
+
+    pipeline._crosspol_inverse, pipeline._mueller_apply = (timed_call(f) for f in fns)
+    try:
+        yield times
+    finally:
+        pipeline._crosspol_inverse, pipeline._mueller_apply = fns
+
+
+def _npol_launch_gate(label, counts, nmajor, npol, nchan=1, cal=True, clean=None):
+    """The fused cycle's launches at ``npol``: K1 once a (cycle,
+    polarisation, image channel) and once a channel for the PSF, K3 once a
+    (cycle with a model, polarisation), K4 once a polarisation for the
+    workspace and, with calibration, once a leg of a cycle (the model to
+    natural order, the correction to plan order), whatever ``npol``."""
+    want = {
+        "grid": nchan * (npol * nmajor + 1),
+        "degrid": npol * (nmajor - 1),
+        "permute": npol + (2 * nmajor if cal else 0),
+    }
+    if clean is not None:
+        want[clean[0]] = clean[1]
+    got = {k: counts[k] for k in want}
+    say(f"{label}: launches {got}, expected {want}")
+    if got != want:
+        raise AssertionError(f"{label}: launches {got}, expected {want}")
+
+
+def run_polarised_flagship(cfg, device, **size):
+    """Phase 11a-b: the polarised flagship, the sky seeded with
+    SEED_FRACTION of its flux. (a) diagonal "T" phases N(0, 0.4) through
+    ``ical`` with msclean, fused and composed, 3 cycles each; (b) the same
+    sky with 8% leakage and 5% amplitudes, a "matrix" "T" (amplitude and
+    phase) with Hogbom, fused and composed, then a fused run instrumented
+    to time the Mueller leg. Holds K4 with four payloads in one launch and
+    K5 on the npol-4 lanes against their plain versions. Returns (summed
+    launch counts, {kernel: row})."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops import cleaners as cl
+    from ska_sdp_func_python_torch.ops.calibration_chain import create_calibration_controls
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+    from ska_sdp_func_python_torch.ops.permute import permute_apply, permute_apply_plain
+    from ska_sdp_func_python_torch import pipeline
+
+    t0 = time.perf_counter()
+    vis, model, sky = simulate_polarised(cfg, device, **size)
+    torch.cuda.synchronize()
+    say(f"polarised flagship: {vis.ntimes * vis.nbaselines} rows x {vis.npol} "
+        f"polarisations ({vis.polarisation_frame}), {model.npixel}^2 "
+        f"{model.polarisation_frame} model, simulated in {time.perf_counter() - t0:.1f} s")
+
+    # K4 with the four polarisations of the cycle's model leg in one launch
+    plan = make_visibility_plan(vis, model, context="ng")
+    st = plan.stack
+    g = torch.Generator(device=device).manual_seed(4)
+    xs = [torch.randn(st.perm.shape, generator=g, device=device, dtype=torch.complex64)
+          for _ in range(4)]
+    if not all(torch.equal(a, b) for a, b in zip(permute_apply(st.iperm, *xs),
+                                                  permute_apply_plain(st.iperm, *xs))):
+        raise AssertionError("permute with four payloads is not bit-exact")
+    one = timed(lambda: permute_apply(st.iperm, *xs), 20)
+    each = timed(lambda: [permute_apply(st.iperm, x) for x in xs], 20)
+    say(f"permute, four complex64 payloads of {st.n} in one launch, bit-exact: "
+        f"{one:.4f} ms (four launches {each:.4f} ms; plain "
+        f"{timed(lambda: permute_apply_plain(st.iperm, *xs), 5):.4f} ms), bound "
+        f"{permute_bound(st.n, npay=4)[0]:.4f} ms")
+    del xs, plan, st
+    torch.cuda.empty_cache()
+
+    total, rows = None, {}
+    corrupted, true = corrupt_jones(vis, 0.4)
+    out = {}
+    for label, fused in (("fused", True), ("composed", False)):
+        name = f"npol-4 ical {label}"
+        torch.cuda.reset_peak_memory_stats()
+        (_, res, restored, gts), counts, peaks = run_logged(
+            name,
+            lambda: pipeline.ical(corrupted, model, components=sky, nmajor=3,
+                                  calibration_context="T", context="ng", fused=fused,
+                                  scales=SCALES, **CLEAN),
+            3, ("grid", "degrid", "permute", "msclean"),
+        )
+        gmax, grms = receptor_phase_error(gts["T"].gain, true)
+        xx_res = float(res.pixels[0, 0].abs().max())
+        # the restore adds each seed component's [I, Q, U, V] to the
+        # image's polarisations in order, as the JAX package does (I to
+        # XX), and CLEAN's XX model the rest of I + Q: I + 0.2 Q a source
+        px = restored.pixels[0, 0].detach().cpu().numpy()
+        n, scale = model.npixel, model.npixel / 1024
+        flux_i = [float(px[n // 2 + int(dy * scale), n // 2 + int(dx * scale)])
+                  for dx, dy, _ in SOURCES]
+        say(f"{name}: peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+            f"gain phase error vs truth (each receptor, station 0's phase out) max "
+            f"{gmax:.3e} rad, rms {grms:.3e}; restored I (XX) at the sources "
+            + ", ".join(f"{v:.4f}" for v in flux_i)
+            + f" (sky {', '.join(str(f) for _, _, f in SOURCES)}); XX residual peak "
+            f"{xx_res:.6f} (bound {NPOL4_XX_RESIDUAL})")
+        if fused:
+            _npol_launch_gate(name, counts, 3, 4, clean=("msclean", 3))
+        if not xx_res < NPOL4_XX_RESIDUAL:
+            raise AssertionError(f"{name}: XX residual peak {xx_res} not below "
+                                 f"{NPOL4_XX_RESIDUAL}")
+        if not all(abs(v - f) < 0.2 for v, (_, _, f) in zip(flux_i, SOURCES)):
+            raise AssertionError(f"{name}: restored I {flux_i} not within 0.2 of the sky")
+        if not gmax < 0.05:
+            raise AssertionError(f"{name}: gain phase error {gmax} rad")
+        g = gts["T"].gain.detach().cpu().numpy()
+        out[label] = (peaks[-1], float(restored.pixels.abs().max()),
+                      g * np.exp(-1j * np.angle(g[:, :1])))
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+        del res, restored, gts
+    (rf, sf, gf), (rc, sc, gc) = out["fused"], out["composed"]
+    dg = float(np.max(np.abs(gf - gc)))
+    say(f"npol-4 ical fused vs composed: residual peak {rf:.6f} vs {rc:.6f}, restored "
+        f"peak {sf:.4f} vs {sc:.4f} (bound {NPOL4_RESTORED_TOL}), phase-referenced "
+        f"gains {dg:.3e} apart (bound {JONES_GAIN_TOL})")
+    if not (abs(sf - sc) < NPOL4_RESTORED_TOL and dg < JONES_GAIN_TOL):
+        raise AssertionError("npol-4 ical: the fused and composed paths disagree")
+    del corrupted
+    torch.cuda.empty_cache()
+
+    corrupted, _ = corrupt_jones(vis, 0.2, amp=0.05, leak=LEAK)
+    controls = create_calibration_controls()
+    controls["T"] = dict(controls["T"], shape="matrix", phase_only=False)
+
+    def full_jones(fused, nmajor=3):
+        return pipeline.ical(corrupted, model, components=sky, nmajor=nmajor,
+                             calibration_context="T", controls=controls, context="ng",
+                             fused=fused, algorithm="hogbom", **CLEAN)
+
+    out = {}
+    for label, fused in (("fused", True), ("composed", False)):
+        name = f"full-Jones ical {label}"
+        torch.cuda.reset_peak_memory_stats()
+        (_, res, _, gts), counts, peaks = run_logged(
+            name, lambda: full_jones(fused), 3, ("grid", "degrid", "permute", "hogbom"),
+        )
+        peak_gb = torch.cuda.max_memory_allocated() / 2**30
+        xx_res = float(res.pixels[0, 0].abs().max())
+        # full-Jones self-cal has a unitary gauge freedom a station, so
+        # parity with the composed cycle is its test, not an absolute
+        # residual (test_composite.py:815-818)
+        say(f"{name}: peak memory {peak_gb:.2f} GiB; XX residual peak {xx_res:.6f}")
+        if fused:
+            _npol_launch_gate(name, counts, 3, 4, clean=("hogbom", 3))
+            if not peak_gb < PEAK_MEMORY_GB:
+                raise AssertionError(f"{name}: peak memory {peak_gb:.2f} GiB")
+        out[label] = (peaks[-1], gts["T"].gain.detach().cpu().numpy())
+        total = {k: total[k] + counts[k] for k in total}
+        del res, gts
+    (rf, gf), (rc, gc) = out["fused"], out["composed"]
+    dg = float(np.max(np.abs(gf - gc)) / max(np.max(np.abs(gc)), 1.0))
+    say(f"full-Jones ical fused vs composed: residual peak {rf:.6f} vs {rc:.6f} "
+        f"(bound {JONES_RESIDUAL_TOL}), gains {dg:.3e} apart (bound {JONES_GAIN_TOL})")
+    if not (abs(rf - rc) < JONES_RESIDUAL_TOL and dg < JONES_GAIN_TOL):
+        raise AssertionError("full-Jones ical: the fused and composed paths disagree")
+
+    # a third, instrumented fused run (its walls are not the cycle's):
+    # the Mueller leg timed call by call and the first CLEAN call's inputs
+    inputs = []
+
+    def recording(dirty, psf, window=None, **kw):
+        if not inputs:
+            inputs.append((dirty.clone(), psf.clone(), kw))
+        return cl.hogbom_lanes(dirty, psf, window, **kw)
+
+    pipeline.hogbom_lanes = recording
+    try:
+        with mueller_timer() as mtimes:
+            kernels.reset_launch_counts()
+            full_jones(True, nmajor=2)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+    finally:
+        pipeline.hogbom_lanes = cl.hogbom_lanes
+    total = {k: total[k] + counts[k] for k in total}
+    say("full-Jones ical fused, instrumented, 2 cycles: Mueller leg ms per call "
+        + ", ".join(f"{t:.2f}" for t in mtimes))
+    if not (mtimes and inputs):
+        raise AssertionError("full-Jones ical: the Mueller leg or CLEAN was not observed")
+    # K5 on the npol-4 lanes of the first CLEAN call (three without a PSF)
+    d, p, kw = inputs[0]
+    rows["hogbom"] = hogbom_case("npol-4 Hogbom lanes", "hogbom", 1, (d,), p, None, kw,
+                                 plain_reps=1)
+    del corrupted, inputs, d, p
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+def mfs_sum_of_channels(vis, plan, model):
+    """The MFS plan's unnormalised dirty image (one K1 launch over the
+    whole stream) against the sum of each channel's on a plan of the same
+    geometry (the MFS plan's w planes and range). Returns the relative
+    difference."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.imaging import invert_with_plan, make_imaging_plan
+
+    uvw = vis.uvw_lambda
+    w = uvw[..., 2]
+    vals = (vis.vis * vis.imaging_weight)[..., 0]
+    mfs, _ = invert_with_plan(plan.plans[0], vals.reshape(-1))
+    total = torch.zeros_like(mfs)
+    w_range = (float(w.min()), float(w.max()))
+    for c in range(vis.nchan):
+        ip = make_imaging_plan(
+            uvw[:, :, c, 0].reshape(-1), uvw[:, :, c, 1].reshape(-1), w[:, :, c].reshape(-1),
+            npixel=model.npixel, cellsize=model.cellsize, nw=plan.nw, padding=1.25,
+            w_range=w_range,
+        )
+        total += invert_with_plan(ip, vals[:, :, c].reshape(-1))[0]
+    return float((mfs - total).abs().max()) / float(total.abs().max())
+
+
+def run_mfs(device, cube_size=CUBE):
+    """Phase 11c: the config-4 cube's 64 channels imaged to one MFS
+    channel of 256^2. Holds K1 and K3 on the MFS plan's row (and K4's
+    moves of it) and K7 on the MFS dirty image against their plain
+    versions, the MFS invert against the sum of the channels' (same plan
+    geometry); then ``continuum_imaging`` and a "TB" ``ical`` (T phases
+    N(0, 0.4), phase 10b's B table) with msclean, fused and composed, 3
+    cycles each. Returns (summed launch counts, {kernel: row})."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import invert_visibility, make_visibility_plan
+    from ska_sdp_func_python_torch.pipeline import continuum_imaging, ical
+
+    vis, cube = simulate_cube(device, **cube_size)
+    model = cube.replace(
+        pixels=cube.pixels[:1].clone(), frequency=np.array([np.mean(cube.frequency)]),
+        channel_bandwidth=np.array([np.sum(cube.channel_bandwidth)]),
+    )
+    del cube
+    t0 = time.perf_counter()
+    plan = make_visibility_plan(vis, model, context="ng")
+    torch.cuda.synchronize()
+    gp = plan.plans[0].gp
+    say(f"MFS plan: {vis.nchan} channels into one {model.npixel}^2 image: one plan "
+        f"of {gp.n} entries ({gp.n_in} in the grid), npad {plan.plans[0].npad}, nw "
+        f"{plan.nw}, built in {time.perf_counter() - t0:.2f} s")
+    rows = {}
+    weighted = (vis.vis * vis.imaging_weight)[..., 0].reshape(-1)
+    rows["grid"] = grid_row(gp, sort_values(gp, weighted), "MFS plan (one launch a cycle)")
+    del weighted
+    stack_shapes(plan, "MFS plan")
+    rel = mfs_sum_of_channels(vis, plan, model)
+    say(f"MFS invert vs the sum of the {vis.nchan} channels' (same geometry): "
+        f"{rel:.3e} of the image maximum (bound {MFS_TOL})")
+    if not rel < MFS_TOL:
+        raise AssertionError("MFS invert differs from the sum of its channels")
+    psf, _ = invert_visibility(vis, model, dopsf=True, plan=plan)
+    dirty, _ = invert_visibility(vis, model, plan=plan)
+    kw = dict(gain=CLEAN["gain"], thresh=0.0, niter=CLEAN["niter"],
+              fracthresh=CLEAN["fractional_threshold"])
+    patch = bound_psf(psf, psf).pixels[0, 0].to(torch.float32)
+    rows["msclean"] = msclean_case("msclean MFS", dirty.pixels[0, 0].to(torch.float32),
+                                   patch, kw, with_floor=False)
+    del psf, dirty, patch, plan, gp
+    torch.cuda.empty_cache()
+
+    clean = dict(scales=SCALES, **CLEAN)
+    total, out = None, {}
+    for label, fused in (("fused", True), ("composed", False)):
+        name = f"MFS continuum_imaging {label}"
+        (current, res, restored), counts, peaks = run_logged(
+            name,
+            lambda: continuum_imaging(vis, model, nmajor=3, context="ng", fused=fused,
+                                      **clean),
+            3, ("grid", "degrid", "msclean"),
+        )
+        if fused:
+            _npol_launch_gate(name, counts, 3, 1, cal=False, clean=("msclean", 3))
+        flux = model_flux_near(current, 0, cube_size["offset"])
+        say(f"{name}: model flux within 10 px of the source {flux:.4f}")
+        out[label] = (peaks[-1], float(restored.pixels.max()))
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    (rf, sf), (rc, sc) = out["fused"], out["composed"]
+    say(f"MFS continuum_imaging fused vs composed: residual peak {rf:.6f} vs {rc:.6f} "
+        f"(bound 1e-3 relative), restored peak {sf:.4f} vs {sc:.4f} (bound 0.05)")
+    if not (abs(rf - rc) < 1e-3 * rc and abs(sf - sc) < 0.05):
+        raise AssertionError("MFS continuum_imaging: the fused and composed paths disagree")
+
+    corrupted, truth = corrupt_terms(vis, [("T", None, 0.4, 0.0), B_TERM], seed=44)
+    del vis
+    out = {}
+    for label, fused in (("fused", True), ("composed", False)):
+        name = f"MFS TB ical {label}"
+        with solve_timer("TB") as times:
+            (_, res, _, gts), counts, peaks = run_logged(
+                name,
+                lambda: ical(corrupted, model, nmajor=3, calibration_context="TB",
+                             context="ng", fused=fused, **clean),
+                3, ("grid", "degrid", "permute", "msclean"),
+            )
+        _steady_solves(name, times)
+        if fused:
+            _npol_launch_gate(name, counts, 3, 1, clean=("msclean", 3))
+        b = gains_of(gts["B"])
+        berr = channel_phase_error(b, truth["B"])
+        say(f"{name}: B gains vs truth, largest per-channel difference {berr:.4f} (bound 0.5)")
+        if not berr < 0.5:
+            raise AssertionError(f"{name}: B gains {berr} from the truth")
+        out[label] = (b, peaks[-1])
+        total = {k: total[k] + counts[k] for k in total}
+        del res, gts
+    (bf, rf), (bc, rc) = out["fused"], out["composed"]
+    apart = channel_phase_error(bf, bc)
+    say(f"MFS TB ical fused vs composed: B gains {apart:.3e} apart (bound {TB_TOL}), "
+        f"residual peak {rf:.6f} vs {rc:.6f} (bound {TB_TOL})")
+    if not (apart < TB_TOL and abs(rf - rc) < TB_TOL):
+        raise AssertionError("MFS TB ical: the fused and composed paths disagree")
+    del corrupted
+    torch.cuda.empty_cache()
+    return total, rows
+
+
+def jones_slice(device):
+    """Phase 11d on ``device``: the "matrix" "T" (8% leakage, 5%
+    amplitudes) + "B" chain on the bandpass cube's layout with linear
+    visibilities imaged MFS (a linear 128^2 model) and a polarised
+    component seeding the sky, fused, Hogbom to a fractional threshold of
+    0.2, 2 cycles. Returns (gains {T, B}, residual, launch counts)."""
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.models import SkyComponents, create_visibility_from_arrays
+    from ska_sdp_func_python_torch.ops import dft_skycomponent_visibility
+    from ska_sdp_func_python_torch.ops.calibration_chain import create_calibration_controls
+    from ska_sdp_func_python_torch.ops.imaging import create_image_from_visibility
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    # the bandpass cube's layout, hour angles and channels, in the linear frame
+    cube, _ = simulate_cube(device, **SMALL_JONES)
+    vis = create_visibility_from_arrays(
+        **{k: getattr(cube, k).cpu().numpy()
+           for k in ("uvw", "time", "frequency", "antenna1", "antenna2")},
+        phasecentre=cube.phasecentre, polarisation_frame="linear", nants=cube.nants,
+        device=device,
+    )
+    model = create_image_from_visibility(vis, npixel=SMALL_JONES["npixel"],
+                                         oversampling=SMALL_JONES["oversampling"], nchan=1)
+    n, (dx, dy) = model.npixel, SMALL_JONES["offset"]
+    sky = SkyComponents.from_lists(
+        [[float(c) for c in model.pixel_to_radec(n // 2 + dx, n // 2 + dy)]],
+        np.tile(np.asarray([[[2.0, 0.3, 0.15, 0.0]]]), (1, vis.nchan, 1)),
+        vis.frequency, polarisation_frame="stokesIQUV", device=device,
+    )
+    vis = dft_skycomponent_visibility(vis, sky)
+    vis, _ = corrupt_jones(vis, 0.2, amp=0.05, leak=LEAK, seed=48)
+    vis, _ = corrupt_jones(vis, 0.1, amp=0.05, seed=49, jones_type="B", timeslice=1e5)
+    controls = create_calibration_controls()
+    controls["T"] = dict(controls["T"], shape="matrix", phase_only=False)
+    controls["B"] = dict(controls["B"], first_selfcal=0)
+    kernels.reset_launch_counts()
+    _, r, _, g = ical(
+        vis, model, components=sky, nmajor=2, calibration_context="TB",
+        controls=controls, context="ng", algorithm="hogbom", niter=300, gain=0.2,
+        fractional_threshold=0.2,
+    )
+    return {t: g[t].gain.detach().cpu().numpy() for t in "TB"}, r, kernels.launch_counts()
+
+
+def small_jones_slice(device):
+    """Phase 11d: :func:`jones_slice` on the card and on the CPU: every
+    gain entry within 1e-4 relative, residual peaks within 1e-3 relative."""
+    runs = {dev: jones_slice(dev) for dev in (device, "cpu")}
+    (ga, ra, counts), (gb, rb, _) = runs[device], runs["cpu"]
+    _launch_gate("small full-Jones MFS fused", counts, ("grid", "degrid", "permute", "hogbom"))
+    dg = max(float(np.max(np.abs(ga[t] - gb[t])) / max(np.max(np.abs(gb[t])), 1.0))
+             for t in "TB")
+    pa, pb = float(ra.pixels.abs().max()), float(rb.pixels.abs().max())
+    say(f"small full-Jones T + B MFS card vs cpu: gains {dg:.2e} (bound 1e-4), "
+        f"residual peak {pa:.6f} vs {pb:.6f} (bound 1e-3 rel)")
+    if not (dg < 1e-4 and abs(pa - pb) < 1e-3 * pb):
+        raise AssertionError("small full-Jones MFS: card and cpu disagree")
+
+
 def observation9(cfg, device, dtype, ntimes=76, npixel=1024, source=SOURCE9):
     """Phase 9's observation: the flagship layout and hour angles with
     natural weights, in ``dtype`` on ``device``, holding the exact DFT of
@@ -2072,6 +2604,17 @@ def main() -> int:
         launches[name] += counts[name]
     by_shape["config-4 cube TB ical (phase 10b)"] = counts
     small_calibration_slices(device)
+    torch.cuda.empty_cache()
+
+    counts, _ = run_polarised_flagship(cfg, device)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["polarised flagship (phases 11a-b)"] = counts
+    counts, _ = run_mfs(device)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["config-4 MFS (phase 11c)"] = counts
+    small_jones_slice(device)
     torch.cuda.empty_cache()
 
     results["unit_tiles"], counts = run_epsilon_phase(cfg, device)

@@ -3,8 +3,9 @@
 Each function takes an object of the JAX package (or anything with the
 same fields), reads every field through ``np.asarray`` and builds the
 port's object on a chosen device (None: the CUDA card), keeping the numpy
-dtypes (a JAX object made under x64 arrives in f64). Nothing here imports
-JAX: the arrays arrive as numpy.
+dtypes (a JAX object made under x64 arrives in f64) and the shapes (2x2
+gaintables of polarised data included); polarisation frames arrive as
+their names. Nothing here imports JAX: the arrays arrive as numpy.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from .config import resolve_device
 from .models.components import SkyComponents
 from .models.gaintable import GainTable
 from .models.image import Image
+from .models.polarisation import frame_name
 from .models.visibility import Visibility
 
 __all__ = [
@@ -46,7 +48,7 @@ def to_visibility(vis, device=None) -> Visibility:
         antenna1=_t(vis.antenna1, device).to(torch.int32),
         antenna2=_t(vis.antenna2, device).to(torch.int32),
         phasecentre=np.asarray(vis.phasecentre, np.float64),
-        polarisation_frame=str(vis.polarisation_frame),
+        polarisation_frame=frame_name(vis.polarisation_frame),
         nants=int(vis.nants),
         station_diameter=float(vis.station_diameter),
     )
@@ -63,7 +65,7 @@ def to_image(im, device=None) -> Image:
         if im.clean_beam is None
         else np.asarray(im.clean_beam, np.float64),
         cellsize=float(im.cellsize),
-        polarisation_frame=str(im.polarisation_frame),
+        polarisation_frame=frame_name(im.polarisation_frame),
     )
 
 
@@ -89,7 +91,7 @@ def to_skycomponents(sc, device=None) -> SkyComponents:
         frequency=_t(sc.frequency, device),
         shape_params=_t(sc.shape_params, device),
         shape=str(sc.shape),
-        polarisation_frame=str(sc.polarisation_frame),
+        polarisation_frame=frame_name(sc.polarisation_frame),
     )
 
 

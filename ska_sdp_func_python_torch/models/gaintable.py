@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import complex_of, not_ported
+from ..config import complex_of
 
 __all__ = ["GainTable", "create_gaintable_from_visibility"]
 
@@ -68,10 +68,10 @@ def create_gaintable_from_visibility(
 ) -> GainTable:
     """A unit gaintable matching ``vis``, on its device: "T" and "G" get
     one solution channel at the mean frequency, "B" one per visibility
-    channel. Only the scalar tables of stokesI data are ported."""
-    if vis.npol != 1:
-        raise not_ported("gaintables for npol > 1", "S7x")
+    channel. ``nrec`` is 1 for stokesI visibilities, else 2 (unit
+    diagonal, zero off-diagonal)."""
     device = vis.device
+    nrec = 1 if vis.npol == 1 else 2
     rdtype = vis.weight.dtype
     centres, widths = _solution_intervals(
         vis.time.cpu().numpy(), vis.integration_time.cpu().numpy(), timeslice
@@ -84,11 +84,12 @@ def create_gaintable_from_visibility(
             [float(vis.frequency.mean())], device=device
         ).to(rdtype)
     nchan = frequency.shape[0]
-    shape = (ntab, vis.nants, nchan, 1, 1)
+    shape = (ntab, vis.nants, nchan, nrec, nrec)
+    eye = torch.eye(nrec, dtype=complex_of(rdtype), device=device)
     return GainTable(
-        gain=torch.ones(shape, dtype=complex_of(rdtype), device=device),
+        gain=eye.expand(shape).clone(),
         weight=torch.ones(shape, dtype=rdtype, device=device),
-        residual=torch.zeros((ntab, nchan, 1, 1), dtype=rdtype, device=device),
+        residual=torch.zeros((ntab, nchan, nrec, nrec), dtype=rdtype, device=device),
         time=torch.as_tensor(centres, device=device).to(rdtype),
         interval=torch.as_tensor(widths, device=device).to(rdtype),
         frequency=frequency.clone(),

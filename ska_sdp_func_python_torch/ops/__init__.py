@@ -11,7 +11,12 @@ from .calibration_chain import (
 from .cleaners import hogbom
 from .deconvolution import bound_psf, fit_psf, restore_cube
 from .dft import dft_skycomponent_visibility, idft_visibility_skycomponent
-from .gain_ops import apply_gaintable, concatenate_gaintables, multiply_gaintables
+from .gain_ops import (
+    apply_gaintable,
+    apply_jones,
+    concatenate_gaintables,
+    multiply_gaintables,
+)
 from .gridding_plan import degrid_with_plan, grid_with_plan, make_grid_plan
 from .imaging import (
     create_image_from_visibility,
@@ -25,7 +30,14 @@ from .imaging import (
 from .permute import permute_apply
 from .skycomponent_ops import restore_skycomponent
 from .solvers import build_normal_equations, solve_gaintable, solve_gains_core
-from .visibility_ops import divide_visibility, subtract_visibility
+from .visibility_ops import (
+    convert_visibility_stokesI_to_polframe,
+    convert_visibility_to_stokes,
+    convert_visibility_to_stokesI,
+    divide_visibility,
+    expand_polarizations,
+    subtract_visibility,
+)
 
 __all__ = [
     "apply_calibration_chain",
@@ -39,6 +51,7 @@ __all__ = [
     "dft_skycomponent_visibility",
     "idft_visibility_skycomponent",
     "apply_gaintable",
+    "apply_jones",
     "concatenate_gaintables",
     "multiply_gaintables",
     "degrid_with_plan",
@@ -56,6 +69,10 @@ __all__ = [
     "build_normal_equations",
     "solve_gaintable",
     "solve_gains_core",
+    "convert_visibility_stokesI_to_polframe",
+    "convert_visibility_to_stokes",
+    "convert_visibility_to_stokesI",
     "divide_visibility",
+    "expand_polarizations",
     "subtract_visibility",
 ]

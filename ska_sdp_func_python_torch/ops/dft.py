@@ -16,6 +16,7 @@ import torch
 
 from ..config import frac_dot_turns, not_ported, real_of
 from ..models.components import SkyComponents
+from ..models.polarisation import convert_pol_frame
 from ..models.visibility import Visibility
 from ..utils.coordinates import radec_to_lmn
 
@@ -29,10 +30,13 @@ __all__ = [
 
 def extract_direction_and_flux(sc: SkyComponents, vis: Visibility):
     """Component (l, m, n-1) as a (hi, lo) pair ``[ncomp, 3, 2]`` and the
-    fluxes on the vis channels ``[ncomp, nchan, npol]``."""
-    if sc.polarisation_frame != vis.polarisation_frame:
-        raise not_ported("component polarisation conversion", "S7x")
+    fluxes on the vis channels and in the vis frame ``[ncomp, nchan,
+    npol]``."""
     flux = sc.flux
+    if sc.polarisation_frame != vis.polarisation_frame:
+        flux = convert_pol_frame(
+            flux, sc.polarisation_frame, vis.polarisation_frame, polaxis=-1
+        )
     if flux.shape[1] == vis.nchan:
         vflux = flux
     elif flux.shape[1] == 1:
@@ -105,12 +109,11 @@ def dft_skycomponent_visibility(
 def idft_visibility_skycomponent(vis: Visibility, sc: SkyComponents):
     """Component fluxes from the visibilities: the weighted sum of V
     times the conjugate phasor of each component's direction, over the
-    sum of weights, per (channel, polarisation). Returns (components with
-    that flux, weights ``[nchan, npol]``)."""
+    sum of weights, per (channel, polarisation), taken back from the vis
+    frame to the components' frame. Returns (components with that flux,
+    weights ``[nchan, npol]`` in the vis frame)."""
     if sc is None:
         return sc, None
-    if sc.polarisation_frame != vis.polarisation_frame:
-        raise not_ported("component polarisation conversion", "S7x")
     l, m, n1 = radec_to_lmn(
         sc.direction[:, 0], sc.direction[:, 1], *vis.phasecentre
     )
@@ -123,4 +126,8 @@ def idft_visibility_skycomponent(vis: Visibility, sc: SkyComponents):
     weight = fw.sum(dim=(0, 1))  # [nchan, npol]
     ok = weight[None] > 0.0
     flux = torch.where(ok, flux / torch.where(ok, weight[None], 1.0), 0.0).real
+    if sc.polarisation_frame != vis.polarisation_frame:
+        flux = convert_pol_frame(
+            flux, vis.polarisation_frame, sc.polarisation_frame, polaxis=-1
+        ).real
     return sc.replace(flux=flux.to(sc.flux.dtype)), weight

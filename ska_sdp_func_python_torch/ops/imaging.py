@@ -769,14 +769,17 @@ def make_visibility_plan(
 ) -> VisibilityImagingPlan:
     """Precompute the gridding geometry for these (vis, model)
     coordinates: one plan per image channel, each from the visibility
-    channel of the same index. ``coords="host64"`` computes the pixel
+    channel of the same index, or, for an image of one channel from
+    several visibility channels (multi-frequency synthesis, ``mfs``), one
+    plan over all of them, its entries in the (time, baseline, channel)
+    order of the visibilities, each at its channel's frequency.
+    ``coords="host64"`` computes the pixel
     coordinates in f64 on the host (compensated (hi, lo) pairs for an f32
     Visibility, f64 for an f64 one); ``w_interp`` "linear" (default) or
     "eskernel"; ``padding`` defaults to 1.25."""
     if context == "awprojection":
         raise ValueError("plans are not supported for awprojection")
-    if model.nchan == 1 and vis.nchan > 1:
-        raise not_ported("multi-frequency synthesis (MFS) plans", "S10")
+    mfs = model.nchan == 1 and vis.nchan > 1
     if model.nchan > vis.nchan:
         raise ValueError(
             f"{model.nchan} image channels for {vis.nchan} visibility channels"
@@ -795,10 +798,11 @@ def make_visibility_plan(
     nchan = model.nchan
     plans, store, tails = [], {}, {}
     for c in range(nchan):
+        fsel = slice(None) if mfs else slice(c, c + 1)
         ip = make_imaging_plan(
-            uvw_l[:, :, c, 0].reshape(-1),
-            uvw_l[:, :, c, 1].reshape(-1),
-            uvw_l[:, :, c, 2].reshape(-1),
+            uvw_l[:, :, fsel, 0].reshape(-1),
+            uvw_l[:, :, fsel, 1].reshape(-1),
+            uvw_l[:, :, fsel, 2].reshape(-1),
             npixel=model.npixel,
             cellsize=model.cellsize,
             support=support,
@@ -827,7 +831,7 @@ def make_visibility_plan(
         support=support,
         nw=nwp,
         do_wstacking=do_wstacking,
-        mfs=False,
+        mfs=mfs,
         npixel=model.npixel,
         nchan=nchan,
         stack=GridPlanStack.of(store, [p.gp for p in plans]) if store else None,
@@ -878,12 +882,10 @@ def _auto_plan(
 
 
 def _check_plan(plan: VisibilityImagingPlan, model: Image, mfs: bool) -> None:
-    if mfs:
-        raise not_ported("multi-frequency synthesis (MFS) plans", "S10")
-    if plan.nchan != model.nchan or plan.npixel != model.npixel:
+    if plan.nchan != model.nchan or plan.npixel != model.npixel or plan.mfs != mfs:
         raise ValueError(
-            f"plan for {plan.nchan} channels of {plan.npixel}^2, image "
-            f"{tuple(model.pixels.shape)}"
+            f"plan for {plan.nchan} channels of {plan.npixel}^2 (mfs "
+            f"{plan.mfs}), image {tuple(model.pixels.shape)} (mfs {mfs})"
         )
 
 
@@ -994,6 +996,10 @@ def invert_visibility(
         svis.flagged_vis, vis.polarisation_frame, model.polarisation_frame
     )
     wgt = svis.flagged_imaging_weight
+    if wgt.shape[-1] != ms.shape[-1]:
+        # the conversion changed the polarisation count: the first
+        # polarisation's weights serve every one
+        wgt = wgt[..., :1].expand(ms.shape)
     if dopsf:
         # unit amplitude in the first polarisation only
         ms = torch.zeros_like(ms)
@@ -1044,9 +1050,9 @@ def predict_visibility(
 ) -> Visibility:
     """Model image -> visibilities. Each image channel degrids into the
     visibility channel of the same index (an image of one channel, into
-    all of them on the core path). Plans, the cache and ``epsilon=`` as
-    in :func:`invert_visibility`. Returns ``vis`` with its ``vis``
-    replaced."""
+    all of them: multi-frequency synthesis). Plans, the cache and
+    ``epsilon=`` as in :func:`invert_visibility`. Returns ``vis`` with
+    its ``vis`` replaced."""
     support, nwp, do_wstacking, plan, kwargs = _route(
         vis, model, context, support, nw, plan, dict(kwargs)
     )
@@ -1061,12 +1067,16 @@ def predict_visibility(
     )
     if plan is not None and plan.stack is not None:
         # every channel in one batched head, degrid and permute
-        ntime, nbl = newvis.shape[:2]
+        ntime, nbl, nvchan = newvis.shape[:3]
         for pol in range(npol_img):
             vals = predict_with_stack(plan, model.pixels[:, pol])
-            newvis[:, :, :nchan_img, pol] = (
-                vals.reshape(nchan_img, ntime, nbl).permute(1, 2, 0).to(cdtype)
-            )
+            if mfs:
+                # the one plan's stream is in (time, baseline, channel) order
+                newvis[..., pol] = vals.reshape(ntime, nbl, nvchan).to(cdtype)
+            else:
+                newvis[:, :, :nchan_img, pol] = (
+                    vals.reshape(nchan_img, ntime, nbl).permute(1, 2, 0).to(cdtype)
+                )
     else:
         for chan in range(nchan_img):
             fsel = slice(None) if mfs else slice(chan, chan + 1)

@@ -1,13 +1,17 @@
-"""Batched StefCal gain solver, scalar path, and the gaintable solve.
+"""Batched StefCal gain solver (the scalar and the 2x2 matrix lanes) and
+the gaintable solve.
 
-Counterpart of ``ne_index_map``, ``_gain_substitution_scalar``,
-``_solve_scalar_one``, ``solve_gains_core``, ``build_normal_equations``
-and ``solve_gaintable`` in ``ska_sdp_func_python_tpu/ops/solvers.py``.
-Plain PyTorch, as the JAX package left it to XLA. All solution intervals iterate together; an
-interval whose update changed by less than ``tol`` (or that reached
-``niter``) freezes while the others go on, exactly as the JAX
-``vmap``-ed ``while_loop`` does. The iteration order, the 0.5 damping,
-the reference-antenna phasing and the residual are the JAX package's.
+Counterpart of ``ne_index_map``, the gain substitutions, the per-lane
+solves, ``solve_gains_core``, ``build_normal_equations`` and
+``solve_gaintable`` in ``ska_sdp_func_python_tpu/ops/solvers.py``. Plain
+PyTorch, as the JAX package left it to XLA. All solution intervals
+iterate together; an interval whose update changed by less than ``tol``
+(or that reached ``niter``) freezes while the others go on, exactly as
+the JAX ``vmap``-ed ``while_loop`` does. The iteration order, the 0.5
+damping, the reference-antenna phasing (scalar lane) and the residuals
+are the JAX package's. The matrix lane substitutes every entry of the
+2x2 gains on its own, as broadcast products summed over the antennas,
+not as matrix products.
 """
 
 from __future__ import annotations
@@ -15,7 +19,6 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import not_ported
 from ..models.gaintable import GainTable, create_gaintable_from_visibility
 from ..models.visibility import Visibility
 from .visibility_ops import divide_visibility
@@ -91,6 +94,78 @@ def _solution_residual_scalar(gain, x, xwt):
     return res[..., None, None]
 
 
+def _gain_substitution_matrix(gain, wx, w):
+    """Entrywise 2x2 substitution, batched over intervals: gain ``[nsol,
+    nants, nchan, 2, 2]``; ``wx`` = w x and ``w`` (off-diagonal-masked
+    weights) ``[nsol, nants, nants, nchan, 2, 2]``. top_j = sum_i w_ij
+    x_ij g_i, bot_i = sum_j w_ij |g_j|^2; the weight is the unmasked
+    bot."""
+    top = torch.sum(wx * gain[:, :, None], dim=1)
+    bot = torch.sum(w * (gain * gain.conj()).real[:, None], dim=2)
+    ok = bot > 0.0
+    newg = torch.where(ok, top / torch.where(ok, bot, 1.0), 0.0)
+    return newg, bot
+
+
+def _solution_residual_matrix(gain, x, xwt):
+    """RMS weighted residual per interval and 2x2 entry ``[nsol, nchan, 2,
+    2]``: x_ij - conj(g_i) g_j entrywise."""
+    d = x - gain.conj()[:, :, None] * gain[:, None, :]
+    res = torch.sum((d.conj() * xwt * d).real, dim=(1, 2))
+    sumwt = torch.sum(xwt, dim=(1, 2))
+    ok = sumwt > 0.0
+    return torch.where(ok, torch.sqrt(res / torch.where(ok, sumwt, 1.0)), 0.0)
+
+
+def _iterate(gain, gwt, step, niter, tol):
+    """The batched StefCal loop: ``step(gain) -> (new gain, new weight,
+    change)`` until every interval's change is below ``tol`` or ``niter``
+    passes; a converged interval keeps its state while the others go
+    on. The convergence test reads the host once a pass."""
+    nsol = gain.shape[0]
+    change = torch.full((nsol,), float("inf"), dtype=gwt.dtype, device=gain.device)
+    bshape = (nsol,) + (1,) * (gain.ndim - 1)
+    it = 0
+    while True:
+        active = change >= tol
+        if it >= niter or not bool(active.any()):
+            break
+        newgain, newgwt, new_change = step(gain)
+        act = active.reshape(bshape)
+        gain = torch.where(act, newgain, gain)
+        gwt = torch.where(act, newgwt, gwt)
+        change = torch.where(active, new_change, change)
+        it += 1
+    return gain, gwt
+
+
+def _solve_matrix(x, xwt, gain0, niter, tol, phase_only):
+    """Matrix-lane solve of every interval: x ``[nsol, nants, nants,
+    nchan, 2, 2]`` (an npol-2 problem already embedded). The start has
+    its off-diagonal gains zeroed; the change is taken before the 0.5
+    damping."""
+    x, xwt = _symmetrise(x, xwt)
+    gain = gain0.clone()
+    gain[..., 0, 1] = 0.0
+    gain[..., 1, 0] = 0.0
+    nsol, nants = x.shape[:2]
+    offdiag = ~torch.eye(nants, dtype=torch.bool, device=x.device)
+    w = xwt * offdiag[None, :, :, None, None, None].to(xwt.dtype)
+    wx = w * x
+
+    def step(g):
+        newg, newgwt = _gain_substitution_matrix(g, wx, w)
+        if phase_only:
+            newg = _phase_normalise(newg)
+        change = (newg - g).abs().reshape(nsol, -1).amax(dim=1)
+        return 0.5 * (newg + g), newgwt, change
+
+    gwt0 = torch.zeros(gain0.shape, dtype=xwt.dtype, device=x.device)
+    gain, gwt = _iterate(gain, gwt0, step, niter, tol)
+    wx = w = None  # the residual needs neither: free them first
+    return gain, gwt, _solution_residual_matrix(gain, x, xwt)
+
+
 def _solve_scalar(x, xwt, gain0, niter, tol, phase_only, refant, damping):
     """Scalar-path solve of every interval: x ``[nsol, nants, nants,
     nchan, 1]``."""
@@ -98,27 +173,19 @@ def _solve_scalar(x, xwt, gain0, niter, tol, phase_only, refant, damping):
     ww = xwt[..., 0]
     xxwt = x[..., 0] * ww
     nsol = x.shape[0]
-    gain = gain0
-    gwt = torch.zeros(gain0.shape, dtype=xwt.dtype, device=x.device)
-    change = torch.full((nsol,), float("inf"), dtype=xwt.dtype, device=x.device)
-    it = 0
-    bshape = (nsol,) + (1,) * (gain.ndim - 1)
-    while True:
-        active = change >= tol
-        if it >= niter or not bool(active.any()):
-            break
-        newgain, newgwt = _gain_substitution_scalar(gain, xxwt, ww)
+
+    def step(g):
+        newgain, newgwt = _gain_substitution_scalar(g, xxwt, ww)
         if phase_only:
             newgain = _phase_normalise(newgain)
         angles = torch.angle(newgain)
         newgain = newgain * torch.exp(-1j * angles)[:, refant : refant + 1]
-        newgain = (1.0 - damping) * newgain + damping * gain
-        new_change = (newgain - gain).abs().reshape(nsol, -1).amax(dim=1)
-        act = active.reshape(bshape)
-        gain = torch.where(act, newgain, gain)
-        gwt = torch.where(act, newgwt, gwt)
-        change = torch.where(active, new_change, change)
-        it += 1
+        newgain = (1.0 - damping) * newgain + damping * g
+        change = (newgain - g).abs().reshape(nsol, -1).amax(dim=1)
+        return newgain, newgwt, change
+
+    gwt0 = torch.zeros(gain0.shape, dtype=xwt.dtype, device=x.device)
+    gain, gwt = _iterate(gain0, gwt0, step, niter, tol)
     if phase_only:
         gain = _phase_normalise(gain)
     residual = _solution_residual_scalar(gain, x, xwt)
@@ -146,17 +213,31 @@ def solve_gains_core(
     :param gain0: ``[nsol, nants, nchan, nrec, nrec]`` initial gains
     :return: (gain, gwt, residual)
 
-    ``crosspol`` selects the matrix lane, which needs npol 4; at npol 1
-    the scalar lane runs, as in the JAX package.
+    npol 1 runs the scalar lane (``crosspol`` too, as in the JAX
+    package). npol 2 and 4 run the matrix lane: npol 2 embedded into a
+    diagonal 4-pol problem, npol 4 with XY/YX zeroed unless ``crosspol``
+    keeps all four.
     """
-    if npol != 1:
-        raise not_ported("matrix (npol > 1) gain solves", "S7x")
     ok = xwt > 0.0
     xn = torch.where(ok, x / torch.where(ok, xwt, 1.0), 0.0)
     wmax = torch.amax(torch.where(ok, xwt, 0.0), dim=(1, 2, 3, 4), keepdim=True)
     wn = torch.where(ok, xwt / torch.where(wmax > 0, wmax, 1.0), 0.0)
-    return _solve_scalar(
-        xn, wn, gain0, niter, tol, phase_only, refant, damping
+    if npol == 1:
+        return _solve_scalar(
+            xn, wn, gain0, niter, tol, phase_only, refant, damping
+        )
+    if npol == 2:
+        z, zw = torch.zeros_like(xn[..., 0]), torch.zeros_like(wn[..., 0])
+        xn = torch.stack([xn[..., 0], z, z, xn[..., 1]], dim=-1)
+        wn = torch.stack([wn[..., 0], zw, zw, wn[..., 1]], dim=-1)
+    elif not crosspol:
+        keep = torch.tensor([True, False, False, True], device=x.device)
+        xn = torch.where(keep, xn, 0.0)
+        wn = torch.where(keep, wn, 0.0)
+    return _solve_matrix(
+        xn.reshape(xn.shape[:4] + (2, 2)),
+        wn.reshape(wn.shape[:4] + (2, 2)),
+        gain0, niter, tol, phase_only,
     )
 
 
@@ -213,13 +294,18 @@ def build_normal_equations(point_vis: Visibility, gain_table: GainTable):
     return assemble_normal_equations(xb, wb, ne_idx, point_vis.nants)
 
 
-def finish_solution(gain, gwt, residual, xwt, phase_only, normalise_gains):
+def finish_solution(gain, gwt, residual, xwt, phase_only, normalise_gains, eye=False):
     """What every solve does after StefCal: intervals with no data keep
-    unit gain and zero weight and residual; amplitude solves are divided
-    by the mean (or median) gain amplitude over the whole table."""
+    unit gain (every 2x2 entry one, as ``solve_gaintable`` does, or the
+    identity with ``eye``, as the fused cycle does) and zero weight and
+    residual; amplitude solves are divided by the mean (or median) gain
+    amplitude over the whole table, off-diagonal entries included."""
     has_data = torch.sum(xwt.abs(), dim=(1, 2, 3, 4)) > 0.0
     hd = has_data[:, None, None, None, None]
-    gain = torch.where(hd, gain, torch.ones_like(gain))
+    unit = torch.ones_like(gain)
+    if eye:
+        unit = torch.eye(gain.shape[-1], dtype=gain.dtype, device=gain.device).expand_as(gain)
+    gain = torch.where(hd, gain, unit)
     gwt = torch.where(hd, gwt, torch.zeros_like(gwt))
     residual = torch.where(has_data[:, None, None, None], residual, 0.0)
     if normalise_gains in ("mean", "median") and not phase_only:

@@ -5,7 +5,8 @@ Counterpart of ``ska_sdp_func_python_tpu/pipeline.py``. ``ical`` and
 card's kernels:
 
 - the fused cycle (the default wherever it applies): one plan per image
-  channel, the PSF through them, a plan-sorted workspace, and
+  channel (one over every channel for MFS), the PSF through them, a
+  plan-sorted workspace, and
   :func:`_fused_selfcal_cycle` once per major cycle. One cycle:
 
   1. degrids the model image of every channel in that channel's plan
@@ -17,9 +18,11 @@ card's kernels:
      product-form normal equations over the running corrected
      visibilities and the StefCal solve; ``continuum_imaging`` leaves
      this out;
-  4. moves the inverse gain factors into every channel's plan order (one
-     launch of kernel K4: from one shared source while every term has
-     one solution channel, else per channel);
+  4. moves the inverse gain factors of every polarisation into every
+     channel's plan order (one launch of kernel K4: from shared sources
+     while every term has one solution channel, else per channel), or,
+     with a full-Jones term, the residual formed in natural order through
+     the Mueller correction;
   5. inverts each channel's residual in plan order in turn (kernels
      K1+K2, FFT tail);
   6. CLEANs the residual cube: msclean (kernel K7, the default) or Hogbom
@@ -27,16 +30,20 @@ card's kernels:
      "mmclean"``, kernel K8) on the cube's frequency moments, with an
      optional clean window;
 
-- the composed cycle (``fused=False``, a ``"matrix"`` control, or no
-  plan): predict, ``calibrate_chain`` warm-started from the previous
-  cycle's tables, subtract, invert and ``deconvolve_cube``, each a call
-  of the public API. With a plan (the default) predict and invert run
+- the composed cycle (``fused=False``, frames or ``"matrix"`` controls
+  the fused cycle does not take, or no plan): predict,
+  ``calibrate_chain`` warm-started from the previous cycle's tables,
+  subtract, invert and ``deconvolve_cube``, each a call of the public
+  API. With a plan (the default) predict and invert run
   K3, K4 and K1 on it; with ``use_plan=False`` the imaging API serves
   them (its plan cache on the card, the core path on the CPU).
 
-The port covers stokesI, one or more image channels (one per visibility
-channel), and sky components in the model. Polarised data and
-``epsilon=`` raise and name the ROADMAP slice that brings them.
+The port covers npol 1, 2 and 4 (visibilities converted to the model's
+frame), one image channel per visibility channel or one image channel
+from all of them (multi-frequency synthesis), diagonal Jones terms and
+full-Jones ``"matrix"`` terms (a Mueller chain in the fused cycle), and
+sky components in the model. ``epsilon=`` raises: the JAX pipelines do
+not pass it to their plan.
 """
 
 from __future__ import annotations
@@ -73,7 +80,7 @@ from .ops.deconvolution import (
     restore_cube,
 )
 from .ops.dft import dft_skycomponent_visibility
-from .ops.gain_ops import _gain_row_of_time
+from .ops.gain_ops import _gain_row_of_time, _inv2x2
 from .ops.imaging import (
     invert_visibility,
     invert_with_plan,
@@ -174,16 +181,22 @@ class _SortedWorkspace:
     a major cycle never sorts them again."""
 
     def __init__(self, vis, model, plan, components=None):
-        if plan.nchan != vis.nchan:
+        if not plan.mfs and plan.nchan != vis.nchan:
             raise ValueError(
                 f"the sorted workspace images every visibility channel: "
                 f"{vis.nchan} channels, {plan.nchan} image channels"
             )
         svis = shift_vis_to_image(vis, model)
         ms = convert_pol_frame(
-            svis.flagged_vis, vis.polarisation_frame, model.polarisation_frame
+            svis.flagged_vis, vis.polarisation_frame, model.polarisation_frame,
+            polaxis=3,
         )
-        wgt = svis.flagged_imaging_weight
+        wgt, fw = svis.flagged_imaging_weight, svis.flagged_weight
+        if wgt.shape[-1] != ms.shape[-1]:
+            # the conversion changed the polarisation count: the first
+            # polarisation's weights serve every one
+            wgt = wgt[..., :1].expand(ms.shape)
+            fw = fw[..., :1].expand(ms.shape)
         comp_ms = None
         if components is not None and components.ncomp > 0:
             cvis = dft_skycomponent_visibility(
@@ -193,34 +206,50 @@ class _SortedWorkspace:
                 shift_vis_to_image(cvis, model).vis,
                 vis.polarisation_frame,
                 model.polarisation_frame,
+                polaxis=3,
             )
         self.plan = plan
+        self.mfs = plan.mfs
         self.npol = ms.shape[-1]
         # natural-order arrays for the solver leg (V_obs / V_model is
         # invariant under the phase shift, so gains solve in the image frame)
         self.ms_nat = ms
-        self.fw_nat = svis.flagged_weight
-        # each (channel, polarisation)'s sum of imaging weights
-        self.sumwt = wgt.sum(dim=(0, 1))
-        # obs_s[pol], wgt_s[pol], comp_s[pol]: [nchan, n], each channel in
-        # its plan's order; a polarisation's payloads of every channel move
-        # in one launch, by the plan stack's permutations
+        self.fw_nat = fw
+        # each (image channel, polarisation)'s sum of imaging weights
+        self.sumwt = wgt.sum(dim=(0, 1, 2))[None] if self.mfs else wgt.sum(dim=(0, 1))
+        # obs_s[pol], wgt_s[pol], comp_s[pol]: [nchan, n], each image
+        # channel in its plan's order; a polarisation's payloads of every
+        # channel move in one launch, by the plan stack's permutations
         self.obs_s, self.wgt_s = [], []
         self.comp_s = None if comp_ms is None else []
         for p in range(self.npol):
             rows = [
-                _channel_rows(ms[..., p]).to(torch.complex64).contiguous(),
-                _channel_rows(wgt[..., p]).to(torch.float32).contiguous(),
+                self.rows(ms[..., p]).to(torch.complex64).contiguous(),
+                self.rows(wgt[..., p]).to(torch.float32).contiguous(),
             ]
             if comp_ms is not None:
-                rows.append(
-                    _channel_rows(comp_ms[..., p]).to(torch.complex64).contiguous()
-                )
+                rows.append(self.rows(comp_ms[..., p]).to(torch.complex64).contiguous())
             moved = permute_apply(plan.stack.perm, *rows)
             self.obs_s.append(moved[0])
             self.wgt_s.append(moved[1])
             if comp_ms is not None:
                 self.comp_s.append(moved[2])
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """[time, baseline, chan] -> the payload rows of the plan stack:
+        ``[nchan, time * baseline]``, each channel in natural order, or
+        for an MFS plan one row of every channel in (time, baseline,
+        channel) order."""
+        if self.mfs:
+            return x.reshape(1, -1)
+        return x.permute(2, 0, 1).reshape(x.shape[2], -1)
+
+    def natural(self, rows: torch.Tensor, ntime: int, nbl: int) -> torch.Tensor:
+        """The inverse of :meth:`rows`: ``[nchan, n]`` -> [time, baseline,
+        chan]."""
+        if self.mfs:
+            return rows.reshape(ntime, nbl, -1)
+        return rows.reshape(-1, ntime, nbl).permute(1, 2, 0)
 
     def model_sorted(self, pixels: torch.Tensor, with_model: bool) -> list:
         """Per polarisation, the plan-ordered model visibilities ``[nchan,
@@ -269,12 +298,6 @@ class _SortedWorkspace:
         return normalise_sumwt(template.replace(pixels=dirty), sumwt), sumwt
 
 
-def _channel_rows(x: torch.Tensor) -> torch.Tensor:
-    """[time, baseline, chan] -> [chan, time * baseline]: each channel's
-    values in natural order, the payload layout of a plan stack."""
-    return x.permute(2, 0, 1).reshape(x.shape[2], -1)
-
-
 def _workspace_psf(ws: _SortedWorkspace, model: Image) -> Image:
     """The PSF (unit amplitude in the first polarisation) that
     ``invert_visibility(dopsf=True)`` gives on the workspace's plans: the
@@ -318,14 +341,15 @@ class _FusedCfg(typing.NamedTuple):
 
 
 class _FusedSelfCal(_SortedWorkspace):
-    """Device-resident workspace of :func:`_fused_selfcal_cycle`: stokesI,
-    one or more channels, sky components, a chain of diagonal terms
-    ("T", "G", "B"), msclean, Hogbom or MSMFS with an optional clean
+    """Device-resident workspace of :func:`_fused_selfcal_cycle`: npol 1,
+    2 or 4, one or more image channels or one MFS channel, sky
+    components, a chain of diagonal ("T", "G", "B") and full-Jones
+    ("matrix") terms, msclean, Hogbom or MSMFS with an optional clean
     window. Per term it holds the unit gaintable and the interval
     membership of each integration; what CLEAN derives from the PSF alone
-    (the msclean scale stacks per plane; the MSMFS moment weights,
-    moment-PSF peak and moment stacks) is built here once, not in every
-    cycle."""
+    (the msclean scale stacks per plane, none for a plane without PSF;
+    the MSMFS moment weights, moment-PSF peak and moment stacks) is built
+    here once, not in every cycle."""
 
     def __init__(
         self,
@@ -391,9 +415,16 @@ class _FusedSelfCal(_SortedWorkspace):
         self.psf_patch = bpsf.pixels.to(torch.float32)
         frac, cgain, cniter, cthresh, scales = common_arguments(**clean_kwargs)
         ny, nx = model.pixels.shape[-2:]
+        # a plane without PSF (every polarisation but the first) cleans
+        # nothing: the JAX package's msclean turns it into NaN components
         self.ms_stacks = (
             [
-                [msclean_psf_stacks(pp, ny, nx, scales) for pp in pc]
+                [
+                    msclean_psf_stacks(pp, ny, nx, scales)
+                    if float(pp.max()) > 0.0
+                    else None
+                    for pp in pc
+                ]
                 for pc in self.psf_patch
             ]
             if algorithm == "msclean"
@@ -441,19 +472,82 @@ class _FusedSelfCal(_SortedWorkspace):
         }
 
 
+# the receptor pair (r1, r2) of each polarisation column of a diagonal
+# Jones term: V'_p = V_p / (g1[r1, r1] conj(g2[r2, r2]))
+_POL_RECS = {1: ((0, 0),), 2: ((0, 0), (1, 1)), 4: ((0, 0), (0, 1), (1, 0), (1, 1))}
+
+
+def _mueller_apply(mm, v):
+    """sum_q mm[..., p, q] v[..., q]: Muellers ``[t, b, Fc, n, n]`` on
+    visibilities ``[t, b, nf, n]`` (Fc 1 broadcasts over the channels),
+    as a sum of broadcast products, one per column."""
+    out = None
+    for q in range(mm.shape[-1]):
+        term = mm[..., :, q] * v[..., q : q + 1]
+        out = term if out is None else out + term
+    return out
+
+
+def _mueller_product(a, b):
+    """a @ b for Muellers ``[t, b, Fc, n, n]`` (Fc broadcasts), as a sum of
+    broadcast products over the inner index."""
+    out = None
+    for q in range(a.shape[-1]):
+        term = a[..., :, q, None] * b[..., None, q, :]
+        out = term if out is None else out + term
+    return out
+
+
+def _crosspol_inverse(ws, gg, hr):
+    """The Mueller inverse of a full-Jones term, kron(J1^-1, conj(J2^-1)):
+    M[(i, l), (j, k)] = J1inv[i, j] conj(J2inv[l, k]) per (time,
+    baseline, Fc), ``[t, b, Fc, 4, 4]``; the identity where either Jones
+    is singular (|det| <= 1e-30) or the integration has no solution."""
+    gi, okd = _inv2x2(gg, min_det=1e-30)
+    g1i, g2i = gi[:, ws.a1], gi[:, ws.a2]  # [t, b, Fc, 2, 2]
+    mm = g1i[..., :, None, :, None] * g2i.conj()[..., None, :, None, :]
+    mm = mm.reshape(mm.shape[:3] + (4, 4))
+    okb = (okd[:, ws.a1] & okd[:, ws.a2]) & hr
+    eye4 = torch.eye(4, dtype=mm.dtype, device=mm.device)
+    return torch.where(okb[..., None, None], mm, eye4)
+
+
+def _diagonal_inverse(ws, gg, hr, npol):
+    """The inverse factors of a diagonal Jones term per (time, baseline,
+    Fc, polarisation), ``[t, b, Fc, npol]``: 1 / (g1[r1, r1] conj(g2[r2,
+    r2])), zero where that product is zero, one where the integration has
+    no solution."""
+    recs = _POL_RECS[npol]
+    d = torch.diagonal(gg, dim1=-2, dim2=-1)  # [t, nants, Fc, nrec]
+    g1 = d[:, ws.a1][..., [r for r, _ in recs]]
+    g2 = d[:, ws.a2][..., [r for _, r in recs]]
+    sm = g1 * g2.conj()  # [t, b, Fc, npol]
+    m2 = sm.real**2 + sm.imag**2
+    ok = m2 > 0.0
+    inv_p = torch.where(ok, sm.conj() / torch.where(ok, m2, 1.0), 0.0)
+    return torch.where(hr[..., None], inv_p, torch.ones_like(inv_p))
+
+
 def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, mvis):
-    """The diagonal lane of the term solves, term after term of the
-    context: product-form normal equations ``x*w = V conj(V_model) w``,
-    ``xwt = |V_model|^2 w`` from the running corrected natural-order
-    visibilities (summed over the channels, or per channel for a "B"
-    term), the batched StefCal solve, and the per-(time, baseline,
-    channel, pol) inverse factors V' = V / (g1 conj(g2)), which correct
-    the visibilities before the next term and multiply into the total.
-    Returns (gains, gain weights, residuals, total inverse factors
-    ``[ntime, nbl, Fc, npol]``, Fc 1 or nchan)."""
+    """The term solves, term after term of the context: product-form
+    normal equations ``x*w = V conj(V_model) w``, ``xwt = |V_model|^2 w``
+    from the running corrected natural-order visibilities (summed over
+    the channels, or per channel for a "B" term), the batched StefCal
+    solve (the scalar lane at npol 1, the matrix lane at npol 2 and 4),
+    and the inverse correction of each term, which corrects the
+    visibilities before the next term and composes into the total.
+
+    Diagonal mode (no "matrix" term): the total is per-(time, baseline,
+    Fc, polarisation) factors ``[t, b, Fc, npol]``. Matrix mode (any
+    "matrix" term, npol 4): a full-Jones term's correction is its Mueller
+    inverse, a diagonal term's the diagonal Mueller of its factors, and
+    the total ``[t, b, Fc, 4, 4]`` is their product, Fc 1 (T, G)
+    broadcast to nchan where a "B" term joins the chain. Returns (gains,
+    gain weights, residuals, total)."""
     npol = cfg.npol
     fw, corrected = ws.fw_nat, ws.ms_nat
     gains, gwts, gress = list(gains), list(gwts), list(gress)
+    matrix_mode = any(t.crosspol for t in cfg.terms)
     we = (mvis.real**2 + mvis.imag**2) * fw
     inv_tot = None
     for it, term in enumerate(cfg.terms):
@@ -469,6 +563,7 @@ def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, 
             xb = torch.einsum("st,tbfp->sbp", w_t.to(xe.dtype), xe)[:, :, None, :]
             wb = torch.einsum("st,tbfp->sbp", w_t.to(we.dtype), we)[:, :, None, :]
         x, xwt = assemble_normal_equations(xb, wb, ws.ne_idx, gains[it].shape[1])
+        del xe, xb, wb  # [t, b, ...] sized: not held through the solve
         gain_new, gwt, gres = solve_gains_core(
             x,
             xwt,
@@ -480,18 +575,25 @@ def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, 
             npol=npol,
         )
         gains[it], gwts[it], gress[it] = finish_solution(
-            gain_new, gwt, gres, xwt, term.phase_only, cfg.normalise_gains
+            gain_new, gwt, gres, xwt, term.phase_only, cfg.normalise_gains, eye=True
         )
-        gg = gains[it][cal["row_idx"]]  # [ntime, nants, Fc, 1, 1]
-        sm = gg[:, ws.a1, :, 0, 0] * gg[:, ws.a2, :, 0, 0].conj()  # [t, b, Fc]
-        m2 = sm.real**2 + sm.imag**2
-        ok = m2 > 0.0
-        inv_p = torch.where(ok, sm.conj() / torch.where(ok, m2, 1.0), 0.0)
-        # rows outside every solution interval stay uncorrected
-        hr = cal["has_row"][:, None, None]
-        inv = torch.where(hr, inv_p, torch.ones_like(inv_p))[..., None]
-        corrected = corrected * inv
-        inv_tot = inv if inv_tot is None else inv_tot * inv
+        # [ntime, nants, Fc, nrec, nrec], Fc 1 (T, G) or nchan (B)
+        gg = gains[it][cal["row_idx"]]
+        hr = cal["has_row"][:, None, None]  # rows outside every interval
+        if term.crosspol:
+            inv = _crosspol_inverse(ws, gg, hr)
+            corrected = _mueller_apply(inv, corrected)
+        else:
+            inv = _diagonal_inverse(ws, gg, hr, npol)
+            corrected = corrected * inv
+            if matrix_mode:
+                inv = inv[..., None] * torch.eye(npol, dtype=inv.dtype, device=inv.device)
+        if inv_tot is None:
+            inv_tot = inv
+        elif matrix_mode:
+            inv_tot = _mueller_product(inv, inv_tot)
+        else:
+            inv_tot = inv_tot * inv
     return gains, gwts, gress, inv_tot
 
 
@@ -501,7 +603,8 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
     Hogbom: every (chan, pol) plane cleans independently in one batch;
     lanes with an empty PSF get a unit delta and their components are
     dropped. msclean: each plane in turn, with the workspace's scale
-    stacks. Both search within the clean window when there is one.
+    stacks; a plane with an empty PSF gets no components. Both search
+    within the clean window when there is one.
 
     MSMFS: the residual cube becomes ``nmoment`` moment images over the
     peak of the moment PSFs; each polarisation is cleaned with the
@@ -534,6 +637,8 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
         comp = torch.zeros_like(residual)
         for c in range(nchan):
             for p in range(npol):
+                if ws.ms_stacks[c][p] is None:
+                    continue
                 comp[c, p], _ = msclean_with_stacks(
                     ws.ms_stacks[c][p],
                     residual[c, p],
@@ -566,20 +671,24 @@ def _fused_selfcal_cycle(
 ):
     """One self-cal major cycle in the plan-sorted domain: model degrid
     plus the components, back-permute, normal equations and StefCal solve
-    of each active term, factor permute, residual invert, CLEAN. Returns
-    (model_pixels, gains, gwts, gress, residual, sumwt, peak).
+    of each active term, the correction's permute, residual invert,
+    CLEAN. Returns (model_pixels, gains, gwts, gress, residual, sumwt,
+    peak).
 
     It serves one image channel (the JAX package's
-    ``_fused_selfcal_cycle``) and a cube (``_fused_selfcal_cycle_cube``)
-    alike: the predict and permute legs run over the plan stack of all
-    channels at once (the JAX package vmaps them over the channel-stacked
-    plans), the solve takes the model visibilities of all channels as
-    ``[time, baseline, chan, pol]``, and the invert leg runs on each
-    channel's plan in turn."""
+    ``_fused_selfcal_cycle``), a cube (``_fused_selfcal_cycle_cube``) and
+    an MFS plan alike: the predict and permute legs run over the plan
+    stack of all channels at once (the JAX package vmaps them over the
+    channel-stacked plans), each K4 launch moves every polarisation, the
+    solve takes the model visibilities as ``[time, baseline, chan, pol]``
+    (an MFS plan's one row reshaped), and the invert leg runs on each
+    channel's plan in turn. With diagonal terms the inverse factors go
+    to plan order and multiply the sorted observations; with a "matrix"
+    term the Mueller correction mixes polarisations, so the residual is
+    formed in natural order and goes to plan order instead."""
     cfg = ws.cfg
-    plan = ws.plan
-    perm = plan.stack.perm
-    nchan, npol = cfg.nchan, cfg.npol
+    perm = ws.plan.stack.perm
+    npol = cfg.npol
     # [nchan, n] per polarisation, each channel in its plan's order
     model_s = [
         ws.obs_s[p] * 0.0 if m is None else m
@@ -587,34 +696,33 @@ def _fused_selfcal_cycle(
     ]
 
     any_cal = any(do_cal)
-    if any_cal:
+    if not any_cal:
+        resid_s = [o - m for o, m in zip(ws.obs_s, model_s)]
+    else:
         ntime, nbl = ws.cal[0]["w_t"].shape[1], ws.a1.shape[0]
-        mvis = torch.stack(
-            [
-                permute_apply(plan.stack.iperm, model_s[p]).reshape(nchan, ntime, nbl)
-                for p in range(npol)
-            ],
-            dim=-1,
-        ).permute(1, 2, 0, 3)  # [t, b, nchan, npol]
+        nat = _as_list(permute_apply(ws.plan.stack.iperm, *model_s))
+        mvis = torch.stack([ws.natural(m, ntime, nbl) for m in nat], dim=-1)
         gains, gwts, gress, inv_tot = _solve_terms(
             ws, cfg, gains, gwts, gress, do_cal, mvis
         )
-
-    resid_s = []
-    for p in range(npol):
-        if not any_cal:
-            corr = ws.obs_s[p]
-        elif inv_tot.shape[2] == 1:
-            # one (time, baseline) factor serves every channel: a shared
-            # source of the stacked permute
-            f_p = inv_tot[:, :, 0, p].reshape(-1).contiguous()
-            corr = ws.obs_s[p] * permute_apply(perm, f_p, shared=(0,))
+        if inv_tot.ndim == 5:
+            resid_nat = _mueller_apply(inv_tot, ws.ms_nat) - mvis
+            rows = [ws.rows(resid_nat[..., p]).contiguous() for p in range(npol)]
+            resid_s = _as_list(permute_apply(perm, *rows))
         else:
-            # a "B" term makes the factors differ per channel: one payload
-            # row per channel
-            f_p = _channel_rows(inv_tot[..., p]).contiguous()
-            corr = ws.obs_s[p] * permute_apply(perm, f_p)
-        resid_s.append(corr - model_s[p])
+            if inv_tot.shape[2] == 1 and not ws.mfs:
+                # one (time, baseline) factor serves every channel: shared
+                # sources of the stacked permute
+                rows = [inv_tot[:, :, 0, p].reshape(-1).contiguous() for p in range(npol)]
+                shared = tuple(range(npol))
+            else:
+                # a "B" term (or an MFS plan's channels in one row) spreads
+                # the factors over the channels
+                f = inv_tot.expand(-1, -1, ws.ms_nat.shape[2], -1)
+                rows = [ws.rows(f[..., p]).contiguous() for p in range(npol)]
+                shared = ()
+            inv_s = _as_list(permute_apply(perm, *rows, shared=shared))
+            resid_s = [o * g - m for o, g, m in zip(ws.obs_s, inv_s, model_s)]
     pixels, sumwt = ws.invert_sorted(resid_s, torch.float32)
     okw = sumwt > 0.0
     scale = torch.where(okw, 1.0 / torch.where(okw, sumwt, 1.0), 0.0)
@@ -624,6 +732,11 @@ def _fused_selfcal_cycle(
     model_pixels = model_pixels + comp_pixels
     peak = residual.abs().max()
     return model_pixels, gains, gwts, gress, residual, sumwt, peak
+
+
+def _as_list(moved) -> list:
+    """permute_apply's result (one tensor or a tuple) as a list."""
+    return list(moved) if isinstance(moved, tuple) else [moved]
 
 
 def ical(
@@ -639,7 +752,8 @@ def ical(
     **kwargs,
 ):
     """ICAL: iterative calibration + imaging self-cal loop, on one image
-    channel or a cube (one image channel per visibility channel).
+    channel, a cube (one image channel per visibility channel) or one
+    MFS channel from many, at npol 1, 2 or 4.
     ``algorithm`` is "msclean" (the default), "hogbom" or "mmclean"
     (MSMFS, which needs ``nchan > 2 (nmoment - 1)``).
     ``calibration_context`` orders the terms of ``controls`` ("T", "G",
@@ -653,8 +767,17 @@ def ical(
     if controls is None:
         controls = create_calibration_controls()
     fused, plan, ikw = _setup("ical", vis, model, context, kwargs)
-    can_fuse = plan is not None and all(
-        controls[c]["shape"] in ("scalar", "vector") for c in calibration_context
+    # the JAX package's gate: the solve runs in the model's frame, so the
+    # frames agree; full-Jones terms fuse at npol 4 on one image channel
+    can_fuse = (
+        plan is not None
+        and vis.npol == model.npol
+        and (vis.npol == 1 or vis.polarisation_frame == model.polarisation_frame)
+        and all(
+            controls[c]["shape"] in ("scalar", "vector")
+            or (controls[c]["shape"] == "matrix" and vis.npol == 4 and model.nchan == 1)
+            for c in calibration_context
+        )
     )
     if _fuse(fused, can_fuse):
         return _ical_fused(
@@ -877,8 +1000,6 @@ def _setup(name: str, vis, model, context: str, kwargs: dict):
     if kwargs.get("epsilon") is not None:
         # the JAX pipelines do not pass epsilon to their plan
         raise not_ported(f"{name}(epsilon=...)", "S7x")
-    if vis.npol != 1 or model.npol != 1:
-        raise not_ported(f"polarised {name} (npol > 1)", "S7x")
     _check_algorithm(model, kwargs)
     ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
     plan = (

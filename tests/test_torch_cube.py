@@ -97,12 +97,14 @@ def test_cube_plans_match_jax(cube):
         np.testing.assert_array_equal(pp.gp.perm.numpy(), perm)
     # channels differ in frequency, so their plans order differently
     assert not torch.equal(pplan.plans[0].gp.perm, pplan.plans[3].gp.perm)
-    mfs = pmodel.replace(
-        pixels=pmodel.pixels[:1], frequency=pmodel.frequency[:1],
-        channel_bandwidth=pmodel.channel_bandwidth[:1],
-    )
-    with pytest.raises(NotImplementedError, match="S10"):
-        make_visibility_plan(pvis, mfs)
+    # an image of one channel: one MFS plan over all four channels
+    vis, model = cube[0], cube[1]
+    jmodel = jax_create_image_from_visibility(vis, npixel=64, oversampling=4.0, nchan=1)
+    jmfs = jax_make_visibility_plan(vis, jmodel, context="ng")
+    pmfs = make_visibility_plan(pvis, interop.to_image(jmodel, device=CPU))
+    assert pmfs.mfs and jmfs.mfs and pmfs.nchan == 1 and pmfs.stack.perm.shape == (1, 4 * 3 * 45)
+    perm = interop.permutation_from_backsort_keys(jmfs.plans[0].gp.geo[3, : jmfs.plans[0].gp.n])
+    np.testing.assert_array_equal(pmfs.plans[0].gp.perm.numpy(), perm)
 
 
 def test_cube_invert_and_predict_match_jax(cube):

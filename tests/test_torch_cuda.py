@@ -22,9 +22,11 @@ sums in another order: rows per lane, then a shuffle reduction) agree to
 launch; ``unit_tiles`` (atomics) agrees with its plain version
 accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
 f64. The calibration paths (the composed "TG" ical with a sky component,
-the fused "TB" bandpass cube) launch their kernels on the card and agree
-with the CPU run to the slice bounds: referenced gains 1e-4, peak
-residual 1e-3 relative.
+the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
+image) launch their kernels on the card and agree with the CPU run to the
+slice bounds: gains 1e-4, peak residual 1e-3 relative. K4 moves the
+four polarisations of a cycle's leg in one launch; K1 and K3 take an MFS
+plan's one row as they take a channel's.
 """
 
 import dataclasses
@@ -300,6 +302,61 @@ def test_permute_stack_bit_exact(dev, mode):
     ref = permute_apply_plain(perm, *payloads, inverse=inverse, shared=shared)
     for o, r in zip(out, ref, strict=True):
         assert o.shape == (nchan, n) and torch.equal(o, r)
+
+
+@pytest.mark.parametrize("nchan", [1, 3], ids=["mfs-row", "channels"])
+@pytest.mark.parametrize("mode", ["gather", "shared"])
+def test_permute_polarisations_in_one_launch(dev, nchan, mode):
+    """K4 moving the four polarisations of a cycle's leg in one launch,
+    bit-exact with the plain version: the model's plan -> natural gather
+    (four complex64 rows a channel) and the factors' natural -> plan move
+    from four shared [n] sources, on one MFS row and on a channel stack."""
+    n = 50021
+    perm = torch.stack([torch.randperm(n, device=dev) for _ in range(nchan)]).to(torch.int32)
+    g = torch.Generator(device=dev).manual_seed(nchan)
+    if mode == "gather":
+        xs = [torch.randn((nchan, n), generator=g, device=dev, dtype=torch.complex64)
+              for _ in range(4)]
+        shared = ()
+    else:
+        xs = [torch.randn(n, generator=g, device=dev, dtype=torch.complex64)
+              for _ in range(4)]
+        shared = (0, 1, 2, 3)
+    before = kernels.KERNELS["permute"].launches
+    out = permute_apply(perm, *xs, shared=shared)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["permute"].launches == before + 1
+    ref = permute_apply_plain(perm, *xs, shared=shared)
+    for o, r in zip(out, ref, strict=True):
+        assert o.shape == (nchan, n) and torch.equal(o, r)
+
+
+def test_grid_and_degrid_on_an_mfs_row_match_plain(dev):
+    """K1 and K3 on the one plan of an MFS image (six channels of the
+    small cube in one row, (time, baseline, channel) order): grid against
+    the plain version accumulated in f64, degrid over the one-row stack
+    against the plain version, both to 1e-5 of the maximum."""
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+
+    cs = _chip_smoke()
+    vis, cube = cs.simulate_cube(dev, **cs.SMALL_CUBE)
+    model = cube.replace(pixels=cube.pixels[:1].clone(), frequency=cube.frequency[:1],
+                         channel_bandwidth=cube.channel_bandwidth[:1])
+    plan = make_visibility_plan(vis, model, context="ng")
+    assert plan.mfs and plan.stack.perm.shape == (1, vis.ntimes * vis.nbaselines * vis.nchan)
+    gp = plan.plans[0].gp
+    vals = sort_values(gp, (vis.vis * vis.imaging_weight)[..., 0].reshape(-1))
+    ref = grid_plain(gp, vals.to(torch.complex128))
+    out = grid(gp, vals)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    grids = torch.randn((1, gp.nplanes, gp.npixel, gp.npixel), device=dev,
+                        dtype=torch.complex64)
+    ref = degrid_stack_plain(plan.stack, grids)
+    out = degrid_stack(plan.stack, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def test_stack_kernels_refuse_bad_inputs(dev):
@@ -1011,3 +1068,8 @@ def test_fused_tb_cube_on_card_matches_cpu(dev):
     assert all(counts[k] > 0 for k in ("grid", "degrid", "permute", "hogbom")), counts
     gb, rb, _ = cs.tb_slice("cpu")
     cs.slices_agree("fused TB cube", ga, ra, gb, rb)
+
+
+def test_full_jones_mfs_ical_on_card_matches_cpu(dev):
+    """The "matrix" "T" + "B" chain imaged MFS (chip_smoke phase 11d)."""
+    _chip_smoke().small_jones_slice(dev)
