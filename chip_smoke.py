@@ -99,9 +99,10 @@ Phases, each on lines of its own:
      composed "TG" ical of phase 7's observation with the 2.0 Jy source
      given as a sky component, and the fused "TB" ical of the JAX
      package's bandpass test cube (4 channels, Hogbom to a fractional
-     threshold of 0.2, where the picks are not near-ties); then a checkpoint
-     resume on the card (2 cycles saved, resumed to 4) equal to the
-     uninterrupted run to 1e-6.
+     threshold of 0.2, where the picks are not near-ties); then, on the
+     card, a second uninterrupted fused "TG" ical and a checkpoint resume
+     (2 cycles saved, resumed to 4), each equal to the first run to 1e-6
+     (K1 sums in fixed point, so the card's runs repeat bit for bit).
  11. polarisation and multi-frequency synthesis (after phase 10): (a) the
      flagship layout with linear visibilities (9,942,016 rows x 4
      polarisations) of the three sources at fractional Q and U, given as
@@ -128,7 +129,31 @@ Phases, each on lines of its own:
      composed, 3 cycles each, at the bounds of phases 7 and 10b; (d) a
      "matrix" "T" + "B" ical of the bandpass cube's layout in the linear
      frame imaged MFS, on the card and on the CPU, to phase 7's bounds.
-Each of phases 4-6, 8b-c, 9b-e, 10a-b and 11a-c resets the launch
+ 12. streamed self-cal over the native visibility store (after phase 9):
+     (a) phase 4's "T"-corrupted flagship observation written to a store
+     (its uniform imaging weights as the store's weights) through
+     ``streamed_ical`` in 4 slabs of 19 integrations, and the in-memory
+     fused ``ical`` on the Visibility read back whole from the store, 3
+     cycles of Hogbom each: peak residuals within 0.02, restored peaks
+     within 0.05, phase-referenced "T" gains within 5e-3 (JAX
+     tests/test_io.py:120-132), each path's peak residual falling every
+     cycle; (b) a store of 100,010,274 visibilities (the geometry of JAX
+     bench_streamed.py: 274 stations, 2,674 integrations over hour angles
+     +-pi/6, times in MJD seconds), generated a slab at a time into a
+     temporary directory and removed at the end, streamed from disk every
+     cycle (``cache_slabs=False``) in 14 slabs of 200 integrations over the
+     f16 wire with uvw computed on the card from the geometry
+     (``uvw_compute``, f64 times), 3 cycles of Hogbom on a 1024^2 image:
+     each cycle's seconds, Mvis/s and seconds in ``store.wait``, the peak
+     device memory; the restored peak within 0.2 of 2.0, the peak residual
+     falling, each kernel's launches equal to their count from slabs and
+     cycles (``scale_launches``), and 1 cycle in slabs of 100 integrations
+     below the peak memory of 1 cycle in slabs of 200; (c) 1 cycle with the
+     f32 wire and the store's uvw against 1 cycle of (b)'s settings:
+     residual images within 5e-3 of their maximum, and the geometry's uvw
+     within 1e-6 m of the store's; (d) the streamed path on phase 7's small
+     observation on the card and on the CPU, to phase 7's bounds.
+Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c and 12a-c resets the launch
 counters just before it and fails unless every kernel of its path
 launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
@@ -138,6 +163,8 @@ and exits non-zero; without a CUDA device it exits non-zero before
 printing any result.
 
 Usage: python3 chip_smoke.py
+       python3 chip_smoke.py --profile-streamed [--wire f32] [--store-uvw]
+       python3 chip_smoke.py --repeat-selfcal N   (phase 10c's run N times)
 """
 
 from __future__ import annotations
@@ -164,8 +191,9 @@ os.environ.setdefault("MKL_DYNAMIC", "FALSE")
 
 # kernel: (tolerance on the max error relative to the plain version's
 # maximum, source, the TPU kernel it replaces). grid: held against the
-# plain version accumulated in f64, since atomics change the f32 summation
-# order from run to run; degrid: f32 sums in another order; permute moves
+# plain version accumulated in f64 (the kernel sums f32 register runs in
+# int64 fixed point, and two launches must agree bit for bit); degrid: f32
+# sums in another order; permute moves
 # elements and must be bit-exact; hogbom and hogbom_complex: the same f32
 # operations in the same order; msclean and msmfs: bit for bit in rows,
 # residual and the kernel's component image or moment model.
@@ -278,6 +306,25 @@ PEAK_F64_S = 34e12
 # package's epsilon tests) and the three rows' epsilons
 SOURCE9 = (360, 280)
 EPS_FAST, EPS_PRECISE, EPS_DEEP = 1e-3, 1e-5, 5e-7
+
+# phase 12: (a) the flagship streamed in slabs of 19 integrations and the
+# JAX package's streamed-vs-in-memory bounds (tests/test_io.py:120-132:
+# residual peaks, restored peaks, phase-referenced gains); (b) the 100M
+# store (JAX bench_streamed.py:31-95: 274 stations within 2 km from
+# random_array_xyz seed 11, 2,674 integrations over hour angles +-pi/6 at
+# dec -35 deg, 120 MHz, a 2.0 Jy source at the phase centre), times in MJD
+# seconds from an epoch, a 1024^2 image at cellsize 5e-5, slabs of 200
+# integrations; the JAX package's 1B run restored 1.9936, so the bound is
+# test_composite.py's 0.2; (c) the f16 wire's bound (JAX
+# test_streaming_wide.py:344-365) and the geometry's uvw bound in metres
+STREAM_CHUNK_A = 19
+STREAM_RESIDUAL_TOL, STREAM_RESTORED_TOL, STREAM_GAIN_TOL = 0.02, 0.05, 5e-3
+SIDEREAL_S = 86164.1
+STREAMED = dict(nants=274, rmax=2000.0, seed=11, ntimes=2674, dec=np.deg2rad(-35.0),
+                frequency=1.2e8, flux=2.0, epoch=5.2424e9, npixel=1024, cellsize=5e-5,
+                chunk=200, nmajor=3)
+STREAMED_PEAK_TOL = 0.2
+WIRE_TOL, UVW_TOL = 5e-3, 1e-6
 
 
 def say(*args):
@@ -539,17 +586,19 @@ def permute_bound(n, shared=0, npay=1):
 
 def grid_row(gp, vals, label, plain_reps=1):
     """The grid kernel against its plain version accumulated in f64 (in
-    pieces) on plan ``gp`` and plan-ordered ``vals``; times both (the plain
-    version in f64) and prints the row with its bound. Returns the kernel
-    row."""
+    pieces) on plan ``gp`` and plan-ordered ``vals``, and a second launch
+    to the same bits; times both (the plain version in f64) and prints the
+    row with its bound. Returns the kernel row."""
     import torch
 
     from ska_sdp_func_python_torch.ops.gridding_fused import grid
 
     ref = grid_plain_pieces(gp, vals.to(torch.complex128))
-    err = float((grid(gp, vals) - ref).abs().max())
+    out = grid(gp, vals)
+    err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
-    del ref
+    same = torch.equal(out, grid(gp, vals))
+    del ref, out
     nchunks = int(gp.chunk_seg.shape[0])
     row = _row(
         err, rel, timed(lambda: grid(gp, vals), 10),
@@ -562,10 +611,12 @@ def grid_row(gp, vals, label, plain_reps=1):
         f"tile {gp.tile}: max abs err {err:.3e}, rel {rel:.3e} (tolerance "
         f"{KERNELS['grid'][0]:g}); kernel {row['ms']:.4f} ms, plain (f64, in "
         f"pieces) {row['plain_ms']:.3f} ms, bound {row['bound_ms']:.4f} ms "
-        f"({row['bound_by']})"
+        f"({row['bound_by']}); a second launch gives the same bits: {same}"
     )
     if not rel <= KERNELS["grid"][0]:
         raise AssertionError(f"grid {label} disagrees with its plain version")
+    if not same:
+        raise AssertionError(f"grid {label}: two launches on the same inputs differ")
     return row
 
 
@@ -659,7 +710,7 @@ def compare_gridding(device, vis, plan):
         timed(lambda: y.index_copy_(0, idx, x), 20),
     )
     say(
-        f"permute flagship ({perm.shape[0]} complex64), plan -> natural order: "
+        f"permute ({perm.shape[0]} complex64), plan -> natural order: "
         f"a gather through the inverse permutation {out['permute']['ms']:.4f} ms, "
         f"as a scatter {timed(lambda: permute_apply(perm, x, inverse=True), 20):.4f} ms; "
         f"natural -> plan order (a gather) {timed(lambda: permute_apply(perm, x), 20):.4f} ms; "
@@ -1730,19 +1781,76 @@ def slices_agree(label, gains_a, res_a, gains_b, res_b):
         raise AssertionError(f"{label}: card and cpu disagree")
 
 
+def selfcal_repeats(device, nfull, nresume):
+    """Phase 10c's checkpoint observation: the fused "TG" ical of phase
+    7's small observation with "G" gains, Hogbom, 4 cycles, run ``nfull``
+    times uninterrupted and ``nresume`` times resumed at cycle 2 from a
+    checkpoint loaded onto ``device``. Returns the (largest |model
+    difference|, |residual-peak difference|) of each later run from the
+    first: (repeats, resumes)."""
+    import tempfile
+
+    from ska_sdp_func_python_torch.pipeline import SelfCalState, ical
+
+    _, vis, model, _ = simulate(device, rmax=600.0, ntimes=8, npixel=256)
+    vis, _ = corrupt_terms(vis, [G_TERM], seed=43)
+    kw = dict(calibration_context="TG", context="ng", algorithm="hogbom", **CLEAN)
+    first = ical(vis, model, nmajor=4, **kw)
+    peak = float(first[1].pixels.abs().max())
+
+    def apart(run):
+        return (
+            float((run[0].pixels - first[0].pixels).abs().max()),
+            abs(float(run[1].pixels.abs().max()) - peak),
+        )
+
+    repeats = [apart(ical(vis, model, nmajor=4, **kw)) for _ in range(nfull - 1)]
+    resumes = []
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "selfcal.pkl")
+        for _ in range(nresume):
+            ical(vis, model, nmajor=2, checkpoint_path=path, **kw)
+            state = SelfCalState.load(path, device=device)
+            resumes.append(apart(ical(vis, model, nmajor=4, state=state, **kw)))
+    return repeats, resumes
+
+
+def repeat_selfcal(n: int) -> int:
+    """``--repeat-selfcal N``: :func:`selfcal_repeats` on the card with N
+    uninterrupted runs and N // 3 resumes; prints how many land more than
+    1e-6 from the first run and the largest differences."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    kernels.build_library()
+    say(f"device: {card_line()}")
+    t0 = time.perf_counter()
+    repeats, resumes = selfcal_repeats(torch.device("cuda", 0), n, n // 3)
+    for label, runs in (("uninterrupted", repeats), ("resumed at cycle 2", resumes)):
+        a = np.asarray(runs).reshape(-1, 2)
+        say(
+            f"{label}: {len(runs)} runs, {int((a.max(1) > 1e-6).sum())} more than "
+            f"1e-6 from the first; model differences: median {np.median(a[:, 0]):.3e}, "
+            f"largest {a[:, 0].max():.3e}; residual peaks: largest {a[:, 1].max():.3e}"
+        )
+    say(f"{time.perf_counter() - t0:.1f} s")
+    return 0
+
+
 def small_calibration_slices(device):
     """Phase 10c: the composed "TG" ical with a sky component and the
     fused "TB" bandpass cube on the card and on the CPU, to phase 7's
     bounds (the restored peaks with the CPU run's clean beam within 0.05),
-    and a checkpoint resume on the card (2 cycles saved, then ``state=``
-    to 4) equal to the uninterrupted run to 1e-6."""
-    import tempfile
-
+    and on the card (:func:`selfcal_repeats`) a second uninterrupted run
+    and a checkpoint resume (2 cycles saved, then ``state=`` to 4), each
+    equal to the first run to 1e-6."""
     import torch
 
     from ska_sdp_func_python_torch.ops.deconvolution import restore_cube
     from ska_sdp_func_python_torch.ops.skycomponent_ops import restore_skycomponent
-    from ska_sdp_func_python_torch.pipeline import SelfCalState, ical
 
     runs = {dev: tg_slice(dev) for dev in (device, "cpu")}
     (ga, da, ra, _, ca, counts), (gb, _, rb, sb, _, _) = runs[device], runs["cpu"]
@@ -1761,22 +1869,15 @@ def small_calibration_slices(device):
     _launch_gate("small TB fused", counts, ("grid", "degrid", "permute", "hogbom"))
     slices_agree("small TB fused cube", ga, ra, gb, rb)
 
-    _, vis, model, _ = simulate(device, rmax=600.0, ntimes=8, npixel=256)
-    vis, _ = corrupt_terms(vis, [G_TERM], seed=43)
-    kw = dict(calibration_context="TG", context="ng", algorithm="hogbom", **CLEAN)
-    full = ical(vis, model, nmajor=4, **kw)
-    with tempfile.TemporaryDirectory() as tmp:
-        path = os.path.join(tmp, "selfcal.pkl")
-        ical(vis, model, nmajor=2, checkpoint_path=path, **kw)
-        state = SelfCalState.load(path, device=device)
-    resumed = ical(vis, model, nmajor=4, state=state, **kw)
-    dm = float((resumed[0].pixels - full[0].pixels).abs().max())
-    dr = abs(float(resumed[1].pixels.abs().max()) - float(full[1].pixels.abs().max()))
+    [(rm, rr)], [(dm, dr)] = selfcal_repeats(device, 2, 1)
+    say(f"fused TG on the card, 4 cycles: a second run {rm:.3e} (model), {rr:.3e} "
+        f"(residual peak) from the first (bound 1e-6)")
     say(f"checkpoint resume at cycle 2 of 4 (fused TG, card): model {dm:.3e}, "
         f"residual peak {dr:.3e} from the uninterrupted run (bound 1e-6)")
+    if not (rm < 1e-6 and rr < 1e-6):
+        raise AssertionError("a second run differs from the first")
     if not (dm < 1e-6 and dr < 1e-6):
         raise AssertionError("checkpoint resume differs from the uninterrupted run")
-    del vis, model, full, resumed
     torch.cuda.empty_cache()
 
 
@@ -2422,8 +2523,8 @@ def run_plan_cache(vis, model):
     """Phase 9e: invert_visibility and predict_visibility without a plan,
     twice each: the second call of each reuses the plan the first put
     into the cache. Held to an explicit plan at padding 2 (the padding of
-    a cache miss): predict bit for bit, invert to 1e-5 of its peak (the
-    grid kernel's atomics). Returns the counts of the four calls."""
+    a cache miss): predict bit for bit, invert to 1e-5 of its peak.
+    Returns the counts of the four calls."""
     import torch
 
     from ska_sdp_func_python_torch import kernels
@@ -2503,20 +2604,568 @@ def run_epsilon_phase(cfg, device, **size):
     return row, {k: sum(c[k] for c in counts) for k in counts[0]}
 
 
-def report_kernel(name, r):
+# ---------------------------------------------------------------------------
+# phase 12: streamed self-cal over the native visibility store
+
+
+class _PeakLog(logging.Handler):
+    """Collects the peak residual of every cycle a pipeline logs."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.peaks = []
+
+    def emit(self, record):
+        msg = record.getMessage()
+        if "peak residual" in msg:
+            self.peaks.append(float(msg.rsplit(" ", 1)[1]))
+
+
+def _falls(label, peaks, nmajor):
+    """Every cycle logged a finite peak, each below the one before."""
+    if len(peaks) != nmajor or not all(np.isfinite(peaks)):
+        raise AssertionError(f"{label}: per-cycle peaks missing or not finite: {peaks}")
+    if not all(b < a for a, b in zip(peaks, peaks[1:])):
+        raise AssertionError(f"{label}: peak residual did not fall every cycle: {peaks}")
+
+
+def store_dir(nbytes):
+    """A temporary directory for a store of ``nbytes``: under the
+    temporary directory if its file system has room (1.5x), else under the
+    checkout's build/ (which git ignores). Fails if neither has."""
+    import shutil
+    import tempfile
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(build, exist_ok=True)
+    for base in (tempfile.gettempdir(), build):
+        free = shutil.disk_usage(base).free
+        say(f"store: {free / 1e9:.1f} GB free under {base}")
+        if free > 1.5 * nbytes:
+            return tempfile.TemporaryDirectory(dir=base, prefix="svis_")
+    raise AssertionError(f"store: no file system has room for {nbytes / 1e9:.1f} GB")
+
+
+def timed_store(path):
+    """A VisStore whose ``wait`` records (end time, seconds waited) in
+    ``waits``."""
+    from ska_sdp_func_python_torch.io import VisStore
+
+    class Timed(VisStore):
+        def wait(self, nt):
+            t0 = time.perf_counter()
+            out = super().wait(nt)
+            t1 = time.perf_counter()
+            self.waits.append((t1, t1 - t0))
+            return out
+
+    store = Timed(path)
+    store.waits = []
+    return store
+
+
+def streamed_run(label, store, model, nmajor, path_kernels, **kw):
+    """``streamed_ical`` on the card with the launch counters and the peak
+    memory reset just before it and read just after. Prints each cycle's
+    seconds (``on_cycle``, after a device fetch), Mvis/s and its seconds
+    in ``store.wait`` against the rest; fails unless each kernel of
+    ``path_kernels`` launched and the images are finite. Returns (result,
+    counts, logged peaks, peak GiB)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.streaming import streamed_ical
+
+    cycles, handler = [], _PeakLog()
+    logger = logging.getLogger("ska-sdp-func-python-torch")
+    logger.setLevel(logging.INFO)
+    logger.addHandler(handler)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = streamed_ical(
+            store, model, model.phasecentre, nmajor=nmajor,
+            on_cycle=lambda c, s: cycles.append((time.perf_counter(), s)), **kw,
+        )
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = kernels.launch_counts()
+    finally:
+        logger.removeHandler(handler)
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    nvis = store.ntime * store.nbl * store.nchan * store.npol
+    say(f"{label}: {nvis} visibilities, total {total:.3f} s, peak memory {peak_gib:.3f} GiB "
+        f"({peak_gib - base / 2**30:.3f} above the run's start), launches {counts}, "
+        f"peak residuals {handler.peaks}")
+    for k, (end, secs) in enumerate(cycles):
+        waited = sum(w for t, w in store.waits if end - secs <= t <= end)
+        say(f"{label}: cycle {k} {secs:.3f} s, {nvis / secs / 1e6:.2f} Mvis/s; "
+            f"store.wait {waited:.3f} s, the rest {secs - waited:.3f} s")
+    if not all(torch.isfinite(im.pixels).all() for im in out[:3]):
+        raise AssertionError(f"{label}: an output image is not finite")
+    _launch_gate(label, counts, path_kernels)
+    return out, counts, handler.peaks, peak_gib
+
+
+def referenced_gains(gt):
+    """A scalar table's gains [t, ant] with station 0's phase taken out."""
+    g = gt.gain.detach().cpu().numpy()[..., 0, 0, 0]
+    return g * np.exp(-1j * np.angle(g[:, :1]))
+
+
+def streamed_parity(device):
+    """Phase 12a: phase 4's "T"-corrupted flagship observation in a store
+    (its uniform imaging weights as the store's weights), streamed in
+    slabs of 19 integrations, against the in-memory fused ical of the
+    Visibility read back whole from the store: 3 cycles of Hogbom each,
+    at the bounds of JAX tests/test_io.py:120-132. Returns the launches
+    of both runs."""
+    from ska_sdp_func_python_torch.models import create_visibility_from_arrays
+    from ska_sdp_func_python_torch.io import write_visibility
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    _, vis, model, _ = simulate(device, rmax=40000.0, ntimes=76, npixel=1024)
+    path_kernels = ("grid", "degrid", "permute", "hogbom")
+    with store_dir(13 * vis.nvis + 24 * vis.ntimes * vis.nbaselines) as tmp:
+        path = os.path.join(tmp, "flagship.svis")
+        t0 = time.perf_counter()
+        write_visibility(vis.replace(weight=vis.imaging_weight), path, chunk_times=STREAM_CHUNK_A)
+        say(f"12a store: {vis.nvis} visibilities written in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(path) / 1e9:.3f} GB)")
+        pc = vis.phasecentre
+        del vis
+        store = timed_store(path)
+        try:
+            re, im, wt, fl = store.read_chunk(0, store.ntime)
+            back = create_visibility_from_arrays(
+                uvw=np.array(store.uvw), time=store.time, frequency=store.frequency,
+                antenna1=store.antenna1, antenna2=store.antenna2, vis=re + 1j * im,
+                weight=wt, flags=fl, phasecentre=pc, device=device,
+            )
+            del re, im, wt, fl
+            s, counts_s, peaks_s, _ = streamed_run(
+                "12a streamed flagship", store, model, 3, path_kernels,
+                chunk_times=STREAM_CHUNK_A, calibration_context="T", algorithm="hogbom", **CLEAN,
+            )
+        finally:
+            store.close()
+    m, counts_m, peaks_m = run_logged(
+        "12a in-memory flagship",
+        lambda: ical(back, model, nmajor=3, calibration_context="T", algorithm="hogbom", **CLEAN),
+        3, path_kernels,
+    )
+    _falls("12a streamed", peaks_s, 3)
+    _falls("12a in-memory", peaks_m, 3)
+    r_s, r_m = float(s.residual.pixels.abs().max()), float(m[1].pixels.abs().max())
+    p_s, p_m = float(s.restored.pixels.max()), float(m[2].pixels.max())
+    ga, gb = referenced_gains(m[3]["T"]), referenced_gains(s.gaintable)
+    dg = float(np.max(np.abs(ga - gb))) if ga.shape == gb.shape else np.inf
+    say(
+        f"12a streamed vs in-memory: peak residual {r_s:.6f} vs {r_m:.6f} (bound "
+        f"{STREAM_RESIDUAL_TOL}), restored peak {p_s:.4f} vs {p_m:.4f} (bound "
+        f"{STREAM_RESTORED_TOL}), phase-referenced gains {dg:.3e} apart (bound {STREAM_GAIN_TOL})"
+    )
+    if not (abs(r_s - r_m) < STREAM_RESIDUAL_TOL and abs(p_s - p_m) < STREAM_RESTORED_TOL
+            and dg < STREAM_GAIN_TOL):
+        raise AssertionError("12a: streamed and in-memory ical disagree")
+    return {k: counts_s[k] + counts_m[k] for k in counts_s}
+
+
+def scale_geometry():
+    """Phase 12b's layout: (baseline xyz [nbl, 3], a1, a2, hour angles,
+    times in MJD seconds)."""
+    from ska_sdp_func_python_torch.models import random_array_xyz
+
+    g = STREAMED
+    ants = random_array_xyz(g["nants"], rmax=g["rmax"], seed=g["seed"])
+    a1, a2 = np.triu_indices(g["nants"], 1)
+    has = np.linspace(-np.pi / 6.0, np.pi / 6.0, g["ntimes"])
+    return ants[a2] - ants[a1], a1, a2, has, g["epoch"] + has * SIDEREAL_S / (2 * np.pi)
+
+
+def uvw_of_hour_angles(blines, ha, dec, xp=np):
+    """Earth-rotation synthesis (``utils.coordinates.xyz_to_uvw``) of
+    baselines ``blines`` [nbl, 3] at hour angles ``ha`` [nt]: [nt, nbl, 3],
+    in numpy or torch (``xp``)."""
+    ch, sh = xp.cos(ha)[:, None], xp.sin(ha)[:, None]
+    x, y, z = blines[:, 0], blines[:, 1], blines[:, 2]
+    v0 = x * sh + y * ch
+    return xp.stack(
+        [x * ch - y * sh, z * np.cos(dec) + v0 * np.sin(dec), z * np.sin(dec) - v0 * np.cos(dec)],
+        -1,
+    )
+
+
+def write_scale_store(path, scratch):
+    """Phase 12b's store (the geometry of JAX bench_streamed.py:31-95): a
+    2.0 Jy source at the phase centre under per-station phases N(0, 0.3)
+    plus a 0.005-rad random walk, one channel, npol 1, times in MJD
+    seconds. The visibilities are made one slab at a time as the writer
+    asks for them, and the uvw block is computed slab by slab into a
+    memory-mapped file under ``scratch``, so host memory holds one slab."""
+    from types import SimpleNamespace
+
+    from ska_sdp_func_python_torch.io import write_visibility
+
+    g = STREAMED
+    blines, a1, a2, has, times = scale_geometry()
+    nt, nbl, chunk = g["ntimes"], len(a1), g["chunk"]
+    rng = np.random.default_rng(g["seed"])
+    walk = rng.normal(0.0, 0.005, (nt, g["nants"])).cumsum(axis=0)
+    gains = np.exp(1j * (rng.normal(0.0, 0.3, (1, g["nants"])) + walk))
+    uvw = np.lib.format.open_memmap(
+        os.path.join(scratch, "uvw.npy"), mode="w+", dtype=np.float64, shape=(nt, nbl, 3)
+    )
+    for t0 in range(0, nt, chunk):
+        uvw[t0 : t0 + chunk] = uvw_of_hour_angles(blines, has[t0 : t0 + chunk], g["dec"])
+    shape = (nt, nbl, 1, 1)
+
+    class Slabs:
+        """A [ntime, nbl, 1, 1] field made one time slice at a time."""
+
+        def __init__(self, make):
+            self.shape, self.make = shape, make
+
+        def __getitem__(self, sl):
+            return self.make(sl)
+
+    obs = SimpleNamespace(
+        vis=Slabs(lambda sl: (g["flux"] * gains[sl][:, a1] * np.conj(gains[sl][:, a2]))
+                  .astype(np.complex64)[..., None, None]),
+        weight=Slabs(lambda sl: np.ones((len(has[sl]), nbl, 1, 1), np.float32)),
+        flags=Slabs(lambda sl: np.zeros((len(has[sl]), nbl, 1, 1), np.uint8)),
+        uvw=uvw, time=times, frequency=np.asarray([g["frequency"]]),
+        antenna1=a1, antenna2=a2,
+    )
+    write_visibility(obs, path, chunk_times=chunk)
+    del uvw
+    os.remove(os.path.join(scratch, "uvw.npy"))
+    return nt * nbl
+
+
+def geometry_uvw(device):
+    """Phase 12b's ``uvw_compute``: the earth-rotation synthesis of the
+    station geometry in torch f64 on the card, from hour angles taken
+    relative to the epoch."""
+    import torch
+
+    blines, _, _, _, _ = scale_geometry()
+    b = torch.as_tensor(blines, dtype=torch.float64, device=device)
+    epoch, dec = STREAMED["epoch"], STREAMED["dec"]
+
+    def uvw_compute(t):
+        return uvw_of_hour_angles(b, (t - epoch) * (2 * np.pi / SIDEREAL_S), dec, xp=torch)
+
+    return uvw_compute
+
+
+def scale_launches(nslab, nmajor):
+    """The launches of a streamed npol-1, one-channel Hogbom run with no
+    components and no warm start: K1 once a slab in the PSF pass and in
+    every cycle, S (1 + nmajor); K3 once a slab in every cycle with a
+    model (all but the first), S (nmajor - 1); K4 once a slab in the PSF
+    pass (weights to plan order), once a slab a cycle (residual to plan
+    order) and once a slab a cycle with a model (model to natural order),
+    2 S nmajor; K5 once a cycle."""
+    return {"grid": nslab * (1 + nmajor), "degrid": nslab * (nmajor - 1),
+            "permute": 2 * nslab * nmajor, "hogbom": nmajor}
+
+
+def slab_kernels(device, store, model):
+    """Phase 12b's kernels at the streamed path's shapes: slab 0 of the 100M
+    store (its visibilities at the store's weights and uvw), planned as
+    ``streamed_ical`` plans a slab (the store's global w range and plane
+    count), with K1, K3 and K4 held against their plain versions
+    (``compare_gridding``) and timed beside bounds from this slab's
+    inputs. Returns the rows."""
+    from ska_sdp_func_python_torch.models import create_visibility_from_arrays
+    from ska_sdp_func_python_torch.ops.imaging import _nw_for, make_visibility_plan
+    from ska_sdp_func_python_torch.streaming import _w_range
+
+    nt = min(STREAMED["chunk"], store.ntime)
+    re, im, wt, fl = store.read_chunk(0, nt)
+    vis = create_visibility_from_arrays(
+        uvw=np.array(store.uvw[:nt]), time=store.time[:nt], frequency=store.frequency,
+        antenna1=store.antenna1, antenna2=store.antenna2, vis=re + 1j * im, weight=wt,
+        flags=fl, phasecentre=model.phasecentre, device=device,
+    )
+    del re, im, wt, fl
+    w_range = _w_range(store)
+    nw = _nw_for(vis, model, True, None, wmax=max(abs(w_range[0]), abs(w_range[1])))
+    plan = make_visibility_plan(vis, model, context="ng", nw=nw, w_range=w_range)
+    say(f"12b slab 0: {vis.nvis} visibilities, the kernels against their plain versions")
+    rows = compare_gridding(device, vis, plan)
+    for name, r in rows.items():
+        report_kernel(name, r, " at 12b's slab")
+    return rows
+
+
+def streamed_scale(device):
+    """Phases 12b and 12c: 100M visibilities re-streamed from disk every
+    cycle (f16 wire, uvw from the geometry on the card); the launches
+    against their formula; K1, K3 and K4 against their plain versions on
+    slab 0's plan; peak memory against a run in slabs of half the
+    length; the f32 wire with the store's uvw against (b)'s settings, and
+    the geometry's uvw against the store's. Returns the launches of the
+    gated runs."""
+    import torch
+
+    from ska_sdp_func_python_torch.models import create_image
+
+    g = STREAMED
+    nvis_est = g["ntimes"] * g["nants"] * (g["nants"] - 1) // 2
+    path_kernels = ("grid", "degrid", "permute", "hogbom")
+    one_cycle = ("grid", "permute", "hogbom")  # no model to degrid in cycle 0
+    model = create_image(
+        g["npixel"], g["cellsize"], (0.0, g["dec"]), frequency=[g["frequency"]], device=device
+    )
+    kw = dict(calibration_context="T", algorithm="hogbom", cache_slabs=False, **CLEAN)
+    geom = dict(wire_dtype="f16", uvw_compute=geometry_uvw(device))
+    launches = []
+    # the store (13 B/vis of data, 24 of uvw) and the uvw scratch file
+    with store_dir(61 * nvis_est) as tmp:
+        path = os.path.join(tmp, "scale.svis")
+        t0 = time.perf_counter()
+        nvis = write_scale_store(path, tmp)
+        say(f"12b store: {nvis} visibilities, {g['nants']} stations, {g['ntimes']} integrations, "
+            f"generated and written in {time.perf_counter() - t0:.1f} s "
+            f"({os.path.getsize(path) / 1e9:.3f} GB)")
+        store = timed_store(path)
+        try:
+            nslab = -(-store.ntime // g["chunk"])
+            out, counts, peaks, mem3 = streamed_run(
+                f"12b streamed {g['nmajor']} cycles", store, model, g["nmajor"], path_kernels,
+                chunk_times=g["chunk"], **kw, **geom,
+            )
+            launches.append(counts)
+            _falls("12b", peaks, g["nmajor"])
+            rpeak = float(out.restored.pixels.max())
+            want = scale_launches(nslab, g["nmajor"])
+            say(f"12b: restored peak {rpeak:.4f} (source {g['flux']} Jy, bound {STREAMED_PEAK_TOL}); "
+                f"launches {counts} against S = {nslab} slabs: {want}")
+            if not abs(rpeak - g["flux"]) < STREAMED_PEAK_TOL:
+                raise AssertionError(f"12b: restored peak {rpeak}")
+            if any(counts[k] != v for k, v in want.items()):
+                raise AssertionError(f"12b: launches {counts} are not {want}")
+            del out
+            slab_kernels(device, store, model)
+            torch.cuda.empty_cache()
+            wire, counts, _, mem1 = streamed_run(
+                "12c f16 wire, geometry uvw, 1 cycle", store, model, 1, one_cycle,
+                chunk_times=g["chunk"], **kw, **geom,
+            )
+            launches.append(counts)
+            torch.cuda.empty_cache()
+            f32, counts, _, _ = streamed_run(
+                "12c f32 wire, store uvw, 1 cycle", store, model, 1, one_cycle,
+                chunk_times=g["chunk"], **kw,
+            )
+            launches.append(counts)
+            a, b = f32.residual.pixels, wire.residual.pixels
+            rel = float((a - b).abs().max() / a.abs().max())
+            del wire, f32, a, b
+            torch.cuda.empty_cache()
+            _, counts, _, mem_half = streamed_run(
+                "12b streamed 1 cycle in slabs of half the length", store, model, 1,
+                one_cycle, chunk_times=g["chunk"] // 2, **kw, **geom,
+            )
+            launches.append(counts)
+            uvw_compute, err = geometry_uvw(device), 0.0
+            for t0 in range(0, store.ntime, g["chunk"]):
+                t = torch.as_tensor(store.time[t0 : t0 + g["chunk"]], dtype=torch.float64, device=device)
+                ref = torch.as_tensor(np.array(store.uvw[t0 : t0 + g["chunk"]]), device=device)
+                err = max(err, float((uvw_compute(t) - ref).abs().max()))
+        finally:
+            store.close()
+    say(f"12c: f32 wire and store uvw against f16 wire and geometry uvw: residual images "
+        f"{rel:.3e} of their maximum apart (bound {WIRE_TOL}); geometry uvw {err:.3e} m from "
+        f"the store's (bound {UVW_TOL} m)")
+    say(f"12b: peak memory {mem3:.3f} GiB ({g['nmajor']} cycles), {mem1:.3f} GiB (1 cycle), "
+        f"{mem_half:.3f} GiB (1 cycle, slabs of {g['chunk'] // 2})")
+    if not (rel < WIRE_TOL and err < UVW_TOL):
+        raise AssertionError("12c: the wire or the geometry disagrees")
+    if not mem_half < mem1:
+        raise AssertionError("12b: peak memory did not fall with the slab")
+    return {k: sum(c[k] for c in launches) for k in launches[0]}
+
+
+def streamed_card_vs_cpu(device):
+    """Phase 12d: the streamed path on phase 7's small observation (its
+    uniform weights as the store's), on the card and on the CPU, to phase
+    7's bounds (gains 1e-4, peak residual 1e-3 relative)."""
+    import tempfile
+
+    from ska_sdp_func_python_torch.io import write_visibility
+    from ska_sdp_func_python_torch.streaming import streamed_ical
+
+    _, vis, model, _ = simulate("cpu", rmax=600.0, ntimes=8, npixel=256)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "small.svis")
+        write_visibility(vis.replace(weight=vis.imaging_weight), path, chunk_times=2)
+        for dev in (device, "cpu"):
+            m = model.replace(pixels=model.pixels.to(dev))
+            out[dev] = streamed_ical(path, m, m.phasecentre, nmajor=3, chunk_times=2,
+                                     calibration_context="T", algorithm="hogbom", **CLEAN)
+    (a, b) = out[device], out["cpu"]
+    dg = float(np.max(np.abs(referenced_gains(a.gaintable) - referenced_gains(b.gaintable))))
+    ra, rb = float(a.residual.pixels.abs().max()), float(b.residual.pixels.abs().max())
+    say(f"12d streamed card vs cpu: gains {dg:.2e} apart (bound 1e-4), peak residual {ra:.6f} vs "
+        f"{rb:.6f} (bound 1e-3 rel)")
+    if not (dg < 1e-4 and abs(ra - rb) < 1e-3 * rb):
+        raise AssertionError("12d: streamed card and cpu runs disagree")
+
+
+# the streaming module's names that the streamed cycle calls, each a stage
+# of profile_streamed
+STAGES = (
+    "_upload", "make_visibility_plan", "predict_with_stack", "permute_apply",
+    "_solve_terms", "grid_with_plan", "uv_grids_to_dirty", "deconvolve_cube",
+    "fit_psf", "restore_cube",
+)
+
+
+def timed_stages(streaming, store, marks):
+    """Replaces each stage of the ``streaming`` module and the store's
+    ``wait`` by a synchronised timer; returns the accumulator {stage:
+    [seconds, calls]}. The first FFT tail ends the PSF pass: a snapshot of the
+    accumulator goes to ``marks`` then."""
+    from collections import defaultdict
+
+    import torch
+
+    acc = defaultdict(lambda: [0.0, 0])
+
+    def wrap(name, fn):
+        def timed(*args, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            torch.cuda.synchronize()
+            acc[name][0] += time.perf_counter() - t0
+            acc[name][1] += 1
+            if name == "uv_grids_to_dirty" and acc[name][1] == 1:
+                marks.append(("PSF pass", None, snapshot(acc)))
+            return out
+
+        return timed
+
+    for name in STAGES:
+        setattr(streaming, name, wrap(name, getattr(streaming, name)))
+    store.wait = wrap("store.wait", store.wait)
+    return acc
+
+
+def snapshot(acc) -> dict:
+    return {k: tuple(v) for k, v in acc.items()}
+
+
+def profile_streamed(wire: str = "f16", store_uvw: bool = False,
+                     out: str = "build/profile_streamed") -> int:
+    """``python3 chip_smoke.py --profile-streamed``: where the time of a
+    streamed cycle goes, on phase 12b's store and settings (slabs of 200
+    integrations, ``cache_slabs=False``, the f16 wire unless ``--wire
+    f32``, uvw from the geometry unless ``--store-uvw``, Hogbom).
+
+      1. two cycles with a synchronised timer around each stage of the
+         slab leg and the tail (``store.wait``, the upload, the plan
+         build, the degrid, the permutes, the solve, the grid, the FFT
+         tail, CLEAN and the restore): each stage's seconds and calls per
+         cycle, and what no stage holds (the host between them: the
+         slab's arrays, the f16 scale, the residual's arithmetic);
+      2. two cycles under ``torch.profiler`` with no timer: the run's
+         wall time, the device busy time (the union of kernel, memcpy
+         and memset intervals, as ``profile_torch_cycle.py`` counts it),
+         the idle share and the device time by kernel name; the chrome
+         trace goes to ``<out>/streamed_trace.json``."""
+    import torch
+
+    from profile_torch_cycle import busy_in
+    from ska_sdp_func_python_torch import kernels, streaming
+    from ska_sdp_func_python_torch.io import VisStore
+    from ska_sdp_func_python_torch.models import create_image
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    kernels.build_library()
+    kernels.load_library()
+    device = torch.device("cuda", 0)
+    say(f"device: {card_line()}")
+    g = STREAMED
+    model = create_image(g["npixel"], g["cellsize"], (0.0, g["dec"]),
+                         frequency=[g["frequency"]], device=device)
+    kw = dict(chunk_times=g["chunk"], calibration_context="T", algorithm="hogbom",
+              cache_slabs=False, wire_dtype=None if wire == "f32" else "f16", **CLEAN)
+    if not store_uvw:
+        kw["uvw_compute"] = geometry_uvw(device)
+    nvis_est = g["ntimes"] * g["nants"] * (g["nants"] - 1) // 2
+    with store_dir(61 * nvis_est) as tmp:
+        path = os.path.join(tmp, "scale.svis")
+        nvis = write_scale_store(path, tmp)
+        say(f"store: {nvis} visibilities, slabs of {g['chunk']}, wire {wire}, "
+              f"uvw {'store' if store_uvw else 'geometry'}")
+        originals = {name: getattr(streaming, name) for name in STAGES}
+        marks = []
+        try:
+            with VisStore(path) as store:
+                acc = timed_stages(streaming, store, marks)
+                streaming.streamed_ical(
+                    store, model, model.phasecentre, nmajor=2,
+                    on_cycle=lambda c, secs: marks.append((f"cycle {c}", secs, snapshot(acc))),
+                    **kw,
+                )
+        finally:
+            for name, f in originals.items():
+                setattr(streaming, name, f)
+        prev = {}
+        for label, secs, snap in marks:
+            staged = 0.0
+            for name in ("store.wait",) + STAGES:
+                s, n = snap.get(name, (0.0, 0))
+                ds, dn = s - prev.get(name, (0.0, 0))[0], n - prev.get(name, (0.0, 0))[1]
+                if dn:
+                    staged += ds
+                    say(f"{label}: {name} {ds:.4f} s in {dn} calls")
+            if secs is not None:
+                say(f"{label}: {secs:.3f} s, {nvis / secs / 1e6:.2f} Mvis/s (timed); "
+                      f"no stage {secs - staged:.4f} s")
+            prev = snap
+        from torch.profiler import ProfilerActivity, profile, record_function
+
+        with VisStore(path) as store:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                with record_function("streamed"):
+                    streaming.streamed_ical(store, model, model.phasecentre, nmajor=2, **kw)
+                    torch.cuda.synchronize()
+    os.makedirs(out, exist_ok=True)
+    trace = os.path.join(out, "streamed_trace.json")
+    prof.export_chrome_trace(trace)
+    wall, busy, by_name, count = busy_in(trace, window="streamed")
+    say(f"profiled run (PSF pass and 2 cycles): wall {wall / 1e6:.3f} s, device busy "
+          f"{busy / 1e6:.3f} s, idle share {1 - busy / wall:.4f}")
+    for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:15]:
+        say(f"  {us / 1e3:10.3f} ms  {count[name]:6d} x  {name[:90]}")
+    say(f"device: {card_line()}")
+    return 0
+
+def report_kernel(name, r, label=""):
     """Prints a kernel's comparison with its plain version, and fails if
     the error is above its tolerance."""
     tol = KERNELS[name][0]
     ok = r["rel"] <= tol
     lib = "n/a" if r["library_ms"] is None else f"{r['library_ms']:.3f} ms"
     say(
-        f"kernel {name}: max abs err {r['max_abs_err']:.3e}, rel err "
+        f"kernel {name}{label}: max abs err {r['max_abs_err']:.3e}, rel err "
         f"{r['rel']:.3e} (tolerance {tol:g}) {'ok' if ok else 'FAIL'}; "
         f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound "
         f"{r['bound_ms']:.4f} ms ({r['bound_by']}), library {lib}"
     )
     if not ok:
-        raise AssertionError(f"kernel {name} disagrees with its plain version")
+        raise AssertionError(f"kernel {name}{label} disagrees with its plain version")
 
 
 def main() -> int:
@@ -2622,6 +3271,16 @@ def main() -> int:
         launches[name] += counts[name]
     by_shape["epsilon observation (phases 9b-e)"] = counts
     report_kernel("unit_tiles", results["unit_tiles"])
+    torch.cuda.empty_cache()
+
+    for shape, run in (("streamed flagship (phase 12a)", streamed_parity),
+                       ("100M streamed store (phases 12b-c)", streamed_scale)):
+        counts = run(device)
+        for name in launches:
+            launches[name] += counts[name]
+        by_shape[shape] = counts
+        torch.cuda.empty_cache()
+    streamed_card_vs_cpu(device)
     for shape, counts in by_shape.items():
         say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
 
@@ -2657,4 +3316,18 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one GPU.")
+    ap.add_argument("--profile-streamed", action="store_true",
+                    help="only profile phase 12b's streamed cycle (see profile_streamed)")
+    ap.add_argument("--wire", default="f16", choices=["f16", "f32"])
+    ap.add_argument("--store-uvw", action="store_true", help="upload the store's uvw")
+    ap.add_argument("--repeat-selfcal", type=int, metavar="N",
+                    help="only run phase 10c's checkpoint observation N times (see repeat_selfcal)")
+    args = ap.parse_args()
+    if args.profile_streamed:
+        sys.exit(profile_streamed(args.wire, args.store_uvw))
+    if args.repeat_selfcal:
+        sys.exit(repeat_selfcal(args.repeat_selfcal))
     sys.exit(main())

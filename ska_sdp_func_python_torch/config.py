@@ -25,6 +25,7 @@ __all__ = [
     "resolve_device",
     "plan_cache_size",
     "set_plan_cache_size",
+    "UNPORTED",
 ]
 
 torch.backends.cuda.matmul.allow_tf32 = False
@@ -127,3 +128,79 @@ def not_ported(what: str, slice_: str) -> NotImplementedError:
     return NotImplementedError(
         f"{what} is not ported yet; it comes with ROADMAP slice {slice_}"
     )
+
+
+def _slice(slice_: str, names: str) -> dict:
+    return {name: slice_ for name in names.split()}
+
+
+# The public names of the JAX package's ``ops`` and ``models`` namespaces
+# that the port does not have yet, each with the ROADMAP slice that brings
+# it. Every other name of those namespaces (and of ``io`` and
+# ``pipeline``) is exported by the port under its JAX name; a test holds
+# the two lists apart, so a name leaves this table when its slice lands.
+UNPORTED: dict = {
+    # S8: the rest of the public imaging API
+    **_slice("S8", """
+        visibility_recentre fill_vis_for_psf advise_wide_field
+        taper_visibility_gaussian taper_visibility_tukey
+        sum_invert_results remove_sumwt sum_predict_results threshold_list
+    """),
+    # S9: the rest of CLEAN, the list variants and the image iterators
+    **_slice("S9", """
+        argmax overlapIndices find_max_abs_stack spheroidal_function
+        calculate_scale_moment_principal_solution
+        find_optimum_scale_zero_moment find_global_optimum
+        update_scale_moment_residual update_moment_model
+        deconvolve_list restore_list radler_deconvolve_list check_psf_peak
+        find_window_list bound_psf_list hogbom_kernel_list
+        complex_hogbom_kernel_list msclean_kernel_list mmclean_kernel_list
+        calculate_frequency_taylor_terms_from_image
+        calculate_image_list_frequency_moments
+        calculate_image_list_from_frequency_taylor_terms
+        calculate_frequency_taylor_terms_from_image_list
+        image_raster_iter image_raster_update image_channel_iter
+        image_scatter_facets image_gather_facets image_scatter_channels
+        image_gather_channels
+    """),
+    # S11: the periphery, on no pipeline path
+    **_slice("S11", """
+        PolynomialInterpolator NumpyLinearInterpolator ScipySplineInterpolator
+        set_beamformer_frequencies expand_delay_phase multiply_gaintable_jones
+        resample_bandpass
+        coordinates coordinates2 coordinate_bounds coordinates2_offset
+        coordinateBounds coordinates2Offset extract_oversampled
+        dft_cpu_looped dft_gpu_raw_kernel
+        convolutional_grid convolutional_degrid
+        convert_stokes_to_polimage convert_polimage_to_stokes
+        calculate_skycomponent_list_taylor_terms
+        find_skycomponents_frequency_taylor_terms
+        gather_skycomponents_from_channels interpolate_skycomponents_frequency
+        transpose_skycomponents_to_channels
+        apply_beam_to_skycomponent apply_voltage_pattern_to_skycomponent
+        filter_skycomponents_by_flux find_nearest_skycomponent
+        find_nearest_skycomponent_index find_separation_skycomponents
+        find_skycomponent_matches select_components_by_separation
+        remove_neighbouring_components find_skycomponents insert_skycomponent
+        voronoi_decomposition image_voronoi_iter
+        partition_skycomponent_neighbours fit_skycomponent
+        fit_skycomponent_spectral_index calculate_skycomponent_taylor_terms
+        find_skycomponent_matches_atomic select_neighbouring_components
+        skymodel_predict_calibrate skymodel_calibrate_invert
+        Parset create_parset_from_context gaincal dp3_gaincal
+        convolution_mapping_visibility spatial_mapping
+        create_pswf_convolutionfunction create_awterm_convolutionfunction
+        create_griddata_from_image grid_visibility_to_griddata
+        degrid_visibility_from_griddata grid_visibility_weight_to_griddata
+        griddata_merge_weights griddata_visibility_reweight
+        fft_griddata_to_image fft_image_to_griddata
+        predict_awprojection invert_awprojection
+        get_direction_time_location calculate_visibility_hourangles
+        calculate_visibility_parallactic_angles calculate_visibility_azel
+        calculate_visibility_transit_time
+        concatenate_visibility concatenate_visibility_frequency
+        remove_continuum_visibility integrate_visibility_by_channel
+        average_visibility_by_channel calculate_visibility_uvw_lambda
+        GridData SkyModel
+    """),
+}

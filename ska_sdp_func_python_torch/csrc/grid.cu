@@ -7,11 +7,26 @@
 //
 // Each CTA takes one chunk of one (plane-pair, tile) segment of the
 // plan-sorted entry stream and accumulates sum kv * val * w * ku^T for the
-// lower and upper w-plane (re, im) of its [buf, buf] tile (buf = tile + 8)
-// in f32 FMA: no TF32, no bf16. It then adds the tile, halo included, into
-// the complex plane grids with global atomics, which replaces the TPU's
-// sequential grid-carried accumulator and its separate assemble pass. Only
-// touched cells are flushed.
+// lower and upper w-plane (re, im) of its [buf, buf] tile (buf = tile + 8).
+// It then adds the tile, halo included, into the plane grids with global
+// atomics, which replaces the TPU's sequential grid-carried accumulator and
+// its separate assemble pass. Only touched cells are flushed.
+//
+// The result does not depend on the order of the atomics, so it is the
+// same bit for bit from run to run, as the TPU's sequential accumulator is:
+// the shared tile and the global grid accumulate integers, whose sums do
+// not depend on the order of the adds. A thread's register sums are f32
+// FMA in a fixed order (no TF32, no bf16); each flush adds them to the
+// shared tile rounded to int64 in units of 2^-kg, where 2^(61 - kg) bounds
+// every cell of the launch (the wrapper's sum of |re| + |im| over vals
+// times GridPlan.tap_bound, the largest taps and plane-weight product).
+// The tiles go into an int64 grid in the same units, and a second kernel
+// writes the complex64 grids from it. A unit is at most 2^-60 of that
+// bound: a cell is as exact as its f32 register sums unless it is below
+// ~1e-12 of the bound, where the units' absolute rounding shows. At the
+// flagship the grids agree with the plain version accumulated in f64 to
+// 4e-7 of every cell (f32 atomics: 2e-5). A non-finite value in vals (a
+// non-finite bound) makes every cell NaN.
 //
 // Work distribution (Romein 2012): the 8 x 8 window of an entry touches
 // exactly one cell of each residue class (x mod 8, y mod 8). Each of 64
@@ -32,14 +47,13 @@
 // What bounds it on the card: the issue rate of the accumulate loop (four
 // shared loads and nine f32 operations per entry and thread), then the
 // global atomics of the flush. The bytes it must move (each entry once, the
-// grids once) are an order of magnitude less. Atomics make the summation
-// order vary from run to run: results agree with the plain version to f32
-// rounding (tolerance stated in the tests and chip_smoke.py).
+// grids once) are an order of magnitude less. The int64 tile (128 KiB at
+// buf 64) leaves room for one CTA an SM, so a CTA runs sixteen groups.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 1024;
 constexpr int kGroups = kThreads / 64;  // entry walks of a CTA
 constexpr int kStage = 16;              // entries a group stages per batch
 constexpr int kSlots = kGroups * kStage;
@@ -65,24 +79,39 @@ __device__ __forceinline__ int swz(int y, int x, int ld) {
   return ld % 32 == 0 ? x ^ ((y & 3) << 3) : x;
 }
 
+// kg of the int64 units 2^-kg: 2^(61 - kg) > bound, which bounds every
+// cell of the launch. Every CTA and the conversion compute it alike.
+__device__ __forceinline__ int grid_exponent(float bound) {
+  int e = 0;
+  frexpf(bound, &e);  // bound < 2^e
+  return 61 - e;
+}
+
 template <int NACC>
-__global__ void __launch_bounds__(kThreads, 3)
+__global__ void __launch_bounds__(kThreads, 1)
     grid_kernel(const float2* __restrict__ vals, const int* __restrict__ iu0,
                 const int* __restrict__ iv0, const float* __restrict__ frac,
                 const float4* __restrict__ ku, const float4* __restrict__ kv,
                 const int* __restrict__ order,
                 const int* __restrict__ chunk_seg,
                 const int* __restrict__ chunk_start,
-                const int* __restrict__ chunk_count, float* __restrict__ grid,
-                int npix, int tile, int nta) {
+                const int* __restrict__ chunk_count,
+                const float* __restrict__ tap_bound,
+                const float* __restrict__ vsum,
+                unsigned long long* __restrict__ grid64, int npix, int tile,
+                int nta) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   Stage* stage = reinterpret_cast<Stage*>(smem_raw);  // [2]
-  // [NACC][buf][ld]: re_lo, im_lo, re_hi, im_hi
-  float* acc = reinterpret_cast<float*>(stage + 2);
+  // [NACC][buf][ld]: re_lo, im_lo, re_hi, im_hi, in units of 2^-kg
+  unsigned long long* acc = reinterpret_cast<unsigned long long*>(stage + 2);
   const int buf = tile + 8;
   const int ld = tile_ld(buf);
   const int nb = buf * ld;
-  for (int i = threadIdx.x; i < NACC * nb; i += kThreads) acc[i] = 0.f;
+
+  const float total = vsum[0] * tap_bound[0];
+  if (!isfinite(total)) return;  // the conversion writes NaN
+
+  const double unit = ldexp(1.0, grid_exponent(total));
 
   const int seg = chunk_seg[blockIdx.x];
   const int start = chunk_start[blockIdx.x];
@@ -92,6 +121,15 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int t = seg - plane * ntiles;
   const int tv0 = (t / nta) * tile;
   const int tu0 = (t % nta) * tile;
+  // the chunk's rows of the tile: its entries follow the walk order, by
+  // window corner row first, so its first and last entries bound them
+  const int y0 = iv0[order[start]] - tv0;
+  const int y1 = min(buf, iv0[order[end - 1]] - tv0 + 8);
+  const int span = (y1 - y0) * ld;
+  for (int i = threadIdx.x; i < NACC * span; i += kThreads) {
+    const int p = i / span;
+    acc[p * nb + y0 * ld + (i - p * span)] = 0;
+  }
   // group g walks [start + g q, start + (g + 1) q) of the chunk
   const int q = (chunk_count[blockIdx.x] + kGroups - 1) / kGroups;
   const int nbatch = (q + kStage - 1) / kStage;
@@ -132,13 +170,17 @@ __global__ void __launch_bounds__(kThreads, 3)
   const int gend = min(gbeg + q, end);
   int cur = -1, run = 0;
   float r0 = 0.f, i0 = 0.f, r1 = 0.f, i1 = 0.f;
+  // integer adds commute: the tile is the same whatever their order
+  auto fixed = [&](float r) {
+    return (unsigned long long)__double2ll_rn((double)r * unit);
+  };
   auto flush = [&]() {
     if (cur >= 0) {
-      atomicAdd(&acc[cur], r0);
-      atomicAdd(&acc[nb + cur], i0);
+      atomicAdd(&acc[cur], fixed(r0));
+      atomicAdd(&acc[nb + cur], fixed(i0));
       if (NACC == 4) {
-        atomicAdd(&acc[2 * nb + cur], r1);
-        atomicAdd(&acc[3 * nb + cur], i1);
+        atomicAdd(&acc[2 * nb + cur], fixed(r1));
+        atomicAdd(&acc[3 * nb + cur], fixed(i1));
       }
     }
   };
@@ -193,22 +235,24 @@ __global__ void __launch_bounds__(kThreads, 3)
   flush();
   __syncthreads();
 
-  // overlap-add: the tile and its right/bottom halo go straight into the
-  // plane grids; untouched cells are zero and skipped, halo cells past the
-  // grid edge are zero by construction (entries are clipped in-grid)
-  for (int i = threadIdx.x; i < buf * buf; i += kThreads) {
-    const int y = i / buf;
-    const int x = i - y * buf;
+  // overlap-add: the chunk's rows of the tile and its right/bottom halo
+  // go straight into the int64 plane grids; untouched cells are zero and
+  // skipped, halo cells past the grid edge are zero by construction
+  // (entries are clipped in-grid)
+  for (int i = threadIdx.x; i < (y1 - y0) * buf; i += kThreads) {
+    const int y = y0 + i / buf;
+    const int x = i - (y - y0) * buf;
     const int gy = tv0 + y;
     const int gx = tu0 + x;
     if (gy >= npix || gx >= npix) continue;
     const int cell = y * ld + swz(y, x, ld);
 #pragma unroll
     for (int p = 0; p < NACC / 2; ++p) {
-      const float re = acc[2 * p * nb + cell];
-      const float im = acc[(2 * p + 1) * nb + cell];
-      if (re != 0.f || im != 0.f) {
-        float* gp = grid + 2 * (((size_t)(plane + p) * npix + gy) * npix + gx);
+      const unsigned long long re = acc[2 * p * nb + cell];
+      const unsigned long long im = acc[(2 * p + 1) * nb + cell];
+      if (re != 0 || im != 0) {
+        unsigned long long* gp =
+            grid64 + 2 * (((size_t)(plane + p) * npix + gy) * npix + gx);
         atomicAdd(gp, re);
         atomicAdd(gp + 1, im);
       }
@@ -216,15 +260,30 @@ __global__ void __launch_bounds__(kThreads, 3)
   }
 }
 
+// The complex64 grids from the int64 ones: value times 2^-kg, or NaN when
+// the bound is not finite.
+__global__ void grid_convert(const long long* __restrict__ grid64,
+                             float* __restrict__ grid, size_t n,
+                             const float* __restrict__ tap_bound,
+                             const float* __restrict__ vsum) {
+  const float total = vsum[0] * tap_bound[0];
+  const bool ok = isfinite(total);
+  const double unit = ok ? ldexp(1.0, -grid_exponent(total)) : 0.0;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x)
+    grid[i] = ok ? (float)((double)grid64[i] * unit) : __int_as_float(0x7fc00000);
+}
+
 template <int NACC>
 int launch(const void* vals, const void* iu0, const void* iv0,
            const void* frac, const void* ku, const void* kv, const void* order,
            const void* chunk_seg, const void* chunk_start,
-           const void* chunk_count, void* grid, int nchunks, int npix,
-           int tile, int nta, cudaStream_t s) {
+           const void* chunk_count, const void* tap_bound, const void* vsum,
+           void* grid64, int nchunks, int npix, int tile, int nta,
+           cudaStream_t s) {
   const int buf = tile + 8;
   const int ld = tile_ld(buf);
-  const size_t smem = 2 * sizeof(Stage) + (size_t)NACC * buf * ld * sizeof(float);
+  const size_t smem = 2 * sizeof(Stage) + (size_t)NACC * buf * ld * sizeof(long long);
   cudaFuncSetAttribute(grid_kernel<NACC>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   cudaFuncSetAttribute(grid_kernel<NACC>,
@@ -234,27 +293,43 @@ int launch(const void* vals, const void* iu0, const void* iv0,
       (const float2*)vals, (const int*)iu0, (const int*)iv0,
       (const float*)frac, (const float4*)ku, (const float4*)kv,
       (const int*)order, (const int*)chunk_seg, (const int*)chunk_start,
-      (const int*)chunk_count, (float*)grid, npix, tile, nta);
+      (const int*)chunk_count, (const float*)tap_bound, (const float*)vsum,
+      (unsigned long long*)grid64, npix, tile, nta);
   return ska_last_error();
 }
 
 }  // namespace
 
 // vals [n] complex64; iu0, iv0, order [n] int32; frac [n] f32; ku, kv
-// [n, 8] f32, 16-byte aligned; chunk_*: [nchunks] int32; grid [nplanes,
-// npix, npix] complex64, zero-filled by the caller. nacc 4: w-stacked.
+// [n, 8] f32, 16-byte aligned; chunk_*: [nchunks] int32; tap_bound [1]
+// f32, the plan's; vsum [1] f32, the sum of |re| + |im| over vals; grid64
+// [nplanes, npix, npix, 2] int64 scratch; grid [nplanes, npix, npix]
+// complex64 out. nacc 4: w-stacked.
 SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         const void* frac, const void* ku, const void* kv,
                         const void* order, const void* chunk_seg,
                         const void* chunk_start, const void* chunk_count,
-                        void* grid, int nchunks, int npix, int tile, int nta,
-                        int nacc, void* stream) {
-  if (nchunks == 0) return 0;
+                        const void* tap_bound, const void* vsum, void* grid64,
+                        void* grid, int nchunks, int nplanes, int npix,
+                        int tile, int nta, int nacc, void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
-  if (nacc == 4)
-    return launch<4>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
-                     chunk_start, chunk_count, grid, nchunks, npix, tile, nta,
-                     s);
-  return launch<2>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
-                   chunk_start, chunk_count, grid, nchunks, npix, tile, nta, s);
+  const size_t n = 2 * (size_t)nplanes * npix * npix;
+  if (n == 0) return 0;
+  cudaMemsetAsync(grid64, 0, n * sizeof(long long), s);
+  if (nchunks > 0) {
+    const int rc =
+        nacc == 4
+            ? launch<4>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
+                        chunk_start, chunk_count, tap_bound, vsum, grid64,
+                        nchunks, npix, tile, nta, s)
+            : launch<2>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
+                        chunk_start, chunk_count, tap_bound, vsum, grid64,
+                        nchunks, npix, tile, nta, s);
+    if (rc != 0) return rc;
+  }
+  const size_t blocks = min((n + 255) / 256, (size_t)65536);
+  grid_convert<<<(unsigned)blocks, 256, 0, s>>>(
+      (const long long*)grid64, (float*)grid, n, (const float*)tap_bound,
+      (const float*)vsum);
+  return ska_last_error();
 }

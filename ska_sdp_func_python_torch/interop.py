@@ -3,9 +3,9 @@
 Each function takes an object of the JAX package (or anything with the
 same fields), reads every field through ``np.asarray`` and builds the
 port's object on a chosen device (None: the CUDA card), keeping the numpy
-dtypes (a JAX object made under x64 arrives in f64) and the shapes (2x2
-gaintables of polarised data included); polarisation frames arrive as
-their names. Nothing here imports JAX: the arrays arrive as numpy.
+dtypes (a JAX object made under x64 arrives in f64; the time axes are f64
+always, as in the port's models) and the shapes (2x2 gaintables of
+polarised data included); polarisation frames arrive as their names. Nothing here imports JAX: the arrays arrive as numpy.
 """
 
 from __future__ import annotations
@@ -41,8 +41,8 @@ def to_visibility(vis, device=None) -> Visibility:
         imaging_weight=_t(vis.imaging_weight, device),
         flags=_t(vis.flags, device).to(torch.int32),
         uvw=_t(vis.uvw, device),
-        time=_t(vis.time, device),
-        integration_time=_t(vis.integration_time, device),
+        time=_t(vis.time, device).to(torch.float64),
+        integration_time=_t(vis.integration_time, device).to(torch.float64),
         frequency=_t(vis.frequency, device),
         channel_bandwidth=_t(vis.channel_bandwidth, device),
         antenna1=_t(vis.antenna1, device).to(torch.int32),
@@ -75,8 +75,8 @@ def to_gaintable(gt, device=None) -> GainTable:
         gain=_t(gt.gain, device),
         weight=_t(gt.weight, device),
         residual=_t(gt.residual, device),
-        time=_t(gt.time, device),
-        interval=_t(gt.interval, device),
+        time=_t(gt.time, device).to(torch.float64),
+        interval=_t(gt.interval, device).to(torch.float64),
         frequency=_t(gt.frequency, device),
         jones_type=str(gt.jones_type),
         receptor_frame=str(gt.receptor_frame),

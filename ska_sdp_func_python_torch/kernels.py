@@ -163,7 +163,7 @@ KERNELS = {
     "grid": Kernel(
         "grid",
         "ska_grid",
-        [*[_P] * 11, _I, _I, _I, _I, _I],
+        [*[_P] * 14, *[_I] * 6],
     ),
     "degrid": Kernel(
         "degrid",

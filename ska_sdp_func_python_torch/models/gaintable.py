@@ -2,7 +2,8 @@
 
 Counterpart of ``ska_sdp_func_python_tpu/models/gaintable.py``: ``gain`` and
 ``weight`` are ``[ntime, nants, nchan, nrec, nrec]``, ``residual`` is
-``[ntime, nchan, nrec, nrec]``, ``time``/``interval`` ``[ntime]``.
+``[ntime, nchan, nrec, nrec]``, ``time``/``interval`` ``[ntime]``, f64
+whatever the working dtype (see models/visibility.py).
 """
 
 from __future__ import annotations
@@ -90,8 +91,8 @@ def create_gaintable_from_visibility(
         gain=eye.expand(shape).clone(),
         weight=torch.ones(shape, dtype=rdtype, device=device),
         residual=torch.zeros((ntab, nchan, nrec, nrec), dtype=rdtype, device=device),
-        time=torch.as_tensor(centres, device=device).to(rdtype),
-        interval=torch.as_tensor(widths, device=device).to(rdtype),
+        time=torch.as_tensor(centres, dtype=torch.float64, device=device),
+        interval=torch.as_tensor(widths, dtype=torch.float64, device=device),
         frequency=frequency.clone(),
         jones_type=jones_type,
     )

@@ -1,7 +1,9 @@
 """Polarisation frames and the conversions between them.
 
 Counterpart of ``ska_sdp_func_python_tpu/models/polarisation.py``, with the
-same frame table, matrices and special cases; frames are plain strings.
+same frame table, matrices and special cases. Frames are plain strings;
+every function also takes a :class:`PolarisationFrame` (or any object
+with a ``name``).
 A conversion is a small complex matmul along ``polaxis`` in the data's
 own precision (complex128 for f64 or c128 data, else complex64).
 
@@ -18,6 +20,7 @@ import torch
 from ..config import complex_of
 
 __all__ = [
+    "PolarisationFrame",
     "pol_names",
     "npol",
     "convert_pol_frame",
@@ -62,6 +65,36 @@ _SUBSETS = {
     "stokesIV": [0, 3],
     "stokesI": [0],
 }
+
+
+class PolarisationFrame:
+    """A validated frame name with its polarisation labels: immutable,
+    hashable, and equal to its name."""
+
+    __slots__ = ("name",)
+
+    def __init__(self, name: str):
+        object.__setattr__(self, "name", _check(frame_name(name)))
+
+    def __setattr__(self, *_):
+        raise AttributeError("PolarisationFrame is immutable")
+
+    @property
+    def names(self) -> list:
+        return list(_FRAMES[self.name])
+
+    @property
+    def npol(self) -> int:
+        return len(_FRAMES[self.name])
+
+    def __eq__(self, other):
+        return self.name == frame_name(other)
+
+    def __hash__(self):
+        return hash(self.name)
+
+    def __repr__(self):
+        return f"PolarisationFrame({self.name!r})"
 
 
 def frame_name(frame) -> str:

@@ -3,8 +3,11 @@
 Counterpart of ``ska_sdp_func_python_tpu/models/visibility.py`` with the
 same shapes: ``vis/weight/imaging_weight/flags`` are
 ``[ntime, nbaseline, nchan, npol]``, ``uvw`` is ``[ntime, nbaseline, 3]`` in
-metres, ``antenna1/antenna2`` are ``[nbaseline]`` int32. ``phasecentre``
-stays host numpy f64 (astrometry contract, see utils/coordinates.py).
+metres, ``antenna1/antenna2`` are ``[nbaseline]`` int32. ``time`` and
+``integration_time`` are f64 whatever the working dtype (absolute epochs
+in MJD seconds, ~5e9 s, keep no sub-second resolution in f32), as in the
+JAX package under x64. ``phasecentre`` stays host numpy f64 (astrometry
+contract, see utils/coordinates.py).
 """
 
 from __future__ import annotations
@@ -88,6 +91,24 @@ class Visibility:
         return dataclasses.replace(self, **kwargs)
 
 
+def _default_integration_time(time: torch.Tensor) -> torch.Tensor:
+    """Integration times of a time axis: the spacing of consecutive times,
+    the last one repeated (1 s for a single time)."""
+    if time.shape[0] > 1:
+        dt = torch.diff(time)
+        return torch.cat([dt, dt[-1:]])
+    return torch.ones_like(time)
+
+
+def _default_channel_bandwidth(frequency: torch.Tensor) -> torch.Tensor:
+    """Channel bandwidths of a frequency axis: the spacing of consecutive
+    channels, the last one repeated (1 MHz for a single channel)."""
+    if frequency.shape[0] > 1:
+        df = torch.diff(frequency)
+        return torch.cat([df, df[-1:]])
+    return torch.full_like(frequency, 1e6)
+
+
 def create_visibility_from_arrays(
     *,
     uvw,
@@ -110,16 +131,20 @@ def create_visibility_from_arrays(
 ) -> Visibility:
     """Build a Visibility on ``device`` filling defaults (zero vis, unit
     weight). ``dtype`` is the real working dtype (f32 by default; f64 is
-    the opt-in for tests) and sets the complex dtype with it. ``device``
-    None is the CUDA card (:func:`config.default_device`)."""
+    the opt-in for tests) and sets the complex dtype with it; the time
+    axis is f64 whatever ``dtype`` is. ``device`` None is the CUDA card
+    (:func:`config.default_device`)."""
     device = resolve_device(device)
     cdtype = complex_of(dtype)
 
     def real(x):
         return torch.as_tensor(np.asarray(x), device=device).to(dtype)
 
+    def f64(x):
+        return torch.as_tensor(np.asarray(x, np.float64), device=device)
+
     uvw = real(uvw)
-    time = real(time)
+    time = f64(time)
     frequency = real(np.atleast_1d(np.asarray(frequency)))
     a1 = torch.as_tensor(np.asarray(antenna1, np.int32), device=device)
     a2 = torch.as_tensor(np.asarray(antenna2, np.int32), device=device)
@@ -140,19 +165,11 @@ def create_visibility_from_arrays(
     else:
         flags = torch.as_tensor(np.asarray(flags, np.int32), device=device)
     if integration_time is None:
-        if time.shape[0] > 1:
-            dt = torch.diff(time)
-            integration_time = torch.cat([dt, dt[-1:]])
-        else:
-            integration_time = torch.ones_like(time)
+        integration_time = _default_integration_time(time)
     else:
-        integration_time = real(integration_time)
+        integration_time = f64(integration_time)
     if channel_bandwidth is None:
-        if frequency.shape[0] > 1:
-            df = torch.diff(frequency)
-            channel_bandwidth = torch.cat([df, df[-1:]])
-        else:
-            channel_bandwidth = torch.full_like(frequency, 1e6)
+        channel_bandwidth = _default_channel_bandwidth(frequency)
     else:
         channel_bandwidth = real(np.atleast_1d(np.asarray(channel_bandwidth)))
     if nants is None:

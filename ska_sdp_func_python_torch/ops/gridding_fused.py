@@ -94,7 +94,8 @@ def _check_taps_aligned(plan):
 
 def grid(plan, vals: torch.Tensor) -> torch.Tensor:
     """Grid plan-ordered complex64 values onto the complex64 plane grids
-    ``[nplanes, npix, npix]`` (kernel K1+K2 on CUDA)."""
+    ``[nplanes, npix, npix]`` (kernel K1+K2 on CUDA, the same bits from run
+    to run)."""
     if vals.device.type == "cpu":
         return grid_plain(plan, vals)
     dev = vals.device
@@ -104,12 +105,18 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"vals: shape {tuple(vals.shape)}, expected ({plan.n},)")
     npix = plan.npixel
     _check_taps_aligned(plan)
-    # zero-filled: the kernel adds every tile into the grids atomically
-    out = torch.zeros(
+    vals_ptr = chk("vals", vals, torch.complex64, dev)
+    # the kernel accumulates in int64 fixed point, scaled by the stream's
+    # bound: the sum of |re| + |im| over vals times the plan's tap bound
+    vsum = torch.view_as_real(vals).abs().sum().reshape(1)
+    grid64 = torch.empty(
+        (plan.nplanes, npix, npix, 2), dtype=torch.int64, device=dev
+    )
+    out = torch.empty(
         (plan.nplanes, npix, npix), dtype=torch.complex64, device=dev
     )
     k.launch(
-        chk("vals", vals, torch.complex64, dev),
+        vals_ptr,
         chk("iu0", plan.iu0, torch.int32, dev),
         chk("iv0", plan.iv0, torch.int32, dev),
         chk("frac", plan.frac, torch.float32, dev),
@@ -119,8 +126,12 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
         chk("chunk_seg", plan.chunk_seg, torch.int32, dev),
         chk("chunk_start", plan.chunk_start, torch.int32, dev),
         chk("chunk_count", plan.chunk_count, torch.int32, dev),
+        chk("tap_bound", plan.tap_bound, torch.float32, dev),
+        vsum.data_ptr(),
+        grid64.data_ptr(),
         out.data_ptr(),
         int(plan.chunk_seg.shape[0]),
+        plan.nplanes,
         npix,
         plan.tile,
         npix // plan.tile,

@@ -62,6 +62,10 @@ class GridPlan:
     chunk_start: torch.Tensor  # int32 [nchunks]
     chunk_count: torch.Tensor  # int32 [nchunks]
     korder: torch.Tensor  # int32 [n_in]: the grid kernel's walk order
+    # f32 [1]: the most one entry adds to one cell per unit of |re| + |im|
+    # (largest u tap times largest v tap times largest plane weight), the
+    # grid kernel's fixed-point bound
+    tap_bound: torch.Tensor
     n: int
     n_in: int
     npixel: int
@@ -278,6 +282,12 @@ def make_grid_plan(
     def i32(x):
         return x.to(torch.int32).contiguous()
 
+    def amax(x):
+        return x.abs().amax() if x.numel() else torch.zeros((), device=device)
+
+    weight = torch.clamp(torch.maximum(amax(frac), amax(1.0 - frac)), min=1.0)
+    tap_bound = (amax(ku) * amax(kv) * weight).to(torch.float32).reshape(1)
+
     # plan -> natural order is a gather through the inverse permutation:
     # on the card a gather with coalesced writes is faster than the
     # scatter (K4 at the flagship, PERF.md)
@@ -296,6 +306,7 @@ def make_grid_plan(
         chunk_start=i32(chunk_start),
         chunk_count=i32(chunk_count),
         korder=i32(korder),
+        tap_bound=tap_bound,
         n=n,
         n_in=n_in,
         npixel=npixel,

@@ -87,6 +87,7 @@ __all__ = [
     "predict_wg",
     "invert_wg",
     "create_image_from_visibility",
+    "rad_deg_arcsec",
 ]
 
 # entries one unit of the tiled gridder takes. Gridding (one CTA of K9 a
@@ -108,6 +109,14 @@ def shift_vis_to_image(
     """Phase-rotate visibilities to the image phase centre."""
     return phaserotate_visibility(
         vis, im.phasecentre, tangent=tangent, inverse=inverse
+    )
+
+
+def rad_deg_arcsec(x) -> str:
+    """``x`` in radians written in radians, degrees and arcseconds."""
+    return (
+        f"{x:.3g} (rad) {180.0 * x / np.pi:.3g} (deg) "
+        f"{3600.0 * 180.0 * x / np.pi:.3g} (asec)"
     )
 
 
@@ -698,18 +707,23 @@ def predict_with_stack(
     return vals if to_sorted else permute_apply(st.iperm, vals)
 
 
-def _nw_for(vis: Visibility, im: Image, do_wstacking: bool, nw=None) -> int:
+def _nw_for(
+    vis: Visibility, im: Image, do_wstacking: bool, nw=None, wmax=None
+) -> int:
     """Static w-plane count from the maximum |w| and the field of view (the
-    JAX package's heuristic)."""
+    JAX package's heuristic). ``wmax`` (wavelengths) overrides the
+    maximum of ``vis``: the streamed cycle passes the observation's, so
+    every slab stacks onto the same planes."""
     if not do_wstacking:
         return 1
     if nw is not None:
         return int(nw)
-    wmax = float(
-        vis.uvw[..., 2].abs().max().cpu().numpy()
-        * vis.frequency.max().cpu().numpy()
-        / C_M_S
-    )
+    if wmax is None:
+        wmax = float(
+            vis.uvw[..., 2].abs().max().cpu().numpy()
+            * vis.frequency.max().cpu().numpy()
+            / C_M_S
+        )
     fov = im.npixel * im.cellsize
     nw_est = int(np.ceil(4.0 * wmax * fov * fov)) + 1
     return max(2, min(nw_est, 256)) if wmax > 0 else 1

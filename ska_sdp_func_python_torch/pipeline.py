@@ -42,8 +42,8 @@ The port covers npol 1, 2 and 4 (visibilities converted to the model's
 frame), one image channel per visibility channel or one image channel
 from all of them (multi-frequency synthesis), diagonal Jones terms and
 full-Jones ``"matrix"`` terms (a Mueller chain in the fused cycle), and
-sky components in the model. ``epsilon=`` raises: the JAX pipelines do
-not pass it to their plan.
+sky components in the model. ``epsilon=`` raises: the JAX pipelines
+accept it and ignore it, so there is no reference behaviour to port.
 """
 
 from __future__ import annotations
@@ -56,7 +56,8 @@ from typing import Optional
 
 import torch
 
-from .config import not_ported, resolve_device
+from .config import resolve_device
+from .io.gainio import load_gaintables, save_gaintables
 from .models.components import SkyComponents
 from .models.gaintable import GainTable, create_gaintable_from_visibility
 from .models.image import Image
@@ -167,14 +168,47 @@ class SelfCalState:
         )
 
     def export_gaintables(self, path: str) -> None:
-        raise not_ported("standalone gaintable files", "S12")
+        """Write the solutions to a standalone HDF5 or npz file (see
+        :mod:`ska_sdp_func_python_torch.io.gainio`), which either package
+        reads without the pickled state."""
+        save_gaintables(self.gaintables, path)
 
     @classmethod
     def import_gaintables(cls, model, path: str, cycle: int = 0):
-        raise not_ported("standalone gaintable files", "S12")
+        """A state from a standalone solution file and a model image; the
+        tables go to the model's device."""
+        return cls(
+            model=model,
+            gaintables=load_gaintables(path, device=model.pixels.device),
+            cycle=cycle,
+        )
 
 
-class _SortedWorkspace:
+class _PlanRows:
+    """The payload-row layout of a plan stack (``mfs``: one plan over every
+    visibility channel), shared by the in-memory workspaces and the
+    streamed cycle's slabs."""
+
+    mfs: bool = False
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """[time, baseline, chan] -> the payload rows of the plan stack:
+        ``[nchan, time * baseline]``, each channel in natural order, or
+        for an MFS plan one row of every channel in (time, baseline,
+        channel) order."""
+        if self.mfs:
+            return x.reshape(1, -1)
+        return x.permute(2, 0, 1).reshape(x.shape[2], -1)
+
+    def natural(self, rows: torch.Tensor, ntime: int, nbl: int) -> torch.Tensor:
+        """The inverse of :meth:`rows`: ``[nchan, n]`` -> [time, baseline,
+        chan]."""
+        if self.mfs:
+            return rows.reshape(ntime, nbl, -1)
+        return rows.reshape(-1, ntime, nbl).permute(1, 2, 0)
+
+
+class _SortedWorkspace(_PlanRows):
     """Image-frame, plan-sorted visibility workspace: the observed values
     and weights of every (channel, polarisation), and the visibilities of
     the sky components, are moved into that channel plan's order once, so
@@ -234,22 +268,6 @@ class _SortedWorkspace:
             self.wgt_s.append(moved[1])
             if comp_ms is not None:
                 self.comp_s.append(moved[2])
-
-    def rows(self, x: torch.Tensor) -> torch.Tensor:
-        """[time, baseline, chan] -> the payload rows of the plan stack:
-        ``[nchan, time * baseline]``, each channel in natural order, or
-        for an MFS plan one row of every channel in (time, baseline,
-        channel) order."""
-        if self.mfs:
-            return x.reshape(1, -1)
-        return x.permute(2, 0, 1).reshape(x.shape[2], -1)
-
-    def natural(self, rows: torch.Tensor, ntime: int, nbl: int) -> torch.Tensor:
-        """The inverse of :meth:`rows`: ``[nchan, n]`` -> [time, baseline,
-        chan]."""
-        if self.mfs:
-            return rows.reshape(ntime, nbl, -1)
-        return rows.reshape(-1, ntime, nbl).permute(1, 2, 0)
 
     def model_sorted(self, pixels: torch.Tensor, with_model: bool) -> list:
         """Per polarisation, the plan-ordered model visibilities ``[nchan,
@@ -998,8 +1016,13 @@ def _setup(name: str, vis, model, context: str, kwargs: dict):
     fused = kwargs.pop("fused", None)
     use_plan = kwargs.pop("use_plan", None)
     if kwargs.get("epsilon") is not None:
-        # the JAX pipelines do not pass epsilon to their plan
-        raise not_ported(f"{name}(epsilon=...)", "S7x")
+        # ignoring an accuracy request silently would be worse than refusing
+        raise NotImplementedError(
+            f"{name}(epsilon=...) has no reference behaviour: the JAX "
+            "pipelines accept epsilon= and ignore it (their plans never see "
+            "it); invert_visibility and predict_visibility serve the epsilon "
+            "contract"
+        )
     _check_algorithm(model, kwargs)
     ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
     plan = (

@@ -15,16 +15,18 @@ identical component positions and values to 1e-6 relative (the same f32
 operations in the same order); ``msclean`` and ``msmfs`` on the same f32
 stacks agree bit for bit in rows, residuals and the kernels' component
 images and moment models (``msclean_with_stacks`` from the FFTs of each
-device to 1e-6); ``grid`` (atomics, run-to-run summation order; held against
-the plain version accumulated in f64) and ``degrid`` (one entry's f32
+device to 1e-6); ``grid`` (fixed-point accumulation, the same bits from
+launch to launch; held against the plain version accumulated in f64) and
+``degrid`` (one entry's f32
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
 launch; ``unit_tiles`` (atomics) agrees with its plain version
 accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
 f64. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
-image) launch their kernels on the card and agree with the CPU run to the
-slice bounds: gains 1e-4, peak residual 1e-3 relative. K4 moves the
+image) and the streamed cycle over a store launch their kernels on the
+card and agree with the CPU run to the slice bounds: gains 1e-4, peak
+residual 1e-3 relative. K4 moves the
 four polarisations of a cycle's leg in one launch; K1 and K3 take an MFS
 plan's one row as they take a channel's.
 """
@@ -114,6 +116,57 @@ def test_grid_and_degrid_match_plain(dev, wstacked):
     out = degrid(plan, grids)
     torch.cuda.synchronize()
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("wstacked", [True, False])
+def test_grid_gives_the_same_bits_every_launch(dev, wstacked):
+    """K1 accumulates in fixed point, so the order of its atomics (chunks
+    of one segment, halos of neighbouring tiles, the groups of a CTA)
+    cannot change the result: launches on the same inputs agree bit for
+    bit."""
+    plan = _plan(dev, wstacked=wstacked)
+    g = torch.Generator(device=dev).manual_seed(7)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    first = grid(plan, vals)
+    for _ in range(8):
+        assert torch.equal(grid(plan, vals), first)
+
+
+@pytest.mark.parametrize("faint", [1e-3, 1e-9])
+def test_grid_error_is_relative_to_each_cell(dev, faint):
+    """K1 accumulates in int64 units of at most 2^-60 of the launch's
+    bound (the sum of |re| + |im| over vals times the plan's tap bound).
+    Values to the left of the grid's middle are ``faint`` times those to
+    its right: every cell is within 2e-6 of the sum of |contribution| it
+    receives (its f32 register sums), plus 64 units (the rounding of its
+    flushes, which shows only where a cell is ~1e-12 of the bound)."""
+    plan = _plan(dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    left = plan.iu0.to(torch.float32) < plan.npixel / 2 - 16
+    vals = torch.where(left, vals * faint, vals)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    size = torch.view_as_real(vals).abs().sum(-1).to(torch.complex128)
+    mag = grid_plain(plan, size).real  # the taps are positive
+    unit = float(size.real.sum()) * float(plan.tap_bound) * 2.0**-60
+    out = grid(plan, vals)
+    assert bool(((out - ref).abs() <= 2e-6 * mag + 64 * unit).all())
+    # and the faint half to 1e-5 of its own maximum where the units allow
+    if faint == 1e-3:
+        cols = slice(0, plan.npixel // 2 - 16)
+        err = (out - ref)[:, :, cols].abs().max()
+        assert err <= 1e-5 * ref[:, :, cols].abs().max()
+
+
+def test_grid_of_zeros_and_of_a_nan(dev):
+    """All-zero values give zero grids; a NaN value gives NaN grids (the
+    fixed-point bound is not finite), as a NaN reaches the plain version's
+    image through the FFT."""
+    plan = _plan(dev)
+    vals = torch.zeros(plan.n, device=dev, dtype=torch.complex64)
+    assert not grid(plan, vals).abs().max()
+    vals[plan.n // 2] = float("nan")
+    assert torch.isnan(grid(plan, vals)).all()
 
 
 def _stress_coords(case, npix, rng, tile=64):
@@ -1073,3 +1126,17 @@ def test_fused_tb_cube_on_card_matches_cpu(dev):
 def test_full_jones_mfs_ical_on_card_matches_cpu(dev):
     """The "matrix" "T" + "B" chain imaged MFS (chip_smoke phase 11d)."""
     _chip_smoke().small_jones_slice(dev)
+
+
+def test_streamed_ical_on_card_matches_cpu(dev):
+    """``streamed_ical`` over a store of phase 7's small observation, on the
+    card and on the CPU (chip_smoke phase 12d): gains 1e-4, peak residual
+    1e-3 relative; the card's run launches grid, permute and hogbom in
+    every cycle and degrid from the second."""
+    from ska_sdp_func_python_torch import kernels
+
+    cs = _chip_smoke()
+    kernels.reset_launch_counts()
+    cs.streamed_card_vs_cpu(dev)
+    counts = kernels.launch_counts()
+    assert all(counts[k] > 0 for k in ("grid", "degrid", "permute", "hogbom")), counts

@@ -25,6 +25,7 @@ from ska_sdp_func_python_tpu.ops.imaging import (
     w_kernel_correction as jax_w_kernel_correction,
 )
 from ska_sdp_func_python_torch import interop
+from ska_sdp_func_python_torch.ops.gridding_fused import grid_plain
 from ska_sdp_func_python_torch.ops.gridding_plan import (
     default_chunk,
     degrid_with_plan,
@@ -227,3 +228,30 @@ def test_walk_order_is_a_corner_sort_within_segments():
     tie = key[1:] == key[:-1]
     assert bool((k[1:][tie] > k[:-1][tie]).all())
     assert torch.equal(gp.perm, _random_plan(2048).perm)
+
+
+@pytest.mark.parametrize("wstacked", [True, False])
+def test_tap_bound_bounds_every_contribution(wstacked):
+    """tap_bound, the grid kernel's fixed-point bound, is at least what any
+    entry adds to one cell per unit of |re| + |im|: its largest u tap times
+    its largest v tap times its larger plane weight (and, without w planes,
+    weight 1). With the plain version's f64 grids of |re| + |im| = 1 values
+    no cell exceeds tap_bound times the number of entries."""
+    gp = _random_plan()
+    if not wstacked:
+        rng = np.random.default_rng(3)
+        gp = make_grid_plan(
+            torch.as_tensor(rng.uniform(-20, 276, 5000)),
+            torch.as_tensor(rng.uniform(-20, 276, 5000)),
+            None, None, npixel=256, nplanes=1, tile=32,
+        )
+    n = gp.n_in
+    per_entry = gp.ku[:n].abs().amax(1) * gp.kv[:n].abs().amax(1)
+    if gp.wstacked:
+        f = gp.frac[:n]
+        per_entry = per_entry * torch.maximum(f.abs(), (1 - f).abs())
+    bound = float(gp.tap_bound)
+    assert gp.tap_bound.shape == (1,) and gp.tap_bound.dtype == torch.float32
+    assert float(per_entry.max()) <= bound <= 1.0 + 1e-6
+    grids = grid_plain(gp, torch.ones(gp.n, dtype=torch.complex128))
+    assert float(grids.abs().max()) <= bound * gp.n

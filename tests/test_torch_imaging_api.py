@@ -317,15 +317,15 @@ def test_plan_cache_evicts_least_recent(benign):
 def test_pipelines_refuse_planless_and_epsilon(benign, kw):
     """Without a plan the pipelines run the composed cycle on the imaging
     API's own routes (the core path on the CPU), as the JAX pipelines do;
-    they refuse epsilon, which the JAX pipelines do not pass to their
-    plan (ROADMAP slice S7x)."""
+    they refuse epsilon, which the JAX pipelines accept and ignore (no
+    reference behaviour)."""
     from ska_sdp_func_python_torch.pipeline import continuum_imaging, ical
 
     vis, vis_dft, model = benign
     pvis, pmodel = _port(vis_dft, model)
     for entry in (ical, continuum_imaging):
         if "epsilon" in kw:
-            with pytest.raises(NotImplementedError, match="S7x"):
+            with pytest.raises(NotImplementedError, match="no reference behaviour"):
                 entry(pvis, pmodel, nmajor=1, **kw)
             continue
         out = entry(pvis, pmodel, nmajor=1, algorithm="hogbom", niter=50, **kw)
