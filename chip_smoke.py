@@ -153,8 +153,29 @@ Phases, each on lines of its own:
      residual images within 5e-3 of their maximum, and the geometry's uvw
      within 1e-6 m of the store's; (d) the streamed path on phase 7's small
      observation on the card and on the CPU, to phase 7's bounds.
-Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c and 12a-c resets the launch
-counters just before it and fails unless every kernel of its path
+ 13. the rest of the imaging and CLEAN API: (a) after phase 10a, phase
+     4's Hogbom ical on plans at supports 6 and 12, K1 (two launches to the
+     same bits) and K3 held on each plan against their plain versions
+     first: the peak falls, the restored peak within 0.2 of 2.0; (b) in
+     phase 9, its f32 observation on a nearest-plane plan of 128 w-planes,
+     K1 and K3 held on it: the predict within 1e-2 of the exact DFT and
+     above the error of a linear plan of 64 planes, the dirty peak on the
+     source; (c) after (a), the flagship's uniform and robust (-2, 0, 2)
+     weights and both tapers with weights 1 + N(0, 0.1), on the card and
+     on the CPU to 1e-6, two card runs of the robust weights to the same
+     bits, and the PSF's peak sidelobe for uniform, robust and natural
+     weights; (d) in phase 8, deconvolve_list over the cube's 64 channel
+     images with hogbom, msclean and mmclean equal to deconvolve_cube bit
+     for bit, restore_list to restore_cube, and, in (a), the support-12
+     dirty image through image_raster_iter and image_gather_facets (4
+     facets, overlap 16, tukey) back to 1e-6 of its maximum; (e) after
+     (c), phase 7's small msclean slice (fractional threshold 0.05) at
+     support 6, and its observation imaged and predicted on a
+     nearest-plane plan, card against CPU (phase 7's bounds; 1e-5 of the
+     maxima). The script prints K1 and K3 at each
+     support and plane mode with time, bound and plain time.
+Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c and 13a-d resets the
+launch counters just before it and fails unless every kernel of its path
 launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
@@ -325,6 +346,21 @@ STREAMED = dict(nants=274, rmax=2000.0, seed=11, ntimes=2674, dec=np.deg2rad(-35
                 chunk=200, nmajor=3)
 STREAMED_PEAK_TOL = 0.2
 WIRE_TOL, UVW_TOL = 5e-3, 1e-6
+
+# phase 13: the supports of the flagship ical (the JAX plan path takes 1
+# to 16); the facets of the round trip; the robustness values; the card's
+# imaging weights against the CPU's (relative to the largest weight); the
+# nearest plan's predict error bound (JAX tests/test_imaging.py:348) and
+# its planes, twice the linear plan's as in that test (a nearest plane's w
+# error at phase 9's source is about pi dw |n - 1|: 0.098 at the flagship's
+# default 6 planes, 0.016 at 32, 0.0078 at 64, 0.0039 at 128); the radius
+# (pixels) beyond which the PSF's peak sidelobe is taken
+SUPPORTS13 = (6, 12)
+FACETS13 = dict(facets=4, overlap=16, taper="tukey")
+ROBUST13 = (-2.0, 0.0, 2.0)
+WEIGHT_TOL, FACET_TOL, NEAREST_TOL = 1e-6, 1e-6, 1e-2
+NEAREST_NW = 128
+SIDELOBE_RADIUS = 8
 
 
 def say(*args):
@@ -535,23 +571,42 @@ def grid_plain_pieces(gp, vals, piece=1 << 20):
 
 
 def grid_bound(gp):
-    """K1's bound on plan ``gp``: per entry its value, corner, plane
-    fraction and 2 x 8 taps in (what gridding needs: not the kernel's walk
-    order or chunk table) and the grids out; per tap one tap product and,
-    on each of two planes, a complex scale and add."""
+    """K1's bound on plan ``gp``: per entry its value, corner and 2 x S
+    taps in (S the plan's span), and its plane fraction on a linear plan
+    (what gridding needs: not the kernel's walk order, chunk table or the
+    taps' zero padding) and the grids out; per cell of the S x S window
+    one tap product and, on each plane it adds to (two on a linear plan),
+    a complex scale and add."""
+    planes = 2 if gp.wstacked else 1
+    per_entry = 8 + 4 + 4 + 2 * 4 * gp.span + (4 if gp.wstacked else 0)
     grids_bytes = gp.nplanes * gp.npixel**2 * 8
-    return bound(gp.n_in * (8 + 4 + 4 + 4 + 32 + 32) + grids_bytes, gp.n_in * (64 * 9 + 5))
+    return bound(gp.n_in * per_entry + grids_bytes,
+                 gp.n_in * (gp.span**2 * (1 + 4 * planes) + 5))
 
 
 def degrid_bound(gp, nchan=1):
     """K3's bound on plan ``gp`` (or a stack of ``nchan`` channel plans,
-    whose ``n_in`` is a tensor): the grids in; per entry its corner,
-    plane, fraction and taps in and the value out; per in-grid entry and
-    plane 8 row sums of 8 complex-by-real products and one of 8."""
-    grids_bytes = nchan * gp.nplanes * gp.npixel**2 * 8
+    whose ``n_in`` is a tensor): the grid cells its windows can reach in
+    (on a plan, its segments' (tile + S)^2 cells on each plane they read,
+    at most every cell: a nearest plan of many planes reaches a few of
+    them; on a stack, every cell); per entry its corner and 2 x S taps in
+    (S the plan's span, not the taps' zero padding), its plane where
+    there is more than one, its fraction on a linear plan, and the value
+    out; per in-grid entry and plane read (two on a linear plan, one
+    otherwise) S row sums of S complex-by-real products and one of S."""
+    import torch
+
+    planes = 2 if gp.wstacked else 1
+    cells = gp.nplanes * gp.npixel**2
+    if hasattr(gp, "chunk_seg"):
+        nseg = int(torch.unique(gp.chunk_seg).numel())
+        cells = min(cells, nseg * (gp.tile + gp.span) ** 2 * planes)
+    grids_bytes = nchan * cells * 8
+    per_entry = (4 + 4 + 2 * 4 * gp.span + 8 + (4 if gp.nplanes > 1 else 0)
+                 + (4 if gp.wstacked else 0))
     n_in = int(gp.n_in.sum()) if hasattr(gp.n_in, "sum") else gp.n_in
-    return bound(grids_bytes + nchan * gp.n * (4 + 4 + 4 + 4 + 32 + 32 + 8),
-                 n_in * (2 * (64 * 4 + 8 * 4) + 6))
+    return bound(grids_bytes + nchan * gp.n * per_entry,
+                 n_in * (planes * (gp.span**2 * 4 + gp.span * 4) + 6))
 
 
 def degrid_plain_pieces(gp, grids, piece=1 << 20):
@@ -1172,7 +1227,27 @@ def run_deconvolve_cube(dirty_image, psf_image):
     return counts
 
 
-def small_slice_matches_cpu(device, algorithm, **clean):
+@contextlib.contextmanager
+def plan_grid_in_f64():
+    """The CPU's plan gridding accumulated in f64 (``grid_plain`` of the
+    values as complex128, rounded to complex64 after) in place of its f32
+    ``index_add_``: a grid as exact as K1's fixed-point tile, whose f32
+    register sums are exact to f32 rounding."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops import gridding_plan
+    from ska_sdp_func_python_torch.ops.gridding_fused import grid_plain
+
+    grid = gridding_plan.grid
+    gridding_plan.grid = lambda plan, vals: grid_plain(
+        plan, vals.to(torch.complex128)).to(torch.complex64)
+    try:
+        yield
+    finally:
+        gridding_plan.grid = grid
+
+
+def small_slice_matches_cpu(device, algorithm, f64_witness=False, **clean):
     """Phase 7: ical on a small observation with the CUDA kernels and on
     the CPU with the plain versions (which the CPU tests hold against the
     JAX package), to the JAX package's fused-vs-composed bounds.
@@ -1181,35 +1256,53 @@ def small_slice_matches_cpu(device, algorithm, **clean):
     Gaussian fit to this small array's PSF starts from a circular beam,
     where its angle has no gradient, so f32-level PSF differences alone
     move the fitted beam, and with it the restored peak, by several
-    hundredths. The beams both runs fitted are printed."""
+    hundredths. The beams both runs fitted are printed.
+
+    ``f64_witness``: the card is held to a third run, on the CPU with its
+    plan gridding accumulated in f64 (:func:`plan_grid_in_f64`), where a
+    CLEAN's choice between near-equal peaks follows the grid's rounding;
+    the CPU run's f32 grid is then printed beside it, not gated."""
     from ska_sdp_func_python_torch.ops.deconvolution import restore_cube
     from ska_sdp_func_python_torch.pipeline import ical
 
     out = {}
-    for dev in (device, "cpu"):
-        _, vis, model, _ = simulate(dev, rmax=600.0, ntimes=8, npixel=256)
-        d, r, s, g = ical(
-            vis, model, nmajor=3, calibration_context="T", context="ng",
-            algorithm=algorithm, scales=SCALES, **{**CLEAN, **clean},
-        )
+    runs = [("card", device), ("cpu", "cpu")]
+    if f64_witness:
+        runs.append(("cpu f64 grid", "cpu"))
+    for label, dev in runs:
+        f64 = label == "cpu f64 grid"
+        with plan_grid_in_f64() if f64 else contextlib.nullcontext():
+            _, vis, model, _ = simulate(dev, rmax=600.0, ntimes=8, npixel=256)
+            d, r, s, g = ical(
+                vis, model, nmajor=3, calibration_context="T", context="ng",
+                algorithm=algorithm, scales=SCALES, **{**CLEAN, **clean},
+            )
         gain = g["T"].gain.cpu().numpy()[..., 0, 0, 0]
-        out[dev] = (gain * np.exp(-1j * np.angle(gain[:, :1])), d, r, s)
-    (ga, da, ra, sa), (gb, db, rb, sb) = out[device], out["cpu"]
-    beam = dict(zip(("bmaj", "bmin", "bpa"), np.rad2deg(sb.clean_beam)))
-    peak_a = float(restore_cube(da, residual=ra, clean_beam=beam).pixels.max())
-    peak_b = float(sb.pixels.max())
-    dg = float(np.max(np.abs(ga - gb)))
-    res_a, res_b = float(ra.pixels.abs().max()), float(rb.pixels.abs().max())
-    say(
-        f"small slice {algorithm} card vs cpu: gain {dg:.2e} (bound 1e-4), "
-        f"residual peak {res_a:.6f} vs {res_b:.6f} (bound 1e-3 rel), restored "
-        f"with one beam {peak_a:.4f} vs {peak_b:.4f} (bound 0.05); fitted "
-        f"beams (bmaj, bmin, bpa deg) {np.rad2deg(sa.clean_beam)} vs "
-        f"{np.rad2deg(sb.clean_beam)}, restored with its own beam "
-        f"{float(sa.pixels.max()):.4f}"
-    )
-    if not (dg < 1e-4 and abs(res_a - res_b) < 1e-3 * res_b and abs(peak_a - peak_b) < 0.05):
-        raise AssertionError(f"small slice {algorithm}: card and cpu disagree")
+        out[label] = (gain * np.exp(-1j * np.angle(gain[:, :1])), d, r, s)
+    ga, da, ra, sa = out["card"]
+    res_a = float(ra.pixels.abs().max())
+    verdict = {}
+    for label in list(out)[1:]:
+        gb, _, rb, sb = out[label]
+        beam = dict(zip(("bmaj", "bmin", "bpa"), np.rad2deg(sb.clean_beam)))
+        peak_a = float(restore_cube(da, residual=ra, clean_beam=beam).pixels.max())
+        peak_b = float(sb.pixels.max())
+        dg = float(np.max(np.abs(ga - gb)))
+        res_b = float(rb.pixels.abs().max())
+        gated = label == runs[-1][0]
+        say(
+            f"small slice {algorithm}{' ' + str(clean) if clean else ''} card vs "
+            f"{label}{'' if gated else ' (not gated)'}: gain {dg:.2e} (bound 1e-4), "
+            f"residual peak {res_a:.6f} vs {res_b:.6f} (bound 1e-3 rel), restored "
+            f"with one beam {peak_a:.4f} vs {peak_b:.4f} (bound 0.05); fitted "
+            f"beams (bmaj, bmin, bpa deg) {np.rad2deg(sa.clean_beam)} vs "
+            f"{np.rad2deg(sb.clean_beam)}, restored with its own beam "
+            f"{float(sa.pixels.max()):.4f}"
+        )
+        verdict[label] = (dg < 1e-4 and abs(res_a - res_b) < 1e-3 * res_b
+                          and abs(peak_a - peak_b) < 0.05)
+    if not verdict[runs[-1][0]]:
+        raise AssertionError(f"small slice {algorithm}: card and {runs[-1][0]} disagree")
 
 
 def model_flux_near(current, chan, offset, radius=10):
@@ -1428,8 +1521,9 @@ def compare_msmfs(model, dirty, patch):
 
 def run_cube(device):
     """Phase 8: the MSMFS cube. Holds the grid kernel on one channel's
-    launch (the cube cycle's per-channel shape). Returns (kernel row of
-    msmfs, summed launch counts of 8b and 8c)."""
+    launch (the cube cycle's per-channel shape); runs phase 13d's list API
+    on the cube's dirty channels. Returns (kernel row of msmfs, summed
+    launch counts of 8b and 8c, those of 13d)."""
     import torch
 
     from ska_sdp_func_python_torch.ops.deconvolution import bound_psf
@@ -1459,6 +1553,7 @@ def run_cube(device):
     dirty, _ = invert_visibility(vis, model, plan=plan)
     patch = bound_psf(psf, psf).pixels.to(torch.float32)
     row = compare_msmfs(model, dirty, patch)
+    counts_13d = cube_lists(dirty, psf)
     # the Hogbom kernels on one lane a channel (a Hogbom deconvolve_cube
     # of this cube), at the flagship's CLEAN settings
     hogbom_cases(
@@ -1491,7 +1586,7 @@ def run_cube(device):
     _one_launch_per_call("msmfs ical", counts_c, "msmfs", calls)
     # printed, not gated: the self-cal residual keeps the calibration error
     cube_gates("msmfs ical", current, peaks, CUBE["offset"], CUBE["alpha"], gate=False)
-    return row, {k: counts_b[k] + counts_c[k] for k in counts_b}
+    return row, {k: counts_b[k] + counts_c[k] for k in counts_b}, counts_13d
 
 
 def small_cube_matches_cpu(device):
@@ -2569,8 +2664,9 @@ def run_plan_cache(vis, model):
 
 
 def run_epsilon_phase(cfg, device, **size):
-    """Phase 9 (``size``: observation9's ntimes, npixel and source).
-    Returns (unit_tiles kernel row, summed launch counts of 9b-e)."""
+    """Phase 9 (``size``: observation9's ntimes, npixel and source), and
+    phase 13b on its f32 observation. Returns (unit_tiles kernel row,
+    summed launch counts of 9b-e, launch counts and kernel rows of 13b)."""
     import torch
 
     from ska_sdp_func_python_torch.ops import imaging as im
@@ -2589,6 +2685,7 @@ def run_epsilon_phase(cfg, device, **size):
     ]
     im._PLAN_CACHE.clear()
     counts.append(run_plan_cache(vis, model))
+    counts_13b, rows_13b = run_nearest_flagship(vis, model, oracle, source)
     del vis, model, oracle
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2601,7 +2698,7 @@ def run_epsilon_phase(cfg, device, **size):
     counts.append(run_epsilon("9d deep-f64", vis, model, oracle, source, EPS_DEEP, ("unit_tiles",)))
     del vis, model, oracle
     torch.cuda.empty_cache()
-    return row, {k: sum(c[k] for c in counts) for k in counts[0]}
+    return row, {k: sum(c[k] for c in counts) for k in counts[0]}, counts_13b, rows_13b
 
 
 # ---------------------------------------------------------------------------
@@ -3152,6 +3249,337 @@ def profile_streamed(wire: str = "f16", store_uvw: bool = False,
     say(f"device: {card_line()}")
     return 0
 
+# ---------------------------------------------------------------------------
+# phase 13: the rest of the single-device imaging and CLEAN API
+
+
+def degrid_row(gp, label):
+    """K3 against its plain version (in pieces) on plan ``gp`` with random
+    grids; times both and prints the row with its bound. Returns the row."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import degrid
+
+    g = torch.Generator(device=gp.perm.device).manual_seed(13)
+    grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g,
+                        device=gp.perm.device, dtype=torch.complex64)
+    ref = degrid_plain_pieces(gp, grids)
+    err = float((degrid(gp, grids) - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    del ref
+    row = _row(err, rel, timed(lambda: degrid(gp, grids), 20),
+               timed(lambda: degrid_plain_pieces(gp, grids), 1), degrid_bound(gp))
+    say(
+        f"degrid {label}: {gp.n_in} entries, {gp.nplanes} planes of {gp.npixel}^2: "
+        f"max abs err {err:.3e}, rel {rel:.3e} (tolerance {KERNELS['degrid'][0]:g}); "
+        f"kernel {row['ms']:.4f} ms, plain (in pieces) {row['plain_ms']:.3f} ms, "
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+    )
+    if not rel <= KERNELS["degrid"][0]:
+        raise AssertionError(f"degrid {label} disagrees with its plain version")
+    return row
+
+
+def plan_kernels(gp, vals, label):
+    """K1 (two launches to the same bits) and K3 against their plain
+    versions on plan ``gp``, at its support and plane mode. Returns the
+    rows by kernel."""
+    mode = "nearest" if gp.nearest else "linear" if gp.wstacked else "one plane"
+    label = f"{label} (support {gp.support}, {mode})"
+    return {"grid": grid_row(gp, vals, label), "degrid": degrid_row(gp, label)}
+
+
+def run_support_flagship(vis, model, phases):
+    """Phase 13a: phase 4's Hogbom ical on plans at supports 6 and 12, K1
+    and K3 held on each plan first; then the facet round trip of 13d on the
+    support-12 dirty image. Returns (summed counts, kernel rows by
+    configuration)."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        make_visibility_plan,
+    )
+
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    total, rows, dirty = None, {}, None
+    for support in SUPPORTS13:
+        plan = make_visibility_plan(vis, model, context="ng", support=support)
+        gp = plan.plans[0].gp
+        rows[f"flagship support {support} linear"] = plan_kernels(
+            gp, sort_values(gp, weighted), "13a flagship")
+        dirty = invert_visibility(vis, model, plan=plan)[0]
+        del plan, gp
+        torch.cuda.empty_cache()
+        counts, _, _, rpeak = run_ical(
+            f"13a hogbom ical support {support}", vis, model, phases, 4,
+            ("grid", "degrid", "permute", "hogbom"), algorithm="hogbom",
+            support=support, **CLEAN,
+        )
+        if not abs(rpeak - 2.0) < 0.2:
+            raise AssertionError(f"13a support {support}: restored peak {rpeak} not within 0.2 of 2.0")
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    facet_round_trip(dirty)
+    return total, rows
+
+
+def facet_round_trip(im):
+    """Phase 13d's facets: image_raster_iter -> image_gather_facets of a
+    flagship image on the card returns the image to FACET_TOL of its
+    maximum."""
+    from ska_sdp_func_python_torch.ops.image_iterators import (
+        image_gather_facets,
+        image_raster_iter,
+    )
+
+    t0 = time.perf_counter()
+    facets = list(image_raster_iter(im, **FACETS13))
+    back = image_gather_facets(facets, im, **FACETS13)
+    err = float((back.pixels - im.pixels).abs().max() / im.pixels.abs().max())
+    say(
+        f"13d facets {FACETS13} of the {im.npixel}^2 flagship dirty image: "
+        f"{len(facets)} facets of {tuple(facets[0].pixels.shape[-2:])} and larger, "
+        f"gathered back to {err:.3e} of the maximum (bound {FACET_TOL:g}) in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms"
+    )
+    if not err <= FACET_TOL:
+        raise AssertionError("13d: the gathered facets do not give the image back")
+
+
+def _vis_to(vis, device):
+    """``vis`` with every tensor moved to ``device``."""
+    import dataclasses
+
+    import torch
+
+    return vis.replace(**{
+        f.name: getattr(vis, f.name).to(device)
+        for f in dataclasses.fields(vis)
+        if isinstance(getattr(vis, f.name), torch.Tensor)
+    })
+
+
+def run_weighting_flagship(vis, model):
+    """Phase 13c: uniform and robust (robustness -2, 0, 2) weights and the
+    Gaussian and Tukey tapers of the flagship with weights 1 + N(0, 0.1),
+    on the card against the port on the CPU (to WEIGHT_TOL relative); two
+    card runs of the robust weights give the same bits; the PSF's peak
+    sidelobe for uniform, robust and natural weights. Returns the counts
+    of the three PSF inverts."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        make_visibility_plan,
+    )
+    from ska_sdp_func_python_torch.ops.weighting import (
+        taper_visibility_gaussian,
+        taper_visibility_tukey,
+        weight_visibility,
+    )
+
+    rng = np.random.default_rng(13)
+    w = 1.0 + rng.normal(0.0, 0.1, tuple(vis.weight.shape))
+    vis = vis.replace(weight=torch.as_tensor(w, dtype=vis.weight.dtype, device=vis.device))
+    host = _vis_to(vis, "cpu")
+    hmodel = model.replace(pixels=model.pixels.cpu())
+    beam = 3.0 * float(model.cellsize)
+    errs, walls = {}, {}
+    for label, fn in [
+        (f"robust {r:g}", lambda v, m, r=r: weight_visibility(v, m, "robust", robustness=r))
+        for r in ROBUST13
+    ] + [
+        ("uniform", lambda v, m: weight_visibility(v, m, "uniform")),
+        ("gaussian taper", lambda v, m: taper_visibility_gaussian(weight_visibility(v, m), beam)),
+        ("tukey taper", lambda v, m: taper_visibility_tukey(weight_visibility(v, m), 0.1)),
+    ]:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = fn(vis, model).imaging_weight
+        torch.cuda.synchronize()
+        walls[label] = (time.perf_counter() - t0) * 1e3
+        ref = fn(host, hmodel).imaging_weight
+        errs[label] = float((card.cpu() - ref).abs().max() / ref.abs().max())
+        if label == "robust 0":
+            again = fn(vis, model).imaging_weight
+            same = torch.equal(card, again)
+    say(
+        "13c flagship imaging weights (weights 1 + N(0, 0.1)), card against the "
+        "CPU, max error relative to the largest weight: "
+        + ", ".join(f"{k} {v:.3e} ({walls[k]:.1f} ms on the card)" for k, v in errs.items())
+        + f" (bound {WEIGHT_TOL:g}); a second card run of robust 0 gives the same bits: {same}"
+    )
+    if not all(v <= WEIGHT_TOL for v in errs.values()):
+        raise AssertionError("13c: the card's imaging weights differ from the CPU's")
+    if not same:
+        raise AssertionError("13c: two card runs of the robust weights differ")
+    del host, hmodel
+    plan = make_visibility_plan(vis, model, context="ng")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    lobes = {}
+    n = model.npixel
+    yy, xx = torch.meshgrid(torch.arange(n, device=vis.device) - n // 2,
+                            torch.arange(n, device=vis.device) - n // 2, indexing="ij")
+    outside = (yy**2 + xx**2) > SIDELOBE_RADIUS**2
+    for label, weighting, r in (("uniform", "uniform", 0.0), ("robust 0", "robust", 0.0),
+                                ("natural", "natural", 0.0)):
+        wv = weight_visibility(vis, model, weighting, robustness=r)
+        psf = invert_visibility(wv, model, dopsf=True, plan=plan)[0].pixels[0, 0]
+        lobes[label] = float(psf[outside].abs().max() / psf.max())
+    counts = kernels.launch_counts()
+    say(
+        f"13c PSF peak sidelobe (|psf| beyond {SIDELOBE_RADIUS} px of the centre over "
+        "the peak): " + ", ".join(f"{k} {v:.4f}" for k, v in lobes.items())
+        + f"; launches {counts}"
+    )
+    _launch_gate("13c PSF inverts", counts, ("grid",))
+    return counts
+
+
+def run_nearest_flagship(vis, model, oracle, source):
+    """Phase 13b: phase 9's observation (natural weights, 1.0 Jy at 70% of
+    the half-field) on a nearest-plane plan of NEAREST_NW w-planes, twice
+    a linear plan's: K1 and K3 held on it, predict_visibility against the
+    exact DFT below NEAREST_TOL and above the linear plan's error (JAX
+    tests/test_imaging.py:326-352), invert_visibility's peak on the
+    source. Returns (counts, kernel rows)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        make_visibility_plan,
+        predict_visibility,
+    )
+
+    def error(plan):
+        pv = predict_visibility(vis, model, plan=plan).vis
+        return float(np.max(np.abs(pv.cpu().numpy().astype(np.complex128) - oracle)))
+
+    nw = NEAREST_NW // 2
+    linear = make_visibility_plan(vis, model, context="ng", nw=nw)
+    err_lin = error(linear)
+    del linear
+    plan = make_visibility_plan(vis, model, context="ng", w_interp="nearest", nw=2 * nw)
+    gp = plan.plans[0].gp
+    if not (gp.nearest and gp.nplanes == 2 * nw):
+        raise AssertionError("13b: the plan is not a nearest-plane plan of 2 nw planes")
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    rows = plan_kernels(gp, sort_values(gp, weighted), "13b flagship")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    err = error(plan)
+    t1 = time.perf_counter()
+    dirty = invert_visibility(vis, model, plan=plan)[0].pixels[0, 0]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    counts = kernels.launch_counts()
+    img = dirty.double().cpu().numpy()
+    iy, ix = np.unravel_index(int(np.argmax(img)), img.shape)
+    say(
+        f"13b nearest plan ({2 * nw} planes; linear {nw}): predict {(t1 - t0) * 1e3:.1f} "
+        f"ms, max error vs the exact DFT {err:.4e} (bound {NEAREST_TOL:g}; linear "
+        f"{err_lin:.4e}); invert {(t2 - t1) * 1e3:.1f} ms, peak {img[iy, ix]:.6f} at "
+        f"({ix}, {iy}) (source at {source}); launches {counts}"
+    )
+    if not (err < NEAREST_TOL and err > err_lin):
+        raise AssertionError(f"13b: nearest error {err}, linear {err_lin}")
+    if (ix, iy) != tuple(source):
+        raise AssertionError(f"13b: dirty peak at {(ix, iy)}, source at {source}")
+    _launch_gate("13b nearest predict and invert", counts, ("grid", "degrid", "permute"))
+    return counts, {f"epsilon observation nearest, {2 * nw} planes": rows}
+
+
+def cube_lists(dirty, psf):
+    """Phase 13d on the config-4 cube: deconvolve_list over its 64 channel
+    images with hogbom, msclean and mmclean equals deconvolve_cube on the
+    cube bit for bit, and restore_list restore_cube. Returns the summed
+    counts of the list calls."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.deconvolution import (
+        deconvolve_cube,
+        deconvolve_list,
+        restore_cube,
+        restore_list,
+    )
+    from ska_sdp_func_python_torch.ops.image_iterators import (
+        image_gather_channels,
+        image_scatter_channels,
+    )
+
+    dl, pl = image_scatter_channels(dirty), image_scatter_channels(psf)
+    beam = {"bmaj": 0.05, "bmin": 0.04, "bpa": 30.0}
+    total = None
+    for algorithm, kernel, kw in (
+        ("hogbom", "hogbom", CLEAN),
+        ("msclean", "msclean", dict(CLEAN, niter=100, scales=SCALES)),
+        ("mmclean", "msmfs", CUBE_CLEAN),
+    ):
+        kw = {k: v for k, v in kw.items() if k != "algorithm"}
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        comps, res = deconvolve_list(dl, pl, algorithm=algorithm, **kw)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        cc, rr = deconvolve_cube(dirty, psf, algorithm=algorithm, **kw)
+        same = (torch.equal(image_gather_channels(comps).pixels, cc.pixels)
+                and torch.equal(image_gather_channels(res).pixels, rr.pixels))
+        restored = restore_list(comps, pl, res, clean_beam=beam)
+        same_r = torch.equal(image_gather_channels(restored).pixels,
+                             restore_cube(cc, psf, rr, clean_beam=beam).pixels)
+        say(
+            f"13d deconvolve_list {algorithm} over {len(dl)} channel images: "
+            f"{wall:.1f} ms, launches {counts}; equals deconvolve_cube bit for bit: "
+            f"{same}; restore_list equals restore_cube bit for bit: {same_r}"
+        )
+        if not (same and same_r):
+            raise AssertionError(f"13d {algorithm}: the list API differs from the cube's")
+        _launch_gate(f"13d {algorithm} list", counts, (kernel,))
+        total = counts if total is None else {k: total[k] + counts[k] for k in total}
+    return total
+
+
+def small_nearest_matches_cpu(device):
+    """Phase 13e: phase 7's small observation imaged on a nearest-plane
+    plan (twice the linear planes) on the card and on the CPU, and the
+    CPU's dirty image predicted on both, held to the plan path's f32
+    tolerance (1e-5 of the maxima)."""
+    from ska_sdp_func_python_torch.ops.imaging import (
+        invert_visibility,
+        make_visibility_plan,
+        predict_visibility,
+    )
+
+    out, sky = {}, None
+    for dev in ("cpu", device):
+        _, vis, model, _ = simulate(dev, rmax=600.0, ntimes=8, npixel=256)
+        nw = make_visibility_plan(vis, model, context="ng").nw
+        plan = make_visibility_plan(vis, model, context="ng", w_interp="nearest", nw=2 * nw)
+        dirty = invert_visibility(vis, model, plan=plan)[0]
+        if sky is None:
+            sky = dirty.pixels  # both predict the CPU's dirty image
+        pred = predict_visibility(vis, dirty.replace(pixels=sky.to(dirty.device)), plan=plan).vis
+        out[dev] = (dirty.pixels.cpu(), pred.cpu())
+    (da, pa), (db, pb) = out[device], out["cpu"]
+    ed = float((da - db).abs().max() / db.abs().max())
+    ep = float((pa - pb).abs().max() / pb.abs().max())
+    say(
+        f"13e small observation on a nearest plan card vs cpu: dirty image "
+        f"{ed:.3e}, predict {ep:.3e} of the maxima (bound 1e-5)"
+    )
+    if not (ed <= 1e-5 and ep <= 1e-5):
+        raise AssertionError("13e: card and cpu disagree on the nearest plan")
+
+
 def report_kernel(name, r, label=""):
     """Prints a kernel's comparison with its plain version, and fails if
     the error is above its tolerance."""
@@ -3238,13 +3666,30 @@ def main() -> int:
     for name in launches:
         launches[name] += counts[name]
     by_shape["flagship TG ical (phase 10a)"] = counts
+    rows13 = {"flagship support 8 linear": {k: results[k] for k in ("grid", "degrid")}}
+    counts, rows = run_support_flagship(vis, model, phases)
+    rows13.update(rows)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["flagship ical at supports 6 and 12 (phase 13a)"] = counts
+    counts = run_weighting_flagship(vis, model)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["flagship PSFs of three weightings (phase 13c)"] = counts
+    # 13e: at support 6 the Hogbom slice picks between near-equal peaks,
+    # which the CPU's f32 plain grid orders differently from K1: the card
+    # is held to the CPU run gridded in f64
+    small_slice_matches_cpu(device, "hogbom", f64_witness=True, support=6)
+    small_slice_matches_cpu(device, "msclean", support=6, fractional_threshold=0.05)
+    small_nearest_matches_cpu(device)
     del vis, model
     torch.cuda.empty_cache()
 
-    results["msmfs"], counts = run_cube(device)
+    results["msmfs"], counts, counts_13d = run_cube(device)
     for name in launches:
-        launches[name] += counts[name]
+        launches[name] += counts[name] + counts_13d[name]
     by_shape["config-4 cube (phases 8b-c)"] = counts
+    by_shape["config-4 cube list API (phase 13d)"] = counts_13d
     report_kernel("msmfs", results["msmfs"])
     small_cube_matches_cpu(device)
     torch.cuda.empty_cache()
@@ -3266,10 +3711,12 @@ def main() -> int:
     small_jones_slice(device)
     torch.cuda.empty_cache()
 
-    results["unit_tiles"], counts = run_epsilon_phase(cfg, device)
+    results["unit_tiles"], counts, counts_13b, rows = run_epsilon_phase(cfg, device)
+    rows13.update(rows)
     for name in launches:
-        launches[name] += counts[name]
+        launches[name] += counts[name] + counts_13b[name]
     by_shape["epsilon observation (phases 9b-e)"] = counts
+    by_shape["epsilon observation on a nearest plan (phase 13b)"] = counts_13b
     report_kernel("unit_tiles", results["unit_tiles"])
     torch.cuda.empty_cache()
 
@@ -3283,6 +3730,11 @@ def main() -> int:
     streamed_card_vs_cpu(device)
     for shape, counts in by_shape.items():
         say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    for shape, rows in rows13.items():
+        say(f"13 {shape}: " + "; ".join(
+            f"{k} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.3f} ms, rel err {r['rel']:.3e}" for k, r in rows.items()))
+    held = list(rows13)
 
     say(json.dumps({
         "kernels": [
@@ -3298,6 +3750,7 @@ def main() -> int:
                 "bound_ms": results[name]["bound_ms"],
                 "bound_by": results[name]["bound_by"],
                 "library_ms": results[name]["library_ms"],
+                **({"held_at": held} if name in ("grid", "degrid") else {}),
             }
             for name in KERNELS
         ]

@@ -140,29 +140,6 @@ def _slice(slice_: str, names: str) -> dict:
 # ``pipeline``) is exported by the port under its JAX name; a test holds
 # the two lists apart, so a name leaves this table when its slice lands.
 UNPORTED: dict = {
-    # S8: the rest of the public imaging API
-    **_slice("S8", """
-        visibility_recentre fill_vis_for_psf advise_wide_field
-        taper_visibility_gaussian taper_visibility_tukey
-        sum_invert_results remove_sumwt sum_predict_results threshold_list
-    """),
-    # S9: the rest of CLEAN, the list variants and the image iterators
-    **_slice("S9", """
-        argmax overlapIndices find_max_abs_stack spheroidal_function
-        calculate_scale_moment_principal_solution
-        find_optimum_scale_zero_moment find_global_optimum
-        update_scale_moment_residual update_moment_model
-        deconvolve_list restore_list radler_deconvolve_list check_psf_peak
-        find_window_list bound_psf_list hogbom_kernel_list
-        complex_hogbom_kernel_list msclean_kernel_list mmclean_kernel_list
-        calculate_frequency_taylor_terms_from_image
-        calculate_image_list_frequency_moments
-        calculate_image_list_from_frequency_taylor_terms
-        calculate_frequency_taylor_terms_from_image_list
-        image_raster_iter image_raster_update image_channel_iter
-        image_scatter_facets image_gather_facets image_scatter_channels
-        image_gather_channels
-    """),
     # S11: the periphery, on no pipeline path
     **_slice("S11", """
         PolynomialInterpolator NumpyLinearInterpolator ScipySplineInterpolator

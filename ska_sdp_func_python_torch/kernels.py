@@ -163,12 +163,12 @@ KERNELS = {
     "grid": Kernel(
         "grid",
         "ska_grid",
-        [*[_P] * 14, *[_I] * 6],
+        [*[_P] * 14, *[_I] * 7],
     ),
     "degrid": Kernel(
         "degrid",
         "ska_degrid",
-        [*[_P] * 9, _L, _P, _L, _I, _I, _I, _I],
+        [*[_P] * 9, _L, _P, _L, _I, _I, _I, _I, _I],
     ),
     "permute": Kernel(
         "permute",

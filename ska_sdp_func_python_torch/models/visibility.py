@@ -83,8 +83,12 @@ class Visibility:
 
     @property
     def uvw_lambda(self) -> torch.Tensor:
-        """uvw in wavelengths, ``[ntime, nbaseline, nchan, 3]``."""
-        k = self.frequency / C_M_S
+        """uvw in wavelengths, ``[ntime, nbaseline, nchan, 3]``. The
+        frequencies are divided by c as a tensor of the same device: on the
+        card a division by a host scalar multiplies by its reciprocal,
+        which rounds differently from the CPU's division, and the nearest
+        cells of the imaging weights would then differ between the two."""
+        k = self.frequency / torch.full_like(self.frequency, C_M_S)
         return torch.einsum("tbs,f->tbfs", self.uvw, k.to(self.uvw.dtype))
 
     def replace(self, **kwargs) -> "Visibility":

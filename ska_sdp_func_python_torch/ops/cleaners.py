@@ -51,7 +51,7 @@ import typing
 import torch
 
 from .. import kernels
-from ..config import not_ported, resolve_device
+from ..config import resolve_device
 from .pswf import grdsf
 
 __all__ = [
@@ -83,7 +83,24 @@ __all__ = [
     "msmfs_with_stacks",
     "msmfsclean",
     "MSMFSStacks",
+    "SENSITIVITY_REFUSAL",
+    "argmax",
+    "overlapIndices",
+    "find_max_abs_stack",
+    "spheroidal_function",
+    "calculate_scale_moment_principal_solution",
+    "find_optimum_scale_zero_moment",
+    "find_global_optimum",
+    "update_scale_moment_residual",
+    "update_moment_model",
 ]
+
+# MSMFS CLEAN with a sensitivity image has no reference behaviour to port
+SENSITIVITY_REFUSAL = (
+    "a sensitivity image in MSMFS CLEAN has no reference behaviour: the JAX "
+    "package multiplies the [nscales, ny, nx] search by the [nmoment, ny, nx] "
+    "sensitivity stack and raises (TypeError) unless the two counts agree"
+)
 
 
 def _fms(c, a, b):
@@ -1202,13 +1219,12 @@ def msmfsclean(
     ``use_pallas`` is accepted and ignored. On the CPU the inputs keep
     their dtype; on CUDA the kernel runs in f32.
 
-    A sensitivity image raises: the JAX package multiplies the
-    ``[nscales, ny, nx]`` search by the ``[nmoment, ny, nx]`` sensitivity
-    stack, which fails unless the two counts agree.
+    A sensitivity image raises (:data:`SENSITIVITY_REFUSAL`): it has no
+    reference behaviour.
 
     Returns (moment model, moment residual), both ``[nm, ny, nx]``."""
     if sensitivity is not None:
-        raise not_ported("a sensitivity image in MSMFS CLEAN", "S9")
+        raise NotImplementedError(SENSITIVITY_REFUSAL)
     if dirty.device.type != "cpu":
         dirty, psf = dirty.to(torch.float32), psf.to(torch.float32)
     stacks = msmfs_psf_stacks(psf, dirty.shape[-2], dirty.shape[-1], scales)
@@ -1222,3 +1238,128 @@ def msmfsclean(
         fracthresh=fracthresh,
         findpeak=findpeak,
     )
+
+
+# ---------------------------------------------------------------------------
+# the reference's public MSMFS minor-cycle helpers, standalone (plain
+# PyTorch, as the JAX package exposes them beside its fused loops); indices
+# come back as 0-d int64 tensors, ties at the first index in C order
+# ---------------------------------------------------------------------------
+
+
+def argmax(a):
+    """Unravelled index of the (first) maximum of ``a``."""
+    a = torch.as_tensor(a)
+    flat, idx = torch.argmax(a), []
+    for n in reversed(a.shape):
+        idx.append(flat % n)
+        flat = flat // n
+    return tuple(reversed(idx))
+
+
+def overlapIndices(res, psf, peakx, peaky):
+    """Overlap of a PSF centred at (peakx, peaky) with ``res``, in host
+    integers: ((res x0, x1, y0, y1), (psf x0, x1, y0, y1))."""
+    nx, ny = res.shape[0], res.shape[1]
+    px_half, py_half = psf.shape[0] // 2, psf.shape[1] // 2
+    res_lower = (max(0, peakx - px_half), max(0, peaky - py_half))
+    res_upper = (min(nx, peakx + px_half), min(peaky + py_half, ny))
+    psf_lower = (
+        max(0, px_half + (res_lower[0] - peakx)),
+        max(0, py_half + (res_lower[1] - peaky)),
+    )
+    psf_upper = (
+        min(psf.shape[0], px_half + (res_upper[0] - peakx)),
+        min(py_half + (res_upper[1] - peaky), psf.shape[1]),
+    )
+    return (
+        (res_lower[0], res_upper[0], res_lower[1], res_upper[1]),
+        (psf_lower[0], psf_upper[0], psf_lower[1], psf_upper[1]),
+    )
+
+
+def find_max_abs_stack(stack, sensitivity, windowstack, couplingmatrix):
+    """(x, y, scale): the absolute peak over (scale, y, x) of the stack
+    over the coupling matrix's diagonal, times the window and the
+    sensitivity where given."""
+    stack = torch.as_tensor(stack)
+    resid = stack / torch.diagonal(torch.as_tensor(couplingmatrix))[:, None, None]
+    if windowstack is not None:
+        resid = resid * torch.as_tensor(windowstack)
+    if sensitivity is not None:
+        resid = resid * torch.as_tensor(sensitivity)
+    _, ny, nx = resid.shape
+    flat = torch.argmax(resid.abs())
+    scale, rem = flat // (ny * nx), flat % (ny * nx)
+    return rem // nx, rem % nx, scale
+
+
+def spheroidal_function(vnu):
+    """Schwab's PSWF (m = 6, alpha = 1) at |vnu| in f64, 0 past 1."""
+    vnu = torch.as_tensor(vnu, dtype=torch.float64).abs()
+    value, _ = grdsf(torch.clamp(vnu, 0.0, 1.0))
+    return torch.where(vnu > 1.0, 0.0, value)
+
+
+def calculate_scale_moment_principal_solution(smresidual, ihsmmpsf):
+    """The moments decoupled per scale: sum_m ihsmmpsf[s, m, n]
+    smresidual[s, m] -> [nscales, nmoment, ny, nx]."""
+    return torch.einsum(
+        "smn,smxy->snxy", torch.as_tensor(ihsmmpsf), torch.as_tensor(smresidual)
+    )
+
+
+def find_optimum_scale_zero_moment(smpsol, sensitivity, windowstack):
+    """(x, y, scale) of the peak of the zero-moment decoupled residual: the
+    scale from the windowed (and sensitivity-weighted) search, the pixel
+    from that scale's unwindowed image, as the reference finds them."""
+    smpsol = torch.as_tensor(smpsol)
+    search = smpsol[:, 0]
+    if windowstack is not None:
+        search = search * torch.as_tensor(windowstack)
+    if sensitivity is not None:
+        search = search * torch.as_tensor(sensitivity)
+    nscales, _, nx = search.shape
+    scale = torch.argmax(search.abs().reshape(nscales, -1).amax(dim=1))
+    flat = torch.argmax(smpsol[scale, 0].abs())
+    return flat // nx, flat % nx, scale
+
+
+def find_global_optimum(hsmmpsf, ihsmmpsf, smresidual, windowstack, sensitivity, findpeak):
+    """(scale, x, y, moment values) of one MSMFS minor-cycle step; the
+    peak by the decoupled zero moment ("Algorithm1", "RASCIL") or by the
+    decrease of chi-squared ("CASA")."""
+    smresidual = torch.as_tensor(smresidual)
+    smpsol = calculate_scale_moment_principal_solution(smresidual, ihsmmpsf)
+    if findpeak == "CASA":
+        dchisq = 2.0 * torch.einsum("smxy,smxy->sxy", smpsol, smresidual) - torch.einsum(
+            "smn,smxy,snxy->sxy", torch.as_tensor(hsmmpsf), smpsol, smpsol
+        )
+        mx, my, mscale = find_optimum_scale_zero_moment(
+            dchisq[:, None], sensitivity, windowstack
+        )
+    else:
+        mx, my, mscale = find_optimum_scale_zero_moment(smpsol, sensitivity, windowstack)
+    return mscale, mx, my, smpsol[mscale, :, mx, my]
+
+
+def update_scale_moment_residual(smresidual, ssmmpsf, lhs, rhs, gain, mscale, mval):
+    """The scale-moment residuals less ``gain`` times the component's PSF
+    patch (a new tensor; ``lhs``/``rhs`` from :func:`overlapIndices`)."""
+    out = torch.as_tensor(smresidual).clone()
+    patch = torch.einsum(
+        "stqxy,q->stxy",
+        torch.as_tensor(ssmmpsf)[mscale, :, :, :, rhs[0] : rhs[1], rhs[2] : rhs[3]],
+        torch.as_tensor(mval),
+    )
+    out[:, :, lhs[0] : lhs[1], lhs[2] : lhs[3]] += -gain * patch
+    return out
+
+
+def update_moment_model(m_model, scalestack, lhs, rhs, gain, mscale, mval):
+    """The moment model plus ``gain`` times the component's scale blob
+    (a new tensor)."""
+    out = torch.as_tensor(m_model).clone()
+    blob = torch.as_tensor(scalestack)[mscale, rhs[0] : rhs[1], rhs[2] : rhs[3]]
+    out[:, lhs[0] : lhs[1], lhs[2] : lhs[3]] += gain * torch.as_tensor(mval)[:, None, None] * blob[None]
+    return out

@@ -1,8 +1,11 @@
 """Deconvolution: clean arguments, clean windows, PSF bounding,
-``deconvolve_cube``, beam fitting and restore.
+``deconvolve_cube``, beam fitting and restore, and the list API over
+single-channel images.
 
 Counterpart of the same functions in
-``ska_sdp_func_python_tpu/ops/deconvolution.py``.
+``ska_sdp_func_python_tpu/ops/deconvolution.py``. The list API gathers its
+channel images into one cube and runs ``deconvolve_cube``/``restore_cube``
+on it, so the same kernels (K5-K8) serve it.
 """
 
 from __future__ import annotations
@@ -12,9 +15,14 @@ import logging
 import numpy as np
 import torch
 
-from ..config import not_ported
 from ..models.image import Image
-from .cleaners import hogbom_complex_lanes, hogbom_lanes, msclean, msmfsclean
+from .cleaners import (
+    SENSITIVITY_REFUSAL,
+    hogbom_complex_lanes,
+    hogbom_lanes,
+    msclean,
+    msmfsclean,
+)
 from .taylor import (
     calculate_image_frequency_moments,
     calculate_image_from_frequency_taylor_terms,
@@ -31,6 +39,16 @@ __all__ = [
     "restore_cube",
     "convert_clean_beam_to_degrees",
     "convert_clean_beam_to_pixels",
+    "deconvolve_list",
+    "restore_list",
+    "radler_deconvolve_list",
+    "check_psf_peak",
+    "find_window_list",
+    "bound_psf_list",
+    "hogbom_kernel_list",
+    "complex_hogbom_kernel_list",
+    "msclean_kernel_list",
+    "mmclean_kernel_list",
 ]
 
 _TO_MM = np.sqrt(8.0 * np.log(2.0))  # sigma -> FWHM
@@ -214,9 +232,10 @@ def _mmclean_cube(dirty: Image, psf: Image, sensitivity, window, **kwargs):
     about nchan, so they are already in per-channel flux units). The
     window is the moment-0 image of the window cube over nchan.
 
-    A sensitivity image raises: the JAX package multiplies the
-    ``[nscales, ny, nx]`` search by the ``[nmoment, ny, nx]`` sensitivity
-    stack, which fails unless the two counts agree."""
+    A sensitivity image raises: it has no reference behaviour, since the
+    JAX package multiplies the ``[nscales, ny, nx]`` search by the
+    ``[nmoment, ny, nx]`` sensitivity stack and raises unless the two
+    counts agree."""
     fracthresh, gain, niter, thresh, scales = common_arguments(**kwargs)
     gain = kwargs.get("gain", 0.7)
     findpeak = kwargs.get("findpeak", "RASCIL")
@@ -227,7 +246,7 @@ def _mmclean_cube(dirty: Image, psf: Image, sensitivity, window, **kwargs):
             f"Requires nchan > 2*(nmoment-1) ({nchan} > {2 * (nmoment - 1)})"
         )
     if sensitivity is not None:
-        raise not_ported("a sensitivity image in MSMFS CLEAN", "S9")
+        raise NotImplementedError(SENSITIVITY_REFUSAL)
     dirty_taylor = calculate_image_frequency_moments(dirty, nmoment=nmoment)
     nmoment_for_psf = 2 * nmoment if nmoment > 1 else 1
     psf_taylor = calculate_image_frequency_moments(psf, nmoment=nmoment_for_psf)
@@ -361,4 +380,140 @@ def restore_cube(
         clean_beam=np.deg2rad(
             [clean_beam["bmaj"], clean_beam["bmin"], clean_beam["bpa"]]
         ),
+    )
+
+
+# ---------------------------------------------------------------------------
+# the list API: single-channel images gathered into one cube
+# ---------------------------------------------------------------------------
+
+
+def deconvolve_list(
+    dirty_list, psf_list, sensitivity_list=None, prefix: str = "", **kwargs
+):
+    """CLEAN a list of single-channel images as one cube
+    (:func:`deconvolve_cube`). Returns (component list, residual list)."""
+    from .image_iterators import image_gather_channels, image_scatter_channels
+
+    sensitivity = (
+        image_gather_channels(sensitivity_list) if sensitivity_list is not None else None
+    )
+    comp, residual = deconvolve_cube(
+        image_gather_channels(dirty_list),
+        image_gather_channels(psf_list),
+        sensitivity=sensitivity,
+        prefix=prefix,
+        **kwargs,
+    )
+    return image_scatter_channels(comp), image_scatter_channels(residual)
+
+
+def restore_list(model_list, psf_list=None, residual_list=None, clean_beam=None):
+    """Restore a list of single-channel images as one cube
+    (:func:`restore_cube`)."""
+    from .image_iterators import image_gather_channels, image_scatter_channels
+
+    restored = restore_cube(
+        image_gather_channels(model_list),
+        psf=image_gather_channels(psf_list) if psf_list is not None else None,
+        residual=(
+            image_gather_channels(residual_list) if residual_list is not None else None
+        ),
+        clean_beam=clean_beam,
+    )
+    return image_scatter_channels(restored)
+
+
+# the reference's radler algorithm names, served by the port's own CLEANs
+# (the JAX package's mapping)
+_RADLER = {
+    "multiscale": "msclean",
+    "msclean": "msclean",
+    "hogbom": "hogbom",
+    "generic_clean": "hogbom",
+    "iuwt": "msclean",
+    "more_sane": "msclean",
+}
+
+
+def radler_deconvolve_list(dirty_list, psf_list, **kwargs):
+    """The reference's radler entry point: its algorithm names (default
+    "multiscale") mapped onto msclean or Hogbom, as the JAX package maps
+    them. Returns the component list."""
+    algorithm = kwargs.pop("algorithm", "multiscale")
+    comp_list, _ = deconvolve_list(
+        dirty_list, psf_list, algorithm=_RADLER.get(algorithm, "msclean"), **kwargs
+    )
+    return comp_list
+
+
+def check_psf_peak(psf_list):
+    """Raise unless every PSF of the list has a unit peak (to 1e-6)."""
+    for ipsf, psf in enumerate(psf_list):
+        pmax = float(torch.max(psf.pixels))
+        if abs(pmax - 1.0) > 1e-6:
+            raise ValueError(
+                f"check_psf_peak: PSF {ipsf} does not have unit peak {pmax}"
+            )
+    return True
+
+
+def find_window_list(dirty_list, prefix="", window_shape=None, **kwargs):
+    """:func:`find_window` of each dirty image of a list."""
+    return [find_window(d, window_shape=window_shape, **kwargs) for d in dirty_list]
+
+
+def bound_psf_list(dirty_list, prefix="", psf_list=None, psf_support=None):
+    """:func:`bound_psf` of each (dirty, psf) pair of two lists."""
+    return [
+        bound_psf(d, p, psf_support=psf_support) for d, p in zip(dirty_list, psf_list)
+    ]
+
+
+def _kernel_list(
+    algorithm, dirty_list, psf_list, window_list, sensitivity_list=None,
+    prefix="", **kwargs,
+):
+    """:func:`deconvolve_list` with ``algorithm``; the first window of
+    ``window_list``, where given and no ``mask`` is, is the mask."""
+    kwargs = dict(kwargs)
+    if window_list is not None:
+        w0 = window_list[0]
+        kwargs.setdefault("mask", getattr(w0, "pixels", w0))
+    kwargs.pop("algorithm", None)
+    return deconvolve_list(
+        dirty_list, psf_list, sensitivity_list=sensitivity_list, prefix=prefix,
+        algorithm=algorithm, **kwargs,
+    )
+
+
+def hogbom_kernel_list(dirty_list, prefix, psf_list, window_list=None, **kwargs):
+    """Hogbom CLEAN over a channel list (kernel K5)."""
+    return _kernel_list(
+        "hogbom", dirty_list, psf_list, window_list, prefix=prefix, **kwargs
+    )
+
+
+def complex_hogbom_kernel_list(dirty_list, psf_list, window_list=None, **kwargs):
+    """Complex Hogbom CLEAN of stokesIQUV channel lists (kernels K5, K6)."""
+    return _kernel_list("hogbom-complex", dirty_list, psf_list, window_list, **kwargs)
+
+
+def msclean_kernel_list(
+    dirty_list, prefix, psf_list, window_list=None, sensitivity_list=None, **kwargs
+):
+    """Multi-scale CLEAN over a channel list (kernel K7)."""
+    return _kernel_list(
+        "msclean", dirty_list, psf_list, window_list,
+        sensitivity_list=sensitivity_list, prefix=prefix, **kwargs,
+    )
+
+
+def mmclean_kernel_list(
+    dirty_list, prefix, psf_list, window_list=None, sensitivity_list=None, **kwargs
+):
+    """Multi-scale multi-frequency CLEAN over a channel list (kernel K8)."""
+    return _kernel_list(
+        "mmclean", dirty_list, psf_list, window_list,
+        sensitivity_list=sensitivity_list, prefix=prefix, **kwargs,
     )

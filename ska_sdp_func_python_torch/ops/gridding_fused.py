@@ -5,8 +5,12 @@ Counterpart of ``ska_sdp_func_python_tpu/ops/gridding_fused.py``. What the
 TPU kernels compute is kept; the TPU layout around them is not (no 8/24-row
 payload, packed value rows, mod-8 tap rotation, quad MXU layout or bf16x3
 passes). A plan (``gridding_plan.GridPlan``) stores, per sorted entry, the
-clipped window corner (iu0, iv0), the lower w-plane, the plane fraction and
-the eight separable ES taps of each axis as ``[n, 8]`` arrays.
+clipped window corner (iu0, iv0), the lower (or, on a nearest-plane plan,
+the only) w-plane, the plane fraction and the separable ES taps of each
+axis over the plan's window (``span`` cells: the support, one more for an
+odd support, see ``gridding_plan``), zero-padded to the kernels' width
+(:func:`tap_width`: 8 up to a span of 8, 16 up to 16) as ``[n, width]``
+arrays.
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the hand-written kernel (``csrc/grid.cu``,
@@ -21,6 +25,8 @@ import torch
 from .. import kernels
 
 __all__ = [
+    "MAX_SUPPORT",
+    "tap_width",
     "grid",
     "grid_plain",
     "degrid",
@@ -30,9 +36,28 @@ __all__ = [
 ]
 
 
-def _es_taps8(pix, i0, support: int, beta: float | None = None, lo=None):
-    """The ``support`` separable ES-kernel taps of each coordinate,
-    ``[n, 8]``: taps[c, k] = es(i0_c + k - pix_c), evaluated in the
+# the largest support the kernels take: a window of S > 16 cells would
+# need a residue-class period of 32, and K1's int64 tile at tile 64 would
+# not fit in a block's shared memory
+MAX_SUPPORT = 16
+
+
+def tap_width(span: int) -> int:
+    """Width of the stored tap rows of a plan whose windows are ``span``
+    cells wide: the residue-class period of K1 and the lanes of K3 that
+    serve one entry (8 or 16)."""
+    if not 1 <= span <= MAX_SUPPORT:
+        raise ValueError(
+            f"a window of {span} cells: the plan kernels take supports 1 to "
+            f"{MAX_SUPPORT}"
+        )
+    return 8 if span <= 8 else 16
+
+
+def _es_taps(pix, i0, support: int, span: int, beta: float | None = None, lo=None):
+    """The separable ES-kernel taps of each coordinate over a window of
+    ``span`` cells, ``[n, tap_width(span)]`` (zero
+    past ``span``): taps[c, k] = es(i0_c + k - pix_c), evaluated in the
     coordinate dtype (f64 coordinates give positionally exact taps) and
     stored as f32. ``lo``: optional f32 residual of a split (hi, lo)
     coordinate pair, subtracted after the small difference so the full
@@ -40,19 +65,22 @@ def _es_taps8(pix, i0, support: int, beta: float | None = None, lo=None):
     half = support / 2.0
     if beta is None:
         beta = 2.3 * support
-    k = torch.arange(support, device=pix.device, dtype=pix.dtype)[None, :]
+    k = torch.arange(span, device=pix.device, dtype=pix.dtype)[None, :]
     offs = i0.to(pix.dtype)[:, None] + k - pix[:, None]
     if lo is not None:
         offs = offs - lo[:, None]
     nu = offs / half
     nu2 = torch.clamp(nu * nu, 0.0, 1.0)
     t = torch.exp(beta * (torch.sqrt(1.0 - nu2) - 1.0))
-    return torch.where(nu.abs() < 1.0, t, 0.0).to(torch.float32).contiguous()
+    t = torch.where(nu.abs() < 1.0, t, 0.0).to(torch.float32)
+    pad = tap_width(span) - span
+    return torch.nn.functional.pad(t, (0, pad)).contiguous()
 
 
 def _window_index(plan, n):
-    """Flat grid index ``[n, 8, 8]`` of each entry's lower-plane window."""
-    off = torch.arange(8, device=plan.iu0.device)
+    """Flat grid index ``[n, S, S]`` of each entry's window on its lower
+    (or only) plane, S the plan's window (``span``)."""
+    off = torch.arange(plan.span, device=plan.iu0.device)
     rows = plan.iv0[:n, None].long() + off
     cols = plan.iu0[:n, None].long() + off
     npix = plan.npixel
@@ -62,12 +90,13 @@ def _window_index(plan, n):
 
 def grid_plain(plan, vals: torch.Tensor) -> torch.Tensor:
     """Plain version of :func:`grid`: ``index_add_`` of every in-grid
-    entry's 8x8 window, weighted (1 - frac, frac) onto its lower and upper
-    w-plane. ``vals`` [n] in plan order -> [nplanes, npix, npix] grids of
-    the same dtype (complex128 values give an f64-accumulated reference)."""
-    npix, n = plan.npixel, plan.n_in
+    entry's S x S window, weighted (1 - frac, frac) onto its lower and
+    upper w-plane (a nearest-plane plan: onto its one plane). ``vals`` [n]
+    in plan order -> [nplanes, npix, npix] grids of the same dtype
+    (complex128 values give an f64-accumulated reference)."""
+    npix, n, s = plan.npixel, plan.n_in, plan.span
     v = vals[:n]
-    patch = plan.kv[:n, :, None] * plan.ku[:n, None, :]  # [n, 8, 8]
+    patch = plan.kv[:n, :s, None] * plan.ku[:n, None, :s]  # [n, S, S]
     idx = _window_index(plan, n)
     out = torch.zeros(
         plan.nplanes * npix * npix, dtype=vals.dtype, device=vals.device
@@ -85,17 +114,25 @@ def grid_plain(plan, vals: torch.Tensor) -> torch.Tensor:
     return out.reshape(-1, npix, npix)
 
 
-def _check_taps_aligned(plan):
-    """The kernels read each entry's 8 taps as two 16-byte vectors."""
+def _check_taps(plan, lead):
+    """The kernels read each entry's taps, ``[*lead, tap_width(span)]``,
+    as 16-byte vectors."""
+    width = tap_width(plan.span)
     for name in ("ku", "kv"):
-        if getattr(plan, name).data_ptr() % 16:
+        t = getattr(plan, name)
+        if t.shape != (*lead, width):
+            raise ValueError(
+                f"{name}: shape {tuple(t.shape)}, expected {(*lead, width)}"
+            )
+        if t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")
 
 
 def grid(plan, vals: torch.Tensor) -> torch.Tensor:
     """Grid plan-ordered complex64 values onto the complex64 plane grids
     ``[nplanes, npix, npix]`` (kernel K1+K2 on CUDA, the same bits from run
-    to run)."""
+    to run), at the plan's support, on linear (plane pairs) or
+    nearest-plane (one plane an entry) plans."""
     if vals.device.type == "cpu":
         return grid_plain(plan, vals)
     dev = vals.device
@@ -104,7 +141,7 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
     if vals.shape != (plan.n,):
         raise ValueError(f"vals: shape {tuple(vals.shape)}, expected ({plan.n},)")
     npix = plan.npixel
-    _check_taps_aligned(plan)
+    _check_taps(plan, (plan.n,))
     vals_ptr = chk("vals", vals, torch.complex64, dev)
     # the kernel accumulates in int64 fixed point, scaled by the stream's
     # bound: the sum of |re| + |im| over vals times the plan's tap bound
@@ -135,21 +172,22 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
         npix,
         plan.tile,
         npix // plan.tile,
+        plan.span,
         4 if plan.wstacked else 2,
     )
     return out
 
 
 def degrid_plain(plan, grids: torch.Tensor) -> torch.Tensor:
-    """Plain version of :func:`degrid`: gather each entry's 8x8 windows,
+    """Plain version of :func:`degrid`: gather each entry's S x S windows,
     val = sum_x (sum_r G[r, x] kv[r]) ku[x] on the lower and upper plane,
-    weighted (1 - frac, frac). Returns [n] complex64 in plan order, zero
-    for out-of-grid entries."""
-    npix, n = plan.npixel, plan.n_in
+    weighted (1 - frac, frac) (a nearest-plane plan: on its one plane).
+    Returns [n] complex64 in plan order, zero for out-of-grid entries."""
+    npix, n, s = plan.npixel, plan.n_in, plan.span
     g = grids.reshape(-1)
     idx = _window_index(plan, n)
-    kv = plan.kv[:n].to(torch.complex64)
-    ku = plan.ku[:n].to(torch.complex64)
+    kv = plan.kv[:n, :s].to(torch.complex64)
+    ku = plan.ku[:n, :s].to(torch.complex64)
 
     def window(ix):
         a = torch.einsum("nrx,nr->nx", g[ix], kv)
@@ -194,10 +232,7 @@ def _launch_degrid(src, grids, nchan: int, n_in_ptr, n_in0: int):
     walk = (src.n_in,) if src.perm.ndim == 1 else lead
     if src.korder.shape != walk:
         raise ValueError(f"korder: shape {tuple(src.korder.shape)}, expected {walk}")
-    for name in ("ku", "kv"):
-        if getattr(src, name).shape != (*lead, 8):
-            raise ValueError(f"{name}: shape {tuple(getattr(src, name).shape)}")
-    _check_taps_aligned(src)
+    _check_taps(src, lead)
     out = torch.empty((nchan, src.n), dtype=torch.complex64, device=dev)
     kernels.KERNELS["degrid"].launch(
         chk("grids", grids, torch.complex64, dev),
@@ -215,6 +250,7 @@ def _launch_degrid(src, grids, nchan: int, n_in_ptr, n_in0: int):
         nchan,
         npix,
         src.nplanes,
+        src.span,
         1 if src.wstacked else 0,
     )
     return out

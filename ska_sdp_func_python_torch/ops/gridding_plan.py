@@ -9,9 +9,19 @@ plane fractions and separable ES taps in plan order, and the segment
 bounds in the form the grid kernel's CTAs take them: every segment cut
 into chunks of at most ``chunk`` entries, and the grid kernel's own walk
 order within each segment (``korder``: by window corner, so that
-consecutive entries share cells). Values move between natural and plan order through
-``permute.permute_apply`` (kernel K4) with the stored permutation, in
-place of the JAX package's rank-keyed sorts.
+consecutive entries share cells). Values move between natural and plan
+order through ``permute.permute_apply`` (kernel K4) with the stored
+permutation, in place of the JAX package's rank-keyed sorts.
+
+A plan takes any support from 1 to ``MAX_SUPPORT`` (16), and linear (a
+plane pair an entry) or nearest-plane (one plane an entry, ``plane_idx``
+without ``plane_frac``) w-stacking, as the JAX plan path does. An odd
+support follows the JAX kernels, which evaluate the ES kernel densely
+over each segment's tile buffer: where the fractional position is below
+one half, the cell before the window (``floor(pix) - (S//2 - 1)``) lies
+within S/2 of the position and is weighted too, unless it falls before
+the entry's tile. So an odd-support plan's windows are ``span = S + 1``
+cells wide, starting one cell early where that cell is in the tile.
 
 A :class:`GridPlanStack` holds the per-entry arrays that the degrid (K3)
 and permute (K4) kernels read for one plan per channel, stacked
@@ -27,7 +37,7 @@ from dataclasses import dataclass
 import torch
 
 from ..config import not_ported
-from .gridding_fused import _es_taps8, degrid, grid
+from .gridding_fused import MAX_SUPPORT, _es_taps, degrid, grid, tap_width
 from .permute import permute_apply
 
 __all__ = [
@@ -54,10 +64,10 @@ class GridPlan:
     iperm: torch.Tensor  # int32 [n]: sorted position of each original entry
     iu0: torch.Tensor  # int32 [n] clipped window corner (u)
     iv0: torch.Tensor  # int32 [n] clipped window corner (v)
-    plane: torch.Tensor  # int32 [n] lower w-plane
-    frac: torch.Tensor  # f32 [n] fraction to the upper plane
-    ku: torch.Tensor  # f32 [n, 8] u taps
-    kv: torch.Tensor  # f32 [n, 8] v taps
+    plane: torch.Tensor  # int32 [n] lower (nearest: the only) w-plane
+    frac: torch.Tensor  # f32 [n] fraction to the upper plane (nearest: 0)
+    ku: torch.Tensor  # f32 [n, tap_width(span)] u taps, zero past span
+    kv: torch.Tensor  # f32 [n, tap_width(span)] v taps
     chunk_seg: torch.Tensor  # int32 [nchunks]
     chunk_start: torch.Tensor  # int32 [nchunks]
     chunk_count: torch.Tensor  # int32 [nchunks]
@@ -74,6 +84,12 @@ class GridPlan:
     tile: int
     wstacked: bool
     beta: float | None = None
+    nearest: bool = False  # one plane an entry (w_interp="nearest")
+
+    @property
+    def span(self) -> int:
+        """Cells of each window: the support, one more for an odd one."""
+        return self.support + self.support % 2
 
 
 # the per-entry arrays of a plan that K3 and K4 read, stacked over channels
@@ -104,13 +120,13 @@ def stack_views(store: dict, nchan: int, c: int, n: int | None = None, **arrays)
 @dataclass(frozen=True)
 class GridPlanStack:
     """The :data:`STACKED` arrays of one plan per channel, ``[nchan, n]``
-    (``[nchan, n, 8]`` for the taps; ``korder``, the walk order of the
+    (``[nchan, n, tap_width]`` for the taps; ``korder``, the walk order of the
     grid and degrid kernels, ragged in ``n_in``, fills the head of its
     row), and the channel plans, whose arrays of those names are views
     into them. Every channel has the same ``n`` entries, grid size and
     w-planes; ``n_in`` is an int32 ``[nchan]`` tensor on the plans'
-    device. The chunk tables, ragged and read only by the grid kernel,
-    stay per channel."""
+    device. Every channel has the same support and plane mode. The chunk
+    tables, ragged and read only by the grid kernel, stay per channel."""
 
     perm: torch.Tensor
     iperm: torch.Tensor
@@ -127,6 +143,12 @@ class GridPlanStack:
     npixel: int
     nplanes: int
     wstacked: bool
+    support: int
+    nearest: bool
+
+    @property
+    def span(self) -> int:
+        return self.support + self.support % 2
 
     @property
     def nchan(self) -> int:
@@ -139,8 +161,8 @@ class GridPlanStack:
         plans = tuple(plans)
         p0 = plans[0]
         for c, gp in enumerate(plans):
-            if (gp.n, gp.npixel, gp.nplanes, gp.wstacked) != (
-                p0.n, p0.npixel, p0.nplanes, p0.wstacked
+            if (gp.n, gp.npixel, gp.nplanes, gp.wstacked, gp.support, gp.nearest) != (
+                p0.n, p0.npixel, p0.nplanes, p0.wstacked, p0.support, p0.nearest
             ):
                 raise ValueError(f"channel {c}: plan geometry differs from channel 0")
             for name in STACKED:
@@ -158,6 +180,8 @@ class GridPlanStack:
             npixel=p0.npixel,
             nplanes=p0.nplanes,
             wstacked=p0.wstacked,
+            support=p0.support,
+            nearest=p0.nearest,
         )
 
 
@@ -203,15 +227,25 @@ def make_grid_plan(
     taps_scale=None,
 ) -> GridPlan:
     """Build a plan from fractional grid coordinates (same contract as the
-    JAX package's ``make_grid_plan``). ``chunk`` is the most entries one
-    grid CTA takes (None: :func:`default_chunk`); it changes only how the
+    JAX package's ``make_grid_plan``): ``plane_idx`` and ``plane_frac``
+    give linear w-stacking over ``nplanes`` planes, ``plane_idx`` alone a
+    nearest-plane plan (each entry on its one plane, ``nplanes`` segments
+    of tiles). ``support`` is 1 to 16 (a larger one raises
+    ``NotImplementedError``: ROADMAP slice S11). ``chunk`` is the most
+    entries one grid CTA takes (None: :func:`default_chunk`); it changes only how the
     work is partitioned.
     ``u_lo``/``v_lo``: residuals of split (hi, lo) coordinates.
     ``taps_scale``: optional [n] per-entry factor folded into the stored
     u taps (the ES pair weight of an eskernel plan's entry copy), at no
     cost to the kernels."""
-    if support != 8:
-        raise not_ported(f"support {support} plans", "S8")
+    if support > MAX_SUPPORT:
+        # the JAX plan path takes them on tiles wider than the support
+        raise not_ported(f"support {support} plans", "S11")
+    odd = support % 2
+    tap_width(support + odd)  # raises below support 1
+    if odd and support % tile == 0:
+        # the spare cell past a window at the tile's start would leave the grid
+        raise ValueError(f"tile {tile} divides the odd support {support}")
     device = u_pix.device
     if u_pix.dtype != torch.float64:
         u_pix = u_pix.to(torch.float32)
@@ -221,9 +255,8 @@ def make_grid_plan(
     if nta * tile != npixel:
         raise ValueError(f"tile {tile} must divide npixel {npixel}")
     ntiles = nta * nta
-    if plane_idx is not None and plane_frac is None:
-        raise not_ported("nearest-plane (w_interp='nearest') plans", "S8")
-    wstacked = plane_idx is not None and nplanes > 1
+    wstacked = plane_idx is not None and plane_frac is not None and nplanes > 1
+    nearest = plane_idx is not None and plane_frac is None and nplanes > 1
 
     iu0 = torch.floor(u_pix).to(torch.int32) - (half - 1)
     iv0 = torch.floor(v_pix).to(torch.int32) - (half - 1)
@@ -240,11 +273,19 @@ def make_grid_plan(
         p0 = torch.clamp(plane_idx.to(torch.int32), 0, nplanes - 2)
         frac = plane_frac.to(torch.float32)
         nseg = ntiles * (nplanes - 1)
+    elif nearest:
+        p0 = torch.clamp(plane_idx.to(torch.int32), 0, nplanes - 1)
+        frac = torch.zeros(u_pix.shape, dtype=torch.float32, device=device)
+        nseg = ntiles * nplanes
     else:
         p0 = torch.zeros_like(iu0c)
         frac = torch.zeros(u_pix.shape, dtype=torch.float32, device=device)
         nseg = ntiles
     seg = torch.where(in_grid, p0 * ntiles + base, nseg)
+    if odd:
+        # the cell before the window counts where it is in the entry's tile
+        iu0c = iu0c - (iu0c % tile != 0).to(iu0c.dtype)
+        iv0c = iv0c - (iv0c % tile != 0).to(iv0c.dtype)
 
     perm = torch.argsort(seg, stable=True)
     seg_s = seg[perm]
@@ -252,11 +293,13 @@ def make_grid_plan(
     n_in = int(in_grid.sum())
     u_s, v_s = u_pix[perm], v_pix[perm]
     iu0_s, iv0_s = iu0c[perm], iv0c[perm]
-    ku = _es_taps8(
-        u_s, iu0_s, support, beta, lo=None if u_lo is None else u_lo[perm]
+    ku = _es_taps(
+        u_s, iu0_s, support, support + odd, beta,
+        lo=None if u_lo is None else u_lo[perm],
     )
-    kv = _es_taps8(
-        v_s, iv0_s, support, beta, lo=None if v_lo is None else v_lo[perm]
+    kv = _es_taps(
+        v_s, iv0_s, support, support + odd, beta,
+        lo=None if v_lo is None else v_lo[perm],
     )
     if taps_scale is not None:
         ku = (ku * taps_scale[perm].to(torch.float32)[:, None]).contiguous()
@@ -315,6 +358,7 @@ def make_grid_plan(
         tile=tile,
         wstacked=wstacked,
         beta=beta,
+        nearest=nearest,
     )
 
 
@@ -338,7 +382,7 @@ def grid_with_plan(
     if not values_sorted:
         vals = sort_values(plan, vals)
     grids = grid(plan, vals)
-    return grids if plan.wstacked else grids[0]
+    return grids if plan.wstacked or plan.nearest else grids[0]
 
 
 def degrid_with_plan(

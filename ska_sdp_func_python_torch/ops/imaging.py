@@ -29,6 +29,7 @@ package::
 from __future__ import annotations
 
 import dataclasses
+import logging
 import math
 from collections import OrderedDict
 from dataclasses import dataclass
@@ -64,9 +65,14 @@ from .permute import permute_apply
 from .pswf import w_beam
 from .visibility_ops import phaserotate_visibility
 
+log = logging.getLogger("ska-sdp-func-python-torch")
+
 __all__ = [
     "shift_vis_to_image",
     "normalise_sumwt",
+    "fill_vis_for_psf",
+    "visibility_recentre",
+    "advise_wide_field",
     "w_kernel_correction",
     "ImagingPlan",
     "make_imaging_plan",
@@ -127,6 +133,28 @@ def normalise_sumwt(im: Image, sumwt: torch.Tensor) -> Image:
     return im.replace(pixels=im.pixels * scale[:, :, None, None])
 
 
+def fill_vis_for_psf(vis: Visibility) -> Visibility:
+    """``vis`` with its visibilities set to 1 in the parallel hands and 0
+    in the cross hands (at npol 4), or to 1 everywhere."""
+    if vis.npol == 4:
+        newvis = vis.vis * 0.0  # as the JAX package: a non-finite value stays
+        newvis[..., 0] = 1.0
+        newvis[..., 3] = 1.0
+    else:
+        newvis = torch.ones_like(vis.vis)
+    return vis.replace(vis=newvis)
+
+
+def visibility_recentre(uvw, dl, dm):
+    """Compensate for w-kernel re-centring: (u, v, w) -> (u - w dl, v - w
+    dm, w) over the last axis of ``uvw`` (a tensor, or anything
+    ``torch.as_tensor`` takes)."""
+    uvw = torch.as_tensor(uvw)
+    u = uvw[..., 0] - uvw[..., 2] * dl
+    v = uvw[..., 1] - uvw[..., 2] * dm
+    return torch.stack([u, v, uvw[..., 2]], dim=-1)
+
+
 def _w_planes(
     w: torch.Tensor, nw: int, w_interp: str = "linear", w_range=None,
     w_support: int = 8,
@@ -157,7 +185,9 @@ def _w_planes(
         j0 = torch.floor(t).to(torch.int32) - (ssw // 2 - 1)
         j0 = torch.clamp(j0, 0, max(nw - ssw, 0))
         return j0, t - j0.to(w.dtype), w_lo + wstep * planes
-    wstep = torch.clamp((wmax - wmin) / max(nw - 1, 1), min=1e-30)
+    # a tensor divisor: on the card a division by a host scalar multiplies
+    # by its reciprocal, and a nearest plane would then differ from the CPU's
+    wstep = torch.clamp((wmax - wmin) / torch.full_like(wmax, max(nw - 1, 1)), min=1e-30)
     t = (w - wmin) / wstep
     plane_w = wmin + wstep * planes
     if nw <= 1:
@@ -1146,6 +1176,116 @@ def invert_wg(bvis, model, dopsf=False, normalise=True, **kwargs):
     return invert_visibility(
         bvis, model, dopsf=dopsf, normalise=normalise, context="wg", **kwargs
     )
+
+
+def advise_wide_field(
+    vis: Visibility,
+    delA: float = 0.02,
+    oversampling_synthesised_beam: float = 3.0,
+    guard_band_image: float = 6.0,
+    facets: int = 1,
+    verbose: bool = False,
+) -> dict:
+    """Advice on imaging parameters, computed on the host in f64 with the
+    JAX package's keys and formulas: wavelength and uv extrema, the
+    primary-beam, image and facet fields of view, synthesised beam,
+    cellsize, pixel counts rounded to 2-, {2,3}- and {2,3,4,5}-smooth
+    sizes, w, time and frequency sampling at the image, facet and
+    primary-beam scales, and the w-stack and w-projection plane counts at
+    the image and primary-beam fields of view. The station diameter is
+    the Visibility's ``station_diameter``."""
+    freq = vis.frequency.detach().cpu().numpy().astype(np.float64)
+    max_wavelength = C_M_S / np.min(freq)
+    min_wavelength = C_M_S / np.max(freq)
+    uvw = _host64(vis.uvw)
+    maximum_baseline = np.max(np.abs(uvw)) / min_wavelength if uvw.size else 1.0
+    maximum_w = np.max(np.abs(uvw[..., 2])) / min_wavelength
+    if maximum_baseline <= 0.0:
+        raise ValueError("Error in UVW coordinates: all uvw are zero")
+    diameter = float(getattr(vis, "station_diameter", 35.0) or 35.0)
+    if diameter <= 0.0:
+        raise ValueError("Station/dish diameter must be greater than zero")
+    primary_beam_fov = max_wavelength / diameter
+    image_fov = primary_beam_fov * guard_band_image
+    facet_fov = image_fov / facets if facets > 1 else image_fov
+    synthesized_beam = 1.0 / maximum_baseline
+    cellsize = synthesized_beam / oversampling_synthesised_beam
+
+    def pwr2(n):
+        return int(2 ** int(np.ceil(np.log(n) / np.log(2.0))))
+
+    def pwr23(n):
+        best = pwr2(n)
+        return best * 3 // 4 if best * 3 // 4 >= n else best
+
+    def pwr2345(n):
+        number = np.array([2, 3, 4, 5])
+        ex = np.ceil(np.log(n) / np.log(number)).astype("int")
+        return int(min(np.power(number[:], ex[:])))
+
+    npixels = int(round(image_fov / cellsize))
+    # Cornwell, Humphreys & Voronkov (2012) eq. 24
+    def w_sampling(fov):
+        return np.sqrt(2.0 * delA) / (np.pi * fov**2)
+
+    w_sampling_image = w_sampling(image_fov)
+    w_sampling_facet = w_sampling(facet_fov) if facets > 1 else w_sampling_image
+    w_sampling_primary_beam = w_sampling(primary_beam_fov)
+    max_freq = np.max(freq)
+
+    def planes(wstep, fov):
+        slices = max(1, int(2 * maximum_w / wstep))
+        npix = int(2.0 * slices * fov)
+        return slices, npix - npix % 2
+
+    vis_slices_primary_beam, nwpixels_primary_beam = planes(
+        w_sampling_primary_beam, primary_beam_fov
+    )
+    vis_slices_image, nwpixels_image = planes(w_sampling_image, image_fov)
+    advice = {
+        "delA": delA,
+        "oversampling_synthesised_beam": oversampling_synthesised_beam,
+        "guard_band_image": guard_band_image,
+        "facets": facets,
+        "verbose": verbose,
+        "max_wavelength": max_wavelength,
+        "min_wavelength": min_wavelength,
+        "maximum_baseline": maximum_baseline,
+        "maximum_w": maximum_w,
+        "diameter": diameter,
+        "primary_beam_fov": primary_beam_fov,
+        "image_fov": image_fov,
+        "facet_fov": facet_fov,
+        "synthesized_beam": synthesized_beam,
+        "cellsize": cellsize,
+        "npixels": npixels,
+        "npixels2": pwr2(npixels),
+        "npixels23": pwr23(npixels),
+        "npixels_min": pwr2345(npixels),
+        "w_sampling_image": w_sampling_image,
+        "w_sampling_facet": w_sampling_facet,
+        "w_sampling_primary_beam": w_sampling_primary_beam,
+        "time_sampling_image": 86400.0 * (synthesized_beam / image_fov),
+        "time_sampling_primary_beam": 86400.0 * (synthesized_beam / primary_beam_fov),
+        "max_freq": max_freq,
+        "freq_sampling_image": max_freq * (synthesized_beam / image_fov),
+        "freq_sampling_primary_beam": max_freq * (synthesized_beam / primary_beam_fov),
+        "wstep_primary_beam": w_sampling_primary_beam,
+        "vis_slices_primary_beam": vis_slices_primary_beam,
+        "wprojection_planes_primary_beam": vis_slices_primary_beam,
+        "nwpixels_primary_beam": nwpixels_primary_beam,
+        "wstep_image": w_sampling_image,
+        "vis_slices_image": vis_slices_image,
+        "wprojection_planes_image": vis_slices_image,
+        "nwpixels_image": nwpixels_image,
+        # the JAX package's aliases: the primary-beam advice
+        "wstep": w_sampling_primary_beam,
+        "vis_slices": vis_slices_primary_beam,
+    }
+    if verbose:
+        for k, v in advice.items():
+            log.info("advise_wide_field: (%s) %s", k, v)
+    return advice
 
 
 def create_image_from_visibility(

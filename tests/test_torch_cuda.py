@@ -20,7 +20,8 @@ launch to launch; held against the plain version accumulated in f64) and
 ``degrid`` (one entry's f32
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
-launch; ``unit_tiles`` (atomics) agrees with its plain version
+launch, at supports 4 to 16 and on linear, nearest-plane and
+single-plane plans; ``unit_tiles`` (atomics) agrees with its plain version
 accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
 f64. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
@@ -114,6 +115,66 @@ def test_grid_and_degrid_match_plain(dev, wstacked):
     grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
     ref = degrid_plain(plan, grids)
     out = degrid(plan, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _support_plan(dev, support, mode, n=30000, npix=256, nplanes=5, tile=64):
+    """A plan at ``support`` with windows on every edge of the grid (and
+    entries outside it): "linear" (plane pairs), "nearest" (one plane an
+    entry) or "single"."""
+    rng = np.random.default_rng(support)
+    u = rng.uniform(-10, npix + 10, n)
+    v = rng.uniform(-10, npix + 10, n)
+    u[: n // 10] = rng.uniform(npix - support, npix, n // 10)  # last columns
+    v[n // 10 : n // 5] = rng.uniform(npix - support, npix, n // 10)  # last rows
+    p0 = torch.as_tensor(rng.integers(0, nplanes, n)).to(dev)
+    frac = torch.as_tensor(rng.uniform(0, 1, n)).to(dev)
+    if mode == "single":
+        p0 = frac = None
+        nplanes = 1
+    elif mode == "nearest":
+        frac = None
+    return make_grid_plan(
+        torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, frac,
+        npixel=npix, support=support, nplanes=nplanes, tile=tile,
+    )
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest", "single"])
+@pytest.mark.parametrize("support", [4, 6, 7, 12, 16])
+def test_grid_and_degrid_at_supports_match_plain(dev, support, mode):
+    """K1 and K3 at supports 4 to 16 and on nearest-plane plans against
+    their plain versions (K1's accumulated in f64), to 1e-5 of the
+    maximum; K1 gives the same bits on a second launch, and no window,
+    on the last rows and columns of the grid, reaches past it."""
+    plan = _support_plan(dev, support, mode)
+    assert plan.nearest == (mode == "nearest") and plan.wstacked == (mode == "linear")
+    g = torch.Generator(device=dev).manual_seed(support)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    out = grid(plan, vals)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(grid(plan, vals), out)
+    grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    out = degrid(plan, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support", [6, 12])
+def test_degrid_stack_at_supports_matches_plain(dev, support, mode):
+    """K3 over a stack of three channel plans at supports 6 and 12, linear
+    and nearest, against the per-channel plain version, to 1e-5."""
+    st = _stack([_support_plan(dev, support, mode, n=8000, npix=128)] * 3)
+    g = torch.Generator(device=dev).manual_seed(support + 1)
+    grids = torch.randn((3, st.nplanes, st.npixel, st.npixel), generator=g,
+                        device=dev, dtype=torch.complex64)
+    out = degrid_stack(st, grids)
+    ref = degrid_stack_plain(st, grids)
     torch.cuda.synchronize()
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
@@ -217,7 +278,17 @@ def test_grid_stress_other_tiles_match_plain(dev, tile, case, wstacked):
     _grid_stress(dev, case, wstacked, tile)
 
 
-def _grid_stress(dev, case, wstacked, tile):
+@pytest.mark.parametrize("support", [4, 7, 12, 16])
+@pytest.mark.parametrize("case", ["one_cell", "lattice", "edges", "chunked"])
+def test_grid_stress_at_supports_match_plain(dev, case, support):
+    """The stress cases of test_grid_stress_matches_plain, w-stacked, at
+    the supports 4 and 7 (residue period 8: windows narrower than it, an
+    odd one a cell wider where its spare cell lies in the tile) and 12
+    and 16 (period 16: four groups of 256 threads a CTA)."""
+    _grid_stress(dev, case, True, 64, support)
+
+
+def _grid_stress(dev, case, wstacked, tile, support=8):
     rng = np.random.default_rng(23)
     npix, nplanes = 4 * tile if tile > 8 else 256, 4
     u, v = _stress_coords("edges" if case == "chunked" else case, npix, rng, tile)
@@ -230,7 +301,7 @@ def _grid_stress(dev, case, wstacked, tile):
     plan = make_grid_plan(
         torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, frac,
         npixel=npix, nplanes=nplanes if wstacked else 1, tile=tile,
-        chunk=100 if case == "chunked" else None,
+        chunk=100 if case == "chunked" else None, support=support,
     )
     vals = rng.uniform(0.5, 1.5, n) * (1.0 + 0.5j) * np.exp(0.1j * rng.normal(size=n))
     vals = torch.as_tensor(vals.astype(np.complex64)).to(dev)

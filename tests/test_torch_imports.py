@@ -22,7 +22,8 @@ bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
 print(len(names), bad)
 assert not bad, bad
 for mod in ("pipeline", "ops.accuracy", "ops.gridding_tiled", "ops.imaging",
-            "io", "io.visio", "io.gainio", "streaming"):
+            "io", "io.visio", "io.gainio", "streaming", "ops.image_iterators",
+            "ops.imaging_helpers", "utils.arrays"):
     assert "ska_sdp_func_python_torch." + mod in names, mod
 for attr in ("io", "models", "ops", "pipeline", "streaming"):
     assert hasattr(pkg, attr), attr

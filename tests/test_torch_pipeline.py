@@ -135,6 +135,13 @@ def test_ical_fused_matches_jax(obs):
     _assert_slice_bounds(*_ical_both(obs, algorithm="hogbom"))
 
 
+def test_ical_fused_at_support_6_matches_jax(obs):
+    """support=6 on the plan: the ICAL slice (Hogbom) against the JAX
+    package's fused ical at support 6 (here, beside the support-8 case,
+    the JAX cycle's compile is mostly shared)."""
+    _assert_slice_bounds(*_ical_both(obs, algorithm="hogbom", support=6))
+
+
 def test_ical_fused_msclean_default_matches_jax(obs):
     """With no algorithm= both run msclean, the default deconvolver."""
     _assert_slice_bounds(*_ical_both(obs, scales=[0, 3, 10]))
