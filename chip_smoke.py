@@ -174,9 +174,30 @@ Phases, each on lines of its own:
      nearest-plane plan, card against CPU (phase 7's bounds; 1e-5 of the
      maxima). The script prints K1 and K3 at each
      support and plane mode with time, bound and plain time.
-Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c and 13a-d resets the
-launch counters just before it and fails unless every kernel of its path
-launched. The script then
+ 14. the parallel layer (after phase 13e): (a) phase 5's msclean flagship
+     ical (4 cycles) through ``parallel.sharded_ical`` on 4 baseline
+     shards of the card in an NCCL group of one process, twice (equal bit
+     for bit), against the single-device fused ical at the JAX package's
+     sharded bounds (phase-referenced gains 1e-4, peak residuals 1e-2,
+     restored peaks 0.05), with each run's steady cycles beside the
+     single-device ones, its collectives a cycle (one reduce-scatter of
+     K1's int64 planes, at most 4 psums) and its peak memory; before the
+     runs, K1's sharded route at the flagship's shapes: the weighted
+     visibilities over 4 baseline-block shards, each gridded to int64
+     planes at the global bound, their sum converted by grid_convert bit
+     for bit as its plain version, within K1's tolerance of the whole
+     stream's plain grids in f64; the runs must launch grid_convert; (b) phase
+     8c's "T" MSMFS ical of the config-4 cube on 4 channel shards against
+     the single-device cube ical (residual and model 2e-3, the spectral
+     index within INDEX_TOL); (c) phase 7's small observation as two
+     processes on the card, each owning 2 of the 4 shards, over gloo,
+     equal bit for bit to one process of 4 shards (a child that fails or
+     outlives 120 s fails the phase); (d) ``distributed_ical`` on phase
+     7's observation over 4 shards (K9's tiled gridder, K5), card against
+     CPU at phase 7's bounds.
+Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d and 14a, b, d
+resets the launch counters just before it and fails unless every kernel
+of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
 the ``{"ok": true, ...}`` line. Any failure raises
@@ -186,6 +207,7 @@ printing any result.
 Usage: python3 chip_smoke.py
        python3 chip_smoke.py --profile-streamed [--wire f32] [--store-uvw]
        python3 chip_smoke.py --repeat-selfcal N   (phase 10c's run N times)
+       python3 chip_smoke.py --phase14-only       (the build and phase 14)
 """
 
 from __future__ import annotations
@@ -260,6 +282,13 @@ KERNELS = {
         1e-5,
         "ska_sdp_func_python_torch/csrc/unit_tiles.cu",
         "ska_sdp_func_python_tpu/ops/gridding_pallas.py:34",
+    ),
+    # K1's conversion of the int64 planes, launched alone on the sharded
+    # invert (phase 14a): bit for bit against its plain version
+    "grid_convert": (
+        0.0,
+        "ska_sdp_func_python_torch/csrc/grid.cu",
+        "ska_sdp_func_python_tpu/ops/gridding_fused.py:221 (K1's last step)",
     ),
 }
 UNIT_TILES_F64_TOL = 1e-12
@@ -361,6 +390,23 @@ ROBUST13 = (-2.0, 0.0, 2.0)
 WEIGHT_TOL, FACET_TOL, NEAREST_TOL = 1e-6, 1e-6, 1e-2
 NEAREST_NW = 128
 SIDELOBE_RADIUS = 8
+
+
+# phase 14: the parallel layer on the one card. (a) the flagship over 4
+# local shards (baseline) in an NCCL group of one process against the
+# single-device fused ical, at JAX tests/test_parallel.py:150-164's bounds
+# (phase-referenced gains 1e-4, peak residuals 1e-2, restored peaks 0.05);
+# (b) the config-4 cube over 4 channel shards against the single-device
+# cube ical (JAX :222-252: residual and model 2e-3); (c) phase 7's small
+# observation as 2 processes x 2 shards over gloo (NCCL refuses two ranks
+# on one device), bit for bit against 1 process x 4 shards; (d)
+# distributed_ical on phase 7's observation over 4 shards, card against
+# CPU at phase 7's bounds. A child process that fails, or outlives
+# CHILD_TIMEOUT_S, fails the phase.
+SHARDS14 = 4
+SHARD_GAIN_TOL, SHARD_RESIDUAL_TOL, SHARD_RESTORED_TOL = 1e-4, 1e-2, 0.05
+CUBE_SHARD_TOL = 2e-3
+CHILD_TIMEOUT_S = 120
 
 
 def say(*args):
@@ -1035,13 +1081,13 @@ def _launch_gate(label, counts, names):
         raise AssertionError(f"{label}: kernels {missing} never launched: {counts}")
 
 
-def run_logged(label, entry, nmajor, path_kernels):
+def run_logged(label, entry, nmajor, path_kernels, walls=None):
     """Runs ``entry()``, a user-facing entry point that logs each major
     cycle's peak residual, on the card, with the launch counters reset
     just before it and read just after; prints each cycle's wall time and
-    peak. Fails unless every cycle logged a finite peak, the peak fell and
-    every kernel of ``path_kernels`` launched. Returns (entry's result,
-    counts, peaks)."""
+    peak (and appends the walls, in ms, to ``walls``). Fails unless every
+    cycle logged a finite peak, the peak fell and every kernel of
+    ``path_kernels`` launched. Returns (entry's result, counts, peaks)."""
     import torch
 
     from ska_sdp_func_python_torch import kernels
@@ -1065,6 +1111,8 @@ def run_logged(label, entry, nmajor, path_kernels):
         if "cycle" in msg and prev is not None:
             peaks.append(float(msg.rsplit(" ", 1)[1]))
             say(f"{label}: {msg.split(': ', 1)[1]}, wall {(t - prev) * 1e3:.1f} ms")
+            if walls is not None:
+                walls.append((t - prev) * 1e3)
         prev = t
     if not all(np.isfinite(peaks)) or len(peaks) != nmajor:
         raise AssertionError(f"{label}: per-cycle peaks missing or not finite: {peaks}")
@@ -1239,7 +1287,7 @@ def plan_grid_in_f64():
     from ska_sdp_func_python_torch.ops.gridding_fused import grid_plain
 
     grid = gridding_plan.grid
-    gridding_plan.grid = lambda plan, vals: grid_plain(
+    gridding_plan.grid = lambda plan, vals, **_: grid_plain(
         plan, vals.to(torch.complex128)).to(torch.complex64)
     try:
         yield
@@ -3580,6 +3628,367 @@ def small_nearest_matches_cpu(device):
         raise AssertionError("13e: card and cpu disagree on the nearest plan")
 
 
+# phase 14: the parallel layer
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _shard_agree(label, a, b, gain_tol, res_tol, restored_tol):
+    """Two self-cal results (model, residual, restored, gaintables) within
+    the bounds; prints the numbers."""
+    dg = float(np.max(np.abs(referenced_gains(a[3]["T"]) - referenced_gains(b[3]["T"]))))
+    ra, rb = (float(x[1].pixels.abs().max()) for x in (a, b))
+    sa, sb = (float(x[2].pixels.max()) for x in (a, b))
+    say(
+        f"{label}: phase-referenced gains {dg:.3e} apart (bound {gain_tol}), peak "
+        f"residuals {ra:.6f} vs {rb:.6f} (bound {res_tol}), restored peaks {sa:.4f} vs "
+        f"{sb:.4f} (bound {restored_tol})"
+    )
+    if not (dg < gain_tol and abs(ra - rb) < res_tol and abs(sa - sb) < restored_tol):
+        raise AssertionError(f"{label}: outside the bounds")
+
+
+def _same_bits(label, a, b):
+    """Two (model, residual, restored, gaintables) results equal bit for
+    bit."""
+    same = all(torch_equal(x.pixels, y.pixels) for x, y in zip(a[:3], b[:3]))
+    same &= all(torch_equal(a[3][t].gain, b[3][t].gain) for t in a[3])
+    say(f"{label}: bit for bit {'equal' if same else 'DIFFERENT'}")
+    if not same:
+        raise AssertionError(f"{label}: the runs differ")
+
+
+def torch_equal(x, y):
+    import torch
+
+    return torch.equal(x.detach().cpu(), y.detach().cpu())
+
+
+def grid_raw_route(vis, gp, mesh):
+    """Phase 14a's hold of K1's sharded route at the flagship's shapes: the
+    flagship's weighted visibilities split over the mesh's shards by
+    baseline block, each gridded in plan order with ``raw=True`` at the
+    global bound (the psum of the shards' vsums, the pmax of their tap
+    bounds); the int64 planes summed in two orders (the same bits);
+    grid_convert held bit for bit against grid_convert_plain on the sum,
+    and its grids against the whole stream's plain version accumulated in
+    f64 at K1's tolerance. Returns grid_convert's row."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_fused import (
+        grid,
+        grid_convert,
+        grid_convert_plain,
+        grid_vsum,
+    )
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.parallel import collectives
+
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0]
+    nbl = weighted.shape[1]
+    block = torch.arange(nbl, device=weighted.device) * mesh.nshards // nbl
+    parts = [sort_values(gp, torch.where(block == d, weighted, 0).reshape(-1))
+             for d in range(mesh.nshards)]
+    bnd = (collectives.psum(mesh, [grid_vsum(p) for p in parts]),
+           collectives.pmax(mesh, [gp.tap_bound for _ in parts]))
+    raws = [grid(gp, p, raw=True, bound=bnd) for p in parts]
+    total, backward = raws[0], raws[-1]
+    for a, b in zip(raws[1:], reversed(raws[:-1])):
+        total, backward = total + a, backward + b
+    same_sum = torch.equal(total, backward)
+    del raws, parts, backward
+    out = grid_convert(total, bnd)
+    exact = torch.equal(out, grid_convert_plain(total, bnd))
+    ref = grid_plain_pieces(gp, sort_values(gp, weighted.reshape(-1)).to(torch.complex128))
+    err = float((out - ref).abs().max())
+    rel = err / float(ref.abs().max())
+    del ref, out
+    nfloat = total.numel()
+    if not (same_sum and exact and rel <= KERNELS["grid"][0]):
+        raise AssertionError(
+            f"14a: K1's sharded route: int64 sums in two orders equal {same_sum}, "
+            f"grid_convert bit for bit {exact}, rel err {rel:.3e}"
+        )
+    row = _row(
+        0.0, 0.0,
+        timed(lambda: grid_convert(total, bnd), 20),
+        timed(lambda: grid_convert_plain(total, bnd), 5),
+        # int64 in, f32 out; one f64 multiply a float
+        bound(nfloat * (8 + 4), nfloat, PEAK_F64_S),
+    )
+    say(
+        f"14a K1's sharded route ({mesh.nshards} baseline-block shards, {gp.nplanes} planes "
+        f"of {gp.npixel}^2): the int64 sums in two orders equal: {same_sum}; grid_convert "
+        f"equals its plain version bit for bit: {exact}; the converted sum against the whole "
+        f"stream's plain version in f64: max abs err {err:.3e}, rel {rel:.3e} (tolerance "
+        f"{KERNELS['grid'][0]:g}); grid_convert {row['ms']:.4f} ms, plain {row['plain_ms']:.3f} "
+        f"ms, bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+    )
+    return row
+
+
+def sharded_flagship(device, vis, model):
+    """Phase 14a: the flagship msclean "T" ical (phases 4-6's CLEAN, 4
+    cycles) over 4 local baseline shards of the card in an NCCL group of
+    one process, twice, against the single-device fused ical; K1's sharded
+    route held at the flagship's shapes (:func:`grid_raw_route`). Returns
+    the sharded runs' summed launch counts and grid_convert's row."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+    from ska_sdp_func_python_torch.parallel import collectives, make_mesh, sharded_ical
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    kw = dict(nmajor=4, calibration_context="T", context="ng", scales=SCALES, **CLEAN)
+    path = ("grid", "grid_convert", "degrid", "permute", "msclean")
+    walls_1 = []
+    ref, _, _ = run_logged("14a single-device ical", lambda: ical(vis, model, **kw), 4,
+                           ("grid", "degrid", "permute", "msclean"), walls=walls_1)
+    mesh = make_mesh(shape=(SHARDS14,), devices=[device])
+    say(f"14a mesh: {mesh.nshards} shards on {set(str(d) for d in mesh.devices)}, "
+        f"group {torch.distributed.get_backend(mesh.group)} of "
+        f"{torch.distributed.get_world_size(mesh.group)} process")
+    plan = make_visibility_plan(vis, model, context="ng").plans[0]
+    row = grid_raw_route(vis, plan.gp, mesh)
+    torch.cuda.empty_cache()
+    runs, total = [], {}
+    for rep in range(2):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        collectives.reset_collective_counts()
+        record, walls = [], []
+        out, counts, _ = run_logged(
+            f"14a sharded ical run {rep + 1}",
+            lambda: sharded_ical(vis, model, mesh, hlo_out=record, **kw), 4, path, walls=walls,
+        )
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        cc = collectives.collective_counts()
+        runs.append(out)
+        total = {k: total.get(k, 0) + v for k, v in counts.items()}
+        say(
+            f"14a sharded ical run {rep + 1}: steady cycles {walls[1:]} ms against the "
+            f"single-device {walls_1[1:]} ms; peak memory {peak_gib:.3f} GiB; collective "
+            f"result bytes per cycle {sum(b for _, _, b in record[0])} (cycle 0: {record[0]}); "
+            f"bytes received through torch.distributed in the whole run "
+            f"{sum(c['comm_bytes'] for c in cc.values())}; the whole run {cc}"
+        )
+    nw_pad = -(-plan.nw // SHARDS14) * SHARDS14
+    ops = [op for op, _, _ in record[0]]
+    rs = [r for r in record[0] if r[0] == "psum_scatter"]
+    # K1's int64 planes, 16 bytes a cell (the plain version's complex64
+    # sums on the CPU, 8)
+    want = (nw_pad // SHARDS14) * plan.npad**2 * (16 if torch.device(device).type == "cuda" else 8)
+    if ops.count("psum_scatter") != 1 or rs[0][2] != want or ops.count("psum") > 4:
+        raise AssertionError(
+            f"14a: one reduce-scatter of {want} bytes (int64 planes) and at most 4 psums "
+            f"a cycle expected: {record[0]}"
+        )
+    _same_bits("14a two sharded runs", runs[0], runs[1])
+    _shard_agree("14a sharded vs single-device ical", runs[0], ref, SHARD_GAIN_TOL,
+                 SHARD_RESIDUAL_TOL, SHARD_RESTORED_TOL)
+    return total, row
+
+
+def sharded_cube(device):
+    """Phase 14b: the config-4 cube's "T" ical with MSMFS (CUBE_CLEAN, 4
+    cycles) over 4 channel shards against the single-device cube ical.
+    Returns the sharded run's launch counts."""
+    import torch
+
+    from ska_sdp_func_python_torch.parallel import make_mesh, sharded_ical
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    vis, model = simulate_cube(device, **CUBE)
+    corrupted, _ = corrupt(vis, 0.4)
+    del vis
+    kw = dict(nmajor=4, calibration_context="T", context="ng", **CUBE_CLEAN)
+    path = ("grid", "degrid", "permute", "msmfs")
+    walls_1, walls = [], []
+    ref, _, _ = run_logged("14b single-device cube ical", lambda: ical(corrupted, model, **kw),
+                           4, path, walls=walls_1)
+    mesh = make_mesh(shape=(SHARDS14,), devices=[device])
+    out, counts, peaks = run_logged(
+        "14b channel-sharded cube ical",
+        lambda: sharded_ical(corrupted, model, mesh, shard="channel", **kw), 4, path, walls=walls,
+    )
+    dres = float((out[1].pixels - ref[1].pixels).abs().max())
+    dmod = float((out[0].pixels - ref[0].pixels).abs().max())
+    index = cube_gates("14b channel-sharded cube ical", out[0], peaks, CUBE["offset"],
+                       CUBE["alpha"], gate=False)
+    say(
+        f"14b: steady cycles {walls[1:]} ms against the single-device {walls_1[1:]} ms; "
+        f"residual {dres:.3e} and model {dmod:.3e} from the single-device run (bound "
+        f"{CUBE_SHARD_TOL}); spectral index {index:.4f} (bound {INDEX_TOL} of {CUBE['alpha']})"
+    )
+    if not (dres < CUBE_SHARD_TOL and dmod < CUBE_SHARD_TOL and abs(index - CUBE["alpha"]) < INDEX_TOL):
+        raise AssertionError("14b: the channel-sharded cube is outside the bounds")
+    del corrupted, ref, out
+    torch.cuda.empty_cache()
+    return counts
+
+
+_SMALL14 = dict(CLEAN, nmajor=3, calibration_context="T", context="ng", algorithm="hogbom")
+
+
+def phase14_child(rank: int, port: int, inputs: str, out: str) -> int:
+    """Phase 14c's process ``rank`` of 2: 2 of the 4 shards of phase 7's
+    small observation on the card, in a gloo group."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.parallel import make_mesh, multihost, sharded_ical
+
+    multihost.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", timeout_s=CHILD_TIMEOUT_S)
+    blob = torch.load(inputs, weights_only=False)
+    mesh = make_mesh(shape=(SHARDS14,), devices=[blob["vis"].device])
+    c, r, s, g = sharded_ical(blob["vis"], blob["model"], mesh, **_SMALL14)
+    if rank == 0:
+        torch.save(dict(model=c.pixels.cpu(), residual=r.pixels.cpu(), restored=s.pixels.cpu(),
+                        gain=g["T"].gain.cpu(), counts=kernels.launch_counts()), out)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def layout_independence(device):
+    """Phase 14c: two processes on the card, each owning 2 of the 4 shards
+    of phase 7's small observation, over gloo (its collectives staged
+    through host buffers), against one process of 4 shards on the card:
+    equal bit for bit."""
+    import tempfile
+
+    import torch
+
+    from ska_sdp_func_python_torch.parallel import collectives, make_mesh, sharded_ical
+
+    _, vis, model, _ = simulate(device, rmax=600.0, ntimes=8, npixel=256)
+    with tempfile.TemporaryDirectory(prefix="phase14_") as tmp:
+        inputs, out = os.path.join(tmp, "inputs.pt"), os.path.join(tmp, "out.pt")
+        torch.save(dict(vis=vis, model=model), inputs)
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--phase14-child", str(rank),
+                 str(port), inputs, out],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            for rank in (0, 1)
+        ]
+        try:
+            logs = [p.communicate(timeout=CHILD_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.communicate()
+        for rank, (p, log) in enumerate(zip(procs, logs)):
+            if p.returncode != 0:
+                raise AssertionError(
+                    f"14c: process {rank} failed ({p.returncode}):\n{log[-3000:]}"
+                )
+        got = torch.load(out, weights_only=False)
+    say(f"14c: 2 processes x 2 shards over gloo in {time.perf_counter() - t0:.1f} s "
+        f"(process 0's launches {got['counts']})")
+    collectives.reset_collective_counts()
+    c, r, s, g = sharded_ical(vis, model, make_mesh(shape=(SHARDS14,), devices=[device]), **_SMALL14)
+    same = (torch_equal(got["model"], c.pixels) and torch_equal(got["residual"], r.pixels)
+            and torch_equal(got["restored"], s.pixels) and torch_equal(got["gain"], g["T"].gain))
+    say(f"14c: 2 x 2 against 1 x 4 shards on the card bit for bit {'equal' if same else 'DIFFERENT'}; "
+        f"peak residual {float(r.pixels.abs().max()):.6f}")
+    if not same:
+        raise AssertionError("14c: the two layouts differ")
+
+
+def distributed_card_vs_cpu(device):
+    """Phase 14d: distributed_ical (the core path: K9's tiled gridder, K5)
+    on phase 7's observation over 4 shards, card against CPU at phase 7's
+    bounds (gains 1e-4, residual peak 1e-3 relative, restored with the CPU
+    run's clean beam 0.05). Returns the card run's launch counts."""
+    from ska_sdp_func_python_torch.ops.deconvolution import restore_cube
+    from ska_sdp_func_python_torch.parallel import distributed_ical, make_mesh
+
+    res = {}
+    for label, dev in (("card", device), ("cpu", "cpu")):
+        _, vis, model, _ = simulate(dev, rmax=600.0, ntimes=8, npixel=256)
+        mesh = make_mesh(shape=(SHARDS14,), devices=[dev])
+        entry = lambda: distributed_ical(  # noqa: E731
+            vis, model, mesh, **dict(CLEAN, nmajor=3, algorithm="hogbom"))
+        if label == "card":
+            res[label], counts, _ = run_logged("14d distributed_ical on the card", entry, 3,
+                                               ("unit_tiles", "hogbom"))
+        else:
+            res[label] = entry()
+    (da, ra, sa, ga), (db, rb, sb, gb) = res["card"], res["cpu"]
+    dg = float(np.max(np.abs(referenced_gains(ga) - referenced_gains(gb))))
+    res_a, res_b = float(ra.pixels.abs().max()), float(rb.pixels.abs().max())
+    beam = dict(zip(("bmaj", "bmin", "bpa"), np.rad2deg(sb.clean_beam)))
+    peak_a = float(restore_cube(da, residual=ra, clean_beam=beam).pixels.max())
+    peak_b = float(sb.pixels.max())
+    say(
+        f"14d distributed_ical card vs cpu: gain {dg:.2e} (bound 1e-4), residual peak "
+        f"{res_a:.6f} vs {res_b:.6f} (bound 1e-3 rel), restored with one beam {peak_a:.4f} "
+        f"vs {peak_b:.4f} (bound 0.05)"
+    )
+    if not (dg < 1e-4 and abs(res_a - res_b) < 1e-3 * res_b and abs(peak_a - peak_b) < 0.05):
+        raise AssertionError("14d: card and cpu disagree")
+    return counts
+
+
+def run_parallel(device, vis, model):
+    """Phase 14 (a-d). Returns ({shape: launch counts}, grid_convert's
+    row)."""
+    import torch
+
+    from ska_sdp_func_python_torch.parallel import multihost
+
+    t0 = time.perf_counter()
+    by_shape = {}
+    multihost.initialize(f"127.0.0.1:{_free_port()}", 1, 0, backend="nccl")
+    try:
+        counts, row = sharded_flagship(device, vis, model)
+        by_shape["sharded flagship, 4 baseline shards, twice (phase 14a)"] = counts
+        torch.cuda.empty_cache()
+        by_shape["sharded config-4 cube, 4 channel shards (phase 14b)"] = sharded_cube(device)
+    finally:
+        torch.distributed.destroy_process_group()
+    layout_independence(device)
+    by_shape["distributed_ical, 4 shards (phase 14d)"] = distributed_card_vs_cpu(device)
+    torch.cuda.empty_cache()
+    say(f"phase 14: {time.perf_counter() - t0:.1f} s")
+    return by_shape, row
+
+
+def main14() -> int:
+    """``--phase14-only``: the build and phase 14 on the flagship."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels.build_library()
+    kernels.load_library()
+    say(f"build: {time.perf_counter() - t_start:.1f} s")
+    _, vis, model, _ = simulate(device, rmax=40000.0, ntimes=76, npixel=1024)
+    by_shape, row = run_parallel(device, vis, model)
+    report_kernel("grid_convert", row)
+    for shape, counts in by_shape.items():
+        say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    say(f"command: {time.perf_counter() - t_start:.1f} s")
+    say(card)
+    return 0
+
+
 def report_kernel(name, r, label=""):
     """Prints a kernel's comparison with its plain version, and fails if
     the error is above its tolerance."""
@@ -3682,6 +4091,12 @@ def main() -> int:
     small_slice_matches_cpu(device, "hogbom", f64_witness=True, support=6)
     small_slice_matches_cpu(device, "msclean", support=6, fractional_threshold=0.05)
     small_nearest_matches_cpu(device)
+    counts14, results["grid_convert"] = run_parallel(device, vis, model)
+    report_kernel("grid_convert", results["grid_convert"])
+    for shape, counts in counts14.items():
+        for name in launches:
+            launches[name] += counts[name]
+        by_shape[shape] = counts
     del vis, model
     torch.cuda.empty_cache()
 
@@ -3778,7 +4193,16 @@ if __name__ == "__main__":
     ap.add_argument("--store-uvw", action="store_true", help="upload the store's uvw")
     ap.add_argument("--repeat-selfcal", type=int, metavar="N",
                     help="only run phase 10c's checkpoint observation N times (see repeat_selfcal)")
+    ap.add_argument("--phase14-only", action="store_true",
+                    help="only build the kernels and run phase 14 (the parallel layer)")
+    ap.add_argument("--phase14-child", nargs=4, metavar=("RANK", "PORT", "INPUTS", "OUT"),
+                    help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.phase14_child:
+        rank, port, inputs, out = args.phase14_child
+        sys.exit(phase14_child(int(rank), int(port), inputs, out))
+    if args.phase14_only:
+        sys.exit(main14())
     if args.profile_streamed:
         sys.exit(profile_streamed(args.wire, args.store_uvw))
     if args.repeat_selfcal:

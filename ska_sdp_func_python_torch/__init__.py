@@ -11,6 +11,7 @@ Layout:
     csrc/      the hand-written CUDA kernels (built by ``kernels``)
     pipeline   the self-calibration and continuum-imaging cycles
     streaming  the out-of-core self-calibration cycle over a store
+    parallel/  the sharded cycles over a mesh of process-owned shards
 """
 
 from . import config  # noqa: F401  (pins TF32 off on import)
@@ -18,4 +19,4 @@ from . import config  # noqa: F401  (pins TF32 off on import)
 __version__ = "0.1.0"
 
 from . import io, models, ops  # noqa: E402,F401
-from . import pipeline, streaming  # noqa: E402,F401
+from . import parallel, pipeline, streaming  # noqa: E402,F401

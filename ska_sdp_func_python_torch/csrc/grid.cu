@@ -339,6 +339,15 @@ int launch(const void* vals, const void* iu0, const void* iv0,
 // 2] int64 scratch; grid [nplanes, npix, npix] complex64 out. nacc 4:
 // linear w-stacking (plane pairs); 2: one plane a segment (single-plane or
 // nearest-plane plans).
+//
+// The sharded invert passes grid NULL: the int64 planes in grid64 are the
+// result, and ska_grid_convert writes the complex64 grids from their sum
+// over the shards. Every shard's launch then takes the global bound: vsum
+// the sum of the shards' vsums, tap_bound the largest of their plans'.
+// The sum cannot overflow: each shard's cells are bounded by its own vsum
+// times its plan's tap bound, so their sum is bounded by the global
+// vsum times the largest tap bound, the global bound, and 2^(61 - kg)
+// exceeds that (with 2 bits to spare below int64's 2^63).
 SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         const void* frac, const void* ku, const void* kv,
                         const void* order, const void* chunk_seg,
@@ -370,9 +379,23 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
 #undef SKA_GRID_LAUNCH
     if (rc != 0) return rc;
   }
+  if (grid == nullptr) return ska_last_error();
   const size_t blocks = min((n + 255) / 256, (size_t)65536);
   grid_convert<<<(unsigned)blocks, 256, 0, s>>>(
       (const long long*)grid64, (float*)grid, n, (const float*)tap_bound,
       (const float*)vsum);
+  return ska_last_error();
+}
+
+// The complex64 grids from int64 ones (n floats: 2 a cell) summed over
+// shards that gridded with the same bound (tap_bound, vsum as ska_grid's).
+SKA_EXPORT int ska_grid_convert(const void* grid64, void* grid, long long n,
+                                const void* tap_bound, const void* vsum,
+                                void* stream) {
+  if (n <= 0) return 0;
+  const size_t blocks = min(((size_t)n + 255) / 256, (size_t)65536);
+  grid_convert<<<(unsigned)blocks, 256, 0, (cudaStream_t)stream>>>(
+      (const long long*)grid64, (float*)grid, (size_t)n,
+      (const float*)tap_bound, (const float*)vsum);
   return ska_last_error();
 }

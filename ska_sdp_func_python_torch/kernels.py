@@ -200,6 +200,14 @@ KERNELS = {
         "ska_unit_tiles",
         [*[_P] * 9, *[_I] * 5, ctypes.c_double, _I],
     ),
+    # K1's conversion launched on its own: the sharded invert's int64
+    # planes, summed over the shards, to complex64 (ska_grid runs the same
+    # conversion inside its own launch)
+    "grid_convert": Kernel(
+        "grid_convert",
+        "ska_grid_convert",
+        [_P, _P, _L, _P, _P],
+    ),
 }
 
 

@@ -20,6 +20,8 @@ of a stack of plans (``gridding_plan.GridPlanStack``) in one launch.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from .. import kernels
@@ -29,6 +31,9 @@ __all__ = [
     "tap_width",
     "grid",
     "grid_plain",
+    "grid_vsum",
+    "grid_convert",
+    "grid_convert_plain",
     "degrid",
     "degrid_plain",
     "degrid_stack",
@@ -128,11 +133,25 @@ def _check_taps(plan, lead):
             raise ValueError(f"{name}: not 16-byte aligned")
 
 
-def grid(plan, vals: torch.Tensor) -> torch.Tensor:
+def grid_vsum(vals: torch.Tensor) -> torch.Tensor:
+    """The sum of |re| + |im| over plan-ordered values, ``[1]``: with the
+    plan's tap bound, the bound of K1's fixed point."""
+    return torch.view_as_real(vals).abs().sum().reshape(1)
+
+
+def grid(plan, vals: torch.Tensor, *, raw: bool = False, bound=None) -> torch.Tensor:
     """Grid plan-ordered complex64 values onto the complex64 plane grids
     ``[nplanes, npix, npix]`` (kernel K1+K2 on CUDA, the same bits from run
     to run), at the plan's support, on linear (plane pairs) or
-    nearest-plane (one plane an entry) plans."""
+    nearest-plane (one plane an entry) plans.
+
+    The sharded invert's route: ``bound`` = (vsum, tap_bound), ``[1]`` f32
+    tensors, the fixed-point bound of every shard's launch (the sum of the
+    shards' :func:`grid_vsum`, the largest of their plans' tap bounds) in
+    place of this launch's own, and ``raw=True`` returns the planes before
+    the conversion, ``[nplanes, npix, npix, 2]`` int64 (the plain version:
+    its sums as they are), which add exactly over the shards in any order;
+    :func:`grid_convert` then makes the complex64 grids of the sum."""
     if vals.device.type == "cpu":
         return grid_plain(plan, vals)
     dev = vals.device
@@ -145,11 +164,14 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
     vals_ptr = chk("vals", vals, torch.complex64, dev)
     # the kernel accumulates in int64 fixed point, scaled by the stream's
     # bound: the sum of |re| + |im| over vals times the plan's tap bound
-    vsum = torch.view_as_real(vals).abs().sum().reshape(1)
+    if bound is None:
+        vsum, tap_bound = grid_vsum(vals), plan.tap_bound
+    else:
+        vsum, tap_bound = bound
     grid64 = torch.empty(
         (plan.nplanes, npix, npix, 2), dtype=torch.int64, device=dev
     )
-    out = torch.empty(
+    out = None if raw else torch.empty(
         (plan.nplanes, npix, npix), dtype=torch.complex64, device=dev
     )
     k.launch(
@@ -163,10 +185,10 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
         chk("chunk_seg", plan.chunk_seg, torch.int32, dev),
         chk("chunk_start", plan.chunk_start, torch.int32, dev),
         chk("chunk_count", plan.chunk_count, torch.int32, dev),
-        chk("tap_bound", plan.tap_bound, torch.float32, dev),
-        vsum.data_ptr(),
+        chk("tap_bound", tap_bound, torch.float32, dev),
+        chk("vsum", vsum, torch.float32, dev),
         grid64.data_ptr(),
-        out.data_ptr(),
+        None if raw else out.data_ptr(),
         int(plan.chunk_seg.shape[0]),
         plan.nplanes,
         npix,
@@ -174,6 +196,41 @@ def grid(plan, vals: torch.Tensor) -> torch.Tensor:
         npix // plan.tile,
         plan.span,
         4 if plan.wstacked else 2,
+    )
+    return grid64 if raw else out
+
+
+def grid_convert_plain(grids: torch.Tensor, bound) -> torch.Tensor:
+    """Plain version of :func:`grid_convert`: float sums become complex64;
+    int64 planes ``[..., 2]`` are scaled by 2^-kg, kg = 61 - e where
+    2^(e - 1) <= vsum * tap_bound < 2^e (NaN for a non-finite bound)."""
+    if grids.is_complex():
+        return grids.to(torch.complex64)
+    total = float((bound[0] * bound[1]).reshape(()))
+    if not math.isfinite(total):
+        return torch.full(grids.shape[:-1], complex("nan"), dtype=torch.complex64, device=grids.device)
+    _, e = math.frexp(total)
+    unit = math.ldexp(1.0, e - 61)
+    return torch.view_as_complex((grids.to(torch.float64) * unit).to(torch.float32).contiguous())
+
+
+def grid_convert(grids: torch.Tensor, bound) -> torch.Tensor:
+    """The complex64 grids ``[...]`` of raw :func:`grid` planes ``[..., 2]``
+    int64, summed over the shards that gridded with ``bound`` (K1's
+    conversion, ``kernels.KERNELS["grid_convert"]``, on CUDA)."""
+    if grids.device.type == "cpu":
+        return grid_convert_plain(grids, bound)
+    dev = grids.device
+    chk = kernels.check_cuda_tensor
+    if grids.shape[-1] != 2:
+        raise ValueError(f"grids: shape {tuple(grids.shape)}, expected [..., 2]")
+    out = torch.empty(grids.shape[:-1], dtype=torch.complex64, device=dev)
+    kernels.KERNELS["grid_convert"].launch(
+        chk("grids", grids, torch.int64, dev),
+        out.data_ptr(),
+        grids.numel(),
+        chk("tap_bound", bound[1], torch.float32, dev),
+        chk("vsum", bound[0], torch.float32, dev),
     )
     return out
 

@@ -373,15 +373,22 @@ def unsort_values(plan: GridPlan, vals_sorted: torch.Tensor) -> torch.Tensor:
 
 
 def grid_with_plan(
-    plan: GridPlan, vals: torch.Tensor, *, values_sorted: bool = False
+    plan: GridPlan,
+    vals: torch.Tensor,
+    *,
+    values_sorted: bool = False,
+    raw: bool = False,
+    bound=None,
 ) -> torch.Tensor:
     """Grid (weighted) values; ``[nplanes, npix, npix]`` complex64 grids
     (``[npix, npix]`` for a single-plane plan). ``values_sorted=True``
-    takes values already in plan order."""
+    takes values already in plan order. ``raw``/``bound``: the sharded
+    invert's route (``gridding_fused.grid``): the planes before the
+    conversion, gridded at a bound shared by every shard."""
     vals = vals.to(torch.complex64).contiguous()
     if not values_sorted:
         vals = sort_values(plan, vals)
-    grids = grid(plan, vals)
+    grids = grid(plan, vals, raw=raw, bound=bound)
     return grids if plan.wstacked or plan.nearest else grids[0]
 
 

@@ -263,14 +263,11 @@ def assemble_normal_equations(xb, wb, ne_idx, nants):
     return x, xwt
 
 
-def build_normal_equations(point_vis: Visibility, gain_table: GainTable):
-    """Per solution interval, the sums of vis * weight over its times (and
-    over the channels when the table has one channel; per channel for a
-    "B" table), placed in the ``[nants, nants]`` antenna matrix with the
-    conjugate across the diagonal.
-
-    :return: (x ``[nsol, nants, nants, nchan_sol, npol]``, xwt alike)
-    """
+def baseline_sums(point_vis: Visibility, gain_table: GainTable):
+    """Per solution interval and baseline, the sums of vis * weight and of
+    the weights over its times (and over the channels when the table has
+    one channel; per channel for a "B" table): (xb, wb) ``[nsol, nbl,
+    nchan_sol, npol]``."""
     w_t = _interval_weights(
         point_vis.time, gain_table.time, gain_table.interval,
         point_vis.weight.dtype,
@@ -283,6 +280,16 @@ def build_normal_equations(point_vis: Visibility, gain_table: GainTable):
     else:
         xb = torch.einsum("st,tbfp->sbfp", w_t.to(xw.dtype), xw)
         wb = torch.einsum("st,tbfp->sbfp", w_t, fw)
+    return xb, wb
+
+
+def build_normal_equations(point_vis: Visibility, gain_table: GainTable):
+    """The sums of :func:`baseline_sums` placed in the ``[nants, nants]``
+    antenna matrix with the conjugate across the diagonal.
+
+    :return: (x ``[nsol, nants, nants, nchan_sol, npol]``, xwt alike)
+    """
+    xb, wb = baseline_sums(point_vis, gain_table)
     ne_idx = torch.as_tensor(
         ne_index_map(
             point_vis.antenna1.cpu().numpy(),

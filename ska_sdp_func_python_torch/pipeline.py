@@ -82,6 +82,8 @@ from .ops.deconvolution import (
 )
 from .ops.dft import dft_skycomponent_visibility
 from .ops.gain_ops import _gain_row_of_time, _inv2x2
+from .ops.gridding_fused import grid_vsum
+from .ops.gridding_plan import grid_with_plan
 from .ops.imaging import (
     invert_visibility,
     invert_with_plan,
@@ -90,6 +92,7 @@ from .ops.imaging import (
     predict_visibility,
     predict_with_stack,
     shift_vis_to_image,
+    uv_grids_to_dirty_scattered,
 )
 from .ops.permute import permute_apply
 from .ops.skycomponent_ops import restore_skycomponent
@@ -102,6 +105,7 @@ from .ops.solvers import (
 )
 from .ops.taylor import moment_weights
 from .ops.visibility_ops import subtract_visibility
+from .parallel.collectives import pmax, psum
 
 log = logging.getLogger("ska-sdp-func-python-torch")
 
@@ -316,16 +320,56 @@ class _SortedWorkspace(_PlanRows):
         return normalise_sumwt(template.replace(pixels=dirty), sumwt), sumwt
 
 
-def _workspace_psf(ws: _SortedWorkspace, model: Image) -> Image:
+def _workspace_psf(ws, model: Image, mesh=None) -> Image:
     """The PSF (unit amplitude in the first polarisation) that
     ``invert_visibility(dopsf=True)`` gives on the workspace's plans: the
     invert leg on its plan-ordered weights as the values, which need no
-    second sort, normalised by the workspace's sums of weights."""
+    second sort, normalised by the workspace's sums of weights.
+
+    With ``mesh``, ``ws`` is the list of this process's baseline-shard
+    workspaces: each grids its weights (:func:`_scattered_invert`) and the
+    sums of weights add over the mesh."""
+    if mesh is not None:
+        vals = [[x.to(torch.complex64) for x in w.wgt_s[0]] for w in ws]
+        pixels = torch.zeros_like(model.pixels)
+        dirty, sumwt = _scattered_invert(ws, [[v] for v in vals], mesh, [w.sumwt for w in ws])
+        pixels[:, 0] = dirty[:, 0].to(pixels.dtype)
+        return normalise_sumwt(model.replace(pixels=pixels), sumwt)
     pixels = torch.zeros_like(model.pixels)
     for c, ip in enumerate(ws.plan.plans):
         dirty, _ = invert_with_plan(ip, ws.wgt_s[0][c], values_sorted=True)
         pixels[c, 0] = dirty.to(pixels.dtype)
     return normalise_sumwt(model.replace(pixels=pixels), ws.sumwt)
+
+
+def _scattered_invert(wss, vals, mesh, sumwts):
+    """The baseline-sharded invert leg (the JAX package's
+    ``uv_grids_to_dirty_scattered`` branch of its cycles): ``vals[i][p][c]``
+    the plan-ordered complex64 values of shard i (weights applied),
+    ``sumwts[i]`` its sums of weights ``[nchan, npol']``. One psum gives the
+    sums of weights and the global bound's vsums; then per (channel,
+    polarisation) every shard grids at that bound (K1 without its
+    conversion), the planes reduce-scatter over the mesh and each shard
+    runs the tail of its block. Returns (dirty ``[nchan, npol, ny, nx]``
+    f32, sums of weights)."""
+    w0 = wss[0]
+    nchan, npol, ny = w0.plan.nchan, len(vals[0]), w0.plan.npixel
+    vsum, sumwt = psum(mesh, [
+        (torch.stack([torch.cat([grid_vsum(v[p][c]) for p in range(npol)]) for c in range(nchan)]), s)
+        for v, s in zip(vals, sumwts)
+    ])
+    pixels = torch.zeros((nchan, npol, ny, ny), dtype=torch.float32, device=vsum.device)
+    for c in range(nchan):
+        for p in range(npol):
+            raws, bound = [], None
+            for w, v in zip(wss, vals):
+                dev = v[p][c].device
+                bound = (vsum[c, p].reshape(1).to(dev), w.tap_bound_g[c].to(dev))
+                raws.append(grid_with_plan(
+                    w.plan.plans[c].gp, v[p][c], values_sorted=True, raw=True, bound=bound
+                ))
+            pixels[c, p] = uv_grids_to_dirty_scattered(w0.plan.plans[c], raws, mesh, bound)
+    return pixels, sumwt
 
 
 class _FusedTermCfg(typing.NamedTuple):
@@ -380,10 +424,10 @@ class _FusedSelfCal(_SortedWorkspace):
         normalise_gains,
         solver_niter: int,
         solver_tol: float,
+        own_psf: bool = True,
         **clean_kwargs,
     ):
         super().__init__(vis, model, plan, components)
-        psf = self.psf = _workspace_psf(self, model)
         algorithm = clean_kwargs.get("algorithm", "msclean")
         win = find_window(
             model,
@@ -429,42 +473,16 @@ class _FusedSelfCal(_SortedWorkspace):
             ),
             device=device,
         ).long()
-        bpsf = bound_psf(psf, psf, clean_kwargs.get("psf_support", None))
-        self.psf_patch = bpsf.pixels.to(torch.float32)
         frac, cgain, cniter, cthresh, scales = common_arguments(**clean_kwargs)
-        ny, nx = model.pixels.shape[-2:]
-        # a plane without PSF (every polarisation but the first) cleans
-        # nothing: the JAX package's msclean turns it into NaN components
-        self.ms_stacks = (
-            [
-                [
-                    msclean_psf_stacks(pp, ny, nx, scales)
-                    if float(pp.max()) > 0.0
-                    else None
-                    for pp in pc
-                ]
-                for pc in self.psf_patch
-            ]
-            if algorithm == "msclean"
-            else None
-        )
-        self.mom_w = self.psf_peak = self.mm_stacks = None
+        self._scales = scales
+        self._nmoment = clean_kwargs.get("nmoment", 3)
         if algorithm in _MMCLEAN:
             # mmclean's default loop gain is 0.7, as in deconvolve_cube
             cgain = clean_kwargs.get("gain", 0.7)
-            nmoment = clean_kwargs.get("nmoment", 3)
-            nm_psf = 2 * nmoment if nmoment > 1 else 1
-            self.mom_w = tuple(
-                moment_weights(model.frequency, None, k).to(
-                    device=device, dtype=torch.float32
-                )
-                for k in (nmoment, nm_psf)
-            )
-            psf_t = torch.einsum("cm,cpyx->mpyx", self.mom_w[1], self.psf_patch)
-            self.psf_peak = psf_t.max()
-            self.mm_stacks = msmfs_psf_stacks(
-                psf_t[:, 0] / self.psf_peak, ny, nx, scales
-            )
+        # set on the shards of parallel.sharded_ical: a channel shard's
+        # channels of the cube; every channel's largest tap bound over the
+        # mesh (the bound of K1's fixed point on baseline shards)
+        self.chans = self.tap_bound_g = None
         self.cfg = _FusedCfg(
             nchan=plan.nchan,
             npol=self.npol,
@@ -480,6 +498,53 @@ class _FusedSelfCal(_SortedWorkspace):
             scales=tuple(scales),
             findpeak=clean_kwargs.get("findpeak", "RASCIL"),
         )
+        if own_psf:
+            psf = _workspace_psf(self, model)
+            self.set_psf(psf, bound_psf(psf, psf, clean_kwargs.get("psf_support", None)).pixels)
+
+    def set_psf(self, psf: Image, patch: torch.Tensor, mom_w=None, psf_t=None) -> None:
+        """The PSF and what CLEAN derives from it: ``patch`` the pixels of
+        the bounded PSF; for MSMFS the moment weights of the workspace's
+        channels (``mom_w``, None: from the PSF's frequencies) and the
+        moment PSF (``psf_t``, None: from the patch). A channel shard gets
+        its rows of the cube's weights and the moment PSF summed over the
+        mesh."""
+        self.psf = psf
+        self.psf_patch = patch.to(torch.float32)
+        ny, nx = psf.pixels.shape[-2:]
+        # a plane without PSF (every polarisation but the first) cleans
+        # nothing: the JAX package's msclean turns it into NaN components
+        self.ms_stacks = (
+            [
+                [
+                    msclean_psf_stacks(pp, ny, nx, self._scales)
+                    if float(pp.max()) > 0.0
+                    else None
+                    for pp in pc
+                ]
+                for pc in self.psf_patch
+            ]
+            if self.cfg.algorithm == "msclean"
+            else None
+        )
+        self.mom_w = self.psf_peak = self.mm_stacks = None
+        if self.cfg.algorithm in _MMCLEAN:
+            if mom_w is None:
+                nmoment = self._nmoment
+                nm_psf = 2 * nmoment if nmoment > 1 else 1
+                mom_w = tuple(
+                    moment_weights(psf.frequency, None, k).to(
+                        device=self.psf_patch.device, dtype=torch.float32
+                    )
+                    for k in (nmoment, nm_psf)
+                )
+            self.mom_w = mom_w
+            if psf_t is None:
+                psf_t = torch.einsum("cm,cpyx->mpyx", self.mom_w[1], self.psf_patch)
+            self.psf_peak = psf_t.max()
+            self.mm_stacks = msmfs_psf_stacks(
+                psf_t[:, 0] / self.psf_peak, ny, nx, self._scales
+            )
 
     def gaintables(self, gains, gwts, gress) -> dict:
         return {
@@ -546,7 +611,7 @@ def _diagonal_inverse(ws, gg, hr, npol):
     return torch.where(hr[..., None], inv_p, torch.ones_like(inv_p))
 
 
-def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, mvis):
+def _solve_terms(ws, cfg: _FusedCfg, gains, gwts, gress, do_cal, mvis, mesh=None):
     """The term solves, term after term of the context: product-form
     normal equations ``x*w = V conj(V_model) w``, ``xwt = |V_model|^2 w``
     from the running corrected natural-order visibilities (summed over
@@ -561,27 +626,37 @@ def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, 
     inverse, a diagonal term's the diagonal Mueller of its factors, and
     the total ``[t, b, Fc, 4, 4]`` is their product, Fc 1 (T, G)
     broadcast to nchan where a "B" term joins the chain. Returns (gains,
-    gain weights, residuals, total)."""
+    gain weights, residuals, total).
+
+    With ``mesh`` (``parallel.Mesh``), ``ws`` and ``mvis`` are lists over
+    this process's shards: each shard's normal equations are summed over
+    the mesh (one psum a term), StefCal runs once on the sum (the same
+    inputs, so the same gains, on every process) and each shard applies
+    the inverse; the total is then the list of each shard's."""
     npol = cfg.npol
-    fw, corrected = ws.fw_nat, ws.ms_nat
+    wss, mvs = ([ws], [mvis]) if mesh is None else (ws, mvis)
+    corrected = [w.ms_nat for w in wss]
     gains, gwts, gress = list(gains), list(gwts), list(gress)
     matrix_mode = any(t.crosspol for t in cfg.terms)
-    we = (mvis.real**2 + mvis.imag**2) * fw
-    inv_tot = None
+    wes = [(m.real**2 + m.imag**2) * w.fw_nat for w, m in zip(wss, mvs)]
+    inv_tot = [None] * len(wss)
     for it, term in enumerate(cfg.terms):
         if not do_cal[it]:
             continue
-        cal = ws.cal[it]
-        xe = corrected * mvis.conj() * fw
-        w_t = cal["w_t"]
-        if term.per_chan:
-            xb = torch.einsum("st,tbfp->sbfp", w_t.to(xe.dtype), xe)
-            wb = torch.einsum("st,tbfp->sbfp", w_t.to(we.dtype), we)
-        else:
-            xb = torch.einsum("st,tbfp->sbp", w_t.to(xe.dtype), xe)[:, :, None, :]
-            wb = torch.einsum("st,tbfp->sbp", w_t.to(we.dtype), we)[:, :, None, :]
-        x, xwt = assemble_normal_equations(xb, wb, ws.ne_idx, gains[it].shape[1])
-        del xe, xb, wb  # [t, b, ...] sized: not held through the solve
+        parts = []
+        for i, w in enumerate(wss):
+            we, w_t = wes[i], w.cal[it]["w_t"]
+            xe = corrected[i] * mvs[i].conj() * w.fw_nat
+            if term.per_chan:
+                xb = torch.einsum("st,tbfp->sbfp", w_t.to(xe.dtype), xe)
+                wb = torch.einsum("st,tbfp->sbfp", w_t.to(we.dtype), we)
+            else:
+                xb = torch.einsum("st,tbfp->sbp", w_t.to(xe.dtype), xe)[:, :, None, :]
+                wb = torch.einsum("st,tbfp->sbp", w_t.to(we.dtype), we)[:, :, None, :]
+            parts.append(assemble_normal_equations(xb, wb, w.ne_idx, gains[it].shape[1]))
+            del xe, xb, wb  # [t, b, ...] sized: not held through the solve
+        x, xwt = parts[0] if mesh is None else psum(mesh, parts)
+        del parts
         gain_new, gwt, gres = solve_gains_core(
             x,
             xwt,
@@ -595,27 +670,29 @@ def _solve_terms(ws: _FusedSelfCal, cfg: _FusedCfg, gains, gwts, gress, do_cal, 
         gains[it], gwts[it], gress[it] = finish_solution(
             gain_new, gwt, gres, xwt, term.phase_only, cfg.normalise_gains, eye=True
         )
-        # [ntime, nants, Fc, nrec, nrec], Fc 1 (T, G) or nchan (B)
-        gg = gains[it][cal["row_idx"]]
-        hr = cal["has_row"][:, None, None]  # rows outside every interval
-        if term.crosspol:
-            inv = _crosspol_inverse(ws, gg, hr)
-            corrected = _mueller_apply(inv, corrected)
-        else:
-            inv = _diagonal_inverse(ws, gg, hr, npol)
-            corrected = corrected * inv
-            if matrix_mode:
-                inv = inv[..., None] * torch.eye(npol, dtype=inv.dtype, device=inv.device)
-        if inv_tot is None:
-            inv_tot = inv
-        elif matrix_mode:
-            inv_tot = _mueller_product(inv, inv_tot)
-        else:
-            inv_tot = inv_tot * inv
-    return gains, gwts, gress, inv_tot
+        for i, w in enumerate(wss):
+            cal = w.cal[it]
+            # [ntime, nants, Fc, nrec, nrec], Fc 1 (T, G) or nchan (B)
+            gg = gains[it].to(w.ms_nat.device)[cal["row_idx"]]
+            hr = cal["has_row"][:, None, None]  # rows outside every interval
+            if term.crosspol:
+                inv = _crosspol_inverse(w, gg, hr)
+                corrected[i] = _mueller_apply(inv, corrected[i])
+            else:
+                inv = _diagonal_inverse(w, gg, hr, npol)
+                corrected[i] = corrected[i] * inv
+                if matrix_mode:
+                    inv = inv[..., None] * torch.eye(npol, dtype=inv.dtype, device=inv.device)
+            if inv_tot[i] is None:
+                inv_tot[i] = inv
+            elif matrix_mode:
+                inv_tot[i] = _mueller_product(inv, inv_tot[i])
+            else:
+                inv_tot[i] = inv_tot[i] * inv
+    return gains, gwts, gress, inv_tot[0] if mesh is None else inv_tot
 
 
-def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
+def _fused_clean(residual, ws, cfg: _FusedCfg, mesh=None):
     """The CLEAN lane of the cycle; returns the component cube.
 
     Hogbom: every (chan, pol) plane cleans independently in one batch;
@@ -629,7 +706,23 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
     workspace's moment stacks, searching within the clean window of
     channel 0 (windows do not depend on frequency); the moment model goes
     back onto the channels as it is (with unit-peak channel PSFs the
-    normalised moment components are in per-channel flux units)."""
+    normalised moment components are in per-channel flux units).
+
+    With ``mesh``, ``ws`` is the list of this process's shard workspaces
+    and ``residual`` the whole cube: baseline shards clean it once (it is
+    the same on every process); channel shards clean their own channels,
+    and MSMFS sums each shard's moment images over the mesh, cleans them
+    once and takes each shard's channels back from the moment model."""
+    if mesh is not None:
+        wss, ws = ws, ws[0]
+        if ws.chans is not None:
+            if cfg.algorithm not in _MMCLEAN:
+                return torch.cat([_fused_clean(residual[w.chans], w, cfg) for w in wss])
+            dirty_t = psum(mesh, [
+                torch.einsum("cm,cpyx->mpyx", w.mom_w[0], residual[w.chans]) for w in wss
+            ])
+            comp_t = _msmfs_lanes(dirty_t / ws.psf_peak, ws, cfg)
+            return torch.cat([torch.einsum("cm,mpyx->cpyx", w.mom_w[0], comp_t) for w in wss])
     nchan, npol, ny, nx = residual.shape
     window = ws.clean_window
     clean = dict(
@@ -641,16 +734,7 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
     if cfg.algorithm in _MMCLEAN:
         w_m = ws.mom_w[0]
         dpix = torch.einsum("cm,cpyx->mpyx", w_m, residual) / ws.psf_peak
-        comp_t = torch.zeros_like(dpix)
-        for p in range(npol):
-            comp_t[:, p], _ = msmfs_with_stacks(
-                ws.mm_stacks,
-                dpix[:, p],
-                None if window is None else window[0, p],
-                findpeak=cfg.findpeak,
-                **clean,
-            )
-        return torch.einsum("cm,mpyx->cpyx", w_m, comp_t)
+        return torch.einsum("cm,mpyx->cpyx", w_m, _msmfs_lanes(dpix, ws, cfg))
     if cfg.algorithm == "msclean":
         comp = torch.zeros_like(residual)
         for c in range(nchan):
@@ -677,8 +761,28 @@ def _fused_clean(residual, ws: _FusedSelfCal, cfg: _FusedCfg):
     return cb.reshape(residual.shape)
 
 
+def _msmfs_lanes(dpix, ws: _FusedSelfCal, cfg: _FusedCfg):
+    """MSMFS on the PSF-peak-normalised moment images ``[nmoment, npol,
+    ny, nx]``, each polarisation with the workspace's moment stacks,
+    searching within the clean window of channel 0; the moment model."""
+    window = ws.clean_window
+    comp_t = torch.zeros_like(dpix)
+    for p in range(dpix.shape[1]):
+        comp_t[:, p], _ = msmfs_with_stacks(
+            ws.mm_stacks,
+            dpix[:, p],
+            None if window is None else window[0, p],
+            findpeak=cfg.findpeak,
+            gain=cfg.clean_gain,
+            thresh=cfg.clean_thresh,
+            niter=cfg.clean_niter,
+            fracthresh=cfg.clean_frac,
+        )
+    return comp_t
+
+
 def _fused_selfcal_cycle(
-    ws: _FusedSelfCal,
+    ws,
     model_pixels: torch.Tensor,
     gains,
     gwts,
@@ -686,6 +790,7 @@ def _fused_selfcal_cycle(
     *,
     do_cal: tuple,
     with_model: bool,
+    mesh=None,
 ):
     """One self-cal major cycle in the plan-sorted domain: model degrid
     plus the components, back-permute, normal equations and StefCal solve
@@ -703,52 +808,93 @@ def _fused_selfcal_cycle(
     channel's plan in turn. With diagonal terms the inverse factors go
     to plan order and multiply the sorted observations; with a "matrix"
     term the Mueller correction mixes polarisations, so the residual is
-    formed in natural order and goes to plan order instead."""
-    cfg = ws.cfg
-    perm = ws.plan.stack.perm
-    npol = cfg.npol
-    # [nchan, n] per polarisation, each channel in its plan's order
-    model_s = [
-        ws.obs_s[p] * 0.0 if m is None else m
-        for p, m in enumerate(ws.model_sorted(model_pixels, with_model))
-    ]
+    formed in natural order and goes to plan order instead.
 
+    With ``mesh`` (``parallel.sharded_ical``), ``ws`` is the list of this
+    process's shard workspaces, each running the legs on its own rows in
+    turn, and the JAX package's collectives join them: the normal
+    equations' psum (:func:`_solve_terms`); on baseline shards the
+    scattered invert tail (:func:`_scattered_invert`), the model, residual
+    and CLEAN then the same on every process; on channel shards (``ws[i]
+    .chans``) each shard's channels of the model, residual and CLEAN, the
+    MSMFS moment psum (:func:`_fused_clean`) and the peak's pmax."""
+    wss = [ws] if mesh is None else ws
+    cfg = wss[0].cfg
+    npol = cfg.npol
+    chan_shards = mesh is not None and wss[0].chans is not None
     any_cal = any(do_cal)
-    if not any_cal:
-        resid_s = [o - m for o, m in zip(ws.obs_s, model_s)]
-    else:
-        ntime, nbl = ws.cal[0]["w_t"].shape[1], ws.a1.shape[0]
-        nat = _as_list(permute_apply(ws.plan.stack.iperm, *model_s))
-        mvis = torch.stack([ws.natural(m, ntime, nbl) for m in nat], dim=-1)
+    model_sl, mvis = [], []
+    for w in wss:
+        mp = model_pixels[w.chans] if chan_shards else model_pixels
+        # [nchan, n] per polarisation, each channel in its plan's order
+        model_s = [
+            w.obs_s[p] * 0.0 if m is None else m
+            for p, m in enumerate(w.model_sorted(mp.to(w.obs_s[0].device), with_model))
+        ]
+        model_sl.append(model_s)
+        if any_cal:
+            ntime, nbl = w.cal[0]["w_t"].shape[1], w.a1.shape[0]
+            nat = _as_list(permute_apply(w.plan.stack.iperm, *model_s))
+            mvis.append(torch.stack([w.natural(m, ntime, nbl) for m in nat], dim=-1))
+    if any_cal:
         gains, gwts, gress, inv_tot = _solve_terms(
-            ws, cfg, gains, gwts, gress, do_cal, mvis
+            ws, cfg, gains, gwts, gress, do_cal, mvis[0] if mesh is None else mvis, mesh
         )
-        if inv_tot.ndim == 5:
-            resid_nat = _mueller_apply(inv_tot, ws.ms_nat) - mvis
-            rows = [ws.rows(resid_nat[..., p]).contiguous() for p in range(npol)]
-            resid_s = _as_list(permute_apply(perm, *rows))
+        inv_tots = [inv_tot] if mesh is None else inv_tot
+    resids = []
+    for i, w in enumerate(wss):
+        model_s = model_sl[i]
+        if not any_cal:
+            resids.append([o - m for o, m in zip(w.obs_s, model_s)])
+        elif inv_tots[i].ndim == 5:
+            resid_nat = _mueller_apply(inv_tots[i], w.ms_nat) - mvis[i]
+            rows = [w.rows(resid_nat[..., p]).contiguous() for p in range(npol)]
+            resids.append(_as_list(permute_apply(w.plan.stack.perm, *rows)))
         else:
-            if inv_tot.shape[2] == 1 and not ws.mfs:
+            inv = inv_tots[i]
+            if inv.shape[2] == 1 and not w.mfs:
                 # one (time, baseline) factor serves every channel: shared
                 # sources of the stacked permute
-                rows = [inv_tot[:, :, 0, p].reshape(-1).contiguous() for p in range(npol)]
+                rows = [inv[:, :, 0, p].reshape(-1).contiguous() for p in range(npol)]
                 shared = tuple(range(npol))
             else:
                 # a "B" term (or an MFS plan's channels in one row) spreads
                 # the factors over the channels
-                f = inv_tot.expand(-1, -1, ws.ms_nat.shape[2], -1)
-                rows = [ws.rows(f[..., p]).contiguous() for p in range(npol)]
+                f = inv.expand(-1, -1, w.ms_nat.shape[2], -1)
+                rows = [w.rows(f[..., p]).contiguous() for p in range(npol)]
                 shared = ()
-            inv_s = _as_list(permute_apply(perm, *rows, shared=shared))
-            resid_s = [o * g - m for o, g, m in zip(ws.obs_s, inv_s, model_s)]
-    pixels, sumwt = ws.invert_sorted(resid_s, torch.float32)
+            inv_s = _as_list(permute_apply(w.plan.stack.perm, *rows, shared=shared))
+            resids.append([o * g - m for o, g, m in zip(w.obs_s, inv_s, model_s)])
+    if mesh is None:
+        pixels, sumwt = ws.invert_sorted(resids[0], torch.float32)
+    elif chan_shards:
+        inv = [w.invert_sorted(r, torch.float32) for w, r in zip(wss, resids)]
+        pixels, sumwt = torch.cat([d for d, _ in inv]), torch.cat([s for _, s in inv])
+    else:
+        vals = [
+            [[r[p][c] * w.wgt_s[p][c] for c in range(w.plan.nchan)] for p in range(npol)]
+            for w, r in zip(wss, resids)
+        ]
+        # each (channel, polarisation)'s sum as invert_with_plan takes it
+        sw = [
+            torch.stack([
+                torch.stack([torch.sum(w.wgt_s[p][c]) for p in range(npol)])
+                for c in range(w.plan.nchan)
+            ])
+            for w in wss
+        ]
+        pixels, sumwt = _scattered_invert(wss, vals, mesh, sw)
+    del resids
     okw = sumwt > 0.0
     scale = torch.where(okw, 1.0 / torch.where(okw, sumwt, 1.0), 0.0)
     residual = pixels * scale[:, :, None, None]
 
-    comp_pixels = _fused_clean(residual, ws, cfg)
+    comp_pixels = _fused_clean(residual, ws, cfg, mesh)
     model_pixels = model_pixels + comp_pixels
-    peak = residual.abs().max()
+    if chan_shards:
+        peak = pmax(mesh, [residual[w.chans].abs().max() for w in wss])
+    else:
+        peak = residual.abs().max()
     return model_pixels, gains, gwts, gress, residual, sumwt, peak
 
 

@@ -19,7 +19,14 @@ slab while the card computes on this one):
   memory follows the slab, not the observation;
 * per cycle: one FFT and w-stack tail and one CLEAN
   (``ops.deconvolution.deconvolve_cube``, Hogbom by default) on the
-  accumulated grids.
+  accumulated grids;
+* across processes (``distribute=True`` in a ``torch.distributed`` group
+  of W processes): process r streams the slabs k with k % W == r, and the
+  accumulated grids and sums of weights (f64 in a group) are summed over
+  the processes in process order once a cycle (the JAX package's
+  ``_psum_tree``), so the CLEAN and the model are the same on every
+  process; at the end each slab's gain rows come from the process that
+  solved them.
 
 Gain solutions are interval-local: solution intervals are derived per
 slab (``timeslice='auto'`` or any interval that does not straddle a slab
@@ -42,7 +49,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .config import complex_of, not_ported
+from .config import complex_of
 from .io.visio import VisStore
 from .models.gaintable import GainTable, create_gaintable_from_visibility
 from .models.image import Image
@@ -65,6 +72,8 @@ from .ops.imaging import (
 )
 from .ops.permute import permute_apply
 from .ops.solvers import _interval_weights, ne_index_map
+from .parallel.collectives import psum
+from .parallel.mesh import make_mesh
 from .pipeline import (
     _FusedCfg,
     _FusedTermCfg,
@@ -139,6 +148,28 @@ class _Slab(_PlanRows):
         if self.mfs:
             return fw.sum(dim=(0, 1, 2))[None]
         return fw.sum(dim=(0, 1))
+
+
+def _process_mesh(device):
+    """A mesh of one shard a process over the ``torch.distributed`` group
+    (of any size), or None outside a group."""
+    dist = torch.distributed
+    if not (dist.is_available() and dist.is_initialized()):
+        return None
+    return make_mesh(devices=[device])
+
+
+def _psum_grids(mesh, acc, swt):
+    """The accumulated ``[chan][pol]`` grids and sums of weights (None:
+    none) summed over the processes in process order (one collective)."""
+    if mesh is None:
+        return acc, swt
+    flat = [g for row in acc for g in row] + ([] if swt is None else [swt])
+    out = list(psum(mesh, [tuple(flat)]))
+    if swt is not None:
+        swt = out.pop()
+    npol = len(acc[0])
+    return [out[c * npol : (c + 1) * npol] for c in range(len(acc))], swt
 
 
 def _store_visibility(store, phasecentre, frame, nants, device):
@@ -269,9 +300,15 @@ def streamed_ical(
     :param cache_slabs: keep each slab's uploaded visibilities, weights
         and uvw on the card across cycles (~36 B/vis); None caches when
         the estimate fits ``slab_cache_bytes``
-    :param distribute: shard slabs across processes; a run of one process
-        accumulates as it is, more raise (multi-process streaming comes
-        with ROADMAP slice S13)
+    :param distribute: shard slabs across the processes of the
+        ``torch.distributed`` group (``parallel.multihost.initialize``):
+        process r streams slabs k with k % W == r from its own store
+        handle, and once a cycle the accumulated grids and sums of weights
+        (at the end the gain tables) go through the process-ordered sum of
+        ``parallel.collectives``, so every process holds the same result.
+        In a group (of any size, one process too) the grids accumulate in
+        f64, so that the result does not depend on the number of
+        processes; outside a group, in f32
     :param on_cycle: ``on_cycle(cycle, seconds)`` after each cycle's
         model update has reached the host
     :param model_init: warm-start model image: a previous run's returned
@@ -280,9 +317,6 @@ def streamed_ical(
         concatenates every slab's solution intervals per term, a dict
         ``{term: GainTable}`` for multi-term chains
     """
-    dist = torch.distributed
-    if distribute and dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-        raise not_ported("multi-process streamed_ical", "S13")
     with contextlib.ExitStack() as stack:
         if isinstance(store, (str, bytes)):
             store = stack.enter_context(VisStore(os.fsdecode(store)))
@@ -312,6 +346,15 @@ def streamed_ical(
         ]
         nslab = len(steps)
         nants = int(max(store.antenna1.max(), store.antenna2.max())) + 1
+        # one shard a process; None: this process streams every slab
+        mesh = _process_mesh(device) if distribute else None
+        nproc, pid = (1, 0) if mesh is None else (mesh.nshards, mesh.local[0])
+        if nslab < nproc:
+            raise ValueError(
+                f"streamed_ical: {nslab} time slabs cannot shard across "
+                f"{nproc} processes; reduce chunk_times"
+            )
+        my_slabs = [k for k in range(nslab) if k % nproc == pid]
 
         # the global w range and plane count: every slab's grids must stack
         # onto the same planes to accumulate
@@ -415,20 +458,20 @@ def streamed_ical(
             """(k, observed visibilities, flagged weights) per slab on the
             card, with the reader thread prefetching the next slab; with
             ``cache_slabs`` the card's copies serve the later passes."""
-            if cache_slabs and len(data_cache) == nslab:
-                for k in range(nslab):
+            if cache_slabs and len(data_cache) == len(my_slabs):
+                for k in my_slabs:
                     yield (k, *data_cache[k])
                 return
-            store.prefetch(*steps[0])
+            store.prefetch(*steps[my_slabs[0]])
             t_pass = _time.time()
-            for k, (_, nt) in enumerate(steps):
-                re, im, wt, fl = store.wait(nt)
-                if k + 1 < nslab:
-                    store.prefetch(*steps[k + 1])
-                if k % 16 == 0 and log.isEnabledFor(logging.INFO):
+            for i, k in enumerate(my_slabs):
+                re, im, wt, fl = store.wait(steps[k][1])
+                if i + 1 < len(my_slabs):
+                    store.prefetch(*steps[my_slabs[i + 1]])
+                if i % 16 == 0 and log.isEnabledFor(logging.INFO):
                     log.info(
                         "streamed_ical: slab %d/%d (%.0fs into pass)",
-                        k + 1, nslab, _time.time() - t_pass,
+                        i + 1, len(my_slabs), _time.time() - t_pass,
                     )
                 obs = torch.view_as_complex(
                     _upload(np.stack([re, im], axis=-1), wire_dtype, device)
@@ -441,9 +484,17 @@ def streamed_ical(
         def slab(k, obs, fw):
             return _Slab(obs, fw, cals[k], a1, a2, ne_idx, mfs)
 
+        # in a process group the slabs' grids and sums of weights add in
+        # f64: W processes add them in another order than one, and in f64
+        # that order leaves the f32 image as it is; outside a group they
+        # add in f32, slab after slab
+        acc_dtype, swt_dtype = (
+            (torch.complex64, torch.float32) if mesh is None else (torch.complex128, torch.float64)
+        )
+
         def accumulate(acc, grids):
             if acc is None:
-                return grids
+                return [[g.to(acc_dtype) for g in row] for row in grids]
             for c in range(nchan_img):
                 for p in range(npol):
                     acc[c][p] += grids[c][p]
@@ -460,8 +511,9 @@ def streamed_ical(
                 tails = [dataclasses.replace(ip, gp=None) for ip in plan.plans]
             s = slab(k, obs, fw)
             acc = accumulate(acc, s.grid(plan, s.to_plan(plan, fw)))
-            swt = s.sumwt() if swt is None else swt + s.sumwt()
+            swt = s.sumwt().to(swt_dtype) if swt is None else swt + s.sumwt()
             del plan, s
+        acc, swt = _psum_grids(mesh, acc, swt)
 
         ny = nx = model.npixel
 
@@ -469,7 +521,7 @@ def streamed_ical(
             cube = torch.zeros((nchan_img, npol, ny, nx), dtype=torch.float32, device=device)
             for c in range(nchan_img):
                 for p in range(npol):
-                    d = uv_grids_to_dirty(tails[c], acc[c][p])
+                    d = uv_grids_to_dirty(tails[c], acc[c][p].to(torch.complex64))
                     cube[c, p] = (d / torch.clamp(swt[c, p], min=1e-30)).to(torch.float32)
             return cube
 
@@ -525,6 +577,7 @@ def streamed_ical(
                 del mvis, corrected, inv_tot
                 acc = accumulate(acc, s.grid(plan, s.to_plan(plan, resid)))
                 del plan, s, resid
+            acc, _ = _psum_grids(mesh, acc, None)
             residual = model.replace(pixels=grids_to_cube(acc, swt))
             del acc
             comp_img, _ = deconvolve_cube(residual, psf, **ck)
@@ -541,6 +594,19 @@ def streamed_ical(
 
         current = model.replace(pixels=model_px.to(model.pixels.dtype))
         restored = restore_cube(current, psf=psf, residual=residual, clean_beam=fit_psf(psf))
+        if mesh is not None:
+            # each slab's solutions from the process that streamed it: the
+            # others hold zeros, and one ordered sum gives every process all
+            tables = [gains, gwts, gress]
+            for tab in tables:
+                for k in range(nslab):
+                    if k % nproc != pid:
+                        tab[k] = [torch.zeros_like(x) for x in tab[k]]
+            flat = psum(mesh, [tuple(x for tab in tables for k in range(nslab) for x in tab[k])])
+            it = iter(flat)
+            for tab in tables:
+                for k in range(nslab):
+                    tab[k] = [next(it) for _ in tab[k]]
         # each term's slab tables merged (disjoint, time-ordered intervals)
         gaintables = {}
         for it, name in enumerate(terms):

@@ -49,7 +49,10 @@ from ska_sdp_func_python_torch.ops.gridding_fused import (
     degrid_stack,
     degrid_stack_plain,
     grid,
+    grid_convert,
+    grid_convert_plain,
     grid_plain,
+    grid_vsum,
 )
 from ska_sdp_func_python_torch.ops.gridding_plan import (
     STACKED,
@@ -217,6 +220,34 @@ def test_grid_error_is_relative_to_each_cell(dev, faint):
         cols = slice(0, plan.npixel // 2 - 16)
         err = (out - ref)[:, :, cols].abs().max()
         assert err <= 1e-5 * ref[:, :, cols].abs().max()
+
+
+def test_grid_raw_route_sums_shards_exactly(dev):
+    """The sharded invert's route of K1: the int64 planes (``raw=True``)
+    converted on their own give the launch's own grids bit for bit, and
+    the conversion equals its plain version; the values split over 4
+    shards, each gridded at the global bound (the sum of the shards'
+    vsums, the plan's tap bound), sum in int64 to the same bits in any
+    order, within 1e-5 of the whole stream's grids."""
+    plan = _plan(dev)
+    g = torch.Generator(device=dev).manual_seed(9)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    own = (grid_vsum(vals), plan.tap_bound)
+    raw = grid(plan, vals, raw=True, bound=own)
+    assert raw.dtype == torch.int64 and raw.shape[-1] == 2
+    whole = grid(plan, vals)
+    assert torch.equal(grid_convert(raw, own), whole)
+    assert torch.equal(grid_convert_plain(raw.cpu(), tuple(t.cpu() for t in own)), whole.cpu())
+    shard = torch.arange(plan.n, device=dev) % 4
+    parts = [torch.where(shard == d, vals, 0) for d in range(4)]
+    vsum = grid_vsum(parts[0]) + grid_vsum(parts[1]) + grid_vsum(parts[2]) + grid_vsum(parts[3])
+    bound = (vsum, plan.tap_bound)
+    raws = [grid(plan, p, raw=True, bound=bound) for p in parts]
+    a = ((raws[0] + raws[1]) + raws[2]) + raws[3]
+    b = raws[3] + (raws[1] + (raws[2] + raws[0]))
+    assert torch.equal(a, b)
+    out = grid_convert(a, bound)
+    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
 
 
 def test_grid_of_zeros_and_of_a_nan(dev):

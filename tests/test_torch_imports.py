@@ -23,9 +23,11 @@ print(len(names), bad)
 assert not bad, bad
 for mod in ("pipeline", "ops.accuracy", "ops.gridding_tiled", "ops.imaging",
             "io", "io.visio", "io.gainio", "streaming", "ops.image_iterators",
-            "ops.imaging_helpers", "utils.arrays"):
+            "ops.imaging_helpers", "utils.arrays", "parallel", "parallel.mesh",
+            "parallel.collectives", "parallel.multihost", "parallel.distributed",
+            "parallel.selfcal", "parallel.fused", "parallel.redistribute"):
     assert "ska_sdp_func_python_torch." + mod in names, mod
-for attr in ("io", "models", "ops", "pipeline", "streaming"):
+for attr in ("io", "models", "ops", "pipeline", "streaming", "parallel"):
     assert hasattr(pkg, attr), attr
 from ska_sdp_func_python_torch.io import visio
 lib = visio._load_lib()
