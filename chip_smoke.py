@@ -195,9 +195,23 @@ Phases, each on lines of its own:
      outlives 120 s fails the phase); (d) ``distributed_ical`` on phase
      7's observation over 4 shards (K9's tiled gridder, K5), card against
      CPU at phase 7's bounds.
-Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d and 14a, b, d
-resets the launch counters just before it and fails unless every kernel
-of its path launched. The script then
+ 15. the imaging periphery (after phase 14) on a MID observation (197
+     dishes, 128 hour angles, 4 channels from 1.4 GHz, 9,884,672
+     visibilities, 1024^2): (a) ``invert_visibility(gridder="scatter")``
+     and ``predict_visibility(gridder="gather")`` against the plan routes
+     (K1, K3) to 1e-5 of the maximum (the invert before the grid
+     correction), wall times, two runs equal bit for bit, a small slice
+     card against CPU; (b) AW-projection: the JAX package's bounds (w = 0,
+     the default pair: predict 0.05 from the exact DFT, invert peak
+     within 0.05 on the source), an awterm CF (nw 5, oversampling 8,
+     support 8) built on the card with its time and memory, its grid and
+     degrid timed, every route twice bit for bit, the CF card against CPU;
+     (c) the visibility algebra in f64 card against CPU; (d) in phases 9
+     and 14d: K9's f32 and f64 streams launched twice and
+     ``distributed_ical`` run twice, equal bit for bit.
+Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d and
+15a resets the launch counters just before it and fails unless every
+kernel of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
 the ``{"ok": true, ...}`` line. Any failure raises
@@ -208,6 +222,8 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --profile-streamed [--wire f32] [--store-uvw]
        python3 chip_smoke.py --repeat-selfcal N   (phase 10c's run N times)
        python3 chip_smoke.py --phase14-only       (the build and phase 14)
+       python3 chip_smoke.py --phase15-only       (the build, phase 15 and
+                                                   15d's repeats)
 """
 
 from __future__ import annotations
@@ -276,8 +292,9 @@ KERNELS = {
         "ska_sdp_func_python_torch/csrc/msmfs.cu",
         "ska_sdp_func_python_tpu/ops/cleaners.py:1562",
     ),
-    # f32, against the plain version accumulated in f64 (atomics); the f64
-    # kernel is held to 1e-12 (UNIT_TILES_F64_TOL)
+    # f32, against the plain version accumulated in f64 (the kernel sums in
+    # int64 fixed point, a 128-bit pair in f64, and two launches must agree
+    # bit for bit); the f64 kernel is held to 1e-12 (UNIT_TILES_F64_TOL)
     "unit_tiles": (
         1e-5,
         "ska_sdp_func_python_torch/csrc/unit_tiles.cu",
@@ -407,6 +424,29 @@ SHARDS14 = 4
 SHARD_GAIN_TOL, SHARD_RESIDUAL_TOL, SHARD_RESTORED_TOL = 1e-4, 1e-2, 0.05
 CUBE_SHARD_TOL = 2e-3
 CHILD_TIMEOUT_S = 120
+
+# phase 15: a MID observation (the JAX package's synthetic layout, 197
+# dishes of 15 m out to 80 km) of full width: 128 hour angles in +-0.3
+# rad at dec -35 deg, 4 channels of 10 MHz from 1.4 GHz (19,306 x 128 x 4
+# = 9,884,672 visibilities), a 1024^2 image at advise_wide_field's
+# cellsize; two sources (pixel offsets from the centre of a 1024^2 image,
+# scaled to smaller ones; Jy); the direct
+# routes held to the plan routes (K1, K3) at 1e-5 of the maximum and to
+# themselves bit for bit; the AW-projection bounds of the JAX package's
+# tests (tests/test_periphery.py:135-181) and its CF (nw 5, oversampling
+# 8, support 8)
+MID15 = dict(ntimes=128, nchan=4, npixel=1024)
+SOURCES15 = [(300, 200, 1.0), (-250, -150, 0.5)]
+# 15b: one source at the offset of the JAX AW-projection test's, (+10, -6)
+# pixels of 256^2, scaled to 1024^2 (the AW path grids at image resolution,
+# unpadded, so the PSWF's taper error grows towards the field's edge)
+SOURCE15B = [(40, -24, 1.0)]
+DIRECT_TOL = 1e-5
+AW_TOL = 0.05
+AW_CF = dict(nw=5, oversampling=8, support=8)
+# 15c: the f64 visibility algebra, card against CPU (the port's f64 parity
+# tolerance)
+ALGEBRA_TOL = 1e-10
 
 
 def say(*args):
@@ -2590,7 +2630,11 @@ def compare_unit_tiles(stream, geo, label, tol, peak_ops):
     plain_ms = start.elapsed_time(end)
     err = float((out.to(torch.complex128) - ref).abs().max())
     rel = err / float(ref.abs().max())
-    del ref, out
+    del ref
+    # phase 15d: K9 sums in fixed point, so a second launch gives the
+    # same bits
+    same = torch.equal(stream.grid(**geo), out)
+    del out
     n = int(stream.u.shape[0])
     nunits = int(stream.unit_seg.shape[0])
     s = geo["support"]
@@ -2614,10 +2658,13 @@ def compare_unit_tiles(stream, geo, label, tol, peak_ops):
         f"{geo['npixel']}^2, tile {geo['tile']}, support {s}: max abs err "
         f"{err:.3e}, rel {rel:.3e} (tolerance {tol:g}); kernel {row['ms']:.3f} "
         f"ms, plain (f64, one run) {plain_ms:.3f} ms, bound "
-        f"{row['bound_ms']:.4f} ms ({row['bound_by']})"
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}); 15d: a second launch gives the "
+        f"same bits: {same}"
     )
     if not rel <= tol:
         raise AssertionError(f"unit_tiles {label} disagrees with its plain version")
+    if not same:
+        raise AssertionError(f"15d: unit_tiles {label} differs from launch to launch")
     return row
 
 
@@ -3909,7 +3956,9 @@ def distributed_card_vs_cpu(device):
     """Phase 14d: distributed_ical (the core path: K9's tiled gridder, K5)
     on phase 7's observation over 4 shards, card against CPU at phase 7's
     bounds (gains 1e-4, residual peak 1e-3 relative, restored with the CPU
-    run's clean beam 0.05). Returns the card run's launch counts."""
+    run's clean beam 0.05); 15d: a second card run equals the first bit
+    for bit (gains, residual, model). Returns the first card run's launch
+    counts."""
     from ska_sdp_func_python_torch.ops.deconvolution import restore_cube
     from ska_sdp_func_python_torch.parallel import distributed_ical, make_mesh
 
@@ -3922,9 +3971,16 @@ def distributed_card_vs_cpu(device):
         if label == "card":
             res[label], counts, _ = run_logged("14d distributed_ical on the card", entry, 3,
                                                ("unit_tiles", "hogbom"))
+            again = entry()
         else:
             res[label] = entry()
     (da, ra, sa, ga), (db, rb, sb, gb) = res["card"], res["cpu"]
+    same = (torch_equal(again[0].pixels, da.pixels) and torch_equal(again[1].pixels, ra.pixels)
+            and torch_equal(again[3].gain, ga.gain))
+    say(f"15d distributed_ical: a second card run equals the first bit for bit (model, "
+        f"residual, gains): {same}")
+    if not same:
+        raise AssertionError("15d: two card runs of distributed_ical differ")
     dg = float(np.max(np.abs(referenced_gains(ga) - referenced_gains(gb))))
     res_a, res_b = float(ra.pixels.abs().max()), float(rb.pixels.abs().max())
     beam = dict(zip(("bmaj", "bmin", "bpa"), np.rad2deg(sb.clean_beam)))
@@ -3984,6 +4040,359 @@ def main14() -> int:
     report_kernel("grid_convert", row)
     for shape, counts in by_shape.items():
         say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    say(f"command: {time.perf_counter() - t_start:.1f} s")
+    say(card)
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the imaging periphery (S11a) on a MID observation
+
+
+def mid_observation(device, ntimes=128, nchan=4, npixel=1024, rmax=None, zero_w=False,
+                    sources=None, dtype=None):
+    """Phase 15's observation: the MID layout (within ``rmax`` m), hour
+    angles in +-0.3 rad above 15 deg elevation, ``nchan`` channels of 10
+    MHz from 1.4 GHz, holding the exact DFT of ``sources`` (None:
+    SOURCES15; pixel offsets of a 1024^2 image, scaled to ``npixel``; computed in f64 on the device from the Visibility's own
+    uvw; with ``zero_w`` its w are zero first, the JAX package's
+    AW-projection tests' geometry), and the one-channel ``npixel``^2
+    image at advise_wide_field's cellsize holding the sources, in
+    ``dtype`` (None: f32). Returns (vis, model)."""
+    import torch
+
+    dtype = torch.float32 if dtype is None else dtype
+
+    from ska_sdp_func_python_torch.models import (
+        C_M_S,
+        create_image,
+        create_named_configuration,
+        create_visibility,
+    )
+    from ska_sdp_func_python_torch.ops import advise_wide_field
+    from ska_sdp_func_python_torch.utils.coordinates import radec_to_lmn
+
+    cfg = create_named_configuration("MID", rmax=rmax)
+    freq = 1.4e9 + 1e7 * np.arange(nchan)
+    vis = create_visibility(cfg, np.linspace(-0.3, 0.3, ntimes), freq,
+                            channel_bandwidth=[1e7] * nchan, elevation_limit=np.deg2rad(15.0),
+                            dtype=dtype, device=device)
+    if zero_w:
+        uvw = vis.uvw.clone()
+        uvw[..., 2] = 0.0
+        vis = vis.replace(uvw=uvw)
+    cell = float(advise_wide_field(vis)["cellsize"])
+    model = create_image(npixel, cell, vis.phasecentre, frequency=[float(freq.mean())],
+                         nchan=1, dtype=dtype, device=device)
+    uvw = torch.einsum("tbs,f->tbfs", vis.uvw.double(),
+                       torch.as_tensor(freq / C_M_S, device=vis.device))
+    data = torch.zeros(uvw.shape[:3], dtype=torch.complex128, device=vis.device)
+    pixels = torch.zeros_like(model.pixels)
+    for dx, dy, flux in SOURCES15 if sources is None else sources:
+        ix, iy = npixel // 2 + dx * npixel // 1024, npixel // 2 + dy * npixel // 1024
+        ra, dec = model.pixel_to_radec(ix, iy)
+        l, m, n1 = (float(x) for x in radec_to_lmn(ra, dec, *vis.phasecentre))
+        turns = uvw[..., 0] * l + uvw[..., 1] * m + uvw[..., 2] * n1
+        data += flux * torch.exp(-2j * np.pi * turns)
+        pixels[0, 0, iy, ix] = flux
+    vis = vis.replace(vis=data[..., None].to(vis.vis.dtype))
+    return vis, model.replace(pixels=pixels)
+
+
+def _wall(fn):
+    """(fn's result, its wall time in ms, synchronised)."""
+    import torch
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _rel(a, b):
+    """max |a - b| over max |b|, in f64."""
+    import torch
+
+    a = a.to(torch.complex128 if a.is_complex() or b.is_complex() else torch.float64)
+    b = b.to(a.dtype)
+    return float((a - b).abs().max() / b.abs().max())
+
+
+def _repeat_gate(label, first, second):
+    import torch
+
+    same = torch.equal(first, second)
+    say(f"{label}: a second run gives the same bits: {same}")
+    if not same:
+        raise AssertionError(f"{label}: two card runs differ")
+
+
+def run_core_gridders(device):
+    """Phase 15a: ``invert_visibility(gridder="scatter")`` against the
+    plan route (K1) and ``predict_visibility(gridder="gather")`` against
+    K3 on phase 15's MID observation, w-stacked on the plan's planes at
+    padding 2 (the core route's), to DIRECT_TOL of the maximum (the
+    images before the grid correction both routes divide by); wall time
+    of each route, two card runs of each direct route equal bit for bit,
+    and a small slice (MID within 3 km, 8 hour angles, 256^2) card
+    against CPU. Returns the plan routes' launch counts."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops import (
+        extract_mid,
+        grid_correction,
+        invert_visibility,
+        make_visibility_plan,
+        predict_visibility,
+    )
+    from ska_sdp_func_python_torch.ops.gridding import _es_beta
+
+    t0 = time.perf_counter()
+    vis, model = mid_observation(device, **MID15)
+    say(f"15 MID observation: {vis.nvis} visibilities (197 dishes, {vis.ntimes} times, "
+        f"{vis.nchan} channels), {model.npixel}^2 at cellsize {model.cellsize:.4e}, "
+        f"simulated in {time.perf_counter() - t0:.1f} s")
+    plan = make_visibility_plan(vis, model, padding=2)
+    p0 = plan.plans[0]
+    core = dict(gridder="scatter", auto_plan=False, nw=p0.nw, padding=2)
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    (fused, _), t_fused = _wall(lambda: invert_visibility(vis, model, plan=plan))
+    pred_fused, t_pfused = _wall(lambda: predict_visibility(vis, model, plan=plan).vis)
+    counts = kernels.launch_counts()
+    _launch_gate("15a plan routes", counts, ("grid", "degrid", "permute"))
+    kernels.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    (direct, _), t_direct = _wall(lambda: invert_visibility(vis, model, **core))
+    pred_direct, t_gather = _wall(lambda: predict_visibility(
+        vis, model, **dict(core, gridder="gather")).vis)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    direct_counts = kernels.launch_counts()
+    if any(direct_counts.values()):
+        raise AssertionError(f"15a: the direct routes launched {direct_counts}")
+    # both routes divide by the same grid correction, which falls several times
+    # from the field's centre to its corners and scales the f32 rounding
+    # of K1's route with it there: the gridders are compared before it
+    corr = extract_mid(grid_correction(p0.npad, p0.support, torch.float64,
+                                       _es_beta(p0.support, p0.npad / p0.npixel),
+                                       device=device), p0.npixel)
+    full_err = _rel(direct.pixels, fused.pixels)
+    inv_err = _rel(direct.pixels[0, 0] * corr, fused.pixels[0, 0] * corr)
+    pred_err = _rel(pred_direct, pred_fused)
+    src = model.pixels[0, 0] > 0
+    say(f"15a invert (npad {p0.npad}, nw {p0.nw}): scatter {t_direct:.1f} ms, plan (K1) "
+        f"{t_fused:.1f} ms, {inv_err:.3e} of the maximum apart before the grid correction "
+        f"(bound {DIRECT_TOL:g}), {full_err:.3e} of the image maximum after it; peaks at the "
+        f"sources {direct.pixels[0, 0][src].tolist()} vs {fused.pixels[0, 0][src].tolist()}")
+    say(f"15a predict: gather {t_gather:.1f} ms, plan (K3, K4) {t_pfused:.1f} ms, "
+        f"{pred_err:.3e} of the visibility maximum apart (bound {DIRECT_TOL:g}); direct "
+        f"routes' peak memory {peak:.2f} GiB")
+    if not (inv_err <= DIRECT_TOL and pred_err <= DIRECT_TOL):
+        raise AssertionError("15a: the direct routes disagree with the plan routes")
+    _repeat_gate("15a scatter invert", direct.pixels,
+                 invert_visibility(vis, model, **core)[0].pixels)
+    _repeat_gate("15a gather predict", pred_direct,
+                 predict_visibility(vis, model, **dict(core, gridder="gather")).vis)
+    del vis, model, plan, fused, direct, pred_fused, pred_direct
+    torch.cuda.empty_cache()
+    out = {}
+    for dev in (device, "cpu"):
+        vis, model = mid_observation(dev, ntimes=8, nchan=2, npixel=256, rmax=3000.0)
+        out[str(dev)] = (
+            invert_visibility(vis, model, gridder="scatter", auto_plan=False)[0].pixels.cpu(),
+            predict_visibility(vis, model, gridder="gather", auto_plan=False).vis.cpu(),
+        )
+    (ci, cp), (hi, hp) = out[str(device)], out["cpu"]
+    e_i, e_p = _rel(ci, hi), _rel(cp, hp)
+    say(f"15a small slice card vs cpu: scatter {e_i:.3e}, gather {e_p:.3e} of the maximum "
+        f"(bound {DIRECT_TOL:g})")
+    if not (e_i <= DIRECT_TOL and e_p <= DIRECT_TOL):
+        raise AssertionError("15a: card and cpu disagree on the small slice")
+    return counts
+
+
+def run_awprojection(device):
+    """Phase 15b: AW-projection on phase 15's MID observation of one source
+    (SOURCE15B). The JAX package's own bounds on its geometry (w = 0, the
+    default PSWF pair): the predict within AW_TOL of the exact DFT, the
+    invert peak on the source within AW_TOL of its flux. Then an awterm
+    CF (AW_CF, its planes spanning the observation's w) built on the card
+    (build time and peak memory; the same bits on a second build; card
+    against CPU at 256^2), and the predict and invert through it on the
+    observation with its w: time, peak memory and two runs equal bit for
+    bit. Its kernels' error against the exact DFT is printed, not gated:
+    the JAX package's awterm CF does not reproduce the DFT (ROADMAP
+    Queue 3), and the port follows it."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops import (
+        create_awterm_convolutionfunction,
+        invert_visibility,
+        predict_visibility,
+    )
+
+    vis, model = mid_observation(device, zero_w=True, sources=SOURCE15B, **MID15)
+    empty = model.replace(pixels=torch.zeros_like(model.pixels))
+    pred, t_pred = _wall(lambda: predict_visibility(vis, model, context="awprojection").vis)
+    err = float((pred - vis.vis).abs().max())
+    (dirty, _), t_inv = _wall(lambda: invert_visibility(vis, empty, context="awprojection"))
+    img = dirty.pixels[0, 0]
+    iy, ix = np.unravel_index(int(img.argmax()), tuple(img.shape))
+    dx, dy, flux = SOURCE15B[0]
+    want = (model.npixel // 2 + dx * model.npixel // 1024,
+            model.npixel // 2 + dy * model.npixel // 1024)
+    peak = float(img[iy, ix])
+    say(f"15b AW-projection, default pair, w = 0: predict {t_pred:.1f} ms, max error vs the "
+        f"exact DFT {err:.4f} (bound {AW_TOL}); invert {t_inv:.1f} ms, peak {peak:.4f} at "
+        f"{(int(ix), int(iy))} (source {flux} Jy at {want}, bound {AW_TOL})")
+    if not (err < AW_TOL and (int(ix), int(iy)) == want and abs(peak - flux) < AW_TOL):
+        raise AssertionError("15b: the default AW-projection misses the JAX package's bounds")
+    _repeat_gate("15b default pair predict", pred,
+                 predict_visibility(vis, model, context="awprojection").vis)
+    vis0 = vis
+    del pred, dirty
+    torch.cuda.empty_cache()
+
+    vis, model = mid_observation(device, sources=SOURCE15B, **MID15)
+    wmax = float(vis.uvw_lambda[..., 2].abs().max())
+    wstep = 2.0 * wmax / (AW_CF["nw"] - 1)
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    (gcf, cf), t_cf = _wall(lambda: create_awterm_convolutionfunction(model, wstep=wstep, **AW_CF))
+    cf_gib = torch.cuda.max_memory_allocated() / 2**30 - base
+    _repeat_gate("15b awterm CF build", cf,
+                 create_awterm_convolutionfunction(model, wstep=wstep, **AW_CF)[1])
+    kw = dict(gcfcf=(gcf, cf), oversampling=AW_CF["oversampling"], wstep=wstep)
+    err0 = float((predict_visibility(vis0, model, context="awprojection", **kw).vis
+                  - vis0.vis).abs().max())
+    del vis0
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    (dirty, _), t_grid = _wall(lambda: invert_visibility(vis, empty, context="awprojection", **kw))
+    pred, t_degrid = _wall(lambda: predict_visibility(vis, model, context="awprojection", **kw).vis)
+    run_gib = torch.cuda.max_memory_allocated() / 2**30 - base
+    say(f"15b awterm CF (nw {AW_CF['nw']}, oversampling {AW_CF['oversampling']}, support "
+        f"{AW_CF['support']}, wstep {wstep:.1f} over |w| <= {wmax:.1f}): built in {t_cf:.1f} ms, "
+        f"peak {cf_gib:.2f} GiB above the run's; invert (grid) {t_grid:.1f} ms, predict "
+        f"(degrid) {t_degrid:.1f} ms, peak {run_gib:.2f} GiB above the run's; its predict "
+        f"{float((pred - vis.vis).abs().max()):.4f} from the exact DFT, {err0:.4f} at w = 0 "
+        f"(the JAX package's kernels and correction, not gated)")
+    _repeat_gate("15b awterm invert", dirty.pixels,
+                 invert_visibility(vis, empty, context="awprojection", **kw)[0].pixels)
+    _repeat_gate("15b awterm predict", pred,
+                 predict_visibility(vis, model, context="awprojection", **kw).vis)
+    del vis, pred, dirty, cf, gcf
+    torch.cuda.empty_cache()
+    cfs = {}
+    for dev in (device, "cpu"):
+        v, m = mid_observation(dev, ntimes=8, nchan=1, npixel=256, rmax=3000.0)
+        cfs[str(dev)] = create_awterm_convolutionfunction(m, wstep=wstep, **AW_CF)[1].cpu()
+    e = _rel(cfs[str(device)], cfs["cpu"])
+    say(f"15b awterm CF at 256^2 card vs cpu: {e:.3e} of the maximum (bound 1e-10)")
+    if not e <= 1e-10:
+        raise AssertionError("15b: the card's CF differs from the CPU's")
+
+
+def visibility_algebra_card_vs_cpu(device):
+    """Phase 15c: the visibility algebra on an f64 MID observation
+    (within 3 km, 16 hour angles, 6 channels) with weights 1 + N(0, 0.1)
+    and 5% flags, on the card and on the CPU from the same input: phase
+    rotation with uvw re-projection to a new centre and back returns the
+    uvw and the visibilities (the JAX package's round trip); the two time
+    halves concatenate to the whole bit for bit; averaging, integration
+    and continuum removal card against CPU; each to ALGEBRA_TOL of the
+    maximum; az/el and parallactic angles of the phase centre at MID's
+    site equal (host f64)."""
+    import torch
+
+    from ska_sdp_func_python_torch import ops
+    from ska_sdp_func_python_torch.models import create_named_configuration
+
+    rng = np.random.default_rng(15)
+    out = {}
+    for dev in (device, "cpu"):
+        vis, _ = mid_observation(dev, ntimes=16, nchan=6, npixel=256, rmax=3000.0,
+                                 dtype=torch.float64)
+        if not out:
+            shape = tuple(vis.vis.shape)
+            wt = 1.0 + rng.normal(0.0, 0.1, shape)
+            flags = (rng.uniform(size=shape) < 0.05).astype(np.int32)
+        vis = vis.replace(weight=torch.as_tensor(wt, device=dev).to(vis.weight.dtype),
+                          flags=torch.as_tensor(flags, device=dev))
+        new = (vis.phasecentre[0] + 0.001, vis.phasecentre[1] + 0.002)
+        rot = ops.phaserotate_visibility(vis, new, tangent=False)
+        back = ops.phaserotate_visibility(rot, vis.phasecentre, tangent=False)
+        half = vis.ntimes // 2
+        parts = [vis.replace(**{f: getattr(vis, f)[s] for f in
+                                ("vis", "weight", "imaging_weight", "flags", "uvw", "time",
+                                 "integration_time")})
+                 for s in (slice(0, half), slice(half, None))]
+        whole = ops.concatenate_visibility(parts)
+        same = all(torch.equal(getattr(whole, f), getattr(vis, f))
+                   for f in ("vis", "weight", "flags", "uvw", "time"))
+        res = [rot.vis, rot.uvw, ops.integrate_visibility_by_channel(vis).vis,
+               *[a.vis for a in ops.average_visibility_by_channel(vis, 4)],
+               ops.remove_continuum_visibility(vis, degree=1).vis]
+        loc = create_named_configuration("MID").location
+        geo = np.concatenate([*ops.calculate_visibility_azel(vis, loc),
+                              ops.calculate_visibility_parallactic_angles(vis, loc)])
+        out[str(dev)] = dict(round_trip=(_rel(back.uvw, vis.uvw), _rel(back.vis, vis.vis)),
+                             same=same, res=[r.cpu() for r in res], geo=geo)
+    card, cpu = out[str(device)], out["cpu"]
+    errs = [_rel(a, b) for a, b in zip(card["res"], cpu["res"])]
+    geo_same = np.array_equal(card["geo"], cpu["geo"])
+    say(f"15c phaserotate(tangent=False) to a new centre and back on the card: uvw "
+        f"{card['round_trip'][0]:.3e}, vis {card['round_trip'][1]:.3e} of the maximum "
+        f"(bound {ALGEBRA_TOL:g}); halves concatenate to the whole bit for bit: {card['same']}; "
+        f"card vs cpu (rotated vis, rotated uvw, integrated, 2 averages, continuum removed): "
+        + ", ".join(f"{e:.2e}" for e in errs) + f" (bound {ALGEBRA_TOL:g}); az/el and "
+        f"parallactic angles equal: {geo_same}")
+    if not (max(card["round_trip"]) <= ALGEBRA_TOL and card["same"] and cpu["same"]
+            and max(errs) <= ALGEBRA_TOL and geo_same):
+        raise AssertionError("15c: the visibility algebra failed on the card")
+
+
+def run_periphery(device):
+    """Phase 15 (a-c). Returns the plan routes' launch counts of 15a."""
+    t0 = time.perf_counter()
+    counts = run_core_gridders(device)
+    run_awprojection(device)
+    visibility_algebra_card_vs_cpu(device)
+    say(f"phase 15: {time.perf_counter() - t0:.1f} s")
+    return counts
+
+
+def main15() -> int:
+    """``--phase15-only``: the build, phase 15 (a-c), and 15d: phase 9's
+    f32 and f64 unit_tiles streams and phase 14d's distributed_ical, each
+    run twice."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.models import create_named_configuration
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels.build_library()
+    kernels.load_library()
+    say(f"build: {time.perf_counter() - t_start:.1f} s")
+    run_periphery(device)
+    cfg = create_named_configuration("LOW", rmax=40000.0)
+    for dtype, eps, tol, peak in ((torch.float32, EPS_FAST, KERNELS["unit_tiles"][0], PEAK_F32_S),
+                                  (torch.float64, EPS_DEEP, UNIT_TILES_F64_TOL, PEAK_F64_S)):
+        vis, model, _, _ = observation9(cfg, device, dtype)
+        stream, geo = unit_stream9(vis, model, eps)
+        label = "fast-f32 stream (f32)" if dtype == torch.float32 else "deep-f64 stream (f64)"
+        compare_unit_tiles(stream, geo, label, tol, peak)
+        del vis, model, stream
+        torch.cuda.empty_cache()
+    distributed_card_vs_cpu(device)
     say(f"command: {time.perf_counter() - t_start:.1f} s")
     say(card)
     return 0
@@ -4099,6 +4508,11 @@ def main() -> int:
         by_shape[shape] = counts
     del vis, model
     torch.cuda.empty_cache()
+    counts = run_periphery(device)
+    for name in launches:
+        launches[name] += counts[name]
+    by_shape["MID observation, plan routes (phase 15a)"] = counts
+    torch.cuda.empty_cache()
 
     results["msmfs"], counts, counts_13d = run_cube(device)
     for name in launches:
@@ -4195,6 +4609,9 @@ if __name__ == "__main__":
                     help="only run phase 10c's checkpoint observation N times (see repeat_selfcal)")
     ap.add_argument("--phase14-only", action="store_true",
                     help="only build the kernels and run phase 14 (the parallel layer)")
+    ap.add_argument("--phase15-only", action="store_true",
+                    help="only build the kernels and run phase 15 (the imaging periphery, "
+                         "K9's repeats)")
     ap.add_argument("--phase14-child", nargs=4, metavar=("RANK", "PORT", "INPUTS", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4203,6 +4620,8 @@ if __name__ == "__main__":
         sys.exit(phase14_child(int(rank), int(port), inputs, out))
     if args.phase14_only:
         sys.exit(main14())
+    if args.phase15_only:
+        sys.exit(main15())
     if args.profile_streamed:
         sys.exit(profile_streamed(args.wire, args.store_uvw))
     if args.repeat_selfcal:

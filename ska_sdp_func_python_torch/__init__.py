@@ -12,6 +12,7 @@ Layout:
     pipeline   the self-calibration and continuum-imaging cycles
     streaming  the out-of-core self-calibration cycle over a store
     parallel/  the sharded cycles over a mesh of process-owned shards
+    utils/     coordinates, observation geometry and array helpers
 """
 
 from . import config  # noqa: F401  (pins TF32 off on import)
@@ -19,4 +20,4 @@ from . import config  # noqa: F401  (pins TF32 off on import)
 __version__ = "0.1.0"
 
 from . import io, models, ops  # noqa: E402,F401
-from . import parallel, pipeline, streaming  # noqa: E402,F401
+from . import parallel, pipeline, streaming, utils  # noqa: E402,F401

@@ -134,22 +134,20 @@ def _slice(slice_: str, names: str) -> dict:
     return {name: slice_ for name in names.split()}
 
 
-# The public names of the JAX package's ``ops`` and ``models`` namespaces
-# that the port does not have yet, each with the ROADMAP slice that brings
-# it. Every other name of those namespaces (and of ``io`` and
-# ``pipeline``) is exported by the port under its JAX name; a test holds
-# the two lists apart, so a name leaves this table when its slice lands.
+# The public names of the JAX package's ``ops``, ``models`` and ``utils``
+# namespaces that the port does not have yet, each with the ROADMAP slice
+# that brings it. Every other name of those namespaces (and of ``io``,
+# ``pipeline`` and ``parallel``) is exported by the port under its JAX
+# name; a test holds the two lists apart, so a name leaves this table when
+# its slice lands.
 UNPORTED: dict = {
-    # S11: the periphery, on no pipeline path
-    **_slice("S11", """
+    # S11b: the sky-component periphery and the rest of ``utils``, on no
+    # pipeline path
+    **_slice("S11b", """
         PolynomialInterpolator NumpyLinearInterpolator ScipySplineInterpolator
         set_beamformer_frequencies expand_delay_phase multiply_gaintable_jones
         resample_bandpass
-        coordinates coordinates2 coordinate_bounds coordinates2_offset
-        coordinateBounds coordinates2Offset extract_oversampled
         dft_cpu_looped dft_gpu_raw_kernel
-        convolutional_grid convolutional_degrid
-        convert_stokes_to_polimage convert_polimage_to_stokes
         calculate_skycomponent_list_taylor_terms
         find_skycomponents_frequency_taylor_terms
         gather_skycomponents_from_channels interpolate_skycomponents_frequency
@@ -165,19 +163,10 @@ UNPORTED: dict = {
         find_skycomponent_matches_atomic select_neighbouring_components
         skymodel_predict_calibrate skymodel_calibrate_invert
         Parset create_parset_from_context gaincal dp3_gaincal
-        convolution_mapping_visibility spatial_mapping
-        create_pswf_convolutionfunction create_awterm_convolutionfunction
-        create_griddata_from_image grid_visibility_to_griddata
-        degrid_visibility_from_griddata grid_visibility_weight_to_griddata
-        griddata_merge_weights griddata_visibility_reweight
-        fft_griddata_to_image fft_image_to_griddata
-        predict_awprojection invert_awprojection
-        get_direction_time_location calculate_visibility_hourangles
-        calculate_visibility_parallactic_angles calculate_visibility_azel
-        calculate_visibility_transit_time
-        concatenate_visibility concatenate_visibility_frequency
-        remove_continuum_visibility integrate_visibility_by_channel
-        average_visibility_by_channel calculate_visibility_uvw_lambda
-        GridData SkyModel
+        SkyModel
+        average_chunks average_chunks2 insert_array insert_function_L
+        insert_function_pswf insert_function_sinc
+        qa_image qa_gain_table qa_visibility
+        timer metrics reset_metrics profile_trace
     """),
 }

@@ -30,7 +30,7 @@
 // kRunCap entries (which bounds the length of a sequential sum: f32 error
 // grows with it) and at the end. The CTA runs the whole groups nearest to
 // 256 threads, each over a contiguous part of the unit. The flush adds the
-// touched cells of the tile into the complex grids with global atomics, as
+// touched cells of the tile into the integer grids with global atomics, as
 // K1 folds K2.
 //
 // Numerics: templated on the real type (f32 for the fast-f32 and 2-d
@@ -38,19 +38,116 @@
 // ((t0 - pix) + r) - lo with round-to-nearest intrinsics that the compiler
 // may not contract into an FMA: the small hi difference is exact, and the
 // lo residual of a split (hi, lo) coordinate then carries the f64
-// position. Atomics make the summation order vary from run to run; results
-// agree with the plain version to rounding (tolerances in
-// tests/test_torch_cuda.py and chip_smoke.py).
+// position.
+//
+// Order-free sums: the shared tile and the plane grids accumulate
+// integers, whose sums do not depend on the order of the atomics, so a
+// launch gives the same bits on every run of the same input (as K1 does;
+// self-cal has near-ties that a changed rounding flips). A thread's
+// register sums are in T, in a fixed order; each flush adds them in fixed
+// point, in units of 2^-kg where 2^(kTop - kg) bounds every cell of the
+// launch: the wrapper's sum of |re| + |im| over vals (each tap product is
+// at most 1, the ES kernel's peak). The tiles go into integer plane grids
+// in the same units, and a second kernel writes the complex grids.
+//   f32: one int64 word a value (kTop 61, K1's design): a unit is 2^-60
+//   of the bound, so a cell is as exact as its f32 register sums unless it
+//   is below ~1e-11 of the bound.
+//   f64: int64 cannot hold f64's 53 bits beside the dynamic range of a
+//   grid, so a value is a 128-bit integer in two words (kTop 125, units
+//   2^-124 of the bound): the low word's atomicAdd returns the old word,
+//   whose unsigned overflow gives the carry that goes into the high word
+//   with a second atomicAdd. Integer adds modulo 2^128 commute, and the
+//   high word is never read before the launch ends, so the pair is exact
+//   whatever the order. The alternative, each unit's tile and halo written
+//   to scratch and a second pass summing each cell's units in unit order,
+//   needs units x buf^2 of scratch (1.6 GB for the 19,615 units of buf 72
+//   of chip_smoke.py's f64 epsilon stream) and a second pass over it; the pair keeps the one-pass design and costs
+//   twice the integer words.
+// A non-finite value in vals (a non-finite bound) makes every cell NaN.
 //
 // What bounds it on the card: stage 1's 2 S ES taps an entry (an exp, a
 // sqrt and a division each; slow in f64) and stage 2's issue rate (shared
-// loads and a complex multiply-add per entry and thread); then the flushes.
-// The bytes it must move are the sorted stream once and the grids once.
+// loads and a complex multiply-add per entry and thread); then the flushes
+// (one or two integer atomics a word) and the integer tile's shared memory
+// (8 or 16 bytes a value: one CTA an SM at the larger tiles). The bytes it
+// must move are the sorted stream once and the grids once.
 #include "common.cuh"
 
 namespace {
 
 constexpr int kRunCap = 64;  // the most entries one register sum takes
+constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
+
+using u64 = unsigned long long;
+
+// the fixed point of T's sums: kWords 64-bit words a value (low word
+// first), 2^(kTop - kg) > bound
+template <typename T>
+struct Fixed;
+template <>
+struct Fixed<float> {
+  static constexpr int kWords = 1;
+  static constexpr int kTop = 61;
+};
+template <>
+struct Fixed<double> {
+  static constexpr int kWords = 2;
+  static constexpr int kTop = 125;
+};
+
+// kg of the units 2^-kg for a launch whose cells are bounded by `bound`;
+// every CTA and the conversion compute it alike
+template <typename T>
+__host__ __device__ inline int fixed_exponent(double bound) {
+  int e = 0;
+  frexp(bound, &e);  // bound < 2^e
+  return Fixed<T>::kTop - e;
+}
+
+// x (already in units) rounded to the 128-bit integer (lo, hi): the
+// magnitude split at 2^64 is exact (the scaling and floor are exact, and
+// the low part is x's own bits below 2^64), then negated in two's
+// complement
+__device__ __forceinline__ void to_int128(double x, u64& lo, u64& hi) {
+  const double a = rint(fabs(x));
+  const double h = floor(ldexp(a, -64));
+  lo = __double2ull_rn(a - ldexp(h, 64));
+  hi = __double2ull_rn(h);
+  if (x < 0.0) {
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+}
+
+// w[0:2] += (lo, hi) modulo 2^128: the low word's old value gives the
+// carry into the high word
+__device__ __forceinline__ void add_int128(u64* w, u64 lo, u64 hi) {
+  const u64 old = atomicAdd(w, lo);
+  hi += old + lo < old ? 1ull : 0ull;
+  if (hi != 0ull) atomicAdd(w + 1, hi);
+}
+
+// w += r in units of 1/scale (r a register sum; scale = 2^kg)
+__device__ __forceinline__ void fixed_add(u64* w, float r, double scale) {
+  atomicAdd(w, (u64)__double2ll_rn((double)r * scale));
+}
+__device__ __forceinline__ void fixed_add(u64* w, double r, double scale) {
+  u64 lo, hi;
+  to_int128(r * scale, lo, hi);
+  if (lo != 0ull || hi != 0ull) add_int128(w, lo, hi);
+}
+
+// one value's words in a shared tile added into a global grid
+__device__ __forceinline__ bool words_add(u64* g, const u64* t, int words) {
+  if (words == 1) {
+    if (t[0] == 0ull) return false;
+    atomicAdd(g, t[0]);
+    return true;
+  }
+  if (t[0] == 0ull && t[1] == 0ull) return false;
+  add_int128(g, t[0], t[1]);
+  return true;
+}
 
 // a CTA: the whole groups of S^2 threads nearest to 256 threads, at least
 // one (S = 12: 2 groups, 288 threads; S = 14 and 16: 1)
@@ -89,7 +186,8 @@ __device__ __forceinline__ T es_tap(T offs, T half, T beta) {
   return abs_(nu) < T(1) ? k : T(0);
 }
 
-// entries staged per batch: f64 halves it to keep 2 CTAs on an SM
+// entries staged per batch: f64 halves it (its integer tile is twice as
+// large)
 template <typename T>
 struct Batch {
   static constexpr int kSize = sizeof(T) == 8 ? 64 : 128;
@@ -111,8 +209,9 @@ __global__ void __launch_bounds__(Groups<S>::kThreads)
                       const int* __restrict__ unit_seg,
                       const int* __restrict__ unit_start,
                       const int* __restrict__ unit_count,
-                      T* __restrict__ grid, int npix, int tile, int nta,
-                      T beta) {
+                      const double* __restrict__ vsum,
+                      u64* __restrict__ grid64, int npix, int tile, int nta,
+                      int ld, T beta) {
   // groups of S^2 threads, each over [start + g q, start + (g + 1) q) of
   // the unit; a batch holds kPs entries of each group, in slots g kPs + j
   constexpr int kGroup = Groups<S>::kGroup;
@@ -121,18 +220,23 @@ __global__ void __launch_bounds__(Groups<S>::kThreads)
   constexpr int kPs = Batch<T>::kSize / kNgroups;
   constexpr int kSlots = kNgroups * kPs;
   constexpr int kHalf = S / 2;
+  constexpr int kW = Fixed<T>::kWords;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int buf = tile + S;
-  const int ld = buf + 1;  // padded rows against bank conflicts
   const int nb = buf * ld;
   Coords<T>* coords = reinterpret_cast<Coords<T>*>(smem_raw);  // [2]
   T* taps = reinterpret_cast<T*>(coords + 2);  // [kSlots][2][S]: v, u
-  T* acc = taps + Batch<T>::kSize * 2 * S;     // [2][buf][ld]: re, im
+  // [2][buf][ld][kW]: re, im in units of 2^-kg
+  u64* acc = reinterpret_cast<u64*>(taps + Batch<T>::kSize * 2 * S);
   // [kSlots][4]: v corner, its residue mod S, u corner, its residue (the
   // corners tile-relative)
-  int* rel = reinterpret_cast<int*>(acc + 2 * nb);
+  int* rel = reinterpret_cast<int*>(acc + 2 * nb * kW);
 
-  for (int i = threadIdx.x; i < 2 * nb; i += kThreads) acc[i] = T(0);
+  const double total = vsum[0];
+  if (!isfinite(total)) return;  // the conversion writes NaN
+  const double scale = ldexp(1.0, fixed_exponent<T>(total));
+
+  for (int i = threadIdx.x; i < 2 * nb * kW; i += kThreads) acc[i] = 0ull;
 
   const int seg = unit_seg[blockIdx.x];
   const int start = unit_start[blockIdx.x];
@@ -180,10 +284,11 @@ __global__ void __launch_bounds__(Groups<S>::kThreads)
   const int gend = min(gbeg + q, end);
   int cur = -1, run = 0;
   T re = T(0), im = T(0);
+  // integer adds commute: the tile is the same whatever their order
   auto flush = [&]() {
     if (cur >= 0) {
-      atomicAdd(&acc[cur], re);
-      atomicAdd(&acc[nb + cur], im);
+      fixed_add(&acc[cur * kW], re, scale);
+      fixed_add(&acc[(nb + cur) * kW], im, scale);
     }
   };
 
@@ -251,35 +356,66 @@ __global__ void __launch_bounds__(Groups<S>::kThreads)
   flush();
   __syncthreads();
 
-  // overlap-add: the tile and its halo into the plane grid; untouched
-  // cells are zero and skipped, halo cells past the grid edge are zero
-  // (unit entries lie in the grid) and skipped
+  // overlap-add: the tile and its halo into the integer plane grids;
+  // untouched cells are zero and skipped, halo cells past the grid edge
+  // are zero (unit entries lie in the grid) and skipped
   for (int i = threadIdx.x; i < buf * buf; i += kThreads) {
     const int y = i / buf;
     const int x = i - y * buf;
     const int gy = tv0 + y;
     const int gx = tu0 + x;
     if (gy >= npix || gx >= npix) continue;
-    const T cre = acc[y * ld + x];
-    const T cim = acc[nb + y * ld + x];
-    if (cre != T(0) || cim != T(0)) {
-      T* gp = grid + 2 * (((size_t)plane * npix + gy) * npix + gx);
-      atomicAdd(gp, cre);
-      atomicAdd(gp + 1, cim);
+    u64* gp = grid64 + 2 * kW * (((size_t)plane * npix + gy) * npix + gx);
+    words_add(gp, &acc[(y * ld + x) * kW], kW);
+    words_add(gp + kW, &acc[(nb + y * ld + x) * kW], kW);
+  }
+}
+
+// The complex grids from the integer ones: value times 2^-kg, or NaN when
+// the bound is not finite. n values (2 a cell).
+template <typename T>
+__global__ void unit_tiles_convert(const u64* __restrict__ grid64,
+                                   T* __restrict__ grid, size_t n,
+                                   const double* __restrict__ vsum) {
+  const double total = vsum[0];
+  const bool ok = isfinite(total);
+  const int kg = ok ? fixed_exponent<T>(total) : 0;
+  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < n;
+       i += (size_t)gridDim.x * blockDim.x) {
+    double val;
+    if (Fixed<T>::kWords == 1) {
+      val = ldexp((double)(long long)grid64[i], -kg);
+    } else {
+      u64 lo = grid64[2 * i], hi = grid64[2 * i + 1];
+      const bool neg = (long long)hi < 0;
+      if (neg) {
+        lo = ~lo + 1ull;
+        hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+      }
+      val = ldexp((double)hi, 64 - kg) + ldexp((double)lo, -kg);
+      val = neg ? -val : val;
     }
+    grid[i] = ok ? (T)val : (T)__longlong_as_double(0x7ff8000000000000ll);
   }
 }
 
 template <typename T, int S>
 int launch(const void* u, const void* v, const void* vals, const void* ulo,
            const void* vlo, const void* unit_seg, const void* unit_start,
-           const void* unit_count, void* grid, int nunits, int npix,
-           int tile, int nta, double beta, cudaStream_t s) {
+           const void* unit_count, const void* vsum, void* grid64,
+           int nunits, int npix, int tile, int nta, double beta,
+           cudaStream_t s) {
   constexpr int kBatch = Batch<T>::kSize;
   const int buf = tile + S;
-  const size_t smem = 2 * sizeof(Coords<T>) +
-                      (kBatch * 2 * (size_t)S + 2 * (size_t)buf * (buf + 1)) * sizeof(T) +
-                      4 * kBatch * sizeof(int);
+  auto smem_of = [&](int ld) {
+    return 2 * sizeof(Coords<T>) + kBatch * 2 * (size_t)S * sizeof(T) +
+           2 * (size_t)buf * ld * Fixed<T>::kWords * sizeof(u64) +
+           4 * kBatch * sizeof(int);
+  };
+  int ld = buf + 1;  // padded rows against bank conflicts
+  if (smem_of(ld) > kMaxSmem) ld = buf;  // unpadded: bank conflicts only
+  const size_t smem = smem_of(ld);
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // tile too large
   cudaFuncSetAttribute(unit_tiles_kernel<T, S>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
                        (int)smem);
@@ -289,20 +425,27 @@ int launch(const void* u, const void* v, const void* vals, const void* ulo,
   unit_tiles_kernel<T, S><<<nunits, Groups<S>::kThreads, smem, s>>>(
       (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo,
       (const T*)vlo, (const int*)unit_seg, (const int*)unit_start,
-      (const int*)unit_count, (T*)grid, npix, tile, nta, (T)beta);
+      (const int*)unit_count, (const double*)vsum, (u64*)grid64, npix, tile,
+      nta, ld, (T)beta);
   return ska_last_error();
 }
 
 template <typename T>
 int launch_support(const void* u, const void* v, const void* vals,
                    const void* ulo, const void* vlo, const void* unit_seg,
-                   const void* unit_start, const void* unit_count, void* grid,
-                   int nunits, int npix, int tile, int nta, int support,
+                   const void* unit_start, const void* unit_count,
+                   const void* vsum, void* grid64, void* grid, int nunits,
+                   int nplanes, int npix, int tile, int nta, int support,
                    double beta, cudaStream_t s) {
+  const size_t n = 2 * (size_t)nplanes * npix * npix;
+  cudaMemsetAsync(grid64, 0, n * Fixed<T>::kWords * sizeof(u64), s);
+  int rc = 0;
 #define SKA_UNIT_TILES_CASE(S)                                               \
   case S:                                                                    \
-    return launch<T, S>(u, v, vals, ulo, vlo, unit_seg, unit_start,          \
-                        unit_count, grid, nunits, npix, tile, nta, beta, s);
+    rc = launch<T, S>(u, v, vals, ulo, vlo, unit_seg, unit_start,            \
+                      unit_count, vsum, grid64, nunits, npix, tile, nta,     \
+                      beta, s);                                              \
+    break;
   switch (support) {
     SKA_UNIT_TILES_CASE(2)
     SKA_UNIT_TILES_CASE(4)
@@ -312,31 +455,41 @@ int launch_support(const void* u, const void* v, const void* vals,
     SKA_UNIT_TILES_CASE(12)
     SKA_UNIT_TILES_CASE(14)
     SKA_UNIT_TILES_CASE(16)
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 #undef SKA_UNIT_TILES_CASE
-  return (int)cudaErrorInvalidValue;
+  if (rc != 0) return rc;
+  const size_t blocks = min((n + 255) / 256, (size_t)65536);
+  unit_tiles_convert<T><<<(unsigned)blocks, 256, 0, s>>>(
+      (const u64*)grid64, (T*)grid, n, (const double*)vsum);
+  return ska_last_error();
 }
 
 }  // namespace
 
 // u, v, ulo, vlo: [n] real (ulo and vlo both given or both null); vals: [n]
-// complex (interleaved re, im); unit_*: [nunits] int32; grid: [nplanes,
-// npix, npix] complex, zero-filled by the caller. f64 selects double
-// precision.
+// complex (interleaved re, im); unit_*: [nunits] int32; vsum: [1] f64, the
+// sum of |re| + |im| over vals (the bound of every cell); grid64: [nplanes,
+// npix, npix, 2, words] int64 scratch (words 1 for f32, 2 for f64); grid:
+// [nplanes, npix, npix] complex out. f64 selects double precision.
 SKA_EXPORT int ska_unit_tiles(const void* u, const void* v, const void* vals,
                               const void* ulo, const void* vlo,
                               const void* unit_seg, const void* unit_start,
-                              const void* unit_count, void* grid, int nunits,
-                              int npix, int tile, int nta, int support,
-                              double beta, int f64, void* stream) {
-  if (nunits == 0) return 0;
+                              const void* unit_count, const void* vsum,
+                              void* grid64, void* grid, int nunits,
+                              int nplanes, int npix, int tile, int nta,
+                              int support, double beta, int f64,
+                              void* stream) {
+  if (nunits <= 0 || nplanes <= 0 || npix <= 0) return (int)cudaErrorInvalidValue;
   if ((ulo == nullptr) != (vlo == nullptr)) return (int)cudaErrorInvalidValue;
   const cudaStream_t s = (cudaStream_t)stream;
   if (f64)
     return launch_support<double>(u, v, vals, ulo, vlo, unit_seg,
-                                  unit_start, unit_count, grid, nunits, npix,
-                                  tile, nta, support, beta, s);
+                                  unit_start, unit_count, vsum, grid64, grid,
+                                  nunits, nplanes, npix, tile, nta, support,
+                                  beta, s);
   return launch_support<float>(u, v, vals, ulo, vlo, unit_seg, unit_start,
-                               unit_count, grid, nunits, npix, tile, nta,
-                               support, beta, s);
+                               unit_count, vsum, grid64, grid, nunits,
+                               nplanes, npix, tile, nta, support, beta, s);
 }

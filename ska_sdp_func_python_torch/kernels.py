@@ -198,7 +198,7 @@ KERNELS = {
     "unit_tiles": Kernel(
         "unit_tiles",
         "ska_unit_tiles",
-        [*[_P] * 9, *[_I] * 5, ctypes.c_double, _I],
+        [*[_P] * 11, *[_I] * 6, ctypes.c_double, _I],
     ),
     # K1's conversion launched on its own: the sharded invert's int64
     # planes, summed over the shards, to complex64 (ska_grid runs the same

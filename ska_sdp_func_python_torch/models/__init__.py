@@ -12,6 +12,7 @@ from .configuration import (
     random_array_xyz,
 )
 from .gaintable import GainTable, create_gaintable_from_visibility
+from .griddata import GridData
 from .image import Image, create_image
 from .polarisation import (
     PolarisationFrame,
@@ -36,6 +37,7 @@ __all__ = [
     "random_array_xyz",
     "GainTable",
     "create_gaintable_from_visibility",
+    "GridData",
     "Image",
     "create_image",
     "PolarisationFrame",

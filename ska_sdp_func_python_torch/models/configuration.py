@@ -1,9 +1,10 @@
 """Array configuration model and observation simulation.
 
 Counterpart of ``ska_sdp_func_python_tpu/models/configuration.py``: the same
-synthetic SKA-LOW-like log-spiral layout (no data files), computed on the
-host in f64, and ``create_visibility`` that simulates an empty observation
-on a chosen device.
+synthetic log-spiral layouts (no data files) of "LOW" (512 stations of 38
+m) and "MID" (197 dishes of 15 m), computed on the host in f64, and
+``create_visibility`` that simulates an empty observation on a chosen
+device.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..config import not_ported, resolve_device
+from ..config import resolve_device
 from .visibility import Visibility, create_visibility_from_arrays
 
 __all__ = [
@@ -58,6 +59,7 @@ class Configuration:
 
 
 _LOW_LOCATION = (np.deg2rad(-26.824722), np.deg2rad(116.764444), 300.0)
+_MID_LOCATION = (np.deg2rad(-30.712925), np.deg2rad(21.443803), 1053.0)
 
 
 def _log_spiral_layout(nants, rmax, rmin=35.0, arms=3, seed=1):
@@ -83,13 +85,18 @@ def _log_spiral_layout(nants, rmax, rmin=35.0, arms=3, seed=1):
 def create_named_configuration(
     name: str = "LOW", rmax: float | None = None
 ) -> Configuration:
-    """Synthetic "LOW" configuration (512 stations of 38 m); ``rmax``
-    keeps the stations within that radius."""
+    """Synthetic named configurations: "LOW"/"LOWBD2"... (512 stations of
+    38 m out to 40 km) and "MID"... (197 dishes of 15 m out to 80 km), the
+    JAX package's layouts; ``rmax`` keeps the stations within that
+    radius. Any other name raises ``ValueError``."""
     from ..utils.coordinates import enu_to_xyz
 
-    if not name.startswith("LOW"):
-        raise not_ported(f"configuration {name!r}", "S11")
-    nants, diam, location, default_r = 512, 38.0, _LOW_LOCATION, 40000.0
+    if name.startswith("LOW"):
+        nants, diam, location, default_r = 512, 38.0, _LOW_LOCATION, 40000.0
+    elif name.startswith("MID"):
+        nants, diam, location, default_r = 197, 15.0, _MID_LOCATION, 80000.0
+    else:
+        raise ValueError(f"Unknown configuration {name}")
     enu2d = _log_spiral_layout(nants, default_r)
     if rmax is not None:
         enu2d = enu2d[np.hypot(enu2d[:, 0], enu2d[:, 1]) <= rmax]

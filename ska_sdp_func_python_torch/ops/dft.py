@@ -42,7 +42,7 @@ def extract_direction_and_flux(sc: SkyComponents, vis: Visibility):
     elif flux.shape[1] == 1:
         vflux = flux.expand(flux.shape[0], vis.nchan, flux.shape[2])
     else:
-        raise not_ported("component flux frequency interpolation", "S11")
+        raise not_ported("component flux frequency interpolation", "S11b")
     l, m, n1 = radec_to_lmn(
         sc.direction[:, 0], sc.direction[:, 1], *vis.phasecentre
     )

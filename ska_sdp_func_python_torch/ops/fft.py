@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-__all__ = ["fft", "ifft", "pad_mid", "extract_mid"]
+__all__ = ["fft", "ifft", "pad_mid", "extract_mid", "extract_oversampled"]
 
 _AXES = (-2, -1)
 
@@ -53,3 +53,17 @@ def extract_mid(a: torch.Tensor, npixel: int) -> torch.Tensor:
     if npixel % 2 != 0:
         return a[..., cy - s : cy + s + 1, cx - s : cx + s + 1]
     return a[..., cy - s : cy + s, cx - s : cx + s]
+
+
+def extract_oversampled(
+    a: torch.Tensor, xf: int, yf: int, kernel_oversampling: int, kernelwidth: int
+) -> torch.Tensor:
+    """The ``kernelwidth``^2 kernel at sub-pixel offset (xf, yf) of an
+    oversampled ``[n, n]`` parent: every ``kernel_oversampling``-th sample
+    from the centre less the offset, scaled by the oversampling squared."""
+    npixela = a.shape[0]
+    ov = kernel_oversampling
+    my = npixela // 2 - ov * (kernelwidth // 2) - yf
+    mx = npixela // 2 - ov * (kernelwidth // 2) - xf
+    mid = a[my : my + ov * kernelwidth : ov, mx : mx + ov * kernelwidth : ov]
+    return ov * ov * mid

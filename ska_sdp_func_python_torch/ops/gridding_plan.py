@@ -231,7 +231,7 @@ def make_grid_plan(
     give linear w-stacking over ``nplanes`` planes, ``plane_idx`` alone a
     nearest-plane plan (each entry on its one plane, ``nplanes`` segments
     of tiles). ``support`` is 1 to 16 (a larger one raises
-    ``NotImplementedError``: ROADMAP slice S11). ``chunk`` is the most
+    ``NotImplementedError``: ROADMAP slice S11c). ``chunk`` is the most
     entries one grid CTA takes (None: :func:`default_chunk`); it changes only how the
     work is partitioned.
     ``u_lo``/``v_lo``: residuals of split (hi, lo) coordinates.
@@ -240,7 +240,7 @@ def make_grid_plan(
     cost to the kernels."""
     if support > MAX_SUPPORT:
         # the JAX plan path takes them on tiles wider than the support
-        raise not_ported(f"support {support} plans", "S11")
+        raise not_ported(f"support {support} plans", "S11c")
     odd = support % 2
     tap_width(support + odd)  # raises below support 1
     if odd and support % tile == 0:

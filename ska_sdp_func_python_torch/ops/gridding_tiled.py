@@ -12,7 +12,8 @@ gathered once through the permutation and read in place.
 
 Gridding runs kernel K9 (``csrc/unit_tiles.cu``) through
 :func:`unit_tiles`: the unit compute, the reduction of units onto tiles and
-the overlap-add into the plane grids in one launch. Its plain version
+the overlap-add into the plane grids in one launch, summed in fixed point
+(the same bits on every run). Its plain version
 :func:`unit_tiles_plain` is the XLA formulation written in PyTorch: the
 dense ES factors over each unit's tile, ``(kv * val) @ ku^T`` as a batched
 matmul, and an ``index_add_`` of the tiles into the grids. Degridding
@@ -270,12 +271,18 @@ def unit_tiles(
                     ("v_lo", v_lo)):
         if t is not None and t.shape != (n,):
             raise ValueError(f"{name}: shape {tuple(t.shape)}, expected ({n},)")
-    out = torch.zeros(
-        (nplanes, npixel, npixel), dtype=cdtype, device=dev
-    )
     nunits = int(unit_start.shape[0])
     if nunits == 0:
-        return out
+        return torch.zeros((nplanes, npixel, npixel), dtype=cdtype, device=dev)
+    out = torch.empty((nplanes, npixel, npixel), dtype=cdtype, device=dev)
+    # the kernel sums in fixed point (one int64 word a value in f32, a
+    # 128-bit pair in f64), scaled by the stream's bound: the sum of |re| +
+    # |im| over the values (every tap product is at most 1)
+    vsum = torch.view_as_real(vals_s).abs().sum(dtype=torch.float64).reshape(1)
+    words = 2 if rdtype == torch.float64 else 1
+    grid64 = torch.empty(
+        (nplanes, npixel, npixel, 2, words), dtype=torch.int64, device=dev
+    )
     k.launch(
         chk("u_s", u_s, rdtype, dev),
         chk("v_s", v_s, rdtype, dev),
@@ -285,8 +292,11 @@ def unit_tiles(
         chk("unit_seg", unit_seg, torch.int32, dev),
         chk("unit_start", unit_start, torch.int32, dev),
         chk("unit_count", unit_count, torch.int32, dev),
+        vsum.data_ptr(),
+        grid64.data_ptr(),
         out.data_ptr(),
         nunits,
+        nplanes,
         npixel,
         tile,
         npixel // tile,

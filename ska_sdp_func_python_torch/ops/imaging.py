@@ -12,8 +12,15 @@ Counterpart of ``ska_sdp_func_python_tpu/ops/imaging.py``. Two routes:
   one batched FFT head, one K3 and one K4 launch;
 - the core path (``invert_core``/``predict_core``): one call grids or
   degrids one (channel, polarisation) block, through the tiled gridder
-  (``gridding_tiled``, kernel K9) in the precision of its inputs, or
-  through a one-shot plan (the "fused" gridder, K1/K3).
+  (``gridding_tiled``, kernel K9) in the precision of its inputs, through
+  a one-shot plan (the "fused" gridder, K1/K3), or through the direct
+  "scatter" (invert) and "gather" (predict) gridders of
+  ``gridding.pswf_kernel_weights``: S x S patches of every visibility,
+  summed in fixed point (``gridding.FixedGrid``), which the JAX package
+  computes in plain XLA and the port in plain PyTorch.
+
+The "awprojection" context grids through a convolution function
+(``griddata_ops``).
 
 ``invert_visibility``/``predict_visibility`` take a plan, build one into a
 small cache (on the card), or run the core path (on the CPU); with
@@ -39,7 +46,6 @@ import torch
 
 from ..config import (
     complex_of,
-    not_ported,
     plan_cache_size,
     real_of,
     resolve_device,
@@ -49,7 +55,7 @@ from ..models.polarisation import convert_pol_frame
 from ..models.visibility import C_M_S, Visibility
 from .accuracy import gridding_params_for_epsilon, nw_for_epsilon
 from .fft import extract_mid, fft, ifft, pad_mid
-from .gridding import _es_beta, es_kernel, grid_correction
+from .gridding import FixedGrid, _es_beta, _patches, es_kernel, grid_correction
 from .gridding_fused import degrid_stack, grid_convert
 from .gridding_plan import (
     STACKED,
@@ -108,6 +114,9 @@ __all__ = [
 # units stay short.
 _UNIT_GRID = 4096
 _UNIT_DEGRID = 1024
+# visibilities one [chunk, S, S] patch temporary of the direct gridders
+# takes (the JAX package's gather chunk)
+_DIRECT_CHUNK = 131072
 
 
 def shift_vis_to_image(
@@ -281,10 +290,11 @@ def invert_core(
     """Grid, FFT and w-stack one (channel, polarisation) block (same
     contract as the JAX package's ``invert_core``).
 
-    ``gridder``: "tiled" (kernel K9, in the dtype of ``u``) or "fused" (a
-    one-shot support-8 plan through K1, f32); None picks "tiled" on the
-    CPU and "fused" on the card, and the multi-plane w stencils
-    (``w_interp`` "quadratic", "eskernel") always take "tiled".
+    ``gridder``: "tiled" (kernel K9, in the dtype of ``u``), "fused" (a
+    one-shot support-8 plan through K1, f32) or "scatter" (the direct
+    scatter of :func:`_scatter_grids`; "gather" names it too); None picks
+    "tiled" on the CPU and "fused" on the card, and the multi-plane w
+    stencils (``w_interp`` "quadratic", "eskernel") always take "tiled".
     ``prepix``: ``u``/``v`` are padded-grid pixel coordinates already,
     with optional (hi, lo) residuals ``u_lo``/``v_lo``.
 
@@ -305,7 +315,12 @@ def invert_core(
         p0, frac, plane_w = _w_planes(w, nw, w_interp, w_support=support)
     else:
         p0 = frac = None
-    if gridder == "fused":
+    if gridder == "direct":
+        grids = _scatter_grids(
+            u_pix, v_pix, weighted, w, npad=npad, support=support,
+            nw=nw if wstack else 1, beta=beta,
+        )
+    elif gridder == "fused":
         gp = make_grid_plan(
             u_pix, v_pix, p0, frac, npixel=npad, support=support,
             nplanes=nw if wstack else 1, tile=ts, beta=beta,
@@ -385,6 +400,8 @@ def predict_core(
     else:
         p0 = frac = None
         grids = fft(img_c)[None]
+    if gridder == "direct":
+        return _gather_vals(u_pix, v_pix, grids, w, npad=npad, support=support)
     if gridder == "fused":
         gp = make_grid_plan(
             u_pix, v_pix, p0, frac, npixel=npad, support=support,
@@ -404,12 +421,75 @@ def _core_gridder(gridder, w_interp: str, prepix: bool, device) -> str:
     if w_interp in ("quadratic", "eskernel"):
         gridder = "tiled"  # the multi-plane stencils live in the tiled path
     if gridder in ("scatter", "gather"):
-        raise not_ported(f"the {gridder!r} core gridder", "S11")
-    if gridder not in ("tiled", "fused"):
+        gridder = "direct"
+    if gridder not in ("tiled", "fused", "direct"):
         raise ValueError(f"unknown gridder {gridder!r}")
     if prepix and gridder != "tiled":
         raise ValueError("prepix coordinates need the tiled gridder")
     return gridder
+
+
+def _direct_planes(w, nw: int):
+    """(lower plane, fraction) of each visibility on ``nw`` linear
+    w-planes, or (None, None) for one grid. The direct gridders take the
+    linear planes whatever ``w_interp`` asks (as the JAX package's do) and,
+    on one grid, the ES kernel at sigma 2 (``convolutional_grid``'s)."""
+    if nw <= 1:
+        return None, None
+    p0, frac, _ = _w_planes(w, nw)
+    return p0.to(torch.int64), frac
+
+
+def _scatter_grids(u_pix, v_pix, weighted, w, *, npad, support, nw, beta):
+    """The "scatter" core gridder (the JAX package's direct scatter, in
+    chunks of ``_DIRECT_CHUNK``): S x S patches of ES kernel products at
+    each visibility onto one grid, or onto the two linear w-planes around
+    it weighted (1 - frac, frac) (the kernel at ``beta``). Summed in fixed
+    point: the same bits on every run. Returns [nw, npad, npad] complex."""
+    npp = npad * npad
+    p0, frac = _direct_planes(w, nw)
+    # every cell is bounded by the sum of what the entries add to the
+    # planes: |re| + |im| of the value times |1 - frac| + |frac|
+    mag = torch.view_as_real(weighted).abs().sum(-1).to(torch.float64)
+    if frac is not None:
+        mag = mag * ((1.0 - frac).abs().to(torch.float64) + frac.abs().to(torch.float64))
+        fracc = frac.to(weighted.dtype)
+    grid = FixedGrid(max(nw, 1) * npp, mag.sum(), weighted.dtype, weighted.device)
+    for a in range(0, u_pix.shape[0], _DIRECT_CHUNK):
+        sl = slice(a, a + _DIRECT_CHUNK)
+        idx, k2, ok = _patches(u_pix[sl], v_pix[sl], npad, support, None if p0 is None else beta)
+        k2 = k2.to(weighted.dtype)
+        val = torch.where(ok, weighted[sl], 0.0)
+        if p0 is None:
+            grid.add(idx, k2 * val[:, None, None])
+            continue
+        low = p0[sl, None, None] * npp + idx
+        grid.add(low, k2 * (val * (1.0 - fracc[sl]))[:, None, None])
+        grid.add(low + npp, k2 * (val * fracc[sl])[:, None, None])
+    return grid.value().reshape(max(nw, 1), npad, npad)
+
+
+def _gather_vals(u_pix, v_pix, grids, w, *, npad, support):
+    """The "gather" core degridder (the JAX package's, in chunks of
+    ``_DIRECT_CHUNK``): each visibility's S x S patch of ES kernel products
+    (the sigma-2 kernel, as the JAX package degrids) gathered from one
+    grid, or from the two linear w-planes around it and weighted (1 -
+    frac, frac). Returns [N] complex, zero out of the grid."""
+    npp = npad * npad
+    p0, frac = _direct_planes(w, grids.shape[0])
+    gflat = grids.reshape(-1)
+    parts = []
+    for a in range(0, u_pix.shape[0], _DIRECT_CHUNK):
+        sl = slice(a, a + _DIRECT_CHUNK)
+        idx, k2, ok = _patches(u_pix[sl], v_pix[sl], npad, support)
+        k2 = k2.to(grids.dtype)
+        low = idx if p0 is None else p0[sl, None, None] * npp + idx
+        vals = (gflat[low] * k2).sum(dim=(1, 2))
+        if p0 is not None:
+            f = frac[sl].to(grids.dtype)
+            vals = vals * (1.0 - f) + (gflat[low + npp] * k2).sum(dim=(1, 2)) * f
+        parts.append(torch.where(ok, vals, 0.0))
+    return torch.cat(parts)
 
 
 def _pixels(u, v, npad: int, cellsize: float, prepix: bool):
@@ -982,8 +1062,6 @@ def _route(vis, model, context, support, nw, plan, kwargs):
     support, padding, plane count, w stencil and route (the JAX package's
     routing), the plan (passed, cached or None) and the w-plane count.
     Returns (support, nwp, do_wstacking, plan, kwargs)."""
-    if context == "awprojection":
-        raise not_ported("the awprojection context", "S11")
     if kwargs.get("tail", "fft") not in (None, "fft"):
         raise ValueError("the port has one image tail, 'fft'")
     do_wstacking = context != "2d" and kwargs.get("do_wstacking", True)
@@ -1038,6 +1116,11 @@ def _route(vis, model, context, support, nw, plan, kwargs):
     return support, nwp, do_wstacking, plan, kwargs
 
 
+def _aw_kwargs(kwargs) -> dict:
+    """The CF mapping's keywords an awprojection call passes on."""
+    return {k: kwargs[k] for k in ("oversampling", "wstep") if k in kwargs}
+
+
 def _core_rows(vis: Visibility, model: Image, uvw_l, fsel, kwargs):
     """(u, u_lo, v, v_lo, w) of the channels ``fsel`` for the core path."""
     if kwargs.get("prepix"):
@@ -1064,7 +1147,10 @@ def invert_visibility(
     """Visibility -> dirty image or PSF. Returns (Image, sumwt [nchan,
     npol]).
 
-    Contexts "2d" (no w-correction) and "ng"/"wg" (w-stacking). With
+    Contexts "2d" (no w-correction), "ng"/"wg" (w-stacking) and
+    "awprojection" (:func:`griddata_ops.invert_awprojection` with
+    ``gcfcf=(gcf, cf)`` and ``oversampling=``/``wstep=`` as given; None: the
+    PSWF at oversampling 16). With
     ``plan`` (from :func:`make_visibility_plan`) the geometry is reused;
     without one, a Visibility on the card builds one into a small cache
     (``auto_plan``, default on for the card and off on the CPU, where the
@@ -1072,6 +1158,13 @@ def invert_visibility(
     coordinate mode and route from :mod:`.accuracy` and raises when the
     tolerance cannot be met (below the f32 floor with an f32
     Visibility)."""
+    if context == "awprojection":
+        from .griddata_ops import invert_awprojection
+
+        return invert_awprojection(
+            vis, model, gcfcf=kwargs.get("gcfcf"), normalise=normalise,
+            **_aw_kwargs(kwargs),
+        )
     support, nwp, do_wstacking, plan, kwargs = _route(
         vis, model, context, support, nw, plan, dict(kwargs)
     )
@@ -1140,7 +1233,14 @@ def predict_visibility(
     visibility channel of the same index (an image of one channel, into
     all of them: multi-frequency synthesis). Plans, the cache and
     ``epsilon=`` as in :func:`invert_visibility`. Returns ``vis`` with
-    its ``vis`` replaced."""
+    its ``vis`` replaced. The "awprojection" context as in
+    :func:`invert_visibility`."""
+    if context == "awprojection":
+        from .griddata_ops import predict_awprojection
+
+        return predict_awprojection(
+            vis, model, gcfcf=kwargs.get("gcfcf"), **_aw_kwargs(kwargs)
+        )
     support, nwp, do_wstacking, plan, kwargs = _route(
         vis, model, context, support, nw, plan, dict(kwargs)
     )

@@ -1,7 +1,9 @@
-"""The prolate spheroidal function and the Fresnel w-beam.
+"""FFT-coordinate helpers, the prolate spheroidal function and the
+Fresnel w-beam.
 
-Counterpart of ``grdsf`` and ``w_beam`` in
-``ska_sdp_func_python_tpu/ops/pswf.py``.
+Counterpart of ``ska_sdp_func_python_tpu/ops/pswf.py``. The coordinate
+helpers return tensors on ``device`` (None: the CPU; they are small host
+geometry) in f64.
 """
 
 from __future__ import annotations
@@ -9,9 +11,54 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import frac_dot_turns, not_ported
+from ..config import frac_dot_turns
 
-__all__ = ["grdsf", "w_beam"]
+__all__ = [
+    "coordinateBounds",
+    "coordinates2Offset",
+    "coordinate_bounds",
+    "coordinates",
+    "coordinates2",
+    "coordinates2_offset",
+    "grdsf",
+    "w_beam",
+]
+
+
+def coordinate_bounds(npixel: int):
+    """(first, last) of :func:`coordinates` for ``npixel`` samples."""
+    if npixel % 2 == 0:
+        return -0.5, 0.5 * (npixel - 2) / npixel
+    return -0.5 * (npixel - 1) / npixel, 0.5 * (npixel - 1) / npixel
+
+
+def _centred(npixel: int, device=None) -> torch.Tensor:
+    idx = torch.arange(npixel, dtype=torch.float64, device=device)
+    return (idx - npixel // 2) / npixel
+
+
+def coordinates(npixel: int, device=None) -> torch.Tensor:
+    """``[npixel]`` coordinates spanning [-0.5, 0.5) with 0 at
+    ``npixel // 2``."""
+    return _centred(npixel, device)
+
+
+def coordinates2(npixel: int, device=None) -> torch.Tensor:
+    """(y, x) coordinate grids with 0 at ``npixel // 2``, stacked
+    ``[2, npixel, npixel]``."""
+    c = _centred(npixel, device)
+    return torch.stack(torch.meshgrid(c, c, indexing="ij"))
+
+
+def coordinates2_offset(npixel: int, cx, cy, quadrant: bool = False, device=None):
+    """(y ``[n, 1]``, x ``[1, n]``) coordinates centred on (cx, cy)
+    (None: ``npixel // 2``); ``quadrant`` keeps the first ``npixel // 2 +
+    1`` of each."""
+    cx = npixel // 2 if cx is None else cx
+    cy = npixel // 2 if cy is None else cy
+    n = npixel // 2 + 1 if quadrant else npixel
+    idx = torch.arange(n, dtype=torch.float64, device=device)
+    return (idx[:, None] - cy) / npixel, (idx[None, :] - cx) / npixel
 
 # Schwab 'Indirect Imaging' rational-approximation coefficients, m=6 alpha=1
 _P = np.array(
@@ -60,21 +107,24 @@ def w_beam(
     npixel: int,
     field_of_view: float,
     w: torch.Tensor,
+    cx=None,
+    cy=None,
     remove_shift: bool = False,
 ) -> torch.Tensor:
     """exp(-2 pi i w (1 - sqrt(1 - l^2 - m^2))) on an ``[npixel, npixel]``
-    grid, in the dtype and on the device of the scalar tensor ``w``.
+    grid centred on (cx, cy) (None: ``npixel // 2``), in the dtype and on
+    the device of the scalar tensor ``w``; ``remove_shift`` divides by the
+    value at the last pixel.
 
     The stable ``1 - sqrt(1-r2) = r2 / (1 + sqrt(1-r2))`` form and the
     split-compensated mod-1 product keep the phase accurate in f32, where
     ``w`` spans thousands of wavelengths."""
-    if remove_shift:
-        raise not_ported("w_beam(remove_shift=True)", "S11")
     dtype, device = w.dtype, w.device
-    c = npixel // 2
+    cx = npixel // 2 if cx is None else cx
+    cy = npixel // 2 if cy is None else cy
     idx = torch.arange(npixel, device=device, dtype=dtype)
-    my = -((idx[:, None] - c) / npixel).abs()
-    mx = -((idx[None, :] - c) / npixel).abs()
+    my = -((idx[:, None] - cy) / npixel).abs()
+    mx = -((idx[None, :] - cx) / npixel).abs()
     r2 = field_of_view**2 * (my**2 + mx**2)
     r2c = torch.clamp(r2, max=1.0)
     g = r2c / (1.0 + torch.sqrt(1.0 - r2c))
@@ -83,4 +133,12 @@ def w_beam(
     ph = torch.where(r2 >= 1.0, 0.0, ph)
     cp = torch.polar(torch.ones_like(ph), ph)
     cp = torch.where(r2 >= 1.0, 0.0, cp)
-    return torch.where(r2 == 0.0, 1.0, cp)
+    cp = torch.where(r2 == 0.0, 1.0, cp)
+    if remove_shift:
+        cp = cp / cp[-1, -1]
+    return cp
+
+
+# the reference's names
+coordinateBounds = coordinate_bounds
+coordinates2Offset = coordinates2_offset

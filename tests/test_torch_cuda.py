@@ -21,9 +21,10 @@ launch to launch; held against the plain version accumulated in f64) and
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
 launch, at supports 4 to 16 and on linear, nearest-plane and
-single-plane plans; ``unit_tiles`` (atomics) agrees with its plain version
-accumulated in f64 to 1e-5 of the grid maximum in f32 and to 1e-12 in
-f64. The calibration paths (the composed "TG" ical with a sky component,
+single-plane plans; ``unit_tiles`` (fixed-point sums: int64 in f32, a
+128-bit pair in f64, the same bits from launch to launch) agrees with its
+plain version accumulated in f64 to 1e-5 of the grid maximum in f32 and to
+1e-12 in f64. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
 image) and the streamed cycle over a store launch their kernels on the
 card and agree with the CPU run to the slice bounds: gains 1e-4, peak
@@ -1196,6 +1197,32 @@ def test_unit_tiles_stress_matches_plain(dev, case, support, dtype, with_lo):
     ref = ref_stream.grid(plain=True, **kw)
     tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_unit_tiles_gives_the_same_bits_every_launch(dev, dtype):
+    """K9 sums in fixed point, so the order of its atomics does not show:
+    two launches on the same stream (a few segments of 3000 entries on one
+    cell each, many units on every tile) give the same bits, in f32 and in
+    f64."""
+    rng = np.random.default_rng(31)
+    npix, n = 256, 60000
+    u = np.concatenate([rng.uniform(4, npix - 4, n - 6000), np.full(3000, 43.3),
+                        np.full(3000, 200.1)])
+    v = np.concatenate([rng.uniform(4, npix - 4, n - 6000), np.full(3000, 77.7),
+                        np.full(3000, 12.9)])
+    vals = rng.normal(size=n) + 1j * rng.normal(size=n)
+    cd = torch.complex128 if dtype == torch.float64 else torch.complex64
+    stream = entry_stream(
+        torch.as_tensor(u).to(dev, dtype), torch.as_tensor(v).to(dev, dtype),
+        torch.as_tensor(vals).to(dev, cd), torch.as_tensor(rng.integers(0, 3, n)).to(dev),
+        torch.as_tensor(rng.uniform(0, 1, n)).to(dev, dtype), npixel=npix, support=8,
+        nplanes=4, tile=64, unit=256,
+    )
+    kw = dict(npixel=npix, tile=64, support=8, beta=16.0)
+    first = stream.grid(**kw)
+    for _ in range(3):
+        assert torch.equal(stream.grid(**kw), first)
 
 
 def _chip_smoke():
