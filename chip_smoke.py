@@ -209,9 +209,25 @@ Phases, each on lines of its own:
      (c) the visibility algebra in f64 card against CPU; (d) in phases 9
      and 14d: K9's f32 and f64 streams launched twice and
      ``distributed_ical`` run twice, equal bit for bit.
-Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d and
-15a resets the launch counters just before it and fails unless every
-kernel of its path launched. The script then
+ 16. supports past 16 and the sky-component periphery (after phase 14, on
+     the flagship): (a) K1's and K3's wide variants at supports 17 and 24
+     on the full flagship stream and 32, 33 and 64 on its first million
+     entries, against their plain versions in pieces (1e-5), two
+     launches to the same bits, with times and bounds; the Hogbom ical
+     at support 24 restores the 2.0 Jy source within 0.2; (b) K9's wide
+     variant at supports 7, 17, 24 and 32 in f32 and f64 on phase 9's
+     observation cut to 8 integrations, against its plain version in f64
+     (1e-5 and 1e-12), twice to the same bits; (c) the sky model on the
+     flagship's plan (``skymodel_predict_calibrate`` held to the DFT of
+     the same sky, ``skymodel_calibrate_invert``; K3, K4 and K1 launch),
+     find, fit and insert on 16a's restored image card against CPU,
+     gaincal on the flagship, the sky-model functions and gaincal on
+     phase 7's observation card against CPU, and a spectral component
+     list (fluxes on 5 channels) through the fused ical of the config-4
+     cube, its DFT card against CPU.
+Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d,
+15a and 16a, c resets the launch counters just before it and fails unless
+every kernel of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
 the ``{"ok": true, ...}`` line. Any failure raises
@@ -224,6 +240,7 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --phase14-only       (the build and phase 14)
        python3 chip_smoke.py --phase15-only       (the build, phase 15 and
                                                    15d's repeats)
+       python3 chip_smoke.py --phase16-only       (the build and phase 16)
 """
 
 from __future__ import annotations
@@ -362,11 +379,13 @@ MFS_TOL = 1e-5
 PEAK_MEMORY_GB = 12.0
 SMALL_JONES = dict(BANDPASS_CUBE, npixel=128)
 
-# NVIDIA H100 SXM published peaks at 700 W: HBM and f32 outside the
-# tensor cores
-PEAK_BYTES_S = 3.35e12
-PEAK_F32_S = 67e12
-PEAK_F64_S = 34e12
+# NVIDIA H100 SXM published peaks at 700 W (HBM, and f32 and f64 outside
+# the tensor cores), defined once in the port's roofline module
+from ska_sdp_func_python_torch.utils.roofline import (  # noqa: E402
+    H100_HBM_BYTES_PER_S as PEAK_BYTES_S,
+    H100_PEAK_F32_FLOPS as PEAK_F32_S,
+    H100_PEAK_F64_FLOPS as PEAK_F64_S,
+)
 
 # phase 9: the source's pixel offset (dx, dy) from the centre of the 1024^2
 # image (70% of the half-field, the adversarial position of the JAX
@@ -447,6 +466,31 @@ AW_CF = dict(nw=5, oversampling=8, support=8)
 # 15c: the f64 visibility algebra, card against CPU (the port's f64 parity
 # tolerance)
 ALGEBRA_TOL = 1e-10
+
+# phase 16: (a) K1 and K3 at supports past 16 (the JAX plan path takes
+# every support up to the tile, 64 at the flagship) on the flagship's plan,
+# (support, the full stream: else its first million entries); the Hogbom
+# ical at ICAL16; (b) K9 at odd and wide supports on phase 9's observation
+# cut to UNIT16_TIMES integrations, on UNIT16_NW linear planes; (c) the spectral components' DFT
+# card against CPU (f32 phases: frac_dot_turns rounds alike on both), the
+# flagship sky model's predict against the DFT of the same sky (the plan
+# path's 1e-3-class gridding error at support 8: the same bound as phase
+# 9's predict at EPS_FAST) and gaincal's corrected visibilities against
+# the uncorrupted ones (StefCal to 1e-6, f32)
+SUPPORTS16 = ((17, True), (24, True), (32, True), (33, True), (48, False), (64, False))
+# the ical at ICAL16 plans at padding 2: at the default 1.25 (npad 1344)
+# the grid correction divides the image corners by 5.8e-8 at support 24,
+# which lifts the f32 grid's rounding there above the sky (in the JAX
+# package's formulas too, whose pipelines fix 1.25) and the self-cal
+# diverges (restored 2.98 on an NVIDIA H100 80GB HBM3 at 700 W); at 2 the
+# corners' divisor is 0.026
+ICAL16 = 24
+ICAL16_PADDING = 2.0
+UNIT16 = (7, 17, 24, 32)
+UNIT16_TIMES, UNIT16_NW = 8, 6
+DFT16_TOL = 1e-5
+SKYMODEL16_TOL = EPS_FAST
+GAINCAL16_TOL = 1e-3
 
 
 def say(*args):
@@ -637,6 +681,13 @@ def _row(err, rel, ms, plain_ms, bnd, library_ms=None):
     )
 
 
+def _plain_piece(gp):
+    """Entries of one piece of the plain versions in pieces: 1M up to a
+    window of 16 cells, fewer past it, so that a piece's [n, S, S] f64
+    windows stay near 2 GB."""
+    return 1 << 20 if gp.span <= 16 else (1 << 27) // gp.span**2
+
+
 def grid_plain_pieces(gp, vals, piece=1 << 20):
     """grid_plain of plan ``gp`` over pieces of ``piece`` entries, summed:
     the plain version at the full stream within the card's memory."""
@@ -734,7 +785,8 @@ def grid_row(gp, vals, label, plain_reps=1):
 
     from ska_sdp_func_python_torch.ops.gridding_fused import grid
 
-    ref = grid_plain_pieces(gp, vals.to(torch.complex128))
+    piece = _plain_piece(gp)
+    ref = grid_plain_pieces(gp, vals.to(torch.complex128), piece)
     out = grid(gp, vals)
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
@@ -743,7 +795,7 @@ def grid_row(gp, vals, label, plain_reps=1):
     nchunks = int(gp.chunk_seg.shape[0])
     row = _row(
         err, rel, timed(lambda: grid(gp, vals), 10),
-        timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128)), plain_reps),
+        timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128), piece), plain_reps),
         grid_bound(gp),
     )
     say(
@@ -3358,20 +3410,26 @@ def degrid_row(gp, label):
     g = torch.Generator(device=gp.perm.device).manual_seed(13)
     grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g,
                         device=gp.perm.device, dtype=torch.complex64)
-    ref = degrid_plain_pieces(gp, grids)
-    err = float((degrid(gp, grids) - ref).abs().max())
+    piece = _plain_piece(gp)
+    ref = degrid_plain_pieces(gp, grids, piece)
+    out = degrid(gp, grids)
+    err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
-    del ref
+    same = torch.equal(out, degrid(gp, grids))
+    del ref, out
     row = _row(err, rel, timed(lambda: degrid(gp, grids), 20),
-               timed(lambda: degrid_plain_pieces(gp, grids), 1), degrid_bound(gp))
+               timed(lambda: degrid_plain_pieces(gp, grids, piece), 1), degrid_bound(gp))
     say(
         f"degrid {label}: {gp.n_in} entries, {gp.nplanes} planes of {gp.npixel}^2: "
         f"max abs err {err:.3e}, rel {rel:.3e} (tolerance {KERNELS['degrid'][0]:g}); "
         f"kernel {row['ms']:.4f} ms, plain (in pieces) {row['plain_ms']:.3f} ms, "
-        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']})"
+        f"bound {row['bound_ms']:.4f} ms ({row['bound_by']}); a second launch gives "
+        f"the same bits: {same}"
     )
     if not rel <= KERNELS["degrid"][0]:
         raise AssertionError(f"degrid {label} disagrees with its plain version")
+    if not same:
+        raise AssertionError(f"degrid {label}: two launches on the same inputs differ")
     return row
 
 
@@ -3380,7 +3438,7 @@ def plan_kernels(gp, vals, label):
     versions on plan ``gp``, at its support and plane mode. Returns the
     rows by kernel."""
     mode = "nearest" if gp.nearest else "linear" if gp.wstacked else "one plane"
-    label = f"{label} (support {gp.support}, {mode})"
+    label = f"{label} (support {gp.support}, span {gp.span}, {mode}, taps {gp.ku.shape[1]} wide)"
     return {"grid": grid_row(gp, vals, label), "degrid": degrid_row(gp, label)}
 
 
@@ -4398,6 +4456,326 @@ def main15() -> int:
     return 0
 
 
+def run_wide_supports(vis, model, phases):
+    """Phase 16a: K1 and K3 at the supports of SUPPORTS16 on the flagship's
+    plan (the full stream, or its first million entries where
+    SUPPORTS16 says so), then the flagship Hogbom ical at ICAL16 (planned
+    at ICAL16_PADDING), whose restored source must lie within 0.2 of 2.0
+    Jy. Returns (the ical's
+    launch counts, kernel rows by configuration, the ical's restored
+    image)."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import make_imaging_plan, make_visibility_plan
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    t0 = time.perf_counter()
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
+    n_sub = min(1 << 20, uvw.shape[0])
+    p0 = make_visibility_plan(vis, model, context="ng").plans[0]
+    geometry = dict(npixel=p0.npixel, cellsize=p0.cellsize, nw=p0.nw,
+                    padding=p0.npad / p0.npixel,
+                    w_range=(float(uvw[:, 2].min()), float(uvw[:, 2].max())))
+    del p0
+    rows = {}
+    for support, full in SUPPORTS16:
+        if full:
+            gp = make_visibility_plan(vis, model, context="ng", support=support).plans[0].gp
+            where, vals = "flagship", sort_values(gp, weighted)
+        else:
+            gp = make_imaging_plan(uvw[:n_sub, 0], uvw[:n_sub, 1], uvw[:n_sub, 2],
+                                   support=support, **geometry).gp
+            where, vals = "flagship 1M subset", sort_values(gp, weighted[:n_sub])
+        rows[f"{where} support {support} linear"] = plan_kernels(gp, vals, f"16a {where}")
+        del gp, vals
+        torch.cuda.empty_cache()
+    say(f"16a kernels: {time.perf_counter() - t0:.1f} s")
+    (current, residual, restored, gts), counts, peaks = run_logged(
+        f"16a hogbom ical support {ICAL16}",
+        lambda: ical(vis, model, nmajor=4, calibration_context="T", context="ng",
+                     algorithm="hogbom", support=ICAL16, padding=ICAL16_PADDING, **CLEAN),
+        4, ("grid", "degrid", "permute", "hogbom"),
+    )
+    gmax, grms = gain_phase_error(gts["T"].gain, phases)
+    rpeak = float(restored.pixels.max())
+    say(
+        f"16a hogbom ical support {ICAL16}: gain phase error vs truth max {gmax:.3e} rad, "
+        f"rms {grms:.3e} rad; restored peak {rpeak:.4f} (source 2.0 Jy, bound 0.2)"
+    )
+    if not abs(rpeak - 2.0) < 0.2:
+        raise AssertionError(f"16a support {ICAL16}: restored peak {rpeak} not within 0.2 of 2.0")
+    return counts, rows, restored
+
+
+def unit_stream16(vis, model, support):
+    """Phase 9's observation (UNIT16_TIMES integrations) as the
+    tiled gridder's entry stream on linear w-planes at ``support``, in the
+    observation's precision, and its geometry."""
+    from ska_sdp_func_python_torch.ops import imaging as im
+    from ska_sdp_func_python_torch.ops.gridding import _es_beta
+    from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
+
+    npad = im._npad_for(model.npixel, 2.0)
+    uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
+    u, v = im._pixels(uvw[:, 0], uvw[:, 1], npad, model.cellsize, False)
+    p0, frac, _ = im._w_planes(uvw[:, 2], UNIT16_NW)
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    geo = dict(npixel=npad, tile=im._tile_for(npad), support=support,
+               beta=_es_beta(support, npad / model.npixel))
+    stream = entry_stream(u, v, weighted, p0, frac, npixel=npad, support=support,
+                          nplanes=UNIT16_NW, tile=geo["tile"], unit=im._UNIT_GRID)
+    return stream, geo
+
+
+def run_unit_tiles_wide(cfg, device):
+    """Phase 16b: K9 at the odd and wide supports of UNIT16 in f32 and f64
+    on phase 9's observation, against its plain version accumulated in
+    f64, two launches to the same bits. Returns the rows by
+    configuration."""
+    import torch
+
+    t0 = time.perf_counter()
+    rows = {}
+    for dtype, tol, peak in ((torch.float32, KERNELS["unit_tiles"][0], PEAK_F32_S),
+                             (torch.float64, UNIT_TILES_F64_TOL, PEAK_F64_S)):
+        vis, model, _, _ = observation9(cfg, device, dtype, ntimes=UNIT16_TIMES)
+        name = "f32" if dtype == torch.float32 else "f64"
+        for support in UNIT16:
+            stream, geo = unit_stream16(vis, model, support)
+            rows[f"{name} support {support}"] = compare_unit_tiles(
+                stream, geo, f"16b {name} support {support}", tol, peak)
+            del stream
+        del vis, model
+        torch.cuda.empty_cache()
+    say(f"16b: {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
+def spectral_cube_ical(device):
+    """Phase 16c: a spectral component list (half of the cube's source,
+    its flux given on five channels across the band, interpolated onto
+    the 64) through the fused ical on the config-4 cube; the components'
+    DFT on the card against the CPU's on the first integration. Returns
+    the ical's launch counts."""
+    from ska_sdp_func_python_torch.models import SkyComponents
+    from ska_sdp_func_python_torch.ops import dft_skycomponent_visibility
+    from ska_sdp_func_python_torch.pipeline import ical
+
+    vis, model = simulate_cube(device, **CUBE)
+    corrupted, phases = corrupt(vis, 0.4)
+    del vis
+    ra, dec = model.pixel_to_radec(model.npixel // 2 + CUBE["offset"][0],
+                                   model.npixel // 2 + CUBE["offset"][1])
+    freq = corrupted.frequency.cpu().numpy().astype(np.float64)
+    knots = np.linspace(freq[0], freq[-1], 5)
+    flux = 0.5 * 2.0 * (knots / freq[CUBE["nchan"] // 2]) ** CUBE["alpha"]
+    sky = {d: SkyComponents.from_lists([[float(ra), float(dec)]], flux[None, :, None], knots,
+                                       device=d) for d in (device, "cpu")}
+    one = corrupted.replace(**{f: getattr(corrupted, f)[:1] for f in (
+        "vis", "weight", "imaging_weight", "flags", "uvw", "time", "integration_time")})
+    card = dft_skycomponent_visibility(one, sky[device]).vis.cpu()
+    cpu = dft_skycomponent_visibility(_vis_to(one, "cpu"), sky["cpu"]).vis
+    rel = float((card - cpu).abs().max()) / float(cpu.abs().max())
+    say(f"16c spectral components' DFT, card vs CPU (one integration, {cpu.numel()} "
+        f"values): rel {rel:.3e} (bound {DFT16_TOL:g})")
+    if not rel <= DFT16_TOL:
+        raise AssertionError("16c: the spectral components' DFT differs card vs CPU")
+    with counting_calls("msmfs_with_stacks") as calls:
+        (current, residual, _, gts), counts, peaks = run_logged(
+            "16c spectral-component ical (config-4 cube)",
+            lambda: ical(corrupted, model, components=sky[device], nmajor=3,
+                         calibration_context="T", context="ng", **CUBE_CLEAN),
+            3, ("grid", "degrid", "permute", "msmfs"),
+        )
+    _one_launch_per_call("16c spectral-component ical", counts, "msmfs", calls)
+    gmax, grms = gain_phase_error(gts["T"].gain, phases)
+    say(f"16c spectral-component ical: gain phase error max {gmax:.3e} rad, rms {grms:.3e} "
+        f"rad; residual peak {float(residual.pixels.abs().max()):.4e}")
+    return counts
+
+
+def skymodel_flagship(vis, model, restored):
+    """Phase 16c on the flagship: skymodel_predict_calibrate and
+    skymodel_calibrate_invert through its plan (K3 and K4, then K1 and
+    K4: launches counted) with the sources as an image and a component,
+    the predict held to the DFT of the same sky; find, fit and insert on
+    16a's restored image, card against CPU; gaincal. Returns the summed
+    launch counts of the sky-model calls."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.models import SkyComponents, SkyModel
+    from ska_sdp_func_python_torch.ops import (
+        dft_skycomponent_visibility,
+        find_skycomponents,
+        fit_skycomponent,
+        gaincal,
+        insert_skycomponent,
+        skymodel_calibrate_invert,
+        skymodel_predict_calibrate,
+    )
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+
+    n = model.npixel
+    pixels = torch.zeros_like(model.pixels)
+    dirs = []
+    for dx, dy, f in SOURCES:
+        pixels[0, 0, n // 2 + dy, n // 2 + dx] = f
+        dirs.append([float(a) for a in model.pixel_to_radec(n // 2 + dx, n // 2 + dy)])
+    # the brightest source as a component, the other two as image pixels
+    pixels[0, 0, n // 2 + SOURCES[0][1], n // 2 + SOURCES[0][0]] = 0.0
+    comps = SkyComponents.from_lists(dirs[:1], [[[SOURCES[0][2]]]], vis.frequency, device=vis.device)
+    sky = SkyComponents.from_lists(dirs, [[[f]] for _, _, f in SOURCES], vis.frequency,
+                                   device=vis.device)
+    sm = SkyModel(image=model.replace(pixels=pixels), components=comps, gaintable=None, mask=None)
+    plan = make_visibility_plan(vis, model, context="ng")
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    pred = skymodel_predict_calibrate(vis, sm, context="ng", plan=plan)
+    dirty, _ = skymodel_calibrate_invert(pred, sm, context="ng", plan=plan)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    wall = time.perf_counter() - t0
+    _launch_gate("16c skymodel predict and invert", counts, ("grid", "degrid", "permute"))
+    exact = dft_skycomponent_visibility(vis, sky).vis
+    rel = float((pred.vis - exact).abs().max()) / float(exact.abs().max())
+    peak = float(dirty.pixels.max())
+    say(f"16c skymodel_predict_calibrate and skymodel_calibrate_invert (flagship plan): "
+        f"{wall:.3f} s, launches {counts}; predict vs the DFT of the same sky rel "
+        f"{rel:.3e} (bound {SKYMODEL16_TOL:g}); dirty peak {peak:.4f} (2.0 Jy source)")
+    if not rel <= SKYMODEL16_TOL:
+        raise AssertionError("16c: skymodel predict disagrees with the DFT")
+    del plan, pred, dirty, exact
+    torch.cuda.empty_cache()
+
+    cpu_im = restored.replace(pixels=restored.pixels.cpu())
+    found = {d: find_skycomponents(im, threshold=0.2, fwhm=1.0) for d, im in
+             (("card", restored), ("cpu", cpu_im))}
+    if found["card"].ncomp != found["cpu"].ncomp or found["card"].ncomp < len(SOURCES):
+        raise AssertionError(f"16c find: {found['card'].ncomp} vs {found['cpu'].ncomp} components")
+    fit = {d: fit_skycomponent(im, found[d].select([0])) for d, im in
+           (("card", restored), ("cpu", cpu_im))}
+    dfit = float(np.abs(fit["card"].direction - fit["cpu"].direction).max())
+    dflux = float((fit["card"].flux.cpu() - fit["cpu"].flux).abs().max())
+    bits = {}
+    for method in ("Nearest", "Lanczos"):
+        card = insert_skycomponent(restored, found["card"], insert_method=method).pixels.cpu()
+        cpu = insert_skycomponent(cpu_im, found["cpu"], insert_method=method).pixels
+        again = insert_skycomponent(restored, found["card"], insert_method=method).pixels.cpu()
+        bits[method] = (float((card - cpu).abs().max()), torch.equal(card, again))
+    say(f"16c find/fit/insert on the restored image: {found['card'].ncomp} components on "
+        f"both; fit card vs CPU: direction {dfit:.3e} rad, flux {dflux:.3e}; insert card vs "
+        f"CPU (max abs, the same bits twice): {bits}")
+    if dfit > 1e-9 or dflux > 1e-5 or any(e > 1e-5 or not s for e, s in bits.values()):
+        raise AssertionError("16c: find, fit or insert differs card vs CPU")
+
+    vis0 = dft_skycomponent_visibility(vis, sky)
+    corrupted = vis0.replace(vis=vis.vis)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    corrected = gaincal(corrupted, vis0, calibration_context="T")
+    torch.cuda.synchronize()
+    gerr = float((corrected.vis - vis0.vis).abs().max()) / float(vis0.vis.abs().max())
+    say(f"16c gaincal (flagship, \"T\"): {time.perf_counter() - t0:.3f} s; corrected vs the "
+        f"uncorrupted sky rel {gerr:.3e} (bound {GAINCAL16_TOL:g})")
+    if not gerr <= GAINCAL16_TOL:
+        raise AssertionError("16c: gaincal did not remove the gains")
+    return counts
+
+
+def skymodel_small_matches_cpu(device):
+    """Phase 16c's small slice: phase 7's observation through
+    skymodel_predict_calibrate (docal with its true gains) and
+    skymodel_calibrate_invert, and gaincal, on the card and on the CPU,
+    to 1e-5 of the maximum."""
+    import torch
+
+    from ska_sdp_func_python_torch.models import create_gaintable_from_visibility, SkyModel
+    from ska_sdp_func_python_torch.ops import (
+        gaincal,
+        skymodel_calibrate_invert,
+        skymodel_predict_calibrate,
+    )
+
+    out = {}
+    for dev in (device, "cpu"):
+        _, vis, model, phases = simulate(dev, rmax=600.0, ntimes=8, npixel=256)
+        gt = create_gaintable_from_visibility(vis, jones_type="T")
+        gain = torch.polar(torch.ones(phases.shape), torch.as_tensor(phases, dtype=torch.float32))
+        gt = gt.replace(gain=gain.to(dev)[..., None, None].contiguous())
+        pixels = torch.zeros_like(model.pixels)
+        n = model.npixel
+        for dx, dy, f in SOURCES:
+            pixels[0, 0, n // 2 + dy // 4, n // 2 + dx // 4] = f
+        sm = SkyModel(image=model.replace(pixels=pixels), components=None, gaintable=gt, mask=None)
+        pred = skymodel_predict_calibrate(vis, sm, context="ng", docal=True)
+        dirty, _ = skymodel_calibrate_invert(pred, sm, context="ng", docal=True)
+        corrected = gaincal(vis, skymodel_predict_calibrate(vis, sm, context="ng"), "T")
+        out[dev] = [x.cpu() for x in (pred.vis, dirty.pixels, corrected.vis)]
+    errs = [float((a - b).abs().max()) / float(b.abs().max()) for a, b in zip(out[device], out["cpu"])]
+    bounds = (1e-5, 1e-5, 1e-4)  # gaincal: the small slices' gain bound
+    say(f"16c small slice card vs CPU (predict, invert, gaincal): rel {errs} (bounds {bounds})")
+    if not all(e <= b for e, b in zip(errs, bounds)):
+        raise AssertionError("16c small slice: card and CPU disagree")
+
+
+def run_phase16(cfg, device, vis, model, phases):
+    """Phase 16 (a-c). Returns (launch counts by shape, K1/K3 rows by
+    configuration, K9 rows by configuration)."""
+    import torch
+
+    t0 = time.perf_counter()
+    by_shape = {}
+    counts, rows, restored = run_wide_supports(vis, model, phases)
+    by_shape[f"flagship ical at support {ICAL16} (phase 16a)"] = counts
+    by_shape["flagship sky model (phase 16c)"] = skymodel_flagship(vis, model, restored)
+    skymodel_small_matches_cpu(device)
+    del restored
+    torch.cuda.empty_cache()
+    unit_rows = run_unit_tiles_wide(cfg, device)
+    by_shape["config-4 cube spectral-component ical (phase 16c)"] = spectral_cube_ical(device)
+    torch.cuda.empty_cache()
+    say(f"phase 16: {time.perf_counter() - t0:.1f} s")
+    return by_shape, rows, unit_rows
+
+
+def main16() -> int:
+    """``--phase16-only``: the build and phase 16 on the flagship."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels.build_library()
+    kernels.load_library()
+    say(f"build: {time.perf_counter() - t_start:.1f} s")
+    cfg, vis, model, phases = simulate(device, rmax=40000.0, ntimes=76, npixel=1024)
+    by_shape, rows, unit_rows = run_phase16(cfg, device, vis, model, phases)
+    for shape, counts in by_shape.items():
+        say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    print_rows("16", {**rows, **{f"unit_tiles {k}": {"unit_tiles": r} for k, r in unit_rows.items()}})
+    say(f"command: {time.perf_counter() - t_start:.1f} s")
+    say(card)
+    return 0
+
+
+def print_rows(tag, rows):
+    """One line a configuration: each kernel's time, bound, plain time and
+    error."""
+    for shape, krows in rows.items():
+        say(f"{tag} {shape}: " + "; ".join(
+            f"{k} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+            f"plain {r['plain_ms']:.3f} ms, rel err {r['rel']:.3e}" for k, r in krows.items()))
+
+
 def report_kernel(name, r, label=""):
     """Prints a kernel's comparison with its plain version, and fails if
     the error is above its tolerance."""
@@ -4506,6 +4884,12 @@ def main() -> int:
         for name in launches:
             launches[name] += counts[name]
         by_shape[shape] = counts
+    torch.cuda.empty_cache()
+    counts16, rows16, unit_rows16 = run_phase16(cfg, device, vis, model, phases)
+    for shape, counts in counts16.items():
+        for name in launches:
+            launches[name] += counts[name]
+        by_shape[shape] = counts
     del vis, model
     torch.cuda.empty_cache()
     counts = run_periphery(device)
@@ -4559,11 +4943,11 @@ def main() -> int:
     streamed_card_vs_cpu(device)
     for shape, counts in by_shape.items():
         say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
-    for shape, rows in rows13.items():
-        say(f"13 {shape}: " + "; ".join(
-            f"{k} {r['ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
-            f"plain {r['plain_ms']:.3f} ms, rel err {r['rel']:.3e}" for k, r in rows.items()))
-    held = list(rows13)
+    print_rows("13", rows13)
+    print_rows("16", {**rows16, **{f"unit_tiles {k}": {"unit_tiles": r}
+                                   for k, r in unit_rows16.items()}})
+    held = {"grid": list(rows13) + list(rows16), "degrid": list(rows13) + list(rows16),
+            "unit_tiles": ["phase 9 epsilon streams"] + list(unit_rows16)}
 
     say(json.dumps({
         "kernels": [
@@ -4579,7 +4963,7 @@ def main() -> int:
                 "bound_ms": results[name]["bound_ms"],
                 "bound_by": results[name]["bound_by"],
                 "library_ms": results[name]["library_ms"],
-                **({"held_at": held} if name in ("grid", "degrid") else {}),
+                **({"held_at": held[name]} if name in held else {}),
             }
             for name in KERNELS
         ]
@@ -4612,6 +4996,9 @@ if __name__ == "__main__":
     ap.add_argument("--phase15-only", action="store_true",
                     help="only build the kernels and run phase 15 (the imaging periphery, "
                          "K9's repeats)")
+    ap.add_argument("--phase16-only", action="store_true",
+                    help="only build the kernels and run phase 16 (supports past 16, "
+                         "the sky-component periphery)")
     ap.add_argument("--phase14-child", nargs=4, metavar=("RANK", "PORT", "INPUTS", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -4622,6 +5009,8 @@ if __name__ == "__main__":
         sys.exit(main14())
     if args.phase15_only:
         sys.exit(main15())
+    if args.phase16_only:
+        sys.exit(main16())
     if args.profile_streamed:
         sys.exit(profile_streamed(args.wire, args.store_uvw))
     if args.repeat_selfcal:

@@ -20,7 +20,6 @@ __all__ = [
     "real_of",
     "frac_dot_turns",
     "expi",
-    "not_ported",
     "default_device",
     "resolve_device",
     "plan_cache_size",
@@ -122,51 +121,9 @@ def resolve_device(device=None) -> torch.device:
     return default_device() if device is None else torch.device(device)
 
 
-def not_ported(what: str, slice_: str) -> NotImplementedError:
-    """The error every branch outside the ported slice raises: names the
-    ROADMAP slice that will bring it."""
-    return NotImplementedError(
-        f"{what} is not ported yet; it comes with ROADMAP slice {slice_}"
-    )
-
-
-def _slice(slice_: str, names: str) -> dict:
-    return {name: slice_ for name in names.split()}
-
-
 # The public names of the JAX package's ``ops``, ``models`` and ``utils``
-# namespaces that the port does not have yet, each with the ROADMAP slice
-# that brings it. Every other name of those namespaces (and of ``io``,
+# namespaces that the port does not have, each with the ROADMAP slice that
+# would bring it. Every name of those namespaces (and of ``io``,
 # ``pipeline`` and ``parallel``) is exported by the port under its JAX
-# name; a test holds the two lists apart, so a name leaves this table when
-# its slice lands.
-UNPORTED: dict = {
-    # S11b: the sky-component periphery and the rest of ``utils``, on no
-    # pipeline path
-    **_slice("S11b", """
-        PolynomialInterpolator NumpyLinearInterpolator ScipySplineInterpolator
-        set_beamformer_frequencies expand_delay_phase multiply_gaintable_jones
-        resample_bandpass
-        dft_cpu_looped dft_gpu_raw_kernel
-        calculate_skycomponent_list_taylor_terms
-        find_skycomponents_frequency_taylor_terms
-        gather_skycomponents_from_channels interpolate_skycomponents_frequency
-        transpose_skycomponents_to_channels
-        apply_beam_to_skycomponent apply_voltage_pattern_to_skycomponent
-        filter_skycomponents_by_flux find_nearest_skycomponent
-        find_nearest_skycomponent_index find_separation_skycomponents
-        find_skycomponent_matches select_components_by_separation
-        remove_neighbouring_components find_skycomponents insert_skycomponent
-        voronoi_decomposition image_voronoi_iter
-        partition_skycomponent_neighbours fit_skycomponent
-        fit_skycomponent_spectral_index calculate_skycomponent_taylor_terms
-        find_skycomponent_matches_atomic select_neighbouring_components
-        skymodel_predict_calibrate skymodel_calibrate_invert
-        Parset create_parset_from_context gaincal dp3_gaincal
-        SkyModel
-        average_chunks average_chunks2 insert_array insert_function_L
-        insert_function_pswf insert_function_sinc
-        qa_image qa_gain_table qa_visibility
-        timer metrics reset_metrics profile_trace
-    """),
-}
+# name, so the table is empty; a test holds it so.
+UNPORTED: dict = {}

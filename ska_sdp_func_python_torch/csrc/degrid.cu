@@ -44,6 +44,14 @@
 // walk orders are rows of n entries (the first n_in used). Offsets of the
 // channel bases are 64-bit; a window's offset within its channel's planes
 // is 32-bit (the wrapper refuses larger planes).
+//
+// Windows wider than 16 cells (supports 17 to 64) take
+// degrid_wide_kernel: the whole warp serves one entry, lane x reading
+// columns x and, past a span of 32, x + 32 of every window row (the tap
+// rows are 32 or 64 wide), eight rows of loads in flight before they are
+// used. kv[r] comes from lane r mod 32 by a shuffle, and five xor
+// shuffles reduce the columns. The warp serves its 32 walk positions one
+// after another; every output still has one writer.
 #include "common.cuh"
 
 namespace {
@@ -136,11 +144,118 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// kCols: the columns of a window each lane reads (the tap rows are 32
+// kCols wide)
+template <int kCols, bool kWStacked>
+__global__ void __launch_bounds__(kThreads)
+    degrid_wide_kernel(const float2* __restrict__ grid,
+                       const int* __restrict__ iu0, const int* __restrict__ iv0,
+                       const int* __restrict__ plane,
+                       const float* __restrict__ frac,
+                       const float* __restrict__ ku,
+                       const float* __restrict__ kv,
+                       const int* __restrict__ korder,
+                       const int* __restrict__ n_in_c, long long n_in0,
+                       float2* __restrict__ out, long long n, int npix,
+                       int nplanes, int support) {
+  constexpr int W = 32 * kCols;
+  constexpr int kRows = 8;  // rows of loads in flight
+  const int c = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const long long t0 =
+      ((long long)blockIdx.x * kThreads + (threadIdx.x & ~31));
+  if (t0 >= n) return;  // whole warps leave together
+  const long long t = t0 + lane;
+  const long long base = (long long)c * n;
+  const long long n_in = n_in_c ? (long long)n_in_c[c] : n_in0;
+  const int plane_size = npix * npix;
+  int e = -1, off = 0;
+  float f = 0.f;
+  if (t < n_in) {
+    e = korder[base + t];
+    const long long i = base + e;
+    off = plane[i] * plane_size + iv0[i] * npix + iu0[i];
+    if (kWStacked) f = frac[i];
+  } else if (t < n) {
+    out[base + t] = make_float2(0.f, 0.f);
+  }
+  if (t0 >= n_in) return;
+  bool col[kCols];
+#pragma unroll
+  for (int cc = 0; cc < kCols; ++cc) col[cc] = lane + 32 * cc < support;
+  const float2* gc = grid + (size_t)c * nplanes * plane_size + lane;
+#pragma unroll 1
+  for (int j = 0; j < 32; ++j) {
+    const int es = __shfl_sync(0xffffffffu, e, j);
+    const int os = __shfl_sync(0xffffffffu, off, j);
+    const float fs = __shfl_sync(0xffffffffu, f, j);
+    if (es < 0) continue;  // past n_in: uniform within the warp
+    const long long i = base + es;
+    float kvx[kCols], kux[kCols];
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc) {
+      kvx[cc] = kv[i * W + lane + 32 * cc];
+      kux[cc] = ku[i * W + lane + 32 * cc];
+    }
+    const float2* w = gc + os;
+    float lr[kCols], li[kCols], hr[kCols], hq[kCols];
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc) lr[cc] = li[cc] = hr[cc] = hq[cc] = 0.f;
+#pragma unroll
+    for (int rb = 0; rb < W; rb += kRows) {
+      if (rb >= support) break;  // uniform: every later row is past S
+      float2 lo[kRows][kCols], hi[kRows][kCols];
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) {
+          const bool in = col[cc] && rb + rr < support;
+          const float2* p = w + (rb + rr) * npix + 32 * cc;
+          lo[rr][cc] = in ? p[0] : make_float2(0.f, 0.f);
+          if (kWStacked) hi[rr][cc] = in ? p[plane_size] : make_float2(0.f, 0.f);
+        }
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr) {
+        const int r = rb + rr;
+        const float k = __shfl_sync(0xffffffffu, kvx[r / 32], r % 32);
+#pragma unroll
+        for (int cc = 0; cc < kCols; ++cc) {
+          lr[cc] += lo[rr][cc].x * k;
+          li[cc] += lo[rr][cc].y * k;
+          if (kWStacked) {
+            hr[cc] += hi[rr][cc].x * k;
+            hq[cc] += hi[rr][cc].y * k;
+          }
+        }
+      }
+    }
+    float sr = 0.f, si = 0.f;
+#pragma unroll
+    for (int cc = 0; cc < kCols; ++cc) {
+      float ar = lr[cc] * kux[cc], ai = li[cc] * kux[cc];
+      if (kWStacked) {
+        const float w0 = 1.f - fs;
+        ar = ar * w0 + (hr[cc] * kux[cc]) * fs;
+        ai = ai * w0 + (hq[cc] * kux[cc]) * fs;
+      }
+      sr += ar;
+      si += ai;
+    }
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) {
+      sr += __shfl_xor_sync(0xffffffffu, sr, o);
+      si += __shfl_xor_sync(0xffffffffu, si, o);
+    }
+    if (lane == 0) out[i] = make_float2(sr, si);
+  }
+}
+
 }  // namespace
 
 // grid: [nchan, nplanes, npix, npix] complex64 with nplanes * npix^2 <
-// 2^31; iu0, iv0, plane, frac, out: [nchan, n]; ku, kv: [nchan, n, W], W =
-// 8 for support <= 8 and 16 for support <= 16; korder: the walk order,
+// 2^31; iu0, iv0, plane, frac, out: [nchan, n]; ku, kv: [nchan, n, W], W
+// = 8, 16, 32 or 64, the power of two from 8 up that holds the window
+// (support <= 64); korder: the walk order,
 // [nchan, n] (a single plan: [n_in]); n_in: int32 [nchan] on the device,
 // or null for one channel whose n_in is n_in0. wstacked 1: plane pairs
 // (linear w); 0: one plane an entry (single-plane and nearest plans).
@@ -150,9 +265,20 @@ SKA_EXPORT int ska_degrid(const void* grid, const void* iu0, const void* iv0,
                           long long n_in0, void* out, long long n, int nchan,
                           int npix, int nplanes, int support, int wstacked,
                           void* stream) {
-  if (support < 1 || support > 16) return (int)cudaErrorInvalidValue;
+  if (support < 1 || support > 64) return (int)cudaErrorInvalidValue;
   if (n == 0 || nchan == 0) return 0;
   const dim3 grd((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nchan);
+  if (support > 16) {
+    auto wide = wstacked ? degrid_wide_kernel<1, true> : degrid_wide_kernel<1, false>;
+    if (support > 32)
+      wide = wstacked ? degrid_wide_kernel<2, true> : degrid_wide_kernel<2, false>;
+    wide<<<grd, kThreads, 0, (cudaStream_t)stream>>>(
+        (const float2*)grid, (const int*)iu0, (const int*)iv0,
+        (const int*)plane, (const float*)frac, (const float*)ku,
+        (const float*)kv, (const int*)korder, (const int*)n_in, n_in0,
+        (float2*)out, n, npix, nplanes, support);
+    return ska_last_error();
+  }
   auto kernel = wstacked ? degrid_kernel<8, true, true> : degrid_kernel<8, false, true>;
   if (support < 8)
     kernel = wstacked ? degrid_kernel<8, true, false> : degrid_kernel<8, false, false>;

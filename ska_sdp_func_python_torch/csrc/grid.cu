@@ -61,6 +61,23 @@
 // (21 KiB), so that the tile of buf 80 (tile 64, S 16: 200 KiB unpadded)
 // still fits beside them; where the padded row stride would not fit, the
 // rows go unpadded (ld = buf), which costs bank conflicts, not results.
+//
+// Windows wider than 16 cells (supports 17 to 64, each up to the plan's
+// tile) take grid_wide_kernel. The shared tile no longer fits there: at
+// tile 64 and S 32, buf 96 and NACC 4 need 4 x 96^2 x 8 B = 295 KB, more
+// than a block's 227 KB. So the wide variant keeps Romein's register sums
+// and flushes them straight into the int64 plane grids with integer
+// atomicAdd: the same units, the same conversion, and the same bits on
+// every launch (integer sums do not depend on the order of the atomics).
+// The residue period P is 32 for spans up to 32 (one class a thread of the
+// CTA's one group of 1024) and 64 beyond (each thread owns the 2 x 2
+// classes (a + 32 i, b + 32 j)). Every thread walks every entry of its
+// chunk in korder, a batch of kWideStage entries at a time, staged by
+// cp.async and double-buffered as above. What bounds it: the global
+// atomics of the flushes, one per word of a cell whose run ends, where the
+// narrow kernel's go to shared memory; splitting the plane pair over CTAs
+// or spreading the tile over a cluster's distributed shared memory would
+// bring them back on chip.
 #include "common.cuh"
 
 namespace {
@@ -287,6 +304,164 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
+constexpr int kWideStage = 32;  // entries the wide variant stages a batch
+
+// one batch of the wide variant: the staged entries of the CTA's one walk
+template <int P>
+struct WideStage {
+  float4 taps[kWideStage][P / 2];  // ku[0:P], kv[0:P]
+  float4 meta[kWideStage];         // val.re, val.im, iu0, iv0 (int bits)
+  float frac[kWideStage];
+};
+
+// C = P / 32 classes a thread owns on each axis (P the residue period, 32
+// or 64); NACC as grid_kernel's
+template <int C, int NACC>
+__global__ void __launch_bounds__(kThreads, 1)
+    grid_wide_kernel(const float2* __restrict__ vals,
+                     const int* __restrict__ iu0, const int* __restrict__ iv0,
+                     const float* __restrict__ frac,
+                     const float4* __restrict__ ku,
+                     const float4* __restrict__ kv,
+                     const int* __restrict__ order,
+                     const int* __restrict__ chunk_seg,
+                     const int* __restrict__ chunk_start,
+                     const int* __restrict__ chunk_count,
+                     const float* __restrict__ tap_bound,
+                     const float* __restrict__ vsum,
+                     unsigned long long* __restrict__ grid64, int npix,
+                     int ntiles, int support) {
+  constexpr int P = 32 * C;
+  constexpr int kPer = kThreads / kWideStage;  // loader threads of a slot
+  constexpr int kTapVec = P / 2;               // float4s of taps a slot
+  __shared__ __align__(16) WideStage<P> stage[2];
+
+  const float total = vsum[0] * tap_bound[0];
+  if (!isfinite(total)) return;  // the conversion writes NaN
+  const double unit = ldexp(1.0, grid_exponent(total));
+
+  const int start = chunk_start[blockIdx.x];
+  const int count = chunk_count[blockIdx.x];
+  const int plane = chunk_seg[blockIdx.x] / ntiles;
+  const size_t npp = (size_t)npix * npix;
+  unsigned long long* g0 = grid64 + 2 * (size_t)plane * npp;
+  const int nbatch = (count + kWideStage - 1) / kWideStage;
+
+  const int slot = threadIdx.x / kPer;
+  const int piece = threadIdx.x % kPer;
+  auto issue = [&](int k) {
+    const int p = k * kWideStage + slot;
+    if (p < count) {
+      const int e = order[start + p];
+      WideStage<P>& s = stage[k & 1];
+      float* m = reinterpret_cast<float*>(&s.meta[slot]);
+      for (int task = piece; task < kTapVec + 4; task += kPer) {
+        if (task < kTapVec / 2)
+          ska_cp_async<16>(&s.taps[slot][task], ku + (size_t)e * (P / 4) + task);
+        else if (task < kTapVec)
+          ska_cp_async<16>(&s.taps[slot][task],
+                           kv + (size_t)e * (P / 4) + (task - kTapVec / 2));
+        else if (task == kTapVec)
+          ska_cp_async<8>(m, vals + e);
+        else if (task == kTapVec + 1)
+          ska_cp_async<4>(m + 2, iu0 + e);
+        else if (task == kTapVec + 2)
+          ska_cp_async<4>(m + 3, iv0 + e);
+        else if (NACC == 4)
+          ska_cp_async<4>(&s.frac[slot], frac + e);
+      }
+    }
+    ska_cp_async_commit();
+  };
+
+  // classes (a0 + 32 i, b0 + 32 j) of this thread, each with its cell
+  // (-1 for none yet), run length and register sums
+  const int a0 = threadIdx.x % 32;
+  const int b0 = threadIdx.x / 32;
+  int cur[C][C], run[C][C];
+  float r0[C][C], i0[C][C], r1[C][C], i1[C][C];
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) {
+      cur[i][j] = -1;
+      run[i][j] = 0;
+      r0[i][j] = i0[i][j] = r1[i][j] = i1[i][j] = 0.f;
+    }
+  auto add = [&](unsigned long long* w, float r) {
+    const long long q = __double2ll_rn((double)r * unit);
+    if (q != 0) atomicAdd(w, (unsigned long long)q);
+  };
+  // integer adds commute: the grids are the same whatever their order
+  auto flush = [&](int i, int j) {
+    const int c = cur[i][j];
+    if (c >= 0) {
+      unsigned long long* w = g0 + 2 * (size_t)c;
+      add(w, r0[i][j]);
+      add(w + 1, i0[i][j]);
+      if (NACC == 4) {
+        add(w + 2 * npp, r1[i][j]);
+        add(w + 2 * npp + 1, i1[i][j]);
+      }
+    }
+  };
+
+  issue(0);
+  for (int k = 0; k < nbatch; ++k) {
+    ska_cp_async_wait_all();
+    // batch k is visible; every thread is done with batch k - 1's buffer
+    __syncthreads();
+    if (k + 1 < nbatch) issue(k + 1);
+    const WideStage<P>& s = stage[k & 1];
+    const int nj = min(kWideStage, count - k * kWideStage);
+    for (int jj = 0; jj < nj; ++jj) {
+      const float4 m = s.meta[jj];
+      const int u0 = __float_as_int(m.z);
+      const int v0 = __float_as_int(m.w);
+      const float* tp = reinterpret_cast<const float*>(&s.taps[jj][0]);
+      float w0 = 1.f, f = 0.f;
+      if (NACC == 4) {
+        f = s.frac[jj];
+        w0 = 1.f - f;
+      }
+#pragma unroll
+      for (int j = 0; j < C; ++j) {
+        const int dy = (b0 + 32 * j - v0) & (P - 1);
+        if (dy >= support) continue;  // no row of the class in the window
+        const float kvy = tp[P + dy];
+        const int row = (v0 + dy) * npix;
+#pragma unroll
+        for (int i = 0; i < C; ++i) {
+          const int dx = (a0 + 32 * i - u0) & (P - 1);
+          if (dx >= support) continue;
+          const int cell = row + u0 + dx;
+          const float kk = kvy * tp[dx];
+          if (cell != cur[i][j] || run[i][j] == kRunCap) {
+            flush(i, j);
+            cur[i][j] = cell;
+            run[i][j] = 0;
+            r0[i][j] = i0[i][j] = r1[i][j] = i1[i][j] = 0.f;
+          }
+          ++run[i][j];
+          if (NACC == 4) {
+            r0[i][j] = fmaf(kk, m.x * w0, r0[i][j]);
+            i0[i][j] = fmaf(kk, m.y * w0, i0[i][j]);
+            r1[i][j] = fmaf(kk, m.x * f, r1[i][j]);
+            i1[i][j] = fmaf(kk, m.y * f, i1[i][j]);
+          } else {
+            r0[i][j] = fmaf(kk, m.x, r0[i][j]);
+            i0[i][j] = fmaf(kk, m.y, i0[i][j]);
+          }
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < C; ++i)
+#pragma unroll
+    for (int j = 0; j < C; ++j) flush(i, j);
+}
+
 // The complex64 grids from the int64 ones: value times 2^-kg, or NaN when
 // the bound is not finite.
 __global__ void grid_convert(const long long* __restrict__ grid64,
@@ -330,11 +505,27 @@ int launch(const void* vals, const void* iu0, const void* iv0,
   return ska_last_error();
 }
 
+template <int C, int NACC>
+int launch_wide(const void* vals, const void* iu0, const void* iv0,
+                const void* frac, const void* ku, const void* kv,
+                const void* order, const void* chunk_seg,
+                const void* chunk_start, const void* chunk_count,
+                const void* tap_bound, const void* vsum, void* grid64,
+                int nchunks, int npix, int nta, int support, cudaStream_t s) {
+  grid_wide_kernel<C, NACC><<<nchunks, kThreads, 0, s>>>(
+      (const float2*)vals, (const int*)iu0, (const int*)iv0,
+      (const float*)frac, (const float4*)ku, (const float4*)kv,
+      (const int*)order, (const int*)chunk_seg, (const int*)chunk_start,
+      (const int*)chunk_count, (const float*)tap_bound, (const float*)vsum,
+      (unsigned long long*)grid64, npix, nta * nta, support);
+  return ska_last_error();
+}
+
 }  // namespace
 
 // vals [n] complex64; iu0, iv0, order [n] int32; frac [n] f32; ku, kv
-// [n, P] f32 (P = 8 for support <= 8, 16 for support <= 16), 16-byte
-// aligned; chunk_*: [nchunks] int32; tap_bound [1] f32, the plan's; vsum
+// [n, P] f32 (P = 8, 16, 32 or 64: the power of two from 8 up that holds
+// the window, support <= 64), 16-byte aligned; chunk_*: [nchunks] int32; tap_bound [1] f32, the plan's; vsum
 // [1] f32, the sum of |re| + |im| over vals; grid64 [nplanes, npix, npix,
 // 2] int64 scratch; grid [nplanes, npix, npix] complex64 out. nacc 4:
 // linear w-stacking (plane pairs); 2: one plane a segment (single-plane or
@@ -358,7 +549,8 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t n = 2 * (size_t)nplanes * npix * npix;
-  if (support < 1 || support > 16) return (int)cudaErrorInvalidValue;
+  if (support < 1 || support > 64) return (int)cudaErrorInvalidValue;
+  if (support > 16 && support > tile) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaMemsetAsync(grid64, 0, n * sizeof(long long), s);
   if (nchunks > 0) {
@@ -368,7 +560,15 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         nchunks, npix, tile, nta, support, s)
     const bool four = nacc == 4;
     int rc;
-    if (support == 8)
+#define SKA_GRID_WIDE(C, NACC)                                                \
+  launch_wide<C, NACC>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,       \
+                       chunk_start, chunk_count, tap_bound, vsum, grid64,    \
+                       nchunks, npix, nta, support, s)
+    if (support > 32)
+      rc = four ? SKA_GRID_WIDE(2, 4) : SKA_GRID_WIDE(2, 2);
+    else if (support > 16)
+      rc = four ? SKA_GRID_WIDE(1, 4) : SKA_GRID_WIDE(1, 2);
+    else if (support == 8)
       rc = four ? SKA_GRID_LAUNCH(8, 4, true) : SKA_GRID_LAUNCH(8, 2, true);
     else if (support < 8)
       rc = four ? SKA_GRID_LAUNCH(8, 4, false) : SKA_GRID_LAUNCH(8, 2, false);
@@ -377,6 +577,7 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
     else
       rc = four ? SKA_GRID_LAUNCH(16, 4, false) : SKA_GRID_LAUNCH(16, 2, false);
 #undef SKA_GRID_LAUNCH
+#undef SKA_GRID_WIDE
     if (rc != 0) return rc;
   }
   if (grid == nullptr) return ska_last_error();

@@ -71,6 +71,23 @@
 // (one or two integer atomics a word) and the integer tile's shared memory
 // (8 or 16 bytes a value: one CTA an SM at the larger tiles). The bytes it
 // must move are the sorted stream once and the grids once.
+//
+// Odd supports and supports past 16 (up to the tile and 64) take
+// unit_tiles_wide_kernel. A group of S^2 threads stops fitting a CTA past
+// S 32, and the f64 pair tile (2 x 2 x buf^2 x 8 B: 248 KB at buf 88, tile
+// 56 + S 32) stops fitting a block's shared memory, so the wide variant
+// keeps no tile: its register sums go straight into the global
+// fixed-point words (f32: one int64 word; f64: the 128-bit pair), as K1's
+// wide variant does, with the same units, conversion and bits on every
+// launch. The residue period is S (the tiled path's ES kernel has half
+// width S // 2, so an odd S's non-zero taps, at most S - 1 of them, lie in
+// the S cells from floor(pix) - (S // 2 - 1)). A CTA of 1024 threads runs
+// 1024 / S^2 groups of S^2 threads where they fit, one class a thread, and
+// past S 32 one group whose threads own ceil(S^2 / 1024) classes each (C,
+// the template parameter). Stage 1 is the narrow kernel's, at S taps per
+// axis; its sizes are the launch's, so its shared memory is sized at
+// launch. What bounds it: stage 1's taps and the global atomics of the
+// flushes.
 #include "common.cuh"
 
 namespace {
@@ -371,6 +388,187 @@ __global__ void __launch_bounds__(Groups<S>::kThreads)
   }
 }
 
+constexpr int kWideThreads = 1024;
+
+// the launch's sizes of the wide variant: groups of S^2 threads, entries
+// of a group in a batch, and the shared-memory offsets of each array
+struct WideLayout {
+  int groups, ps, slots;
+  size_t taps, rel, total;
+};
+
+template <typename T>
+__host__ __device__ inline WideLayout wide_layout(int S) {
+  WideLayout l;
+  l.groups = S * S <= kWideThreads ? kWideThreads / (S * S) : 1;
+  l.ps = Batch<T>::kSize / l.groups > 0 ? Batch<T>::kSize / l.groups : 1;
+  l.slots = l.groups * l.ps;
+  const size_t coords = 2 * (size_t)l.slots * 6 * sizeof(T);  // [2] batches
+  l.taps = coords;
+  // rel is read as int4: 16-byte aligned
+  l.rel = (l.taps + (size_t)l.slots * 2 * S * sizeof(T) + 15) / 16 * 16;
+  l.total = l.rel + (size_t)l.slots * 4 * sizeof(int);
+  return l;
+}
+
+// C: classes a thread owns (the group's S^2 classes over its threads)
+template <typename T, int C>
+__global__ void __launch_bounds__(kWideThreads)
+    unit_tiles_wide_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                           const T* __restrict__ vals,
+                           const T* __restrict__ ulo,
+                           const T* __restrict__ vlo,
+                           const int* __restrict__ unit_seg,
+                           const int* __restrict__ unit_start,
+                           const int* __restrict__ unit_count,
+                           const double* __restrict__ vsum,
+                           u64* __restrict__ grid64, int npix, int tile,
+                           int nta, int S, T beta) {
+  constexpr int kW = Fixed<T>::kWords;
+  const WideLayout lay = wide_layout<T>(S);
+  const int slots = lay.slots, ps = lay.ps, ngroups = lay.groups;
+  const int kHalf = S / 2;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // coords[b]: u, v, ulo, vlo [slots] each, then val [slots][2]
+  T* coords = reinterpret_cast<T*>(smem_raw);
+  T* taps = reinterpret_cast<T*>(smem_raw + lay.taps);  // [slots][2][S]
+  int* rel = reinterpret_cast<int*>(smem_raw + lay.rel);  // [slots][4]
+
+  const double total = vsum[0];
+  if (!isfinite(total)) return;  // the conversion writes NaN
+  const double scale = ldexp(1.0, fixed_exponent<T>(total));
+
+  const int seg = unit_seg[blockIdx.x];
+  const int start = unit_start[blockIdx.x];
+  const int end = start + unit_count[blockIdx.x];
+  const int ntiles = nta * nta;
+  const int plane = seg / ntiles;
+  const int t = seg - plane * ntiles;
+  const int tv0 = (t / nta) * tile;
+  const int tu0 = (t % nta) * tile;
+  const int q = (unit_count[blockIdx.x] + ngroups - 1) / ngroups;
+  const int nbatch = (q + ps - 1) / ps;
+  auto pos_of = [&](int k, int sl) {
+    const int g = sl / ps;
+    const int p = start + g * q + k * ps + (sl - g * ps);
+    return p < min(start + (g + 1) * q, end) ? p : -1;
+  };
+  auto field = [&](int b, int f) { return coords + (size_t)(6 * b + f) * slots; };
+  const int nitems = (ulo != nullptr ? 5 : 3) * slots;
+  auto issue = [&](int k) {
+    const int b = k & 1;
+    for (int i = threadIdx.x; i < nitems; i += kWideThreads) {
+      const int item = i / slots;
+      const int sl = i - item * slots;
+      const int p = pos_of(k, sl);
+      if (p < 0) continue;
+      if (item == 0)
+        ska_cp_async<2 * sizeof(T)>(field(b, 4) + 2 * sl, vals + 2 * (size_t)p);
+      else if (item == 1)
+        ska_cp_async<sizeof(T)>(field(b, 0) + sl, u + p);
+      else if (item == 2)
+        ska_cp_async<sizeof(T)>(field(b, 1) + sl, v + p);
+      else if (item == 3)
+        ska_cp_async<sizeof(T)>(field(b, 2) + sl, ulo + p);
+      else
+        ska_cp_async<sizeof(T)>(field(b, 3) + sl, vlo + p);
+    }
+    ska_cp_async_commit();
+  };
+
+  // stage 2 role: the classes (a, b) = (cls % S, cls / S) of group g
+  const int kk = S * S;
+  const int g = kk <= kWideThreads ? threadIdx.x / kk : 0;
+  const bool active = g < ngroups;
+  int ca[C], cb[C], cur[C], run[C];
+  T re[C], im[C];
+#pragma unroll
+  for (int c = 0; c < C; ++c) {
+    const int cls = kk <= kWideThreads ? threadIdx.x % kk : threadIdx.x + kWideThreads * c;
+    ca[c] = cls < kk ? cls % S : -1;  // -1: no class
+    cb[c] = cls / S;
+    cur[c] = -1;
+    run[c] = 0;
+    re[c] = im[c] = T(0);
+  }
+  const size_t npp = (size_t)npix * npix;
+  u64* g0 = grid64 + 2 * kW * (size_t)plane * npp;
+  // integer adds commute: the grids are the same whatever their order
+  auto flush = [&](int c) {
+    if (cur[c] >= 0) {
+      u64* w = g0 + 2 * kW * (size_t)cur[c];
+      fixed_add(w, re[c], scale);
+      fixed_add(w + kW, im[c], scale);
+    }
+  };
+  const int gbeg = start + g * q;
+  const int gend = min(gbeg + q, end);
+
+  issue(0);
+  for (int k = 0; k < nbatch; ++k) {
+    ska_cp_async_wait_all();
+    __syncthreads();
+    const int b = k & 1;
+    const T* cu = field(b, 0);
+    const T* cv = field(b, 1);
+    const T* cul = field(b, 2);
+    const T* cvl = field(b, 3);
+    const T* cval = field(b, 4);
+    // stage 1: the S taps of one axis of one entry per thread
+    for (int i = threadIdx.x; i < 2 * slots; i += kWideThreads) {
+      const int sl = i >> 1;
+      const int axis = i & 1;  // 0: v (rows), 1: u (columns)
+      if (pos_of(k, sl) < 0) continue;
+      const T pix = axis == 0 ? cv[sl] : cu[sl];
+      const T lo = ulo == nullptr ? T(0) : (axis == 0 ? cvl[sl] : cul[sl]);
+      const int t0 = axis == 0 ? tv0 : tu0;
+      const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
+      const int r0 = (int)floor_(pix) - (kHalf - 1) - shift - t0;
+      const T d0 = sub_rn(T(t0), pix);
+      for (int r = 0; r < S; ++r)
+        taps[(2 * sl + axis) * S + r] =
+            es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(kHalf), beta);
+      rel[4 * sl + 2 * axis] = r0;
+      rel[4 * sl + 2 * axis + 1] = (r0 % S + S) % S;
+    }
+    if (k + 1 < nbatch) issue(k + 1);
+    __syncthreads();
+    if (!active) continue;
+    const int nj = min(ps, gend - (gbeg + k * ps));
+    for (int j = 0; j < nj; ++j) {
+      const int sl = g * ps + j;
+      const int4 rr = reinterpret_cast<const int4*>(rel)[sl];
+      const T vr = cval[2 * sl], vi = cval[2 * sl + 1];
+#pragma unroll
+      for (int c = 0; c < C; ++c) {
+        if (ca[c] < 0) continue;
+        int dy = cb[c] - rr.y;
+        dy += dy < 0 ? S : 0;
+        int dx = ca[c] - rr.w;
+        dx += dx < 0 ? S : 0;
+        const int y = rr.x + dy;
+        const int x = rr.z + dx;
+        if (y < 0 || x < 0) continue;  // before the tile: not in the dense form
+        const T kv = taps[(2 * sl) * S + dy];
+        const T ku = taps[(2 * sl + 1) * S + dx];
+        if (kv == T(0) || ku == T(0)) continue;
+        const int cell = (tv0 + y) * npix + tu0 + x;
+        if (cell != cur[c] || run[c] == kRunCap) {
+          flush(c);
+          cur[c] = cell;
+          run[c] = 0;
+          re[c] = im[c] = T(0);
+        }
+        ++run[c];
+        re[c] += mul_rn(mul_rn(kv, vr), ku);
+        im[c] += mul_rn(mul_rn(kv, vi), ku);
+      }
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < C; ++c) flush(c);
+}
+
 // The complex grids from the integer ones: value times 2^-kg, or NaN when
 // the bound is not finite. n values (2 a cell).
 template <typename T>
@@ -430,6 +628,24 @@ int launch(const void* u, const void* v, const void* vals, const void* ulo,
   return ska_last_error();
 }
 
+template <typename T, int C>
+int launch_wide(const void* u, const void* v, const void* vals,
+                const void* ulo, const void* vlo, const void* unit_seg,
+                const void* unit_start, const void* unit_count,
+                const void* vsum, void* grid64, int nunits, int npix,
+                int tile, int nta, int support, double beta, cudaStream_t s) {
+  const size_t smem = wide_layout<T>(support).total;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  cudaFuncSetAttribute(unit_tiles_wide_kernel<T, C>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  unit_tiles_wide_kernel<T, C><<<nunits, kWideThreads, smem, s>>>(
+      (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo,
+      (const T*)vlo, (const int*)unit_seg, (const int*)unit_start,
+      (const int*)unit_count, (const double*)vsum, (u64*)grid64, npix, tile,
+      nta, support, (T)beta);
+  return ska_last_error();
+}
+
 template <typename T>
 int launch_support(const void* u, const void* v, const void* vals,
                    const void* ulo, const void* vlo, const void* unit_seg,
@@ -455,8 +671,20 @@ int launch_support(const void* u, const void* v, const void* vals,
     SKA_UNIT_TILES_CASE(12)
     SKA_UNIT_TILES_CASE(14)
     SKA_UNIT_TILES_CASE(16)
-    default:
-      return (int)cudaErrorInvalidValue;
+    default: {
+      // odd supports and supports past 16: the wide variant
+      if (support < 2 || support > 64 || support > tile)
+        return (int)cudaErrorInvalidValue;
+      const int classes = (support * support + kWideThreads - 1) / kWideThreads;
+#define SKA_UNIT_TILES_WIDE(C)                                               \
+  launch_wide<T, C>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count, \
+                    vsum, grid64, nunits, npix, tile, nta, support, beta, s)
+      rc = classes == 1   ? SKA_UNIT_TILES_WIDE(1)
+           : classes == 2 ? SKA_UNIT_TILES_WIDE(2)
+           : classes == 3 ? SKA_UNIT_TILES_WIDE(3)
+                          : SKA_UNIT_TILES_WIDE(4);
+#undef SKA_UNIT_TILES_WIDE
+    }
   }
 #undef SKA_UNIT_TILES_CASE
   if (rc != 0) return rc;

@@ -5,16 +5,21 @@ same fields), reads every field through ``np.asarray`` and builds the
 port's object on a chosen device (None: the CUDA card), keeping the numpy
 dtypes (a JAX object made under x64 arrives in f64; the time axes are f64
 always, as in the port's models) and the shapes (2x2 gaintables of
-polarised data included); polarisation frames arrive as their names. Nothing here imports JAX: the arrays arrive as numpy.
+polarised data included); polarisation frames arrive as their names.
+Nothing here imports JAX: the arrays arrive as numpy. The other way,
+:func:`to_numpy` gives a port object's fields as numpy arrays, from
+which the JAX package's constructors build its object.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from .config import resolve_device
-from .models.components import SkyComponents
+from .models.components import SkyComponents, SkyModel
 from .models.gaintable import GainTable
 from .models.image import Image
 from .models.polarisation import frame_name
@@ -25,6 +30,8 @@ __all__ = [
     "to_image",
     "to_gaintable",
     "to_skycomponents",
+    "to_skymodel",
+    "to_numpy",
     "permutation_from_backsort_keys",
 ]
 
@@ -93,6 +100,38 @@ def to_skycomponents(sc, device=None) -> SkyComponents:
         shape=str(sc.shape),
         polarisation_frame=frame_name(sc.polarisation_frame),
     )
+
+
+def to_skymodel(sm, device=None) -> SkyModel:
+    """A sky model's image, components (their spectra included),
+    gaintable and mask, each carried as above (None stays None)."""
+    device = resolve_device(device)
+
+    def opt(fn, x):
+        return None if x is None else fn(x, device)
+
+    return SkyModel(
+        image=opt(to_image, sm.image),
+        components=opt(to_skycomponents, sm.components),
+        gaintable=opt(to_gaintable, sm.gaintable),
+        mask=opt(_t, sm.mask),
+        fixed=bool(sm.fixed),
+    )
+
+
+def to_numpy(obj) -> dict:
+    """The fields of a port dataclass by name, tensors as numpy arrays and
+    nested dataclasses (a sky model's image, components and gaintable) as
+    dictionaries of the same kind."""
+    out = {}
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if dataclasses.is_dataclass(v):
+            v = to_numpy(v)
+        elif torch.is_tensor(v):
+            v = v.detach().cpu().numpy()
+        out[f.name] = v
+    return out
 
 
 def permutation_from_backsort_keys(keys) -> np.ndarray:

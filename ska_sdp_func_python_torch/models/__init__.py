@@ -1,10 +1,10 @@
 """Data models of the PyTorch port: dataclasses of tensors.
 
 Every ported public name of the JAX package's ``models`` namespace is
-exported here under its JAX name (see ``config.UNPORTED`` for the rest).
+exported here under its JAX name.
 """
 
-from .components import SkyComponents
+from .components import SkyComponents, SkyModel
 from .configuration import (
     Configuration,
     create_named_configuration,
@@ -31,6 +31,7 @@ from .visibility import C_M_S, Visibility, create_visibility_from_arrays
 
 __all__ = [
     "SkyComponents",
+    "SkyModel",
     "Configuration",
     "create_named_configuration",
     "create_visibility",

@@ -1,20 +1,23 @@
-"""Sky components as one structure of arrays.
+"""Sky components as one structure of arrays, and the sky model.
 
 Counterpart of ``ska_sdp_func_python_tpu/models/components.py``:
 ``direction [ncomp, 2]`` (ra, dec) rad stays host numpy f64 (astrometry
-contract); ``flux [ncomp, nchan, npol]`` is a tensor.
+contract); ``flux [ncomp, nchan, npol]`` is a tensor. A :class:`SkyModel`
+is an optional image, optional components, an optional gaintable and an
+optional multiplicative mask.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ..config import resolve_device
 
-__all__ = ["SkyComponents"]
+__all__ = ["SkyComponents", "SkyModel"]
 
 
 @dataclasses.dataclass
@@ -40,6 +43,17 @@ class SkyComponents:
 
     def replace(self, **kwargs) -> "SkyComponents":
         return dataclasses.replace(self, **kwargs)
+
+    def select(self, idx) -> "SkyComponents":
+        """The components of index array ``idx``, in its order."""
+        idx = np.asarray(idx, np.int64).reshape(-1)
+        t = torch.as_tensor(idx, device=self.flux.device)
+        return dataclasses.replace(
+            self,
+            direction=self.direction[idx],
+            flux=self.flux[t],
+            shape_params=self.shape_params[t],
+        )
 
     @classmethod
     def from_lists(
@@ -76,3 +90,19 @@ class SkyComponents:
             shape=shape,
             polarisation_frame=str(polarisation_frame),
         )
+
+
+@dataclasses.dataclass
+class SkyModel:
+    """Sky model: an optional image (``models.Image``), optional
+    components, an optional gaintable (``models.GainTable``) and an
+    optional ``[ny, nx]`` multiplicative mask (a tensor or array)."""
+
+    image: Optional[object]
+    components: Optional[SkyComponents]
+    gaintable: Optional[object]
+    mask: Optional[object]
+    fixed: bool = False
+
+    def replace(self, **kwargs) -> "SkyModel":
+        return dataclasses.replace(self, **kwargs)

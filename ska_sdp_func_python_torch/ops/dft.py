@@ -14,13 +14,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..config import frac_dot_turns, not_ported, real_of
+from ..config import frac_dot_turns, real_of
 from ..models.components import SkyComponents
 from ..models.polarisation import convert_pol_frame
 from ..models.visibility import Visibility
 from ..utils.coordinates import radec_to_lmn
 
 __all__ = [
+    "dft_cpu_looped",
+    "dft_gpu_raw_kernel",
     "extract_direction_and_flux",
     "dft_kernel",
     "dft_skycomponent_visibility",
@@ -28,21 +30,55 @@ __all__ = [
 ]
 
 
+def interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:
+    """Linear interpolation of ``fp [..., k]`` given at the increasing
+    ``xp [k]`` onto ``x [m]``, along the last axis, on the tensors' device:
+    ``torch.searchsorted`` and a lerp in ``jnp.interp``'s operations, held
+    at ``fp[..., 0]`` below ``xp[0]`` and ``fp[..., -1]`` above ``xp[-1]``.
+    Returns ``[..., m]``."""
+    k = xp.shape[0]
+    if k == 1:
+        return fp[..., :1].expand(*fp.shape[:-1], x.shape[0])
+    dtype = torch.promote_types(x.dtype, xp.dtype)
+    x, xp = x.to(dtype), xp.to(dtype)
+    i = torch.clamp(torch.searchsorted(xp, x, right=True), 1, k - 1)
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    eps = float(np.spacing(np.finfo(np.float64 if dtype == torch.float64 else np.float32).eps))
+    dx0 = dx.abs() <= eps
+    f0, f1 = fp[..., i - 1], fp[..., i]
+    t = (delta / torch.where(dx0, torch.ones_like(dx), dx)).to(fp.dtype)
+    f = torch.where(dx0, f0, f0 + t * (f1 - f0))
+    f = torch.where(x < xp[0], fp[..., :1], f)
+    return torch.where(x > xp[-1], fp[..., -1:], f)
+
+
+def flux_on_channels(flux: torch.Tensor, frequency, to_frequency, nchan: int) -> torch.Tensor:
+    """Component fluxes ``[ncomp, nchan_c, npol]`` given at ``frequency``
+    on ``nchan`` channels at ``to_frequency``: as they are where
+    ``nchan_c`` is ``nchan``, broadcast from one channel, else linearly
+    interpolated (:func:`interp`) per component and polarisation."""
+    if flux.shape[1] == nchan:
+        return flux
+    if flux.shape[1] == 1:
+        return flux.expand(flux.shape[0], nchan, flux.shape[2])
+    dev = flux.device
+    xp = torch.as_tensor(frequency, device=dev)
+    x = torch.as_tensor(to_frequency, device=dev)
+    return interp(x, xp, flux.transpose(1, 2)).transpose(1, 2)
+
+
 def extract_direction_and_flux(sc: SkyComponents, vis: Visibility):
     """Component (l, m, n-1) as a (hi, lo) pair ``[ncomp, 3, 2]`` and the
-    fluxes on the vis channels and in the vis frame ``[ncomp, nchan,
-    npol]``."""
+    fluxes on the vis channels (interpolated linearly in frequency where
+    the components have other channels) and in the vis frame ``[ncomp,
+    nchan, npol]``."""
     flux = sc.flux
     if sc.polarisation_frame != vis.polarisation_frame:
         flux = convert_pol_frame(
             flux, sc.polarisation_frame, vis.polarisation_frame, polaxis=-1
         )
-    if flux.shape[1] == vis.nchan:
-        vflux = flux
-    elif flux.shape[1] == 1:
-        vflux = flux.expand(flux.shape[0], vis.nchan, flux.shape[2])
-    else:
-        raise not_ported("component flux frequency interpolation", "S11b")
+    vflux = flux_on_channels(flux, sc.frequency, vis.frequency, vis.nchan)
     l, m, n1 = radec_to_lmn(
         sc.direction[:, 0], sc.direction[:, 1], *vis.phasecentre
     )
@@ -131,3 +167,15 @@ def idft_visibility_skycomponent(vis: Visibility, sc: SkyComponents):
             flux, vis.polarisation_frame, sc.polarisation_frame, polaxis=-1
         ).real
     return sc.replace(flux=flux.to(sc.flux.dtype)), weight
+
+
+def dft_cpu_looped(direction_cosines, vfluxes, uvw_lambda, *args):
+    """The reference's looped CPU entry: :func:`dft_kernel`, which serves
+    every device."""
+    return dft_kernel(direction_cosines, vfluxes, uvw_lambda)
+
+
+def dft_gpu_raw_kernel(direction_cosines, vfluxes, uvw_lambda, *args):
+    """The reference's raw-GPU-kernel entry: :func:`dft_kernel`, which
+    serves every device."""
+    return dft_kernel(direction_cosines, vfluxes, uvw_lambda)

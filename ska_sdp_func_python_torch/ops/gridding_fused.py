@@ -9,8 +9,18 @@ clipped window corner (iu0, iv0), the lower (or, on a nearest-plane plan,
 the only) w-plane, the plane fraction and the separable ES taps of each
 axis over the plan's window (``span`` cells: the support, one more for an
 odd support, see ``gridding_plan``), zero-padded to the kernels' width
-(:func:`tap_width`: 8 up to a span of 8, 16 up to 16) as ``[n, width]``
-arrays.
+(:func:`tap_width`: 8 up to a span of 8, 16 up to 16, 32 up to 32 and 64
+up to 64) as ``[n, width]`` arrays. The width is a power of two, not the
+span, because it is K1's residue-class period and the lanes of K3 that
+serve one entry. A plan takes any support up to its tile (the JAX plan
+path's limit) and windows up to :data:`MAX_SPAN` cells; the taps then take
+2 x 4 x width bytes an entry: at the flagship (9,942,016 entries) 5.1 GB
+at width 64 and half that at 32.
+
+Windows of up to 16 cells run K1's shared-tile kernel and K3's groups of
+8 or 16 lanes; wider ones K1's wide variant (register sums flushed
+straight into the int64 grids) and K3's whole-warp variant (each lane one
+or two columns).
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the hand-written kernel (``csrc/grid.cu``,
@@ -27,7 +37,8 @@ import torch
 from .. import kernels
 
 __all__ = [
-    "MAX_SUPPORT",
+    "MAX_SPAN",
+    "window_span",
     "tap_width",
     "grid",
     "grid_plain",
@@ -41,22 +52,32 @@ __all__ = [
 ]
 
 
-# the largest support the kernels take: a window of S > 16 cells would
-# need a residue-class period of 32, and K1's int64 tile at tile 64 would
-# not fit in a block's shared memory
-MAX_SUPPORT = 16
+# the widest window the plan kernels take: K1's residue-class period and
+# K3's columns a lane stop at 64 (two 32-cell halves per axis); the JAX
+# plan path's own limit, a support up to the tile, stays inside it at
+# every tile the imaging API picks (at most 64)
+MAX_SPAN = 64
+
+
+def window_span(support: int) -> int:
+    """Cells of each window of a ``support``-wide kernel: the support, one
+    more for an odd one."""
+    return support + support % 2
 
 
 def tap_width(span: int) -> int:
     """Width of the stored tap rows of a plan whose windows are ``span``
     cells wide: the residue-class period of K1 and the lanes of K3 that
-    serve one entry (8 or 16)."""
-    if not 1 <= span <= MAX_SUPPORT:
+    serve one entry (8, 16, 32 or 64)."""
+    if not 1 <= span <= MAX_SPAN:
         raise ValueError(
-            f"a window of {span} cells: the plan kernels take supports 1 to "
-            f"{MAX_SUPPORT}"
+            f"a window of {span} cells: the plan kernels take windows of 1 "
+            f"to {MAX_SPAN} cells"
         )
-    return 8 if span <= 8 else 16
+    width = 8
+    while width < span:
+        width *= 2
+    return width
 
 
 def _es_taps(pix, i0, support: int, span: int, beta: float | None = None, lo=None):

@@ -13,7 +13,8 @@ consecutive entries share cells). Values move between natural and plan
 order through ``permute.permute_apply`` (kernel K4) with the stored
 permutation, in place of the JAX package's rank-keyed sorts.
 
-A plan takes any support from 1 to ``MAX_SUPPORT`` (16), and linear (a
+A plan takes any support from 1 to its tile (the JAX plan path's limit;
+windows up to ``gridding_fused.MAX_SPAN`` cells), and linear (a
 plane pair an entry) or nearest-plane (one plane an entry, ``plane_idx``
 without ``plane_frac``) w-stacking, as the JAX plan path does. An odd
 support follows the JAX kernels, which evaluate the ES kernel densely
@@ -36,8 +37,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..config import not_ported
-from .gridding_fused import MAX_SUPPORT, _es_taps, degrid, grid, tap_width
+from .gridding_fused import _es_taps, degrid, grid, tap_width, window_span
 from .permute import permute_apply
 
 __all__ = [
@@ -89,7 +89,7 @@ class GridPlan:
     @property
     def span(self) -> int:
         """Cells of each window: the support, one more for an odd one."""
-        return self.support + self.support % 2
+        return window_span(self.support)
 
 
 # the per-entry arrays of a plan that K3 and K4 read, stacked over channels
@@ -148,7 +148,7 @@ class GridPlanStack:
 
     @property
     def span(self) -> int:
-        return self.support + self.support % 2
+        return window_span(self.support)
 
     @property
     def nchan(self) -> int:
@@ -230,19 +230,22 @@ def make_grid_plan(
     JAX package's ``make_grid_plan``): ``plane_idx`` and ``plane_frac``
     give linear w-stacking over ``nplanes`` planes, ``plane_idx`` alone a
     nearest-plane plan (each entry on its one plane, ``nplanes`` segments
-    of tiles). ``support`` is 1 to 16 (a larger one raises
-    ``NotImplementedError``: ROADMAP slice S11c). ``chunk`` is the most
+    of tiles). ``support`` is 1 to ``tile`` (a larger one raises
+    ``ValueError``: its windows would reach past the next tile's, where
+    the JAX package fails on a negative index). ``chunk`` is the most
     entries one grid CTA takes (None: :func:`default_chunk`); it changes only how the
     work is partitioned.
     ``u_lo``/``v_lo``: residuals of split (hi, lo) coordinates.
     ``taps_scale``: optional [n] per-entry factor folded into the stored
     u taps (the ES pair weight of an eskernel plan's entry copy), at no
     cost to the kernels."""
-    if support > MAX_SUPPORT:
-        # the JAX plan path takes them on tiles wider than the support
-        raise not_ported(f"support {support} plans", "S11c")
+    if support > tile:
+        raise ValueError(
+            f"support {support} is wider than the tile {tile}: a plan takes "
+            f"supports 1 to its tile"
+        )
     odd = support % 2
-    tap_width(support + odd)  # raises below support 1
+    tap_width(support + odd)  # raises below support 1 and past MAX_SPAN
     if odd and support % tile == 0:
         # the spare cell past a window at the tile's start would leave the grid
         raise ValueError(f"tile {tile} divides the odd support {support}")

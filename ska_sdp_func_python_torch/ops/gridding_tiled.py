@@ -13,7 +13,9 @@ gathered once through the permutation and read in place.
 Gridding runs kernel K9 (``csrc/unit_tiles.cu``) through
 :func:`unit_tiles`: the unit compute, the reduction of units onto tiles and
 the overlap-add into the plane grids in one launch, summed in fixed point
-(the same bits on every run). Its plain version
+(the same bits on every run), at every support from 2 to the tile (at
+most 64): even supports to 16 through a shared tile, odd and wider ones
+through K9's wide variant, which flushes straight into the grids. Its plain version
 :func:`unit_tiles_plain` is the XLA formulation written in PyTorch: the
 dense ES factors over each unit's tile, ``(kv * val) @ ku^T`` as a batched
 matmul, and an ``index_add_`` of the tiles into the grids. Degridding
@@ -258,8 +260,11 @@ def unit_tiles(
     if rdtype not in (torch.float32, torch.float64):
         raise TypeError(f"u_s: dtype {rdtype}, expected float32 or float64")
     cdtype = torch.complex128 if rdtype == torch.float64 else torch.complex64
-    if support % 2 or not 2 <= support <= 16:
-        raise ValueError(f"support {support}: the kernel takes even 2..16")
+    if not 2 <= support <= min(tile, 64):
+        raise ValueError(
+            f"support {support}: the kernel takes 2 to the tile ({tile}) and "
+            f"at most 64"
+        )
     if npixel % tile:
         raise ValueError(f"tile {tile} must divide npixel {npixel}")
     if (u_lo is None) != (v_lo is None):

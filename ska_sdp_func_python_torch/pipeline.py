@@ -924,7 +924,9 @@ def ical(
     "B"). ``fused`` (default: wherever it applies) chooses the fused
     cycle, ``use_plan=False`` the composed cycle on the imaging API's own
     routes. With ``checkpoint_path`` each cycle saves a
-    :class:`SelfCalState`; ``state`` resumes from one.
+    :class:`SelfCalState`; ``state`` resumes from one. ``support``, ``nw``
+    and ``padding`` set the plan (padding 1.25 by default) or, with
+    ``use_plan=False``, the composed routes (padding 2 by default).
 
     :return: (model Image, residual Image, restored Image, gaintables dict)
     """
@@ -1060,8 +1062,9 @@ def continuum_imaging(
     image channel or a cube: :func:`_fused_selfcal_cycle` with the
     calibration leg left out, or (``fused=False``) the composed cycle on
     the sorted workspace, or (``use_plan=False``) on the imaging API's own
-    routes. ``algorithm`` as for :func:`ical`; "mmclean" on a cube is
-    MSMFS continuum imaging.
+    routes. ``algorithm`` and the plan's ``support``, ``nw`` and
+    ``padding`` as for :func:`ical`; "mmclean" on a cube is MSMFS
+    continuum imaging.
 
     :return: (model Image, residual Image, restored Image)
     """
@@ -1170,7 +1173,13 @@ def _setup(name: str, vis, model, context: str, kwargs: dict):
             "contract"
         )
     _check_algorithm(model, kwargs)
-    ikw = {k: kwargs.pop(k) for k in ("support", "nw", "do_wstacking") if k in kwargs}
+    # ``padding``: the plan's (default 1.25, the one the JAX pipelines fix)
+    # and the composed routes' (default 2). A wide support needs more than
+    # 1.25, since the grid correction divides the image corners by the ES
+    # kernel's transform there (5.8e-8 at support 24 and 1.25 at 1024^2,
+    # 0.026 at 2)
+    keys = ("support", "nw", "do_wstacking", "padding")
+    ikw = {k: kwargs.pop(k) for k in keys if k in kwargs}
     plan = (
         None
         if use_plan is False

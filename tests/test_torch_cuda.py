@@ -20,11 +20,12 @@ launch to launch; held against the plain version accumulated in f64) and
 ``degrid`` (one entry's f32
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
-launch, at supports 4 to 16 and on linear, nearest-plane and
-single-plane plans; ``unit_tiles`` (fixed-point sums: int64 in f32, a
+launch, at supports 4 to 64 (the wide variants past 16) and on linear,
+nearest-plane and single-plane plans; ``unit_tiles`` (fixed-point sums: int64 in f32, a
 128-bit pair in f64, the same bits from launch to launch) agrees with its
 plain version accumulated in f64 to 1e-5 of the grid maximum in f32 and to
-1e-12 in f64. The calibration paths (the composed "TG" ical with a sky component,
+1e-12 in f64, at even supports to 16 and, through its wide variant, at
+odd ones and up to 64. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
 image) and the streamed cycle over a store launch their kernels on the
 card and agree with the CPU run to the slice bounds: gains 1e-4, peak
@@ -1223,6 +1224,111 @@ def test_unit_tiles_gives_the_same_bits_every_launch(dev, dtype):
     first = stream.grid(**kw)
     for _ in range(3):
         assert torch.equal(stream.grid(**kw), first)
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest", "single"])
+@pytest.mark.parametrize("support", [17, 24, 31, 32, 33, 48, 63, 64])
+def test_grid_and_degrid_at_wide_supports_match_plain(dev, support, mode):
+    """K1's and K3's wide variants (windows of 17 to 64 cells: residue
+    period 32 or 64 with the register sums flushed into the int64 grids;
+    a whole warp an entry, one or two columns a lane) against their plain
+    versions on tile 64, to 1e-5 of the maximum; K1 gives the same bits
+    on a second launch, and no window on the grid's last rows and
+    columns reaches past it."""
+    plan = _support_plan(dev, support, mode, n=6000)
+    g = torch.Generator(device=dev).manual_seed(support)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    before = kernels.KERNELS["grid"].launches
+    out = grid(plan, vals)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["grid"].launches == before + 1
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    assert torch.equal(grid(plan, vals), out)
+    grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    out = degrid(plan, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support", [24, 40])
+def test_degrid_stack_at_wide_supports_matches_plain(dev, support, mode):
+    """K3's wide variant over a stack of three channel plans, against the
+    per-channel plain version, to 1e-5."""
+    st = _stack([_support_plan(dev, support, mode, n=3000, npix=128)] * 3)
+    g = torch.Generator(device=dev).manual_seed(support + 1)
+    grids = torch.randn((3, st.nplanes, st.npixel, st.npixel), generator=g,
+                        device=dev, dtype=torch.complex64)
+    out = degrid_stack(st, grids)
+    ref = degrid_stack_plain(st, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("support", [24, 64])
+@pytest.mark.parametrize("case", ["one_cell", "lattice", "edges", "chunked"])
+def test_grid_stress_at_wide_supports_match_plain(dev, case, support):
+    """The stress cases of test_grid_stress_matches_plain, w-stacked, on
+    K1's wide variant at periods 32 (support 24) and 64."""
+    _grid_stress(dev, case, True, 64, support)
+
+
+def _wide_unit_streams(dev, case, support, dtype, with_lo, tile=64):
+    """A stress stream (test_unit_tiles_stress_matches_plain's) at
+    ``support`` on ``dtype``, and the same stream in f64."""
+    rng = np.random.default_rng(37)
+    npix = 4 * tile
+    u64, v64 = _stress_coords(case, npix, rng, tile)
+    n = u64.size
+    ints = np.arange(n) % 5 == 0
+    u64 = np.where(ints, np.round(u64), u64)
+    v64 = np.where(ints, np.round(v64), v64)
+    lo = np.where(ints, -3e-9 if dtype == torch.float64 else -3e-6, 0.0)
+    p0 = rng.integers(0, 3, n)
+    frac = rng.uniform(0, 1, n)
+    vals = rng.uniform(0.5, 1.5, n) * (1.0 + 0.5j) * np.exp(0.1j * rng.normal(size=n))
+    streams = []
+    for dt in (dtype, torch.float64):
+        def t(a):
+            return None if a is None else torch.as_tensor(np.asarray(a, np.float64)).to(dev, dt)
+        cd = torch.complex128 if dt == torch.float64 else torch.complex64
+        streams.append(entry_stream(
+            t(u64 if dtype == torch.float64 else u64.astype(np.float32)),
+            t(v64 if dtype == torch.float64 else v64.astype(np.float32)),
+            torch.as_tensor(vals).to(dev, cd), torch.as_tensor(p0).to(dev), t(frac),
+            t(lo if with_lo else None), t(lo if with_lo else None), npixel=npix,
+            support=support, nplanes=4, tile=tile, unit=256,
+        ))
+    return streams, dict(npixel=npix, tile=tile, support=support, beta=2.3 * support)
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("support", [3, 7, 17, 18, 25, 32, 45, 64])
+@pytest.mark.parametrize("case", ["one_cell", "alternating", "lattice", "edges"])
+def test_unit_tiles_at_odd_and_wide_supports_match_plain(dev, case, support, dtype, with_lo):
+    """K9's wide variant (odd supports and supports past 16, flushed
+    straight into the fixed-point grids; past S 32 each thread owns
+    several classes) against unit_tiles_plain accumulated in f64: f32 to
+    1e-5 of the grid maximum, f64 to 1e-12; two launches give the same
+    bits."""
+    (stream, ref_stream), kw = _wide_unit_streams(dev, case, support, dtype, with_lo)
+    before = kernels.KERNELS["unit_tiles"].launches
+    out = stream.grid(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["unit_tiles"].launches == before + 1
+    ref = ref_stream.grid(plain=True, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()
+    assert torch.equal(stream.grid(**kw), out)
+
+
+def test_unit_tiles_refuses_a_support_past_the_tile(dev):
+    (stream, _), kw = _wide_unit_streams(dev, "edges", 8, torch.float32, False, tile=16)
+    with pytest.raises(ValueError, match="support 17"):
+        stream.grid(**dict(kw, support=17))
 
 
 def _chip_smoke():

@@ -281,26 +281,17 @@ def _public(mod) -> list:
 @pytest.mark.parametrize("name", ["ops", "models", "io", "pipeline", "parallel", "utils"])
 def test_namespace_matches_jax(name):
     """Every public name of the JAX package's namespace is exported by the
-    port's under the same name, or listed in ``config.UNPORTED`` with the
-    slice that brings it (S11b, the last slice of names); no listed name
-    is exported (the list shrinks as slices land). ``import
-    ska_sdp_func_python_torch`` binds the namespaces, as the JAX package's
-    import does."""
+    port's under the same name, and ``config.UNPORTED`` is empty: the
+    port has every slice. ``import ska_sdp_func_python_torch`` binds the
+    namespaces, as the JAX package's import does."""
     jax_mod = {"ops": jax_ops, "models": jax_models, "io": jax_io, "pipeline": jax_pipeline,
                "parallel": jax_parallel, "utils": jax_utils}[name]
     mod = getattr(port, name)
     exported = set(_public(mod))
-    missing, wrong_slice = [], []
-    for n in _public(jax_mod):
-        if n in exported:
-            assert hasattr(mod, n), n
-        elif n not in config.UNPORTED:
-            missing.append(n)
-        elif config.UNPORTED[n] != "S11b":
-            wrong_slice.append(n)
-    assert not missing, f"{name}: neither exported nor listed: {missing}"
-    assert not wrong_slice, wrong_slice
-    assert not exported & set(config.UNPORTED), exported & set(config.UNPORTED)
+    missing = [n for n in _public(jax_mod) if n not in exported]
+    assert not missing, f"{name}: not exported: {missing}"
+    assert all(hasattr(mod, n) for n in _public(jax_mod))
+    assert config.UNPORTED == {}
     assert port.streaming.streamed_ical and port.io.VisStore
 
 

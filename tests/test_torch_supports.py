@@ -184,14 +184,14 @@ def test_plan_grid_matches_direct_f64_scatter(support, mode):
     assert np.max(np.abs(out - ref)) <= 1e-6 * np.max(np.abs(ref))
 
 
-def test_plan_refuses_supports_past_16():
+def test_plan_refuses_supports_past_the_tile():
     u = torch.linspace(10.0, 50.0, 20, dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="S11c"):
+    with pytest.raises(ValueError, match="wider than the tile 16"):
         make_grid_plan(u, u, npixel=NPIX, support=17, tile=TILE)
-    with pytest.raises(ValueError, match="supports 1 to 16"):
+    with pytest.raises(ValueError, match="windows of 1 to 64 cells"):
         make_grid_plan(u, u, npixel=NPIX, support=0, tile=TILE)
     with pytest.raises(ValueError, match="divides the odd support"):
-        make_grid_plan(u, u, npixel=NPIX, support=5, tile=1)
+        make_grid_plan(u, u, npixel=NPIX, support=5, tile=5)
 
 
 def _port_source_vis(rng, flux=1.5, npixel=64):
