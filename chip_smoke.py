@@ -534,6 +534,39 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps
 
 
+@contextlib.contextmanager
+def launch_events(names):
+    """Times each launch of the kernels ``names`` with CUDA events on the
+    current stream while the block runs; yields {name: [ms, ...]}, filled
+    in launch order when the block ends (after a synchronise)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    marks = {n: [] for n in names}
+    for n in names:
+        k = kernels.KERNELS[n]
+
+        def launch(*args, _launch=k.launch, _marks=marks[n]):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            _launch(*args)
+            end.record()
+            _marks.append((start, end))
+
+        k.launch = launch
+    times = {n: [] for n in names}
+    try:
+        yield times
+    finally:
+        for n in names:
+            del kernels.KERNELS[n].launch
+        torch.cuda.synchronize()
+        for n in names:
+            times[n].extend(s.elapsed_time(e) for s, e in marks[n])
+
+
 def bound(nbytes, nops, peak_ops=PEAK_F32_S):
     """(ms, what bounds it): the larger of the bytes over the card's memory
     rate and the operations over the card's peak rate for their type (f32
@@ -711,14 +744,15 @@ def grid_bound(gp):
     """K1's bound on plan ``gp``: per entry its value, corner and 2 x S
     taps in (S the plan's span), and its plane fraction on a linear plan
     (what gridding needs: not the kernel's walk order, chunk table or the
-    taps' zero padding) and the grids out; per cell of the S x S window
-    one tap product and, on each plane it adds to (two on a linear plan),
-    a complex scale and add."""
+    taps' zero padding) and the grids out; the separable work, as
+    degrid_bound counts it: on each plane it adds to (two on a linear
+    plan) the value scaled by each of S column taps, then per cell of the
+    S x S window a complex scale by its row tap and add."""
     planes = 2 if gp.wstacked else 1
     per_entry = 8 + 4 + 4 + 2 * 4 * gp.span + (4 if gp.wstacked else 0)
     grids_bytes = gp.nplanes * gp.npixel**2 * 8
     return bound(gp.n_in * per_entry + grids_bytes,
-                 gp.n_in * (gp.span**2 * (1 + 4 * planes) + 5))
+                 gp.n_in * (planes * (gp.span**2 * 4 + gp.span * 4) + 5))
 
 
 def degrid_bound(gp, nchan=1):
@@ -3439,7 +3473,24 @@ def plan_kernels(gp, vals, label):
     rows by kernel."""
     mode = "nearest" if gp.nearest else "linear" if gp.wstacked else "one plane"
     label = f"{label} (support {gp.support}, span {gp.span}, {mode}, taps {gp.ku.shape[1]} wide)"
+    if gp.span > 16:
+        say(f"launch geometry {label}: {wide_geometry(gp)}")
     return {"grid": grid_row(gp, vals, label), "degrid": degrid_row(gp, label)}
+
+
+def wide_geometry(gp):
+    """The launch geometry of K1's and K3's wide variants on plan ``gp``
+    (span past 16), as the library reports it."""
+    from ska_sdp_func_python_torch.kernels import query
+
+    nacc = 4 if gp.wstacked else 2
+    cs, threads, smem, walks, k, stage = (
+        query("ska_grid_wide_geometry", gp.span, gp.tile, nacc, w) for w in range(6))
+    k3 = [query("ska_degrid_wide_geometry", w) for w in range(3)]
+    return (f"K1 a cluster of {cs} CTA(s) a chunk, {threads} threads and {smem} shared "
+            f"bytes a CTA, {walks} walk(s) a CTA of {k} rows a thread, {stage} entries "
+            f"a walk a batch; K3 {k3[0]} threads and {k3[1]} shared bytes a CTA, "
+            f"{k3[2]} walk positions a CTA")
 
 
 def run_support_flagship(vis, model, phases):
@@ -4492,12 +4543,18 @@ def run_wide_supports(vis, model, phases):
         del gp, vals
         torch.cuda.empty_cache()
     say(f"16a kernels: {time.perf_counter() - t0:.1f} s")
-    (current, residual, restored, gts), counts, peaks = run_logged(
-        f"16a hogbom ical support {ICAL16}",
-        lambda: ical(vis, model, nmajor=4, calibration_context="T", context="ng",
-                     algorithm="hogbom", support=ICAL16, padding=ICAL16_PADDING, **CLEAN),
-        4, ("grid", "degrid", "permute", "hogbom"),
-    )
+    with launch_events(("grid", "degrid")) as ms:
+        (current, residual, restored, gts), counts, peaks = run_logged(
+            f"16a hogbom ical support {ICAL16}",
+            lambda: ical(vis, model, nmajor=4, calibration_context="T", context="ng",
+                         algorithm="hogbom", support=ICAL16, padding=ICAL16_PADDING, **CLEAN),
+            4, ("grid", "degrid", "permute", "hogbom"),
+        )
+    say(f"16a hogbom ical support {ICAL16}: K1 (grid) device ms a launch "
+        + ", ".join(f"{t:.3f}" for t in ms["grid"]) + "; K3 (degrid) "
+        + ", ".join(f"{t:.3f}" for t in ms["degrid"])
+        + f" (CUDA events; one K1 and one K3 a cycle after the first): K1 + K3 "
+        f"{ms['grid'][-1] + ms['degrid'][-1]:.3f} ms in the last cycle")
     gmax, grms = gain_phase_error(gts["T"].gain, phases)
     rpeak = float(restored.pixels.max())
     say(

@@ -46,12 +46,30 @@
 // is 32-bit (the wrapper refuses larger planes).
 //
 // Windows wider than 16 cells (supports 17 to 64) take
-// degrid_wide_kernel: the whole warp serves one entry, lane x reading
-// columns x and, past a span of 32, x + 32 of every window row (the tap
-// rows are 32 or 64 wide), eight rows of loads in flight before they are
-// used. kv[r] comes from lane r mod 32 by a shuffle, and five xor
-// shuffles reduce the columns. The warp serves its 32 walk positions one
-// after another; every output still has one writer.
+// degrid_wide_kernel. A CTA of 512 threads (one an SM: its shared memory
+// is nearly full) serves 2048 consecutive walk positions. It loads their
+// fields once, then serves them in pieces: the longest run of positions
+// on one plane whose windows' bounding box fits 154 KiB, found by one
+// prefix scan of the corners, is staged into shared memory with cp.async,
+// both planes of a pair. A warp takes 8 positions at a time (4 past a span
+// of 32), their kv and ku rows fetched into registers a batch ahead.
+// Entries on one corner row whose corners lie close enough form a run
+// that shares one pass over the window rows: lane x reads column x of each
+// row once for all of them, and each entry weights it by its kv tap (a
+// broadcast float4 of four rows), so the box is read once a run, not once
+// an entry. Past 32 columns a lane reads a second column (spans past 40),
+// or a tail pass spreads the few columns past 32 over the lanes, a
+// (column, row) a lane. One transposed reduction sums a run's columns,
+// each step halving the values a lane holds. Every output has one writer.
+//
+// What bounds it (NVIDIA H100 80GB HBM3, wide_designs.py, PERF.md): the
+// design it replaced (a warp an entry, eight rows of loads at a time from
+// device memory, 32 walk positions one after another) spent a third or
+// more of its time waiting on those loads (reading the rows from shared
+// memory instead took 57-65% of its time on the flagship). Here filling
+// the box costs 2% or less; the pass over the rows is left: four FMAs a cell and
+// plane pair, a broadcast load of kv a row, the lanes past the span idle,
+// with 16 warps an SM to hide their latencies.
 #include "common.cuh"
 
 namespace {
@@ -144,10 +162,241 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// kCols: the columns of a window each lane reads (the tap rows are 32
-// kCols wide)
-template <int kCols, bool kWStacked>
-__global__ void __launch_bounds__(kThreads)
+// ---------------------------------------------------------------------------
+// The wide variant: windows of 17 to 64 cells.
+
+constexpr int kWideThreads = 512;  // 16 warps; one CTA an SM
+constexpr int kWideWarps = kWideThreads / 32;
+constexpr int kWideBlock = 2048;   // walk positions of a CTA
+// float2 cells of the shared box: what a block's shared memory holds
+// beside the block's fields, the warps' tap batches and the scan (154 KiB)
+constexpr int kBoxCells =
+    (232448 - 20 * kWideBlock - (2 * 256 + 6) * 4 * kWideWarps - 28) / 16 * 2;
+
+struct WideSmem {
+  float2 box[kBoxCells];  // [planes][rows][cols]: the piece's grid cells
+  int e[kWideBlock];      // the block's entries: index in the channel's plan,
+  int u[kWideBlock];      // window corner,
+  int v[kWideBlock];
+  int p[kWideBlock];      // lower plane
+  float f[kWideBlock];    // and plane fraction
+  float kvs[kWideWarps][256];  // a warp's batch of entries: their kv rows
+  float kus[kWideWarps][256];  // and ku rows
+  int scan[kWideWarps][6];
+  int piece[6];  // size, umin, vmin, rows, cols, plane
+};
+// kBoxCells counts the other members by hand: a change to them must not
+// take the struct past a block's shared memory
+static_assert(sizeof(WideSmem) <= 232448, "WideSmem exceeds a block's shared memory");
+
+// The piece of the block from position pos: the longest run (at most one
+// entry a thread) of entries on one plane whose windows' bounding box fits
+// the shared box (one window always does).
+__device__ __forceinline__ void wide_piece(WideSmem& sm, int pos, int cnt,
+                                           int span, int np) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = pos + tid;
+  const bool has = j < cnt;
+  int b[6];  // umin, -umax, vmin, -vmax, pmin, -pmax
+  b[0] = has ? sm.u[j] : INT_MAX;
+  b[1] = has ? -sm.u[j] : INT_MAX;
+  b[2] = has ? sm.v[j] : INT_MAX;
+  b[3] = has ? -sm.v[j] : INT_MAX;
+  b[4] = has ? sm.p[j] : INT_MAX;
+  b[5] = has ? -sm.p[j] : INT_MAX;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int x = __shfl_up_sync(0xffffffffu, b[k], o);
+      if (lane >= o) b[k] = min(b[k], x);
+    }
+  if (lane == 31)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sm.scan[warp][k] = b[k];
+  __syncthreads();
+  for (int w = 0; w < warp; ++w)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = min(b[k], sm.scan[w][k]);
+  const int rows = span - b[3] - b[2];
+  const int cols = span - b[1] - b[0];
+  const long long cells = (long long)np * rows * cols;
+  // the box grows with the prefix, so the prefixes that fit are the first
+  const bool fits = has && b[4] == -b[5] && cells <= kBoxCells;
+  const int size = __syncthreads_count(fits);
+  if (tid == size - 1) {
+    sm.piece[0] = size;
+    sm.piece[1] = b[0];
+    sm.piece[2] = b[2];
+    sm.piece[3] = rows;
+    sm.piece[4] = cols;
+    sm.piece[5] = b[4];
+  }
+  __syncthreads();
+}
+
+// One warp serves the run of m entries at positions [j, j + m) (rows
+// [t0, t0 + m) of its tap batch): one plane, one corner row v0, corners
+// within [ulo, ulo + spread], spread <= 32 kCols - span. Lane x holds
+// column ulo + x of the window rows, read from g0 (row 0 at row v0,
+// column ulo; row stride ld, upper plane at + pstride, cmax readable
+// columns) once for all m entries: each entry weights it by its kv taps
+// (broadcast from the warp's batch) and, lane by lane, by its ku tap where
+// the column lies in its window. Past 32 columns a lane holds a second
+// column, ulo + x + 32, or (kTail, spans to 40) a tail pass takes the
+// columns ulo + 32 + c, c < spread + span - 32 <= 16: lane l serves column
+// c = l mod that width of every (32 / width)-th row, so that the few
+// columns past 32 keep the warp's lanes busy. One transposed reduction
+// over the warp sums every entry's columns.
+template <int kCols, bool kTail, bool kWStacked>
+__device__ __forceinline__ void wide_run(const WideSmem& sm, int j, int m, int t0, int ulo,
+                                         int spread, const float2* g0, int ld, int pstride,
+                                         int cmax, long long base, float2* __restrict__ out,
+                                         int span) {
+  constexpr int W = 32 * kCols;    // tap row width
+  constexpr int kRun = 8 / kCols;  // the most entries of a run
+  constexpr int kC = kCols == 2 && !kTail ? 2 : 1;  // columns a lane in the main pass
+  constexpr int kRows = 8 / kC;    // rows of loads in flight
+  constexpr int V = 2 * kRun;      // values of the transposed reduction
+  constexpr int kShift = V == 16 ? 1 : V == 8 ? 2 : 3;  // 5 - log2(V)
+  const int lane = threadIdx.x & 31;
+  const float* kvs = sm.kvs[threadIdx.x >> 5];
+  const float* kus = sm.kus[threadIdx.x >> 5];
+  bool colok[kC];
+#pragma unroll
+  for (int cc = 0; cc < kC; ++cc) colok[cc] = lane + 32 * cc < cmax;
+  float acc[kRun][kC][4];
+#pragma unroll
+  for (int t = 0; t < kRun; ++t)
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc)
+      acc[t][cc][0] = acc[t][cc][1] = acc[t][cc][2] = acc[t][cc][3] = 0.f;
+  const float2* gl = g0 + lane;
+#pragma unroll 1
+  for (int rb = 0; rb < span; rb += kRows) {
+    float2 lo[kRows][kC], hi[kRows][kC];
+#pragma unroll
+    for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+      for (int cc = 0; cc < kC; ++cc) {
+        const bool in = colok[cc] && rb + rr < span;
+        const float2* q = gl + (rb + rr) * ld + 32 * cc;
+        lo[rr][cc] = in ? q[0] : make_float2(0.f, 0.f);
+        if (kWStacked) hi[rr][cc] = in ? q[pstride] : make_float2(0.f, 0.f);
+      }
+#pragma unroll
+    for (int t = 0; t < kRun; ++t) {
+      if (t >= m) break;  // uniform in the warp
+      float k[kRows];     // the entry's kv taps of these rows (zero past the span)
+#pragma unroll
+      for (int rr = 0; rr < kRows; rr += 4) {
+        const float4 q = *reinterpret_cast<const float4*>(&kvs[(t0 + t) * W + rb + rr]);
+        k[rr] = q.x;
+        k[rr + 1] = q.y;
+        k[rr + 2] = q.z;
+        k[rr + 3] = q.w;
+      }
+#pragma unroll
+      for (int rr = 0; rr < kRows; ++rr)
+#pragma unroll
+        for (int cc = 0; cc < kC; ++cc) {
+          acc[t][cc][0] = fmaf(lo[rr][cc].x, k[rr], acc[t][cc][0]);
+          acc[t][cc][1] = fmaf(lo[rr][cc].y, k[rr], acc[t][cc][1]);
+          if (kWStacked) {
+            acc[t][cc][2] = fmaf(hi[rr][cc].x, k[rr], acc[t][cc][2]);
+            acc[t][cc][3] = fmaf(hi[rr][cc].y, k[rr], acc[t][cc][3]);
+          }
+        }
+    }
+  }
+  // each lane's share of every entry: its column weighted by ku and the
+  // planes; value 2t is entry t's real part, 2t + 1 its imaginary part
+  float val[V];
+  auto add = [&](int t, int x, const float (&a)[4]) {
+    // x: the column's index in entry t's window
+    const float fs = kWStacked ? sm.f[j + t] : 0.f;
+    const float kx = kus[(t0 + t) * W + x];
+    float ar = a[0] * kx, ai = a[1] * kx;
+    if (kWStacked) {
+      const float w0 = 1.f - fs;
+      ar = ar * w0 + (a[2] * kx) * fs;
+      ai = ai * w0 + (a[3] * kx) * fs;
+    }
+    val[2 * t] += ar;
+    val[2 * t + 1] += ai;
+  };
+#pragma unroll
+  for (int t = 0; t < kRun; ++t) {
+    val[2 * t] = val[2 * t + 1] = 0.f;
+    if (t >= m) continue;
+#pragma unroll
+    for (int cc = 0; cc < kC; ++cc) {
+      const int x = lane + 32 * cc - (sm.u[j + t] - ulo);
+      if (x >= 0 && x < span) add(t, x, acc[t][cc]);
+    }
+  }
+  if (kTail) {
+    // the tail: columns 32 + c of rows r0, r0 + per, ...
+    const int width = spread + span - 32;
+    const int per = 32 / width;
+    const int c = lane % width, r0 = lane / width;
+    if (r0 < per && 32 + c < cmax) {
+      float tacc[kRun][4];
+#pragma unroll
+      for (int t = 0; t < kRun; ++t) tacc[t][0] = tacc[t][1] = tacc[t][2] = tacc[t][3] = 0.f;
+      const float2* gt = g0 + 32 + c;
+      for (int r = r0; r < span; r += per) {
+        const float2 lo = gt[r * ld];
+        const float2 hi = kWStacked ? gt[r * ld + pstride] : make_float2(0.f, 0.f);
+#pragma unroll
+        for (int t = 0; t < kRun; ++t) {
+          if (t >= m) break;
+          const float k = kvs[(t0 + t) * W + r];
+          tacc[t][0] = fmaf(lo.x, k, tacc[t][0]);
+          tacc[t][1] = fmaf(lo.y, k, tacc[t][1]);
+          if (kWStacked) {
+            tacc[t][2] = fmaf(hi.x, k, tacc[t][2]);
+            tacc[t][3] = fmaf(hi.y, k, tacc[t][3]);
+          }
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kRun; ++t) {
+        if (t >= m) continue;
+        const int x = 32 + c - (sm.u[j + t] - ulo);
+        if (x >= 0 && x < span) add(t, x, tacc[t]);
+      }
+    }
+  }
+  // transposed reduction: at each of the first log2(V) steps a lane keeps
+  // half of its values and adds its partner's share of them, so lane L
+  // ends with value L >> kShift summed over the warp
+  int n = V;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    if (n > 1) {
+      const bool up = lane & o;
+#pragma unroll
+      for (int i = 0; i < V / 2; ++i) {
+        if (i >= n / 2) break;
+        const float send = up ? val[i] : val[i + n / 2];
+        const float keep = up ? val[i + n / 2] : val[i];
+        val[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+      n /= 2;
+    } else {
+      val[0] += __shfl_xor_sync(0xffffffffu, val[0], o);
+    }
+  }
+  const int idx = lane >> kShift;
+  if ((lane & ((1 << kShift) - 1)) == 0 && (idx >> 1) < m)
+    reinterpret_cast<float*>(out)[2 * (base + sm.e[j + (idx >> 1)]) + (idx & 1)] = val[0];
+}
+
+// kCols: the tap rows are 32 kCols wide; kTail: windows of 33 to 40
+// cells, whose columns past 32 take a tail pass
+template <int kCols, bool kTail, bool kWStacked>
+__global__ void __launch_bounds__(kWideThreads, 1)
     degrid_wide_kernel(const float2* __restrict__ grid,
                        const int* __restrict__ iu0, const int* __restrict__ iv0,
                        const int* __restrict__ plane,
@@ -157,96 +406,107 @@ __global__ void __launch_bounds__(kThreads)
                        const int* __restrict__ korder,
                        const int* __restrict__ n_in_c, long long n_in0,
                        float2* __restrict__ out, long long n, int npix,
-                       int nplanes, int support) {
+                       int nplanes, int span) {
   constexpr int W = 32 * kCols;
-  constexpr int kRows = 8;  // rows of loads in flight
+  constexpr int kRun = 8 / kCols;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  WideSmem& sm = *reinterpret_cast<WideSmem*>(smem_raw);
+  constexpr int np = kWStacked ? 2 : 1;
   const int c = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const long long t0 =
-      ((long long)blockIdx.x * kThreads + (threadIdx.x & ~31));
-  if (t0 >= n) return;  // whole warps leave together
-  const long long t = t0 + lane;
+  const int tid = threadIdx.x;
   const long long base = (long long)c * n;
   const long long n_in = n_in_c ? (long long)n_in_c[c] : n_in0;
-  const int plane_size = npix * npix;
-  int e = -1, off = 0;
-  float f = 0.f;
-  if (t < n_in) {
-    e = korder[base + t];
-    const long long i = base + e;
-    off = plane[i] * plane_size + iv0[i] * npix + iu0[i];
-    if (kWStacked) f = frac[i];
-  } else if (t < n) {
-    out[base + t] = make_float2(0.f, 0.f);
+  const long long p0 = (long long)blockIdx.x * kWideBlock;
+  for (int k = tid; k < kWideBlock; k += kWideThreads) {
+    const long long pt = p0 + k;
+    if (pt < n_in) {
+      const int e = korder[base + pt];
+      const long long i = base + e;
+      sm.e[k] = e;
+      sm.u[k] = iu0[i];
+      sm.v[k] = iv0[i];
+      sm.p[k] = plane[i];
+      sm.f[k] = kWStacked ? frac[i] : 0.f;
+    } else if (pt < n) {
+      out[base + pt] = make_float2(0.f, 0.f);
+    }
   }
-  if (t0 >= n_in) return;
-  bool col[kCols];
+  const int cnt = (int)max(0LL, min((long long)kWideBlock, n_in - p0));
+  if (cnt == 0) return;  // the whole CTA
+  const int plane_size = npix * npix;
+  const float2* gc = grid + (size_t)c * nplanes * plane_size;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int slack = (kTail ? 48 : W) - span;  // corner spread one pass covers
+  float* kvs = sm.kvs[warp];
+  float* kus = sm.kus[warp];
+  // a batch's tap rows: lane x holds columns x + 32 cc of its entries' kv
+  // and ku rows, fetched from device memory
+  float pkv[kRun][kCols], pku[kRun][kCols];
+  auto fetch = [&](int q0, int qend) {
 #pragma unroll
-  for (int cc = 0; cc < kCols; ++cc) col[cc] = lane + 32 * cc < support;
-  const float2* gc = grid + (size_t)c * nplanes * plane_size + lane;
-#pragma unroll 1
-  for (int j = 0; j < 32; ++j) {
-    const int es = __shfl_sync(0xffffffffu, e, j);
-    const int os = __shfl_sync(0xffffffffu, off, j);
-    const float fs = __shfl_sync(0xffffffffu, f, j);
-    if (es < 0) continue;  // past n_in: uniform within the warp
-    const long long i = base + es;
-    float kvx[kCols], kux[kCols];
+    for (int t = 0; t < kRun; ++t)
 #pragma unroll
-    for (int cc = 0; cc < kCols; ++cc) {
-      kvx[cc] = kv[i * W + lane + 32 * cc];
-      kux[cc] = ku[i * W + lane + 32 * cc];
+      for (int cc = 0; cc < kCols; ++cc) {
+        const int col = lane + 32 * cc;
+        const bool in = q0 + t < qend && col < span;
+        const long long i = base + (q0 + t < qend ? sm.e[q0 + t] : 0);
+        pkv[t][cc] = in ? kv[i * W + col] : 0.f;
+        pku[t][cc] = in ? ku[i * W + col] : 0.f;
+      }
+  };
+  __syncthreads();
+  for (int pos = 0; pos < cnt;) {
+    wide_piece(sm, pos, min(cnt, pos + kWideThreads), span, np);
+    const int size = sm.piece[0];
+    const int umin = sm.piece[1], vmin = sm.piece[2];
+    const int rows = sm.piece[3], cols = sm.piece[4], pl = sm.piece[5];
+    const int pend = pos + size;
+    // warps take kRun positions at a time; each batch's taps are fetched
+    // while the one before it is served
+    int q0 = pos + warp * kRun;
+    fetch(q0, min(q0 + kRun, pend));
+    // the box's rows, each plane, one warp a row
+    for (int pr = warp; pr < np * rows; pr += kWideWarps) {
+      const int hi = pr >= rows;
+      const float2* src = gc + (size_t)(pl + hi) * plane_size +
+                          (size_t)(vmin + pr - hi * rows) * npix + umin;
+      for (int x = lane; x < cols; x += 32) ska_cp_async<8>(&sm.box[pr * cols + x], src + x);
     }
-    const float2* w = gc + os;
-    float lr[kCols], li[kCols], hr[kCols], hq[kCols];
+    ska_cp_async_commit();
+    ska_cp_async_wait_all();
+    __syncthreads();
+    for (; q0 < pend; q0 += kWideWarps * kRun) {
+      const int qend = min(q0 + kRun, pend);
+      __syncwarp();  // the warp's previous batch is served
 #pragma unroll
-    for (int cc = 0; cc < kCols; ++cc) lr[cc] = li[cc] = hr[cc] = hq[cc] = 0.f;
-#pragma unroll
-    for (int rb = 0; rb < W; rb += kRows) {
-      if (rb >= support) break;  // uniform: every later row is past S
-      float2 lo[kRows][kCols], hi[kRows][kCols];
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr)
+      for (int t = 0; t < kRun; ++t)
 #pragma unroll
         for (int cc = 0; cc < kCols; ++cc) {
-          const bool in = col[cc] && rb + rr < support;
-          const float2* p = w + (rb + rr) * npix + 32 * cc;
-          lo[rr][cc] = in ? p[0] : make_float2(0.f, 0.f);
-          if (kWStacked) hi[rr][cc] = in ? p[plane_size] : make_float2(0.f, 0.f);
+          kvs[t * W + lane + 32 * cc] = pkv[t][cc];
+          kus[t * W + lane + 32 * cc] = pku[t][cc];
         }
-#pragma unroll
-      for (int rr = 0; rr < kRows; ++rr) {
-        const int r = rb + rr;
-        const float k = __shfl_sync(0xffffffffu, kvx[r / 32], r % 32);
-#pragma unroll
-        for (int cc = 0; cc < kCols; ++cc) {
-          lr[cc] += lo[rr][cc].x * k;
-          li[cc] += lo[rr][cc].y * k;
-          if (kWStacked) {
-            hr[cc] += hi[rr][cc].x * k;
-            hq[cc] += hi[rr][cc].y * k;
-          }
+      __syncwarp();
+      const int qn = q0 + kWideWarps * kRun;
+      if (qn < pend) fetch(qn, min(qn + kRun, pend));
+      for (int j = q0; j < qend;) {
+        const int v0 = sm.v[j], pj = sm.p[j];
+        int ulo = sm.u[j], uhi = ulo, m = 1;
+        while (j + m < qend && sm.v[j + m] == v0 && sm.p[j + m] == pj) {
+          const int uu = sm.u[j + m];
+          const int lo = min(ulo, uu), hi = max(uhi, uu);
+          if (hi - lo > slack) break;
+          ulo = lo;
+          uhi = hi;
+          ++m;
         }
+        wide_run<kCols, kTail, kWStacked>(sm, j, m, j - q0, ulo, uhi - ulo,
+                                          &sm.box[(v0 - vmin) * cols + ulo - umin], cols,
+                                          rows * cols, cols - (ulo - umin), base, out, span);
+        j += m;
       }
     }
-    float sr = 0.f, si = 0.f;
-#pragma unroll
-    for (int cc = 0; cc < kCols; ++cc) {
-      float ar = lr[cc] * kux[cc], ai = li[cc] * kux[cc];
-      if (kWStacked) {
-        const float w0 = 1.f - fs;
-        ar = ar * w0 + (hr[cc] * kux[cc]) * fs;
-        ai = ai * w0 + (hq[cc] * kux[cc]) * fs;
-      }
-      sr += ar;
-      si += ai;
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) {
-      sr += __shfl_xor_sync(0xffffffffu, sr, o);
-      si += __shfl_xor_sync(0xffffffffu, si, o);
-    }
-    if (lane == 0) out[i] = make_float2(sr, si);
+    pos += size;
+    __syncthreads();  // the box and the piece are free again
   }
 }
 
@@ -269,10 +529,17 @@ SKA_EXPORT int ska_degrid(const void* grid, const void* iu0, const void* iv0,
   if (n == 0 || nchan == 0) return 0;
   const dim3 grd((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nchan);
   if (support > 16) {
-    auto wide = wstacked ? degrid_wide_kernel<1, true> : degrid_wide_kernel<1, false>;
-    if (support > 32)
-      wide = wstacked ? degrid_wide_kernel<2, true> : degrid_wide_kernel<2, false>;
-    wide<<<grd, kThreads, 0, (cudaStream_t)stream>>>(
+    auto wide = wstacked ? degrid_wide_kernel<1, false, true>
+                         : degrid_wide_kernel<1, false, false>;
+    if (support > 40)
+      wide = wstacked ? degrid_wide_kernel<2, false, true> : degrid_wide_kernel<2, false, false>;
+    else if (support > 32)
+      wide = wstacked ? degrid_wide_kernel<2, true, true> : degrid_wide_kernel<2, true, false>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(WideSmem));
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grw((unsigned)((n + kWideBlock - 1) / kWideBlock), (unsigned)nchan);
+    wide<<<grw, kWideThreads, sizeof(WideSmem), (cudaStream_t)stream>>>(
         (const float2*)grid, (const int*)iu0, (const int*)iv0,
         (const int*)plane, (const float*)frac, (const float*)ku,
         (const float*)kv, (const int*)korder, (const int*)n_in, n_in0,
@@ -292,4 +559,11 @@ SKA_EXPORT int ska_degrid(const void* grid, const void* iu0, const void* iv0,
       (const float*)kv, (const int*)korder, (const int*)n_in, n_in0,
       (float2*)out, n, npix, nplanes, support);
   return ska_last_error();
+}
+
+// The wide variant's launch geometry: what 0 the threads of a CTA, 1 its
+// dynamic shared bytes, 2 the walk positions it serves; 0 past them.
+SKA_EXPORT int ska_degrid_wide_geometry(int what) {
+  const int v[] = {kWideThreads, (int)sizeof(WideSmem), kWideBlock};
+  return what >= 0 && what < 3 ? v[what] : 0;
 }

@@ -63,22 +63,47 @@
 // rows go unpadded (ld = buf), which costs bank conflicts, not results.
 //
 // Windows wider than 16 cells (supports 17 to 64, each up to the plan's
-// tile) take grid_wide_kernel. The shared tile no longer fits there: at
-// tile 64 and S 32, buf 96 and NACC 4 need 4 x 96^2 x 8 B = 295 KB, more
-// than a block's 227 KB. So the wide variant keeps Romein's register sums
-// and flushes them straight into the int64 plane grids with integer
-// atomicAdd: the same units, the same conversion, and the same bits on
-// every launch (integer sums do not depend on the order of the atomics).
-// The residue period P is 32 for spans up to 32 (one class a thread of the
-// CTA's one group of 1024) and 64 beyond (each thread owns the 2 x 2
-// classes (a + 32 i, b + 32 j)). Every thread walks every entry of its
-// chunk in korder, a batch of kWideStage entries at a time, staged by
-// cp.async and double-buffered as above. What bounds it: the global
-// atomics of the flushes, one per word of a cell whose run ends, where the
-// narrow kernel's go to shared memory; splitting the plane pair over CTAs
-// or spreading the tile over a cluster's distributed shared memory would
-// bring them back on chip.
+// tile) take grid_wide_kernel: Romein's walk at the residue period of the
+// window's own span, so every class has exactly one cell in every window
+// and no thread walks an entry for nothing. A thread owns K consecutive
+// rows of one column (K 8, 6 or 4 by span, wide_choice): per entry it
+// finds its column from the corner's residue mod span (staged with the
+// entry), reads ku once, and weights its K rows by kv read from the
+// entry's kv row staged twice over, so that no row wraps. A walk of span
+// x ceil(span / K) threads takes a contiguous share of its cluster's
+// entries; a CTA runs as many walks as its 512, 768 or 1024 threads hold.
+// The register runs (at most kRunCap entries, every thread's ending on
+// the same entry) are flushed into an int64 tile in shared memory, held in
+// bands of rows by a thread block cluster (the least of 1, 2, 4 or 8 CTAs
+// whose bands fit beside the staged batches; at tile 64 one CTA at span
+// 18, 2 from 24 to 48, 4 at 64); a flush into another CTA's band goes
+// through distributed shared memory. Where 8 CTAs cannot hold the whole
+// tile (tile 256 on a linear plan), they hold as many rows as fit and a
+// run is served in turns of consecutive entries whose windows those rows
+// hold; a tile whose rows cannot hold one window (span 64 at tile 1024 on
+// a linear plan) is refused, and the wrapper raises ValueError first. Every flush is a 64-bit atomic add on the cluster
+// address, which the card performs in one instruction, where the same add
+// on the CTA's own shared address is a compare-and-swap loop. A cluster
+// serves a few consecutive chunks, each run of them on one segment as one
+// stream, so that its walks flush every class once at the run's end, not
+// once a chunk; the overlap-add into grid64 is grid_kernel's. The units,
+// the conversion and the bits are grid_kernel's (a flush's product by
+// 2^kg is exact in f32 as in f64 and rounds to the same integer).
+//
+// What bounds it (NVIDIA H100 80GB HBM3, wide_designs.py, PERF.md): the
+// design it replaced, period 32 or 64 with every one of 1024 threads
+// walking every entry and flushing with int64 atomics into device memory,
+// was bound by that walk: with its flushes compiled out it kept most of its
+// time (92-95%). Here the walk itself takes most of it: four FMAs a class
+// and entry, and its share of the entry's overhead. The flushes take the
+// rest (with them compiled out it runs 9-15% faster), most of that the
+// kRunCap cuts, since dense windows keep one cell for hundreds of entries
+// (6-12% faster without them, which would loosen the numerics).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -86,6 +111,7 @@ constexpr int kThreads = 1024;
 constexpr int kStage = 16;   // entries a group stages per batch
 constexpr int kRunCap = 64;  // the most entries one register sum takes
 constexpr size_t kMaxSmem = 232448;  // dynamic shared memory of one block
+constexpr int kWideWaves = 32;  // about this many wide-variant clusters an SM serves
 
 // one batch of staged entries of all groups, for residue period P
 template <int P>
@@ -304,25 +330,109 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
 }
 
-constexpr int kWideStage = 32;  // entries the wide variant stages a batch
+// ---------------------------------------------------------------------------
+// The wide variant: windows of 17 to 64 cells.
 
-// one batch of the wide variant: the staged entries of the CTA's one walk
-template <int P>
-struct WideStage {
-  float4 taps[kWideStage][P / 2];  // ku[0:P], kv[0:P]
-  float4 meta[kWideStage];         // val.re, val.im, iu0, iv0 (int bits)
-  float frac[kWideStage];
+// Launch geometry of the wide variant at window span `span` (even, 18 to
+// 64) on tiles of `tile` cells, `nacc` words a cell.
+struct WideGeom {
+  int k;        // classes a thread owns: k consecutive rows of one column
+  int threads;  // of a CTA
+  int nbb;      // row blocks of a column
+  int group;    // threads of one walk: span columns times nbb row blocks
+  int groups;   // walks of a CTA
+  int stage;    // entries a walk stages a batch
+  int tv;       // float4s of a staged ku row (span taps, zero past)
+  int meta;     // float4 offset of a staged entry's fields, past ku and kv twice over
+  int slot;     // float4s of one staged entry
+  int slots;    // entries a CTA stages a batch
+  int cs;       // CTAs of a cluster: each holds a band of rb rows of the tile
+  int rb;
+  int ld;       // row stride of the shared tile, in words
+  size_t stage_bytes, smem;
 };
 
-// C = P / 32 classes a thread owns on each axis (P the residue period, 32
-// or 64); NACC as grid_kernel's
-template <int C, int NACC>
-__global__ void __launch_bounds__(kThreads, 1)
+__host__ __device__ inline WideGeom wide_geom(int span, int tile, int nacc, int k,
+                                              int threads, int cs, int stage) {
+  WideGeom g;
+  g.k = k;
+  g.threads = threads;
+  g.nbb = (span + k - 1) / k;
+  g.group = span * g.nbb;
+  g.groups = threads / g.group;
+  g.stage = stage;
+  g.tv = (span + 3) / 4;
+  g.meta = g.tv + span / 2;
+  g.slot = g.meta + 2;
+  g.slots = g.groups * stage;
+  g.cs = cs;
+  const int buf = tile + span;
+  g.ld = buf + 1;  // odd: a row starts two banks on from the one above
+  g.stage_bytes = 2 * (size_t)g.slots * g.slot * sizeof(float4);
+  // a CTA's band: its share of the tile's rows, or as many as fit
+  const size_t row = (size_t)nacc * g.ld * sizeof(long long);
+  const int fit = g.stage_bytes < kMaxSmem ? (int)((kMaxSmem - g.stage_bytes) / row) : 0;
+  g.rb = min((buf + cs - 1) / cs, fit);
+  g.smem = g.stage_bytes + row * g.rb;
+  return g;
+}
+
+// The most threads a CTA of K classes a thread runs: its registers (6 or
+// 8 classes of 4 words spill at 64 a thread)
+template <int K>
+constexpr int wide_threads() {
+  return K == 4 ? 1024 : 768;
+}
+
+// Classes a thread and threads a CTA (measured on the flagship's plans,
+// PERF.md): 8 rows a thread where they tile the span and 16 does (spans
+// 32, 48, 64), else 6 or 4, whichever leaves fewer rows idle; the fewest
+// threads (512, 768, 1024) that give 8 walks a CTA, or with 8 rows a
+// thread that keep three quarters of them walking. Fewer walks a chunk
+// end fewer runs (a walk flushes every class at its end); too few leave
+// the SM short of work.
+inline void wide_choice(int span, int& k, int& threads) {
+  const int w6 = (6 - span % 6) % 6, w4 = (4 - span % 4) % 4;
+  k = span % 16 == 0 ? 8 : w6 <= w4 ? 6 : 4;
+  const int group = span * ((span + k - 1) / k);
+  const int most = k == 4 ? wide_threads<4>() : wide_threads<6>();
+  for (threads = 512; threads < most; threads += 256) {
+    const int groups = threads / group;
+    if (k == 8 ? 4 * groups * group >= 3 * threads : groups >= 8) return;
+  }
+}
+
+// The least cluster (1, 2, 4 or 8 CTAs) whose bands of the tile fit a
+// block's shared memory beside batches of 32, 16 or 8 entries a walk, the
+// largest batch that fits. Fewer CTAs a cluster keep more of the flushes
+// in the CTA's own shared memory. Where no cluster holds the whole tile,
+// 8 CTAs with batches of 8 hold as many rows as fit, and the kernel serves
+// each run in turns; cs 0 when those rows cannot hold one window's span.
+inline WideGeom wide_plan(int span, int tile, int nacc) {
+  int k, threads;
+  wide_choice(span, k, threads);
+  for (int cs = 1; cs <= 8; cs *= 2)
+    for (int stage = 32; stage >= 8; stage /= 2) {
+      const WideGeom g = wide_geom(span, tile, nacc, k, threads, cs, stage);
+      if (g.groups >= 1 && g.cs * g.rb >= tile + span) return g;
+    }
+  WideGeom g = wide_geom(span, tile, nacc, k, threads, 8, 8);
+  if (g.groups < 1 || g.cs * g.rb < span) g.cs = 0;
+  return g;
+}
+
+// K classes a thread (wide_choice), NACC as grid_kernel's; wv: float4s of a
+// stored tap row (8 or 16). A cluster of CTAs serves the chunks [per c,
+// per (c + 1)), one run of consecutive chunks of one segment at a time:
+// a run's entries are one walk's stream, so a walk's registers are flushed
+// once at its end, not once a chunk.
+template <int K, int NACC>
+__global__ void __launch_bounds__(wide_threads<K>(), 1)
     grid_wide_kernel(const float2* __restrict__ vals,
                      const int* __restrict__ iu0, const int* __restrict__ iv0,
                      const float* __restrict__ frac,
                      const float4* __restrict__ ku,
-                     const float4* __restrict__ kv,
+                     const float2* __restrict__ kv,
                      const int* __restrict__ order,
                      const int* __restrict__ chunk_seg,
                      const int* __restrict__ chunk_start,
@@ -330,136 +440,275 @@ __global__ void __launch_bounds__(kThreads, 1)
                      const float* __restrict__ tap_bound,
                      const float* __restrict__ vsum,
                      unsigned long long* __restrict__ grid64, int npix,
-                     int ntiles, int support) {
-  constexpr int P = 32 * C;
-  constexpr int kPer = kThreads / kWideStage;  // loader threads of a slot
-  constexpr int kTapVec = P / 2;               // float4s of taps a slot
-  __shared__ __align__(16) WideStage<P> stage[2];
+                     int tile, int nta, int span, int wv, int stage,
+                     int nchunks, int per) {
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int threads = blockDim.x;
+  const WideGeom gm = wide_geom(span, tile, NACC, K, threads, cs, stage);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* stg = reinterpret_cast<float4*>(smem_raw);  // [2][slots][slot]
+  // [NACC][rb][ld]: rows [rank rb, (rank + 1) rb) of the tile's re_lo,
+  // im_lo, re_hi, im_hi, in units of 2^-kg
+  unsigned long long* acc =
+      reinterpret_cast<unsigned long long*>(smem_raw + gm.stage_bytes);
+  const int nb = gm.rb * gm.ld;
+  const int buf = tile + span;
+  const int rows = cs * gm.rb;  // the bands' rows: the tile's, or fewer
 
   const float total = vsum[0] * tap_bound[0];
-  if (!isfinite(total)) return;  // the conversion writes NaN
-  const double unit = ldexp(1.0, grid_exponent(total));
+  if (!isfinite(total)) return;  // the whole cluster leaves; the conversion writes NaN
+  const int kg = grid_exponent(total);
+  const double unit = ldexp(1.0, kg);
+  // a sum times 2^kg is below 2^61, so it is exact in f32 as in f64 and
+  // rounds to the same integer: one conversion in place of three, where
+  // 2^kg is a float
+  const float unitf = kg <= 127 ? ldexpf(1.f, kg) : 0.f;
+  const int ntiles = nta * nta;
 
-  const int start = chunk_start[blockIdx.x];
-  const int count = chunk_count[blockIdx.x];
-  const int plane = chunk_seg[blockIdx.x] / ntiles;
-  const size_t npp = (size_t)npix * npix;
-  unsigned long long* g0 = grid64 + 2 * (size_t)plane * npp;
-  const int nbatch = (count + kWideStage - 1) / kWideStage;
+  // loader role: thread stages piece (threadIdx % kper) of slot
+  // (threadIdx / kper): the ku row, and the kv row twice over (taps
+  // kv[d mod span] at d < 2 span), by cp.async; piece 0 also loads the
+  // entry's fields into registers and publishes them, in the form the walk
+  // reads, before the batch's barrier. The walk order is read two batches
+  // ahead, so no copy waits on it.
+  const int kper = threads / gm.slots;
+  const int slot = threadIdx.x / kper;
+  const int piece = threadIdx.x - slot * kper;
+  const bool loader = slot < gm.slots;
+  const int lw = rank * gm.groups + slot / stage;
+  const int half = span / 2;
+  const int ntask = gm.tv + span;
+  // walk role: walk g of the CTA; the thread owns the classes (a, b0 + j),
+  // j < nvalid, of residue period span. Each class has exactly one cell
+  // in every window: (x, rv + dy_j), x the column of class a in
+  // [ru, ru + span), dy_j = (b0 + j - rv) mod span = wrap(dy0 + j).
+  const int g = threadIdx.x / gm.group;
+  const bool walker = g < gm.groups;
+  const int r = threadIdx.x - g * gm.group;
+  const int b0 = (r % gm.nbb) * K;
+  const int a = r / gm.nbb;
+  const int nvalid = walker ? min(K, span - b0) : 0;
+  const float rinv = 1.f / gm.rb;
+  auto wrap = [&](int d) { return d >= span ? d - span : d; };
 
-  const int slot = threadIdx.x / kPer;
-  const int piece = threadIdx.x % kPer;
-  auto issue = [&](int k) {
-    const int p = k * kWideStage + slot;
-    if (p < count) {
-      const int e = order[start + p];
-      WideStage<P>& s = stage[k & 1];
-      float* m = reinterpret_cast<float*>(&s.meta[slot]);
-      for (int task = piece; task < kTapVec + 4; task += kPer) {
-        if (task < kTapVec / 2)
-          ska_cp_async<16>(&s.taps[slot][task], ku + (size_t)e * (P / 4) + task);
-        else if (task < kTapVec)
-          ska_cp_async<16>(&s.taps[slot][task],
-                           kv + (size_t)e * (P / 4) + (task - kTapVec / 2));
-        else if (task == kTapVec)
-          ska_cp_async<8>(m, vals + e);
-        else if (task == kTapVec + 1)
-          ska_cp_async<4>(m + 2, iu0 + e);
-        else if (task == kTapVec + 2)
-          ska_cp_async<4>(m + 3, iv0 + e);
-        else if (NACC == 4)
-          ska_cp_async<4>(&s.frac[slot], frac + e);
+  const int c1 = min(nchunks, (int)(blockIdx.x / cs + 1) * per);
+  for (int c0 = (blockIdx.x / cs) * per; c0 < c1;) {
+    // the run: chunks [c0, ce) of one segment, entries [start, end)
+    const int seg = chunk_seg[c0];
+    int ce = c0 + 1;
+    while (ce < c1 && chunk_seg[ce] == seg) ++ce;
+    const int rstart = chunk_start[c0];
+    const int rend = chunk_start[ce - 1] + chunk_count[ce - 1];
+    c0 = ce;
+    const int plane = seg / ntiles;
+    const int t = seg - plane * ntiles;
+    const int tv0 = (t / nta) * tile;
+    const int tu0 = (t % nta) * tile;
+    // Where the bands hold fewer rows than the tile (large tiles), the run
+    // is served in turns: the longest stretch of its entries whose windows
+    // span at most the bands' rows (the walk order is by corner row), the
+    // bands starting at the stretch's first row. Each turn is a run of its
+    // own: its walks flush at its end, the overlap-add follows.
+    for (int start = rstart, end; start < rend; start = end) {
+      end = rend;
+      // the turn's rows of the tile (its entries follow the walk order), the
+      // bands' first row, and this CTA's band of them
+      const int y0 = iv0[order[start]] - tv0;
+      const int yb = rows < buf ? y0 : 0;
+      if (rows < buf) {
+        const int last = iv0[order[start]] + rows - span;  // the last corner row that fits
+        int lo = start + 1, hi = rend;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (iv0[order[mid]] > last) hi = mid;
+          else lo = mid + 1;
+        }
+        end = lo;
       }
-    }
-    ska_cp_async_commit();
-  };
-
-  // classes (a0 + 32 i, b0 + 32 j) of this thread, each with its cell
-  // (-1 for none yet), run length and register sums
-  const int a0 = threadIdx.x % 32;
-  const int b0 = threadIdx.x / 32;
-  int cur[C][C], run[C][C];
-  float r0[C][C], i0[C][C], r1[C][C], i1[C][C];
-#pragma unroll
-  for (int i = 0; i < C; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) {
-      cur[i][j] = -1;
-      run[i][j] = 0;
-      r0[i][j] = i0[i][j] = r1[i][j] = i1[i][j] = 0.f;
-    }
-  auto add = [&](unsigned long long* w, float r) {
-    const long long q = __double2ll_rn((double)r * unit);
-    if (q != 0) atomicAdd(w, (unsigned long long)q);
-  };
-  // integer adds commute: the grids are the same whatever their order
-  auto flush = [&](int i, int j) {
-    const int c = cur[i][j];
-    if (c >= 0) {
-      unsigned long long* w = g0 + 2 * (size_t)c;
-      add(w, r0[i][j]);
-      add(w + 1, i0[i][j]);
-      if (NACC == 4) {
-        add(w + 2 * npp, r1[i][j]);
-        add(w + 2 * npp + 1, i1[i][j]);
+      const int count = end - start;
+      const int y1 = min(buf, iv0[order[end - 1]] - tv0 + span);
+      const int z0 = max(y0, yb + rank * gm.rb);
+      const int z1 = min(y1, yb + (rank + 1) * gm.rb);
+      const int zn = max(0, z1 - z0) * gm.ld;
+      __syncthreads();  // the previous run's overlap-add has read the band
+      for (int i = threadIdx.x; i < NACC * zn; i += threads) {
+        const int p = i / zn;
+        acc[p * nb + (z0 - yb - rank * gm.rb) * gm.ld + (i - p * zn)] = 0;
       }
-    }
-  };
+      // every band is zero before any CTA of the cluster adds to it
+      cluster.sync();
 
-  issue(0);
-  for (int k = 0; k < nbatch; ++k) {
-    ska_cp_async_wait_all();
-    // batch k is visible; every thread is done with batch k - 1's buffer
-    __syncthreads();
-    if (k + 1 < nbatch) issue(k + 1);
-    const WideStage<P>& s = stage[k & 1];
-    const int nj = min(kWideStage, count - k * kWideStage);
-    for (int jj = 0; jj < nj; ++jj) {
-      const float4 m = s.meta[jj];
-      const int u0 = __float_as_int(m.z);
-      const int v0 = __float_as_int(m.w);
-      const float* tp = reinterpret_cast<const float*>(&s.taps[jj][0]);
-      float w0 = 1.f, f = 0.f;
-      if (NACC == 4) {
-        f = s.frac[jj];
-        w0 = 1.f - f;
-      }
-#pragma unroll
-      for (int j = 0; j < C; ++j) {
-        const int dy = (b0 + 32 * j - v0) & (P - 1);
-        if (dy >= support) continue;  // no row of the class in the window
-        const float kvy = tp[P + dy];
-        const int row = (v0 + dy) * npix;
-#pragma unroll
-        for (int i = 0; i < C; ++i) {
-          const int dx = (a0 + 32 * i - u0) & (P - 1);
-          if (dx >= support) continue;
-          const int cell = row + u0 + dx;
-          const float kk = kvy * tp[dx];
-          if (cell != cur[i][j] || run[i][j] == kRunCap) {
-            flush(i, j);
-            cur[i][j] = cell;
-            run[i][j] = 0;
-            r0[i][j] = i0[i][j] = r1[i][j] = i1[i][j] = 0.f;
+      // walk w of the cluster's cs * groups takes [start + w q, start + (w + 1) q)
+      const int walks = cs * gm.groups;
+      const int q = (count + walks - 1) / walks;
+      const int nbatch = (q + stage - 1) / stage;
+      const int lbeg = start + lw * q + slot % stage;
+      const int lend = min(start + (lw + 1) * q, end);
+      auto entry_of = [&](int k) {
+        const int p = lbeg + k * stage;
+        return loader && p < lend ? order[p] : -1;
+      };
+      int e_pend = -1, u_pend = 0, v_pend = 0;
+      float2 val_pend = make_float2(0.f, 0.f);
+      float f_pend = 0.f;
+      auto slot_of = [&](int k) {
+        return stg + ((size_t)(k & 1) * gm.slots + slot) * gm.slot;
+      };
+      auto issue = [&](int k, int e) {
+        e_pend = e;
+        if (e >= 0) {
+          float4* s = slot_of(k);
+          float2* s2 = reinterpret_cast<float2*>(s + gm.tv);
+          for (int task = piece; task < ntask; task += kper) {
+            if (task < gm.tv) {
+              ska_cp_async<16>(s + task, ku + (size_t)e * wv + task);
+            } else {
+              const int i = task - gm.tv;
+              const int pair = i < half ? i : i - half;
+              ska_cp_async<8>(s2 + i, kv + (size_t)e * 2 * wv + pair);
+            }
           }
-          ++run[i][j];
-          if (NACC == 4) {
-            r0[i][j] = fmaf(kk, m.x * w0, r0[i][j]);
-            i0[i][j] = fmaf(kk, m.y * w0, i0[i][j]);
-            r1[i][j] = fmaf(kk, m.x * f, r1[i][j]);
-            i1[i][j] = fmaf(kk, m.y * f, i1[i][j]);
-          } else {
-            r0[i][j] = fmaf(kk, m.x, r0[i][j]);
-            i0[i][j] = fmaf(kk, m.y, i0[i][j]);
+          if (piece == 0) {
+            val_pend = vals[e];
+            u_pend = iu0[e];
+            v_pend = iv0[e];
+            if (NACC == 4) f_pend = frac[e];
+          }
+        }
+        ska_cp_async_commit();
+      };
+      // the values weighted for the lower and upper plane; the corner in the
+      // tile and its residues mod span
+      auto publish = [&](int k) {
+        if (e_pend >= 0 && piece == 0) {
+          float4* s = slot_of(k) + gm.meta;
+          const float w0 = 1.f - f_pend;
+          s[0] = make_float4(val_pend.x * w0, val_pend.y * w0, val_pend.x * f_pend,
+                             val_pend.y * f_pend);
+          const int ru = u_pend - tu0, rv = v_pend - tv0;
+          reinterpret_cast<int4*>(s)[1] = make_int4(ru, rv, ru % span, rv % span);
+        }
+      };
+
+      const int gbeg = start + (rank * gm.groups + g) * q;
+      const int gend = min(gbeg + q, end);
+      // the run's column, corner row, its dy0 and entries so far; the sums
+      int curx = -1, currv = 0, dy0 = 0, since = 0;
+      float sum[K][NACC];
+  #pragma unroll
+      for (int j = 0; j < K; ++j)
+  #pragma unroll
+        for (int w = 0; w < NACC; ++w) sum[j][w] = 0.f;
+      // integer adds commute: the tile is the same whatever their order
+      auto flush = [&](int j) {
+        const int y = currv + wrap(dy0 + j) - yb;  // from the bands' first row
+        const int dst = (int)(((float)y + 0.5f) * rinv);  // y / rb
+        unsigned long long* p = acc + (y - dst * gm.rb) * gm.ld + curx;
+  #pragma unroll
+        for (int w = 0; w < NACC; ++w) {
+          const long long v = unitf != 0.f ? __float2ll_rn(sum[j][w] * unitf)
+                                           : __double2ll_rn((double)sum[j][w] * unit);
+          if (v != 0)
+            atomicAdd(cluster.map_shared_rank(p + w * nb, dst), (unsigned long long)v);
+          sum[j][w] = 0.f;
+        }
+      };
+
+      int e_next = entry_of(0);
+      issue(0, e_next);
+      e_next = entry_of(1);
+      for (int k = 0; k < nbatch; ++k) {
+        publish(k);
+        ska_cp_async_wait_all();
+        // batch k is visible; every thread is done with batch k - 1's buffer
+        __syncthreads();
+        if (k + 1 < nbatch) {
+          issue(k + 1, e_next);
+          e_next = entry_of(k + 2);
+        }
+        if (!walker) continue;
+        const float4* sb = stg + ((size_t)(k & 1) * gm.slots + g * stage) * gm.slot;
+        const int nj = min(stage, gend - (gbeg + k * stage));
+        for (int jj = 0; jj < nj; ++jj) {
+          const float4* rec = sb + jj * gm.slot;
+          const float* tp = reinterpret_cast<const float*>(rec);
+          const float4 wval = rec[gm.meta];
+          const int4 cv = reinterpret_cast<const int4*>(rec)[gm.meta + 1];
+          int dx = a - cv.z;
+          dx += dx < 0 ? span : 0;
+          const int x = cv.x + dx;
+          if (x != curx || since == kRunCap) {
+            // the column moved (or the runs are kRunCap long): every class's
+            // cell changes
+            if (curx >= 0) {
+  #pragma unroll
+              for (int j = 0; j < K; ++j)
+                if (j < nvalid) flush(j);
+            }
+            curx = x;
+            if (since == kRunCap) since = 0;  // every thread's runs end together
+            const int d = b0 - cv.w;
+            dy0 = d < 0 ? d + span : d;
+            currv = cv.y;
+          } else if (cv.y != currv) {
+            // the corner row moved: a class's cell changes where its row does
+            int d = b0 - cv.w;
+            d += d < 0 ? span : 0;
+  #pragma unroll
+            for (int j = 0; j < K; ++j)
+              if (j < nvalid && currv + wrap(dy0 + j) != cv.y + wrap(d + j)) flush(j);
+            dy0 = d;
+            currv = cv.y;
+          }
+          ++since;
+          const float kx = tp[dx];
+          const float lr = wval.x * kx, li = wval.y * kx;
+          const float hr = wval.z * kx, hi = wval.w * kx;
+          const float* kvr = tp + 4 * gm.tv + dy0;  // kv twice over: no wrap
+  #pragma unroll
+          for (int j = 0; j < K; ++j) {
+            const float ky = kvr[j];
+            sum[j][0] = fmaf(ky, lr, sum[j][0]);
+            sum[j][1] = fmaf(ky, li, sum[j][1]);
+            if (NACC == 4) {
+              sum[j][2] = fmaf(ky, hr, sum[j][2]);
+              sum[j][3] = fmaf(ky, hi, sum[j][3]);
+            }
+          }
+        }
+      }
+      if (curx >= 0) {
+  #pragma unroll
+        for (int j = 0; j < K; ++j)
+          if (j < nvalid) flush(j);
+      }
+      // every CTA's adds to this band are done
+      cluster.sync();
+
+      // overlap-add of the band, as grid_kernel's
+      for (int i = threadIdx.x; i < (z1 - z0) * buf; i += threads) {
+        const int y = z0 + i / buf;
+        const int x = i - (y - z0) * buf;
+        const int gy = tv0 + y;
+        const int gx = tu0 + x;
+        if (gy >= npix || gx >= npix) continue;
+        const int cc = (y - yb - rank * gm.rb) * gm.ld + x;
+  #pragma unroll
+        for (int p = 0; p < NACC / 2; ++p) {
+          const unsigned long long re = acc[2 * p * nb + cc];
+          const unsigned long long im = acc[(2 * p + 1) * nb + cc];
+          if (re != 0 || im != 0) {
+            unsigned long long* gp =
+                grid64 + 2 * (((size_t)(plane + p) * npix + gy) * npix + gx);
+            atomicAdd(gp, re);
+            atomicAdd(gp + 1, im);
           }
         }
       }
     }
   }
-#pragma unroll
-  for (int i = 0; i < C; ++i)
-#pragma unroll
-    for (int j = 0; j < C; ++j) flush(i, j);
 }
 
 // The complex64 grids from the int64 ones: value times 2^-kg, or NaN when
@@ -505,20 +754,76 @@ int launch(const void* vals, const void* iu0, const void* iv0,
   return ska_last_error();
 }
 
-template <int C, int NACC>
+template <int K, int NACC>
+int launch_wide_k(const WideGeom& gm, const void* vals, const void* iu0,
+                  const void* iv0, const void* frac, const void* ku,
+                  const void* kv, const void* order, const void* chunk_seg,
+                  const void* chunk_start, const void* chunk_count,
+                  const void* tap_bound, const void* vsum, void* grid64,
+                  int nchunks, int npix, int tile, int nta, int span,
+                  cudaStream_t s) {
+  auto fn = grid_wide_kernel<K, NACC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = gm.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // chunks a cluster: enough clusters for about kWideWaves of them on
+  // every SM, each walking runs of as many entries as that leaves
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, nchunks * gm.cs / (sms * kWideWaves));
+  const int nclusters = (nchunks + per - 1) / per;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nclusters * gm.cs));
+  cfg.blockDim = dim3(gm.threads);
+  cfg.dynamicSmemBytes = gm.smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster the card cannot place fails the launch loudly
+  int resident = 0;
+  e = cudaOccupancyMaxActiveClusters(&resident, fn, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, fn, (const float2*)vals, (const int*)iu0,
+                         (const int*)iv0, (const float*)frac, (const float4*)ku,
+                         (const float2*)kv, (const int*)order,
+                         (const int*)chunk_seg, (const int*)chunk_start,
+                         (const int*)chunk_count, (const float*)tap_bound,
+                         (const float*)vsum, (unsigned long long*)grid64, npix,
+                         tile, nta, span, span > 32 ? 16 : 8, gm.stage, nchunks,
+                         per);
+  if (e != cudaSuccess) return (int)e;
+  return ska_last_error();
+}
+
+template <int NACC>
 int launch_wide(const void* vals, const void* iu0, const void* iv0,
                 const void* frac, const void* ku, const void* kv,
                 const void* order, const void* chunk_seg,
                 const void* chunk_start, const void* chunk_count,
                 const void* tap_bound, const void* vsum, void* grid64,
-                int nchunks, int npix, int nta, int support, cudaStream_t s) {
-  grid_wide_kernel<C, NACC><<<nchunks, kThreads, 0, s>>>(
-      (const float2*)vals, (const int*)iu0, (const int*)iv0,
-      (const float*)frac, (const float4*)ku, (const float4*)kv,
-      (const int*)order, (const int*)chunk_seg, (const int*)chunk_start,
-      (const int*)chunk_count, (const float*)tap_bound, (const float*)vsum,
-      (unsigned long long*)grid64, npix, nta * nta, support);
-  return ska_last_error();
+                int nchunks, int npix, int tile, int nta, int span,
+                cudaStream_t s) {
+  const WideGeom gm = wide_plan(span, tile, NACC);
+  if (gm.cs == 0) return (int)cudaErrorInvalidValue;  // no cluster holds the tile
+#define SKA_GRID_WIDE_K(K)                                                     \
+  launch_wide_k<K, NACC>(gm, vals, iu0, iv0, frac, ku, kv, order, chunk_seg,  \
+                         chunk_start, chunk_count, tap_bound, vsum, grid64,   \
+                         nchunks, npix, tile, nta, span, s)
+  const int rc = gm.k == 8 ? SKA_GRID_WIDE_K(8) : gm.k == 6 ? SKA_GRID_WIDE_K(6)
+                                                             : SKA_GRID_WIDE_K(4);
+#undef SKA_GRID_WIDE_K
+  return rc;
 }
 
 }  // namespace
@@ -560,14 +865,13 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         nchunks, npix, tile, nta, support, s)
     const bool four = nacc == 4;
     int rc;
-#define SKA_GRID_WIDE(C, NACC)                                                \
-  launch_wide<C, NACC>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,       \
-                       chunk_start, chunk_count, tap_bound, vsum, grid64,    \
-                       nchunks, npix, nta, support, s)
-    if (support > 32)
-      rc = four ? SKA_GRID_WIDE(2, 4) : SKA_GRID_WIDE(2, 2);
-    else if (support > 16)
-      rc = four ? SKA_GRID_WIDE(1, 4) : SKA_GRID_WIDE(1, 2);
+    if (support > 16)
+      rc = four ? launch_wide<4>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
+                                 chunk_start, chunk_count, tap_bound, vsum,
+                                 grid64, nchunks, npix, tile, nta, support, s)
+                : launch_wide<2>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
+                                 chunk_start, chunk_count, tap_bound, vsum,
+                                 grid64, nchunks, npix, tile, nta, support, s);
     else if (support == 8)
       rc = four ? SKA_GRID_LAUNCH(8, 4, true) : SKA_GRID_LAUNCH(8, 2, true);
     else if (support < 8)
@@ -577,7 +881,6 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
     else
       rc = four ? SKA_GRID_LAUNCH(16, 4, false) : SKA_GRID_LAUNCH(16, 2, false);
 #undef SKA_GRID_LAUNCH
-#undef SKA_GRID_WIDE
     if (rc != 0) return rc;
   }
   if (grid == nullptr) return ska_last_error();
@@ -586,6 +889,32 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
       (const long long*)grid64, (float*)grid, n, (const float*)tap_bound,
       (const float*)vsum);
   return ska_last_error();
+}
+
+// The wide variant's launch geometry at window span `span` (17 to 64) on
+// tiles of `tile` cells, nacc as ska_grid's: what 0 the CTAs of a cluster,
+// 1 the threads of a CTA, 2 its dynamic shared bytes, 3 its walks, 4 the
+// classes a thread owns, 5 the entries a walk stages a batch, 6 the tile
+// rows the cluster's bands hold (fewer than tile + span: runs in turns);
+// 0 where the bands cannot hold one window (ska_grid refuses the tile).
+SKA_EXPORT int ska_grid_wide_geometry(int span, int tile, int nacc, int what) {
+  const WideGeom gm = wide_plan(span, tile, nacc);
+  if (gm.cs == 0) return 0;
+  const int v[] = {gm.cs, gm.threads, (int)gm.smem, gm.groups, gm.k, gm.stage,
+                   gm.cs * gm.rb};
+  return what >= 0 && what < 7 ? v[what] : 0;
+}
+
+// 1 where ska_grid takes windows of `span` cells on tiles of `tile` cells
+// (nacc as ska_grid's), 0 where the tile's int64 rows do not fit a block's
+// shared memory (the narrow kernel holds the whole tile, the wide kernel
+// at least one window's rows).
+SKA_EXPORT int ska_grid_fits(int span, int tile, int nacc) {
+  if (span < 1 || span > 64 || (span > 16 && span > tile)) return 0;
+  if (span > 16) return wide_plan(span, tile, nacc).cs != 0;
+  const size_t stage = span > 8 ? sizeof(Stage<16>) : sizeof(Stage<8>);
+  const size_t buf = (size_t)tile + span;
+  return 2 * stage + (size_t)nacc * buf * buf * sizeof(long long) <= kMaxSmem;
 }
 
 // The complex64 grids from int64 ones (n floats: 2 a cell) summed over

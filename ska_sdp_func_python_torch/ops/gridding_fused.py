@@ -182,6 +182,14 @@ def grid(plan, vals: torch.Tensor, *, raw: bool = False, bound=None) -> torch.Te
         raise ValueError(f"vals: shape {tuple(vals.shape)}, expected ({plan.n},)")
     npix = plan.npixel
     _check_taps(plan, (plan.n,))
+    nacc = 4 if plan.wstacked else 2
+    if not kernels.query("ska_grid_fits", plan.span, plan.tile, nacc):
+        raise ValueError(
+            f"tile {plan.tile}: K1 on the card holds a tile's int64 rows in a "
+            f"block's shared memory (windows past 16 cells: one window's "
+            f"{plan.span} rows over a cluster of 8); this plan's tile is too "
+            f"large for windows of {plan.span} cells, plan with a smaller tile"
+        )
     vals_ptr = chk("vals", vals, torch.complex64, dev)
     # the kernel accumulates in int64 fixed point, scaled by the stream's
     # bound: the sum of |re| + |im| over vals times the plan's tap bound
@@ -216,7 +224,7 @@ def grid(plan, vals: torch.Tensor, *, raw: bool = False, bound=None) -> torch.Te
         plan.tile,
         npix // plan.tile,
         plan.span,
-        4 if plan.wstacked else 2,
+        nacc,
     )
     return grid64 if raw else out
 

@@ -1230,11 +1230,12 @@ def test_unit_tiles_gives_the_same_bits_every_launch(dev, dtype):
 @pytest.mark.parametrize("support", [17, 24, 31, 32, 33, 48, 63, 64])
 def test_grid_and_degrid_at_wide_supports_match_plain(dev, support, mode):
     """K1's and K3's wide variants (windows of 17 to 64 cells: residue
-    period 32 or 64 with the register sums flushed into the int64 grids;
-    a whole warp an entry, one or two columns a lane) against their plain
-    versions on tile 64, to 1e-5 of the maximum; K1 gives the same bits
-    on a second launch, and no window on the grid's last rows and
-    columns reaches past it."""
+    period the span, the tile's rows in shared int64 over a cluster of
+    CTAs; windows staged in shared memory, up to 8 entries of one corner
+    row a pass, one or two columns a lane) against their plain versions on
+    tile 64, to 1e-5 of the maximum; K1 gives the same bits on a second
+    launch, and no window on the grid's last rows and columns reaches past
+    it."""
     plan = _support_plan(dev, support, mode, n=6000)
     g = torch.Generator(device=dev).manual_seed(support)
     vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
@@ -1273,6 +1274,186 @@ def test_grid_stress_at_wide_supports_match_plain(dev, case, support):
     """The stress cases of test_grid_stress_matches_plain, w-stacked, on
     K1's wide variant at periods 32 (support 24) and 64."""
     _grid_stress(dev, case, True, 64, support)
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support", [31, 32])
+def test_grid_and_degrid_wide_at_tile_32(dev, support, mode):
+    """Windows of 32 cells on tiles of 32 (buf 64: K1's whole tile in one
+    CTA) against the plain versions, to 1e-5 of the maximum."""
+    plan = _support_plan(dev, support, mode, n=6000, tile=32)
+    assert plan.span == 32 and plan.tile == 32
+    g = torch.Generator(device=dev).manual_seed(support)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    out = grid(plan, vals)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    out = degrid(plan, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support,tile", [(17, 256), (33, 256), (64, 256), (64, 512)])
+def test_grid_and_degrid_wide_on_large_tiles_match_plain(dev, support, tile, mode):
+    """Tiles whose int64 rows no cluster of K1's holds whole (256 and 512
+    on linear plans, 512 on nearest-plane ones): K1 serves each run in
+    turns of entries whose windows the bands' rows hold; 512 at span 64 is
+    the largest such tile a linear plan takes. Against the plain versions,
+    to 1e-5 of the maximum, with the same bits on a second launch."""
+    plan = _support_plan(dev, support, mode, n=6000, npix=2 * tile, nplanes=3, tile=tile)
+    nacc = 4 if mode == "linear" else 2
+    rows = kernels.query("ska_grid_wide_geometry", plan.span, tile, nacc, 6)
+    assert rows >= plan.span
+    if mode == "linear" or tile == 512:
+        assert rows < tile + plan.span  # the run is served in turns
+    g = torch.Generator(device=dev).manual_seed(support + tile)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    out = grid(plan, vals)
+    assert torch.equal(grid(plan, vals), out)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    out = degrid(plan, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("support,tile", [(64, 1024), (8, 128)])
+def test_grid_refuses_a_tile_it_cannot_hold(dev, support, tile):
+    """One past the largest tile: at span 64 a linear plan's bands over a
+    cluster of 8 hold fewer than one window's rows at tile 1024, and the
+    narrow kernel holds no tile of 128 at support 8; K1's wrapper raises
+    ValueError naming the tile before any launch."""
+    plan = _support_plan(dev, support, "linear", n=200, npix=tile, nplanes=3, tile=tile)
+    vals = torch.ones(plan.n, device=dev, dtype=torch.complex64)
+    before = kernels.KERNELS["grid"].launches
+    with pytest.raises(ValueError, match=f"tile {tile}"):
+        grid(plan, vals)
+    assert kernels.KERNELS["grid"].launches == before
+
+
+@pytest.mark.parametrize("wstacked", [True, False], ids=["wstacked", "nearest"])
+@pytest.mark.parametrize("support", [17, 24, 32, 33, 40, 48, 64])
+def test_grid_and_degrid_give_the_same_bits_at_wide_supports(dev, support, wstacked):
+    """K1's wide variant adds its register runs to the shared tiles (its
+    own and, through distributed shared memory, its cluster's) and to the
+    grids in int64, and K3's writes each value once: launches on the same
+    inputs agree bit for bit at every wide support."""
+    plan = _support_plan(dev, support, "linear" if wstacked else "nearest", n=6000)
+    g = torch.Generator(device=dev).manual_seed(support + 2)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    first = grid(plan, vals)
+    for _ in range(4):
+        assert torch.equal(grid(plan, vals), first)
+    grids = torch.randn(first.shape, generator=g, device=dev, dtype=torch.complex64)
+    first = degrid(plan, grids)
+    assert torch.equal(degrid(plan, grids), first)
+
+
+def _dense_plan(dev, support, chunk, wstacked=True, n=40000, npix=256, tile=64):
+    """A plan whose entries lie in one tile, ten or so a window corner: a
+    long segment whose chunks of ``chunk`` entries split its rows, and
+    windows that share most cells."""
+    rng = np.random.default_rng(support + 50)
+    u = rng.uniform(tile + 2, tile + 2 + 64, n)
+    v = rng.uniform(tile + 2, tile + 2 + 64, n)
+    p0 = torch.as_tensor(rng.integers(0, 3, n)).to(dev) if wstacked else None
+    frac = torch.as_tensor(rng.uniform(0, 1, n)).to(dev) if wstacked else None
+    if not wstacked:
+        p0 = torch.as_tensor(rng.integers(0, 4, n)).to(dev)
+    return make_grid_plan(
+        torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, frac,
+        npixel=npix, support=support, nplanes=4, tile=tile, chunk=chunk,
+    )
+
+
+@pytest.mark.parametrize("chunk", [100, None], ids=["chunk100", "default"])
+@pytest.mark.parametrize("support", [24, 33, 40, 64])
+def test_grid_and_degrid_wide_dense_segments_match_plain(dev, support, chunk):
+    """Dense windows (one tile, many entries a corner: K1's long register
+    runs and its chunks' row bookkeeping where a chunk of 100 entries
+    splits the segment's rows; K3's staged boxes and runs of entries on
+    one corner row) against the plain versions, to 1e-5 of the maximum,
+    on linear and nearest-plane plans."""
+    for wstacked in (True, False):
+        plan = _dense_plan(dev, support, chunk, wstacked)
+        g = torch.Generator(device=dev).manual_seed(support + 3)
+        vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+        ref = grid_plain(plan, vals.to(torch.complex128))
+        out = grid(plan, vals)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+        grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+        ref = degrid_plain(plan, grids)
+        out = degrid(plan, grids)
+        torch.cuda.synchronize()
+        assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("support", [24, 64])
+def test_grid_wide_raw_route_sums_shards_exactly(dev, support):
+    """K1's sharded route at wide supports: the raw int64 planes converted
+    on their own give the launch's own grids bit for bit; the values split
+    over two shards, each gridded at the global bound, sum in int64 to the
+    same bits in either order, within 1e-5 of the whole stream's grids."""
+    plan = _support_plan(dev, support, "linear", n=6000)
+    g = torch.Generator(device=dev).manual_seed(support + 4)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    own = (grid_vsum(vals), plan.tap_bound)
+    whole = grid(plan, vals)
+    assert torch.equal(grid_convert(grid(plan, vals, raw=True, bound=own), own), whole)
+    shard = torch.arange(plan.n, device=dev) % 2
+    parts = [torch.where(shard == d, vals, 0) for d in range(2)]
+    bound = (grid_vsum(parts[0]) + grid_vsum(parts[1]), plan.tap_bound)
+    raws = [grid(plan, p, raw=True, bound=bound) for p in parts]
+    assert torch.equal(raws[0] + raws[1], raws[1] + raws[0])
+    out = grid_convert(raws[0] + raws[1], bound)
+    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
+
+
+@pytest.mark.parametrize("support", [24, 64])
+def test_grid_wide_of_a_nan(dev, support):
+    """At wide supports too, a NaN value gives NaN in every cell (the
+    fixed-point bound is not finite), and zeros give zeros."""
+    plan = _support_plan(dev, support, "linear", n=6000)
+    vals = torch.zeros(plan.n, device=dev, dtype=torch.complex64)
+    assert not grid(plan, vals).abs().max()
+    vals[plan.n // 2] = float("nan")
+    assert torch.isnan(grid(plan, vals)).all()
+
+
+@pytest.mark.parametrize("frac", ["random", None], ids=["wstacked", "one-plane"])
+@pytest.mark.parametrize("support", [24, 33, 64])
+def test_degrid_stack_wide_unequal_n_in_matches_plain(dev, support, frac):
+    """K3's wide variant over a stack of three channel plans whose n_in
+    differ (corners spread ever further past the grid's edges), against
+    the per-channel plain version, to 1e-5."""
+    rng = np.random.default_rng(support + 6)
+    n, npix, plans = 3000, 256, []
+    for c in range(3):
+        u, v = (rng.uniform(-10 - 40 * c, npix + 10 + 40 * c, n) for _ in range(2))
+        p0 = f = None
+        if frac is not None:
+            p0 = torch.as_tensor(rng.integers(0, 3, n)).to(dev)
+            f = torch.as_tensor(rng.uniform(0, 1, n)).to(dev)
+        plans.append(make_grid_plan(
+            torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, f, npixel=npix,
+            nplanes=4 if frac is not None else 1, tile=64, support=support,
+        ))
+    st = _stack(plans)
+    assert len(set(st.n_in.tolist())) == 3
+    g = torch.Generator(device=dev).manual_seed(support + 5)
+    grids = torch.randn((3, st.nplanes, st.npixel, st.npixel), generator=g,
+                        device=dev, dtype=torch.complex64)
+    out = degrid_stack(st, grids)
+    ref = degrid_stack_plain(st, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 def _wide_unit_streams(dev, case, support, dtype, with_lo, tile=64):

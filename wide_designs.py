@@ -1,0 +1,196 @@
+"""K1's and K3's wide variants (windows of 17 to 64 cells) of this
+checkout timed in turns beside those of other checkouts, on one NVIDIA GPU.
+
+Each ``--other DIR`` is a checkout, or a copy of its
+``ska_sdp_func_python_torch/csrc``, whose C entry points ``ska_grid`` and
+``ska_degrid`` take this package's arguments: an earlier design, or a copy
+of one with a passage changed to see where its time goes. Each one's
+``grid.cu`` and ``degrid.cu`` are built with ``nvcc`` for ``sm_90a`` (the
+package's flags, all builds started together) into
+``build/wide_designs/``, each under the name of its directory.
+
+On the flagship's plans at ``chip_smoke.SUPPORTS16`` (the full stream, or
+its first 1,048,576 entries) the script times, with CUDA events over 10
+(K1) or 20 (K3) launches after a warm-up, the others, the package twice,
+then the others in reverse order, and prints each other's largest
+difference from the package over the package's maximum, the launch
+geometry, the walk-order statistics of each plan and each kernel's bound.
+With ``--ical`` it then runs the flagship Hogbom ``ical`` at
+``chip_smoke.ICAL16`` (padding ``chip_smoke.ICAL16_PADDING``, 4 cycles) on
+the first other's kernels, the package's twice and the first other's
+again, printing each cycle's wall and K1's and K3's device time a launch.
+
+Usage: python3 wide_designs.py --other DIR [DIR ...] [--ical]
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import subprocess
+import time
+from pathlib import Path
+
+import chip_smoke as cs
+
+ROOT = Path(__file__).resolve().parent
+OUT = ROOT / "build" / "wide_designs"
+CSRC = Path("ska_sdp_func_python_torch") / "csrc"
+
+
+def build(others: list[Path]) -> dict:
+    """Compile each other checkout's grid.cu and degrid.cu, each into its
+    own shared library; returns {(name, source): ctypes library}."""
+    from ska_sdp_func_python_torch import kernels
+
+    OUT.mkdir(parents=True, exist_ok=True)
+    jobs = {}
+    for tree in others:
+        inc = tree / CSRC if (tree / CSRC).is_dir() else tree
+        for src in ("grid", "degrid"):
+            so = OUT / f"{tree.name}_{src}.so"
+            cmd = [kernels._nvcc(), *kernels._NVCC_FLAGS, f"-I{inc}", "-shared",
+                   "-o", str(so), str(inc / f"{src}.cu")]
+            jobs[tree.name, src] = (so, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    libs = {}
+    for key, (so, proc) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {key}:\n{log}")
+        libs[key] = ctypes.CDLL(str(so))
+    return libs
+
+
+def bind(lib, kernel):
+    """``kernel``'s C entry point in ``lib``, typed as the package binds it."""
+    fn = getattr(lib, kernel.symbol)
+    fn.argtypes = [*kernel.argtypes, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def walk_stats(gp):
+    """Of consecutive walk positions (korder), the share on one plane and
+    one window corner; the mean entries on one (plane, corner); the
+    segments."""
+    import torch
+
+    k = gp.korder.long()
+    u, v, p = gp.iu0[k], gp.iv0[k], gp.plane[k]
+    same = (u[1:] == u[:-1]) & (v[1:] == v[:-1]) & (p[1:] == p[:-1])
+    n = max(1, k.numel() - 1)
+    corners = int(same.numel() - same.sum()) + 1
+    return (float(same.sum()) / n, k.numel() / corners,
+            int(torch.unique(gp.chunk_seg).numel()))
+
+
+def main() -> int:
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.gridding_fused import degrid, grid
+    from ska_sdp_func_python_torch.ops.gridding_plan import sort_values
+    from ska_sdp_func_python_torch.ops.imaging import make_imaging_plan, make_visibility_plan
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--other", type=Path, nargs="+", required=True,
+                    help="checkouts (or csrc copies) of other designs")
+    ap.add_argument("--ical", action="store_true", help="also time the support-24 ical")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("wide_designs: no CUDA device; nothing was run")
+    others = [o.resolve() for o in args.other]
+    if len({o.name for o in others} | {"package"}) != len(others) + 1:
+        raise SystemExit("wide_designs: each --other needs a name of its own, not 'package'")
+    t0 = time.perf_counter()
+    card = cs.card_line()
+    cs.say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels.build_library()
+    lib = kernels.load_library()
+    libs = build(others)
+    cs.say(f"builds: {time.perf_counter() - t0:.1f} s")
+    kg, kd = kernels.KERNELS["grid"], kernels.KERNELS["degrid"]
+    designs = {"package": (bind(lib, kg), bind(lib, kd))}
+    for o in others:
+        designs[o.name] = (bind(libs[o.name, "grid"], kg), bind(libs[o.name, "degrid"], kd))
+
+    def use(name):
+        kg._fn, kd._fn = designs[name]
+
+    device = torch.device("cuda", 0)
+    _, vis, model, phases = cs.simulate(device, rmax=40000.0, ntimes=76, npixel=1024)
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
+    n_sub = min(1 << 20, uvw.shape[0])
+    p0 = make_visibility_plan(vis, model, context="ng").plans[0]
+    geometry = dict(npixel=p0.npixel, cellsize=p0.cellsize, nw=p0.nw, padding=p0.npad / p0.npixel,
+                    w_range=(float(uvw[:, 2].min()), float(uvw[:, 2].max())))
+    del p0
+    names = [o.name for o in others]
+    turns = (*names, "package", "package", *reversed(names))
+    for support, full in cs.SUPPORTS16:
+        if full:
+            gp = make_visibility_plan(vis, model, context="ng", support=support).plans[0].gp
+            where, vals = "flagship", sort_values(gp, weighted)
+        else:
+            gp = make_imaging_plan(uvw[:n_sub, 0], uvw[:n_sub, 1], uvw[:n_sub, 2],
+                                   support=support, **geometry).gp
+            where, vals = "flagship 1M subset", sort_values(gp, weighted[:n_sub])
+        g = torch.Generator(device=device).manual_seed(13)
+        grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g, device=device,
+                            dtype=torch.complex64)
+        label = f"{where} support {support} (span {gp.span}, {gp.n_in} entries)"
+        same, per_corner, nseg = walk_stats(gp)
+        cs.say(f"{label}: consecutive walk positions on one plane and window corner {same:.3f}, "
+               f"{per_corner:.1f} entries a corner and plane; {nseg} segments, "
+               f"{int(gp.chunk_seg.shape[0])} chunks; {cs.wide_geometry(gp)}")
+        use("package")
+        ref = (grid(gp, vals), degrid(gp, grids))
+        for name in names:
+            use(name)
+            out = (grid(gp, vals), degrid(gp, grids))
+            for k, what in enumerate(("grid", "degrid")):
+                diff = float((out[k] - ref[k]).abs().max() / ref[k].abs().max())
+                cs.say(f"{label}: {what} {name} vs package, largest difference {diff:.3e} "
+                       f"of the maximum")
+            del out
+        del ref
+        times = {"grid": [], "degrid": []}
+        for name in turns:
+            use(name)
+            times["grid"].append((name, cs.timed(lambda: grid(gp, vals), 10)))
+            times["degrid"].append((name, cs.timed(lambda: degrid(gp, grids), 20)))
+        use("package")
+        for what in ("grid", "degrid"):
+            bnd = (cs.grid_bound if what == "grid" else cs.degrid_bound)(gp)
+            cs.say(f"{label}: {what} ms in turns " + ", ".join(f"{n} {t:.4f}" for n, t in times[what])
+                   + f"; bound {bnd[0]:.4f} ms ({bnd[1]})")
+        del gp, vals, grids
+        torch.cuda.empty_cache()
+    if args.ical:
+        from ska_sdp_func_python_torch.pipeline import ical
+
+        for name in (names[0], "package", "package", names[0]):
+            use(name)
+            walls = []
+            with cs.launch_events(("grid", "degrid")) as ms:
+                cs.run_logged(
+                    f"ical support {cs.ICAL16} ({name})",
+                    lambda: ical(vis, model, nmajor=4, calibration_context="T", context="ng",
+                                 algorithm="hogbom", support=cs.ICAL16,
+                                 padding=cs.ICAL16_PADDING, **cs.CLEAN),
+                    4, ("grid", "degrid"), walls,
+                )
+            cs.say(f"ical support {cs.ICAL16} ({name}): cycle walls "
+                   + ", ".join(f"{w:.1f}" for w in walls) + " ms; K1 ms a launch "
+                   + ", ".join(f"{t:.3f}" for t in ms["grid"]) + "; K3 "
+                   + ", ".join(f"{t:.3f}" for t in ms["degrid"]))
+        use("package")
+    cs.say(f"command: {time.perf_counter() - t0:.1f} s")
+    cs.say(card)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
