@@ -217,7 +217,12 @@ Phases, each on lines of its own:
      at support 24 restores the 2.0 Jy source within 0.2; (b) K9's wide
      variant at supports 7, 17, 24 and 32 in f32 and f64 on phase 9's
      observation cut to 8 integrations, against its plain version in f64
-     (1e-5 and 1e-12), twice to the same bits; (c) the sky model on the
+     (1e-5 and 1e-12), twice to the same bits; then its full-width path,
+     ``invert_visibility(auto_plan=False, gridder="tiled", padding=2,
+     nw=6)`` on phase 9's whole observation (19,884,032 entries) at
+     support 24 (f32) and 32 (f64): K9 launched, the dirty peak on the
+     source's pixel within 0.02 of 1.0, two calls to the same bits, and K9
+     on that stream against its plain version in f64; (c) the sky model on the
      flagship's plan (``skymodel_predict_calibrate`` held to the DFT of
      the same sky, ``skymodel_calibrate_invert``; K3, K4 and K1 launch),
      find, fit and insert on 16a's restored image card against CPU,
@@ -226,7 +231,7 @@ Phases, each on lines of its own:
      list (fluxes on 5 channels) through the fused ical of the config-4
      cube, its DFT card against CPU.
 Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d,
-15a and 16a, c resets the launch counters just before it and fails unless
+15a and 16a-c resets the launch counters just before it and fails unless
 every kernel of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
@@ -488,6 +493,11 @@ ICAL16 = 24
 ICAL16_PADDING = 2.0
 UNIT16 = (7, 17, 24, 32)
 UNIT16_TIMES, UNIT16_NW = 8, 6
+# 16b's full-width path: the tiled core path's invert on phase 9's whole
+# observation at these supports, its dirty peak within this of the 1.0 Jy
+# source
+UNIT16_FULL = {"f32": 24, "f64": 32}
+UNIT16_PEAK_TOL = 0.02
 DFT16_TOL = 1e-5
 SKYMODEL16_TOL = EPS_FAST
 GAINCAL16_TOL = 1e-3
@@ -2692,6 +2702,25 @@ def unit_stream9(vis, model, eps):
     return stream, geo
 
 
+def unit_tiles_bound(stream, geo, peak_ops):
+    """(ms, what bounds it) of unit_tiles on ``stream``: bytes, every sorted
+    entry's coordinates, residuals and value read once, the unit table
+    read once, every plane grid written once; operations, the separable
+    work as grid_bound counts it: per entry 2 s ES taps (about 10
+    operations each), the value scaled by each of s column taps (2 each),
+    then per cell of the s x s window a complex scale by its row tap and
+    add (4)."""
+    n = int(stream.u.shape[0])
+    s = geo["support"]
+    real = stream.u.element_size()
+    nbytes = (
+        n * (real * (2 + (2 if stream.u_lo is not None else 0)) + 2 * real)
+        + 12 * int(stream.unit_seg.shape[0])
+        + stream.nplanes * geo["npixel"] ** 2 * 2 * real
+    )
+    return bound(nbytes, n * (4 * s * s + 22 * s), peak_ops)
+
+
 def compare_unit_tiles(stream, geo, label, tol, peak_ops):
     """unit_tiles against its plain version accumulated in f64 on the
     same stream; times both. Returns the kernel row."""
@@ -2724,19 +2753,9 @@ def compare_unit_tiles(stream, geo, label, tol, peak_ops):
     n = int(stream.u.shape[0])
     nunits = int(stream.unit_seg.shape[0])
     s = geo["support"]
-    real = stream.u.element_size()
-    # bytes: every sorted entry's coordinates, residuals and value read
-    # once, the unit table read once, every plane grid written once;
-    # operations (window form): per entry 2 s ES taps (about 10 operations
-    # each) and s^2 tap products of a complex value by two real taps added
-    # into the tile (6 operations)
-    nbytes = (
-        n * (real * (2 + (2 if stream.u_lo is not None else 0)) + 2 * real)
-        + 12 * nunits + stream.nplanes * geo["npixel"] ** 2 * 2 * real
-    )
     row = _row(
         err, rel, timed(lambda: stream.grid(**geo), 5), plain_ms,
-        bound(nbytes, n * (6 * s * s + 20 * s), peak_ops),
+        unit_tiles_bound(stream, geo, peak_ops),
     )
     say(
         f"unit_tiles {label}: {n} entries in {nunits} units of at most "
@@ -4589,12 +4608,22 @@ def unit_stream16(vis, model, support):
 def run_unit_tiles_wide(cfg, device):
     """Phase 16b: K9 at the odd and wide supports of UNIT16 in f32 and f64
     on phase 9's observation, against its plain version accumulated in
-    f64, two launches to the same bits. Returns the rows by
-    configuration."""
+    f64, two launches to the same bits; then K9's wide variant on its
+    full-width path: invert_visibility through the tiled core path on
+    phase 9's whole observation at UNIT16_FULL (the launch counters reset
+    just before the two calls and read just after), the dirty peak on the
+    source's pixel within UNIT16_PEAK_TOL of 1.0 and the two calls to the
+    same bits, and K9 on that call's whole stream against its plain
+    version accumulated in f64. Returns (the rows by configuration, the
+    full-width calls' summed launch counts)."""
     import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.imaging import invert_visibility
 
     t0 = time.perf_counter()
     rows = {}
+    launches = {name: 0 for name in KERNELS}
     for dtype, tol, peak in ((torch.float32, KERNELS["unit_tiles"][0], PEAK_F32_S),
                              (torch.float64, UNIT_TILES_F64_TOL, PEAK_F64_S)):
         vis, model, _, _ = observation9(cfg, device, dtype, ntimes=UNIT16_TIMES)
@@ -4606,8 +4635,42 @@ def run_unit_tiles_wide(cfg, device):
             del stream
         del vis, model
         torch.cuda.empty_cache()
+        support = UNIT16_FULL[name]
+        vis, model, _, source = observation9(cfg, device, dtype)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        walls, dirty = [], []
+        for _ in range(2):
+            t1 = time.perf_counter()
+            dirty.append(invert_visibility(vis, model, support=support, nw=UNIT16_NW,
+                                           auto_plan=False, gridder="tiled",
+                                           padding=2)[0].pixels)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t1)
+        counts = kernels.launch_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        img = dirty[0][0, 0].double().cpu().numpy()
+        iy, ix = np.unravel_index(int(np.argmax(img)), img.shape)
+        same = torch.equal(dirty[0], dirty[1])
+        label = f"16b full-width tiled invert {name} support {support}"
+        say(f"{label} ({vis.nvis} visibilities, natural weights, {model.npixel}^2, padding 2, "
+            f"nw {UNIT16_NW}): {walls[0]:.3f} then {walls[1]:.3f} s a call; peak "
+            f"{img[iy, ix]:.6f} at ({ix}, {iy}) (source at {source}, bound "
+            f"{UNIT16_PEAK_TOL} of 1.0); two calls give the same bits: {same}; launches {counts}")
+        _launch_gate(label, counts, ("unit_tiles",))
+        if (ix, iy) != tuple(source) or not abs(img[iy, ix] - 1.0) <= UNIT16_PEAK_TOL:
+            raise AssertionError(f"{label}: dirty peak {img[iy, ix]} at {(ix, iy)}, source at {source}")
+        if not same:
+            raise AssertionError(f"{label}: two calls differ")
+        del dirty, img
+        stream, geo = unit_stream16(vis, model, support)
+        rows[f"{name} support {support} full stream"] = compare_unit_tiles(
+            stream, geo, f"16b {name} support {support} full stream", tol, peak)
+        del stream, vis, model
+        torch.cuda.empty_cache()
     say(f"16b: {time.perf_counter() - t0:.1f} s")
-    return rows
+    return rows, launches
 
 
 def spectral_cube_ical(device):
@@ -4792,7 +4855,8 @@ def run_phase16(cfg, device, vis, model, phases):
     skymodel_small_matches_cpu(device)
     del restored
     torch.cuda.empty_cache()
-    unit_rows = run_unit_tiles_wide(cfg, device)
+    unit_rows, counts = run_unit_tiles_wide(cfg, device)
+    by_shape["epsilon observation, tiled core path invert (phase 16b)"] = counts
     by_shape["config-4 cube spectral-component ical (phase 16c)"] = spectral_cube_ical(device)
     torch.cuda.empty_cache()
     say(f"phase 16: {time.perf_counter() - t0:.1f} s")

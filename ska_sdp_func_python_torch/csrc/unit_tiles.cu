@@ -73,22 +73,63 @@
 // must move are the sorted stream once and the grids once.
 //
 // Odd supports and supports past 16 (up to the tile and 64) take
-// unit_tiles_wide_kernel. A group of S^2 threads stops fitting a CTA past
-// S 32, and the f64 pair tile (2 x 2 x buf^2 x 8 B: 248 KB at buf 88, tile
-// 56 + S 32) stops fitting a block's shared memory, so the wide variant
-// keeps no tile: its register sums go straight into the global
-// fixed-point words (f32: one int64 word; f64: the 128-bit pair), as K1's
-// wide variant does, with the same units, conversion and bits on every
-// launch. The residue period is S (the tiled path's ES kernel has half
-// width S // 2, so an odd S's non-zero taps, at most S - 1 of them, lie in
-// the S cells from floor(pix) - (S // 2 - 1)). A CTA of 1024 threads runs
-// 1024 / S^2 groups of S^2 threads where they fit, one class a thread, and
-// past S 32 one group whose threads own ceil(S^2 / 1024) classes each (C,
-// the template parameter). Stage 1 is the narrow kernel's, at S taps per
-// axis; its sizes are the launch's, so its shared memory is sized at
-// launch. What bounds it: stage 1's taps and the global atomics of the
-// flushes.
+// unit_tiles_wide_kernel, Romein's walk at the residue period of the
+// window itself, S (the tiled path's ES kernel has half width S // 2, so
+// an odd S's non-zero taps, at most S - 1 of them, lie in the S cells from
+// floor(pix) - (S // 2 - 1)): every class has exactly one cell in every
+// window, so no thread walks an entry for nothing. A thread owns K
+// consecutive rows of one column (K 4 to 8 and the threads a CTA by
+// support, wide_choice, so that at most an eighth of the classes a CTA
+// could own idle from S 7 up): per entry it reads the corner's residues,
+// its column's u tap and the value once for K cells, and K v taps in
+// vector loads; stage 1 stores the taps by residue class, so these loads
+// sit at fixed offsets whatever the corner. A walk of S x ceil(S / K)
+// threads takes a contiguous share of its cluster's run. Stage 1 spreads
+// a batch's taps over every thread, a block of consecutive taps of one
+// axis a thread (es_tap in the narrow kernel's operation order, so the
+// taps keep their bits), from coordinates that cp.async staged two
+// batches ahead; the taps of a batch are double-buffered, so a batch
+// costs one barrier. The register runs (at most kRunCap entries, every
+// thread's cut on the same entry) are flushed into an integer tile in
+// shared memory, one int64 word a value (16 bytes a cell), with a margin
+// row and column for the window's cell left of the tile (the dense form
+// drops it), held in bands of rows by a thread block cluster (the least
+// of 1, 2, 4 or 8 CTAs whose bands fit beside the staging: one CTA at tile
+// 64 to S 48, two at 64); a flush into another CTA's band goes through
+// distributed shared memory. Every flush is an add on the cluster address
+// (one 64-bit atomic instruction, where the add on the CTA's own shared
+// address is a compare-and-swap loop). f32 flushes in the launch's units
+// 2^-kg. f64 flushes in units of the run's own, 2^-kr with 2^(61 - kr)
+// above the run's entries times its largest |re| + |im| (a maximum, so
+// the same whatever the order), and the overlap-add puts each word into
+// the launch's 128-bit units exactly (2^(kg - kr) times it; rounded to
+// nearest, deterministically, on a run below 2^-64 of the launch's
+// bound): the carry of the pair is formed in the overlap-add, as
+// add_int128 forms it, not in every flush. A cluster serves consecutive
+// units, each run of them on one segment as one stream, and overlap-adds
+// the run's rows of the tile into grid64 once, skipping untouched cells.
+// A tile that no cluster of 8 holds (512 at S 17) is refused, and the
+// wrapper raises ValueError first. The conversion is the narrow kernel's,
+// and a launch gives the same bits on every run.
+//
+// What bounds the wide variant on the card (NVIDIA H100 80GB HBM3; copies
+// of this source with one passage changed, timed by unit_designs.py;
+// PERF.md): 7-13 times its bound from S 17 up in f32, 8-10 in f64; on
+// the epsilon observation's whole stream (19,884,032 entries, 77 a window
+// corner) the walk takes 38-56% of a launch at supports 17-32 and more
+// past them, its four FMAs a class and entry and the per-entry checks
+// around them; stage 1 30-48% (about 58 instructions a tap: the
+// correctly rounded division, square root and exp that keep the taps'
+// bits); the flushes 2-11%; the wrapper's bound sum, the scratch grids'
+// memset and the conversion 5-16%. The design it replaced, one class a
+// thread and every flush into device memory, kept 81-97% of its time
+// with its flushes compiled out: its walk bound it (f64: also its
+// serial taps).
+#include <cooperative_groups.h>
+
 #include "common.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -191,6 +232,8 @@ __device__ __forceinline__ float floor_(float a) { return floorf(a); }
 __device__ __forceinline__ double floor_(double a) { return floor(a); }
 __device__ __forceinline__ float abs_(float a) { return fabsf(a); }
 __device__ __forceinline__ double abs_(double a) { return fabs(a); }
+__device__ __forceinline__ float fma_(float a, float b, float c) { return fmaf(a, b, c); }
+__device__ __forceinline__ double fma_(double a, double b, double c) { return fma(a, b, c); }
 
 // exp(beta (sqrt(1 - nu^2) - 1)) at nu = offs / half, zero for |nu| >= 1
 // (gridding.es_kernel, in the same operation order)
@@ -388,32 +431,220 @@ __global__ void __launch_bounds__(Groups<S>::kThreads)
   }
 }
 
-constexpr int kWideThreads = 1024;
+constexpr int kWideWaves = 16;  // about this many wide-variant clusters an SM serves
 
-// the launch's sizes of the wide variant: groups of S^2 threads, entries
-// of a group in a batch, and the shared-memory offsets of each array
-struct WideLayout {
-  int groups, ps, slots;
-  size_t taps, rel, total;
+// The launch geometry of the wide variant at support S on tiles of `tile`
+// cells: the walks (Romein's, at residue period S) and their staging, and
+// the integer tile held in bands of rows over a thread block cluster.
+struct WideGeom {
+  int k;        // rows of one column a thread owns
+  int threads;  // of a CTA
+  int nbb;      // row blocks of a column: ceil(S / k)
+  int group;    // threads of one walk: S columns times nbb row blocks
+  int walks;    // walks of a CTA
+  int lstage;   // a walk stages 2^lstage entries a batch
+  int slots;    // entries a CTA stages a batch
+  int cst;      // stride of a staged coordinate field (slots, rounded up to 4)
+  int sp;       // taps of a staged axis row (by residue class; 16-byte rows)
+  int rt, nr;   // stage 1: rt consecutive taps of an axis row a thread, nr such blocks a row
+  int cs;       // CTAs of a cluster: each holds a band of rb rows of the tile
+  int rows;     // rows of the tile held: buf + 1 (row 0 the margin, tile row -1)
+  int rb;
+  int ld;       // values a tile row (column 0 the margin), odd
+  size_t taps, meta, mval, red, acc, smem;  // byte offsets of the arrays; total
 };
 
+__host__ __device__ inline size_t align16(size_t n) { return (n + 15) / 16 * 16; }
+
 template <typename T>
-__host__ __device__ inline WideLayout wide_layout(int S) {
-  WideLayout l;
-  l.groups = S * S <= kWideThreads ? kWideThreads / (S * S) : 1;
-  l.ps = Batch<T>::kSize / l.groups > 0 ? Batch<T>::kSize / l.groups : 1;
-  l.slots = l.groups * l.ps;
-  const size_t coords = 2 * (size_t)l.slots * 6 * sizeof(T);  // [2] batches
-  l.taps = coords;
-  // rel is read as int4: 16-byte aligned
-  l.rel = (l.taps + (size_t)l.slots * 2 * S * sizeof(T) + 15) / 16 * 16;
-  l.total = l.rel + (size_t)l.slots * 4 * sizeof(int);
-  return l;
+__host__ __device__ inline WideGeom wide_geom(int S, int tile, int k, int threads,
+                                              int cs, int lstage) {
+  WideGeom g;
+  g.k = k;
+  g.threads = threads;
+  g.nbb = (S + k - 1) / k;
+  g.group = S * g.nbb;
+  g.walks = threads / g.group;
+  g.lstage = lstage;
+  g.slots = g.walks << lstage;
+  g.cst = (g.slots + 3) & ~3;
+  const int vec = 16 / (int)sizeof(T);
+  const int taps = S > g.nbb * k ? S : g.nbb * k;
+  g.sp = (taps + vec - 1) / vec * vec;
+  // the block of taps a stage-1 thread computes: the least work a thread a
+  // batch, counting a row's corner and offset as one tap more, then the
+  // largest block
+  int best = 1 << 30;
+  for (int r = 1; r <= S; ++r) {
+    const int nr = (S + r - 1) / r;
+    const int rows = threads / nr;  // axis rows a pass
+    const int w = (2 * g.slots + rows - 1) / rows * (r + 1);
+    if (rows >= 1 && w <= best) {
+      best = w;
+      g.rt = r;
+    }
+  }
+  g.nr = (S + g.rt - 1) / g.rt;
+  g.cs = cs;
+  const int buf = tile + S;
+  g.rows = buf + 1;
+  g.ld = (buf + 1) | 1;
+  g.rb = (g.rows + cs - 1) / cs;
+  // coords [3 batches][u, v, ulo, vlo, val re/im][cst]; taps [2][slots][kv,
+  // ku][sp]; meta [2][slots] int4; mval [2][slots][2]; red [2] int and one
+  // u64; acc [re, im][rb][ld] int64 words
+  g.taps = align16(3 * (size_t)6 * g.cst * sizeof(T));
+  g.meta = align16(g.taps + 2 * (size_t)g.slots * 2 * g.sp * sizeof(T));
+  g.mval = align16(g.meta + 2 * (size_t)g.slots * 16);
+  g.red = align16(g.mval + 2 * (size_t)g.slots * 2 * sizeof(T));
+  g.acc = g.red + 16;
+  g.smem = g.acc + 2 * (size_t)g.rb * g.ld * sizeof(u64);
+  return g;
 }
 
-// C: classes a thread owns (the group's S^2 classes over its threads)
-template <typename T, int C>
-__global__ void __launch_bounds__(kWideThreads)
+// The most threads a CTA runs (f64 sums and taps spill at 64 registers a
+// thread)
+__host__ __device__ constexpr int wide_most(bool f64) { return f64 ? 768 : 1024; }
+
+// Rows a thread (K, 4 to 8) and threads a CTA: the most walks of the
+// largest K whose rows and threads leave at most an eighth of the classes
+// a CTA could own idle, with at least 512 threads; a CTA runs as many
+// walks as its register budget allows, in whole warps.
+inline void wide_choice(int S, bool f64, int& k, int& threads) {
+  int best = -1;
+  for (int kk = 8; kk >= 4; --kk) {
+    const int group = S * ((S + kk - 1) / kk);
+    const int walks = wide_most(f64) / group;
+    if (walks < 1) continue;
+    const int thr = (walks * group + 31) / 32 * 32;
+    // the classes owned over those a CTA's threads could own
+    const long long used = (long long)walks * S * S, room = (long long)thr * kk;
+    const int idle_ok = 8 * used >= 7 * room;
+    // fewer idle classes first, then 512 threads or more, then larger K
+    const int score = idle_ok * 4000 + (thr >= 512) * 2000 +
+                      (idle_ok ? kk : (int)(1000 * used / room));
+    if (score > best) {
+      best = score;
+      k = kk;
+      threads = thr;
+    }
+  }
+}
+
+// The least cluster (1, 2, 4 or 8 CTAs) whose bands of the tile fit a
+// block's shared memory beside batches of 8 entries a walk or more (or,
+// at the small supports of 16 walks a CTA or more, of a tap a thread), the
+// largest batch (up to 32) that fits; failing that, the most entries a
+// batch that any cluster fits. cs 0 where no cluster of 8 holds the tile.
+template <typename T>
+inline WideGeom wide_plan(int S, int tile) {
+  int k = 4, threads = 1024;
+  wide_choice(S, sizeof(T) == 8, k, threads);
+  WideGeom best = wide_geom<T>(S, tile, k, threads, 8, 0);
+  best.cs = 0;
+  for (int cs = 1; cs <= 8; cs *= 2)
+    for (int ls = 5; ls >= 0; --ls) {
+      const WideGeom g = wide_geom<T>(S, tile, k, threads, cs, ls);
+      if (g.smem > kMaxSmem) continue;
+      if (ls >= 3 || (g.walks >= 16 && 2 * g.slots * S >= threads)) return g;
+      if (best.cs == 0 || g.slots > best.slots) best = g;
+      break;
+    }
+  return best;
+}
+
+// r (a register sum) added in units of 1/scale (scale = 2^kg, or the run's
+// 2^kr in f64; unitf the same scale as a float, or 0) to the int64 word at
+// `w` in the shared memory of CTA `dst` of the cluster: one 64-bit add on
+// the cluster address
+template <typename T>
+__device__ __forceinline__ void cluster_add(cg::cluster_group& cl, u64* w, int dst, T r,
+                                            double scale, float unitf) {
+  long long q;
+  if constexpr (sizeof(T) == 4)
+    q = unitf != 0.f ? __float2ll_rn(r * unitf) : __double2ll_rn((double)r * scale);
+  else
+    q = __double2ll_rn(r * scale);
+  if (q != 0) atomicAdd(cl.map_shared_rank(w, dst), (u64)q);
+}
+
+// an int64 tile word t in units of 2^-kr as the 128-bit pair (lo, hi) in the
+// global units 2^-(kr + shift): exact where shift >= 0, else rounded to
+// nearest (ties to even)
+__device__ __forceinline__ void tile_to_int128(long long t, int shift, u64& lo, u64& hi) {
+  const bool neg = t < 0;
+  const u64 m = neg ? 0ull - (u64)t : (u64)t;
+  if (shift >= 64) {
+    lo = 0ull;
+    hi = m << (shift - 64);
+  } else if (shift > 0) {
+    lo = m << shift;
+    hi = m >> (64 - shift);
+  } else if (shift == 0) {
+    lo = m;
+    hi = 0ull;
+  } else {
+    const int r = -shift;
+    u64 q = r >= 64 ? 0ull : m >> r;
+    const u64 rem = r >= 64 ? m : m & ((1ull << r) - 1ull);
+    const u64 half = r > 64 ? ~0ull : 1ull << (r - 1);
+    if (r <= 64 && (rem > half || (rem == half && (q & 1ull)))) ++q;
+    lo = q;
+    hi = 0ull;
+  }
+  if (neg) {
+    lo = ~lo + 1ull;
+    hi = ~hi + (lo == 0ull ? 1ull : 0ull);
+  }
+}
+
+// K row taps from a staged kv row (by residue class), 16 bytes a load
+// where the rows allow it, into registers (no address of ky is taken: an
+// addressed array goes to the stack)
+template <int K>
+__device__ __forceinline__ void load_rows(const float* p, float (&ky)[K]) {
+  if constexpr (K % 4 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 4) {
+      const float4 t = *reinterpret_cast<const float4*>(p + j);
+      ky[j] = t.x;
+      ky[j + 1] = t.y;
+      ky[j + 2] = t.z;
+      ky[j + 3] = t.w;
+    }
+  } else if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 2) {
+      const float2 t = *reinterpret_cast<const float2*>(p + j);
+      ky[j] = t.x;
+      ky[j + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) ky[j] = p[j];
+  }
+}
+template <int K>
+__device__ __forceinline__ void load_rows(const double* p, double (&ky)[K]) {
+  if constexpr (K % 2 == 0) {
+#pragma unroll
+    for (int j = 0; j < K; j += 2) {
+      const double2 t = *reinterpret_cast<const double2*>(p + j);
+      ky[j] = t.x;
+      ky[j + 1] = t.y;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < K; ++j) ky[j] = p[j];
+  }
+}
+
+// K rows of a column a thread (wide_choice). A cluster of CTAs serves the
+// units [per c, per (c + 1)), one run of consecutive units of one segment
+// at a time: a run's entries are one stream shared by the cluster's walks,
+// and its tile is overlap-added once.
+template <typename T, int K>
+__global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
     unit_tiles_wide_kernel(const T* __restrict__ u, const T* __restrict__ v,
                            const T* __restrict__ vals,
                            const T* __restrict__ ulo,
@@ -423,150 +654,318 @@ __global__ void __launch_bounds__(kWideThreads)
                            const int* __restrict__ unit_count,
                            const double* __restrict__ vsum,
                            u64* __restrict__ grid64, int npix, int tile,
-                           int nta, int S, T beta) {
+                           int nta, int S, int lstage, int nunits, int per,
+                           T beta) {
   constexpr int kW = Fixed<T>::kWords;
-  const WideLayout lay = wide_layout<T>(S);
-  const int slots = lay.slots, ps = lay.ps, ngroups = lay.groups;
-  const int kHalf = S / 2;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = (int)cluster.num_blocks();
+  const int rank = (int)cluster.block_rank();
+  const int threads = blockDim.x;
+  const WideGeom gm = wide_geom<T>(S, tile, K, threads, cs, lstage);
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // coords[b]: u, v, ulo, vlo [slots] each, then val [slots][2]
   T* coords = reinterpret_cast<T*>(smem_raw);
-  T* taps = reinterpret_cast<T*>(smem_raw + lay.taps);  // [slots][2][S]
-  int* rel = reinterpret_cast<int*>(smem_raw + lay.rel);  // [slots][4]
+  T* taps = reinterpret_cast<T*>(smem_raw + gm.taps);
+  int4* meta = reinterpret_cast<int4*>(smem_raw + gm.meta);
+  T* mval = reinterpret_cast<T*>(smem_raw + gm.mval);
+  int* red = reinterpret_cast<int*>(smem_raw + gm.red);
+  u64* acc = reinterpret_cast<u64*>(smem_raw + gm.acc);
+  const int nb = gm.rb * gm.ld;  // values of one component's band
+  const int buf = tile + S;
+  const int half = S / 2;
+  const int stage = 1 << lstage;
+  const int cst = gm.cst;
 
   const double total = vsum[0];
-  if (!isfinite(total)) return;  // the conversion writes NaN
-  const double scale = ldexp(1.0, fixed_exponent<T>(total));
-
-  const int seg = unit_seg[blockIdx.x];
-  const int start = unit_start[blockIdx.x];
-  const int end = start + unit_count[blockIdx.x];
+  if (!isfinite(total)) return;  // the whole cluster leaves; the conversion writes NaN
+  const int kg = fixed_exponent<T>(total);
+  const double scale = ldexp(1.0, kg);
+  // an f32 sum times 2^kg is exact in f32 as in f64 and rounds to the same
+  // integer, where 2^kg is a float
+  const float unitf = kg <= 127 ? ldexpf(1.f, kg) : 0.f;
   const int ntiles = nta * nta;
-  const int plane = seg / ntiles;
-  const int t = seg - plane * ntiles;
-  const int tv0 = (t / nta) * tile;
-  const int tu0 = (t % nta) * tile;
-  const int q = (unit_count[blockIdx.x] + ngroups - 1) / ngroups;
-  const int nbatch = (q + ps - 1) / ps;
-  auto pos_of = [&](int k, int sl) {
-    const int g = sl / ps;
-    const int p = start + g * q + k * ps + (sl - g * ps);
-    return p < min(start + (g + 1) * q, end) ? p : -1;
-  };
-  auto field = [&](int b, int f) { return coords + (size_t)(6 * b + f) * slots; };
-  const int nitems = (ulo != nullptr ? 5 : 3) * slots;
-  auto issue = [&](int k) {
-    const int b = k & 1;
-    for (int i = threadIdx.x; i < nitems; i += kWideThreads) {
-      const int item = i / slots;
-      const int sl = i - item * slots;
-      const int p = pos_of(k, sl);
-      if (p < 0) continue;
-      if (item == 0)
-        ska_cp_async<2 * sizeof(T)>(field(b, 4) + 2 * sl, vals + 2 * (size_t)p);
-      else if (item == 1)
-        ska_cp_async<sizeof(T)>(field(b, 0) + sl, u + p);
-      else if (item == 2)
-        ska_cp_async<sizeof(T)>(field(b, 1) + sl, v + p);
-      else if (item == 3)
-        ska_cp_async<sizeof(T)>(field(b, 2) + sl, ulo + p);
-      else
-        ska_cp_async<sizeof(T)>(field(b, 3) + sl, vlo + p);
-    }
-    ska_cp_async_commit();
-  };
 
-  // stage 2 role: the classes (a, b) = (cls % S, cls / S) of group g
-  const int kk = S * S;
-  const int g = kk <= kWideThreads ? threadIdx.x / kk : 0;
-  const bool active = g < ngroups;
-  int ca[C], cb[C], cur[C], run[C];
-  T re[C], im[C];
-#pragma unroll
-  for (int c = 0; c < C; ++c) {
-    const int cls = kk <= kWideThreads ? threadIdx.x % kk : threadIdx.x + kWideThreads * c;
-    ca[c] = cls < kk ? cls % S : -1;  // -1: no class
-    cb[c] = cls / S;
-    cur[c] = -1;
-    run[c] = 0;
-    re[c] = im[c] = T(0);
-  }
-  const size_t npp = (size_t)npix * npix;
-  u64* g0 = grid64 + 2 * kW * (size_t)plane * npp;
-  // integer adds commute: the grids are the same whatever their order
-  auto flush = [&](int c) {
-    if (cur[c] >= 0) {
-      u64* w = g0 + 2 * kW * (size_t)cur[c];
-      fixed_add(w, re[c], scale);
-      fixed_add(w + kW, im[c], scale);
-    }
-  };
-  const int gbeg = start + g * q;
-  const int gend = min(gbeg + q, end);
+  // stage-1 role: taps [r1, r2) of the staged axis rows p1, p1 + pstep, ...
+  // (row 2 sl + axis: axis 0 the entry's v taps, 1 its u taps)
+  const int pstep = threads / gm.nr;
+  const int p1 = threadIdx.x / gm.nr;
+  const int r1 = (threadIdx.x - p1 * gm.nr) * gm.rt;
+  const int r2 = min(S, r1 + gm.rt);
+  const float invs = 1.f / S;
+  // walk role: walk g of the CTA; the thread owns the classes (a, b0 + j),
+  // j < nvalid, of residue period S. Each class has exactly one cell in
+  // every window: column ru + ((a - ru) mod S) and row rv + ((b0 + j - rv)
+  // mod S) of a window of corner (ru, rv)
+  const int g = threadIdx.x / gm.group;
+  const bool walker = g < gm.walks;
+  const int rr = threadIdx.x - g * gm.group;
+  const int a = rr / gm.nbb;
+  const int b0 = (rr - a * gm.nbb) * K;
+  const int nvalid = walker ? min(K, S - b0) : 0;
+  const float rinv = 1.f / gm.rb;
 
-  issue(0);
-  for (int k = 0; k < nbatch; ++k) {
-    ska_cp_async_wait_all();
-    __syncthreads();
-    const int b = k & 1;
-    const T* cu = field(b, 0);
-    const T* cv = field(b, 1);
-    const T* cul = field(b, 2);
-    const T* cvl = field(b, 3);
-    const T* cval = field(b, 4);
-    // stage 1: the S taps of one axis of one entry per thread
-    for (int i = threadIdx.x; i < 2 * slots; i += kWideThreads) {
-      const int sl = i >> 1;
-      const int axis = i & 1;  // 0: v (rows), 1: u (columns)
-      if (pos_of(k, sl) < 0) continue;
-      const T pix = axis == 0 ? cv[sl] : cu[sl];
-      const T lo = ulo == nullptr ? T(0) : (axis == 0 ? cvl[sl] : cul[sl]);
-      const int t0 = axis == 0 ? tv0 : tu0;
-      const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
-      const int r0 = (int)floor_(pix) - (kHalf - 1) - shift - t0;
-      const T d0 = sub_rn(T(t0), pix);
-      for (int r = 0; r < S; ++r)
-        taps[(2 * sl + axis) * S + r] =
-            es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(kHalf), beta);
-      rel[4 * sl + 2 * axis] = r0;
-      rel[4 * sl + 2 * axis + 1] = (r0 % S + S) % S;
+  const int c1 = min(nunits, (int)(blockIdx.x / cs + 1) * per);
+  for (int c0 = (blockIdx.x / cs) * per; c0 < c1;) {
+    // the run: units [c0, ce) of one segment, entries [start, end)
+    const int seg = unit_seg[c0];
+    int ce = c0 + 1;
+    while (ce < c1 && unit_seg[ce] == seg &&
+           unit_start[ce] == unit_start[ce - 1] + unit_count[ce - 1])
+      ++ce;
+    const int start = unit_start[c0];
+    const int end = unit_start[ce - 1] + unit_count[ce - 1];
+    c0 = ce;
+    if (end <= start) continue;  // the same for every CTA of the cluster
+    const int plane = seg / ntiles;
+    const int t = seg - plane * ntiles;
+    const int tv0 = (t / nta) * tile;
+    const int tu0 = (t % nta) * tile;
+    // the run's rows of the tile, from the margin row 0: a window starts
+    // at most one row before its hi coordinate's corner row
+    __syncthreads();  // the previous run's overlap-add has read the band and its rows
+    u64* rmax = reinterpret_cast<u64*>(red + 2);
+    if (threadIdx.x == 0) {
+      red[0] = INT_MAX;
+      red[1] = INT_MIN;
+      *rmax = 0ull;
     }
-    if (k + 1 < nbatch) issue(k + 1);
     __syncthreads();
-    if (!active) continue;
-    const int nj = min(ps, gend - (gbeg + k * ps));
-    for (int j = 0; j < nj; ++j) {
-      const int sl = g * ps + j;
-      const int4 rr = reinterpret_cast<const int4*>(rel)[sl];
-      const T vr = cval[2 * sl], vi = cval[2 * sl + 1];
+    int rlo = INT_MAX, rhi = INT_MIN;
+    double vmax = 0.0;  // the run's largest |re| + |im| (f64)
+    for (int p = start + threadIdx.x; p < end; p += threads) {
+      const int r = (int)floor_(v[p]);
+      rlo = min(rlo, r);
+      rhi = max(rhi, r);
+      if constexpr (kW == 2) vmax = fmax(vmax, fabs((double)vals[2 * (size_t)p]) +
+                                                     fabs((double)vals[2 * (size_t)p + 1]));
+    }
+    rlo = __reduce_min_sync(0xffffffffu, rlo);
+    rhi = __reduce_max_sync(0xffffffffu, rhi);
+    if constexpr (kW == 2) {
+      // non-negative doubles order as their bits
+      u64 b = (u64)__double_as_longlong(vmax);
 #pragma unroll
-      for (int c = 0; c < C; ++c) {
-        if (ca[c] < 0) continue;
-        int dy = cb[c] - rr.y;
-        dy += dy < 0 ? S : 0;
-        int dx = ca[c] - rr.w;
-        dx += dx < 0 ? S : 0;
-        const int y = rr.x + dy;
-        const int x = rr.z + dx;
-        if (y < 0 || x < 0) continue;  // before the tile: not in the dense form
-        const T kv = taps[(2 * sl) * S + dy];
-        const T ku = taps[(2 * sl + 1) * S + dx];
-        if (kv == T(0) || ku == T(0)) continue;
-        const int cell = (tv0 + y) * npix + tu0 + x;
-        if (cell != cur[c] || run[c] == kRunCap) {
-          flush(c);
-          cur[c] = cell;
-          run[c] = 0;
-          re[c] = im[c] = T(0);
+      for (int o = 16; o > 0; o >>= 1) {
+        const u64 ob = __shfl_xor_sync(0xffffffffu, b, o);
+        b = ob > b ? ob : b;
+      }
+      if ((threadIdx.x & 31) == 0) atomicMax(rmax, b);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      atomicMin(red, rlo);
+      atomicMax(red + 1, rhi);
+    }
+    __syncthreads();
+    // f64: the run's own units 2^-kr, 2^(61 - kr) above count x its largest
+    // value (every cell of the run), one int64 word a value in the tile;
+    // the overlap-add puts them into the launch units, 2^wshift finer
+    double rscale = scale;
+    int wshift = 0;
+    if constexpr (kW == 2) {
+      int er = 0;
+      frexp((double)(end - start) * __longlong_as_double((long long)*rmax), &er);
+      const int kr = 61 - er;
+      rscale = ldexp(1.0, kr);
+      wshift = kg - kr;
+    }
+    const int y0 = max(0, red[0] - (half - 1) - tv0);
+    const int y1 = min(gm.rows, red[1] - (half - 1) - tv0 + S + 1);
+    const int z0 = max(y0, rank * gm.rb);
+    const int z1 = min(y1, (rank + 1) * gm.rb);
+    const int zn = max(0, z1 - z0) * gm.ld;
+    for (int c = 0; c < 2; ++c) {
+      u64* zp = acc + ((size_t)c * nb + (size_t)(z0 - rank * gm.rb) * gm.ld);
+      for (int i = threadIdx.x; i < zn; i += threads) zp[i] = 0ull;
+    }
+    // every band is zero before any CTA of the cluster adds to it
+    cluster.sync();
+
+    // walk w of the cluster's cs * walks takes [start + w q, start + (w + 1) q)
+    const int count = end - start;
+    const int nwalks = cs * gm.walks;
+    const int q = (count + nwalks - 1) / nwalks;
+    const int nbatch = (q + stage - 1) >> lstage;
+    auto pos_of = [&](int k, int sl) {
+      const int w = rank * gm.walks + (sl >> lstage);
+      const int p = start + w * q + (k << lstage) + (sl & (stage - 1));
+      return p < min(start + (w + 1) * q, end) ? p : -1;
+    };
+    // batch k's coordinates and values into coordinate buffer b by cp.async
+    auto issue = [&](int k, int b) {
+      T* cb = coords + (size_t)b * 6 * cst;
+      for (int sl = threadIdx.x; sl < gm.slots; sl += threads) {
+        const int p = pos_of(k, sl);
+        if (p < 0) continue;
+        ska_cp_async<sizeof(T)>(cb + sl, u + p);
+        ska_cp_async<sizeof(T)>(cb + cst + sl, v + p);
+        if (ulo != nullptr) {
+          ska_cp_async<sizeof(T)>(cb + 2 * cst + sl, ulo + p);
+          ska_cp_async<sizeof(T)>(cb + 3 * cst + sl, vlo + p);
         }
-        ++run[c];
-        re[c] += mul_rn(mul_rn(kv, vr), ku);
-        im[c] += mul_rn(mul_rn(kv, vi), ku);
+        ska_cp_async<2 * sizeof(T)>(cb + 4 * cst + 2 * sl, vals + 2 * (size_t)p);
+      }
+      ska_cp_async_commit();
+    };
+    // stage 1: batch k's taps from coordinate buffer b, one tap an item,
+    // stored by residue class (tap r of a window starting at cell r0 is
+    // class (r0 + r) mod S), and each entry's corner, residues and value
+    auto stage1 = [&](int k, int b) {
+      const T* cb = coords + (size_t)b * 6 * cst;
+      T* tb = taps + (size_t)(k & 1) * gm.slots * 2 * gm.sp;
+      int* mb = reinterpret_cast<int*>(meta + (k & 1) * gm.slots);
+      T* vb = mval + (size_t)(k & 1) * gm.slots * 2;
+      if (p1 >= pstep) return;
+      for (int pr = p1; pr < 2 * gm.slots; pr += pstep) {
+        const int sl = pr >> 1;
+        const int axis = pr & 1;  // 0: v (rows), 1: u (columns)
+        if (pos_of(k, sl) < 0) continue;
+        const T pix = cb[(1 - axis) * cst + sl];
+        const T lo = ulo == nullptr ? T(0) : cb[(3 - axis) * cst + sl];
+        const int t0 = axis == 0 ? tv0 : tu0;
+        // the window of the S taps starts at floor(pix + lo) - (half - 1):
+        // one cell lower than the hi coordinate's window when hi is an
+        // integer and lo < 0 (|lo| < 1). Unit entries lie in the grid, so
+        // only a tap left of cell 0 of the tile (r0 = -1, which the dense
+        // form does not have either) falls outside; it lands in the margin
+        const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
+        const int r0 = (int)floor_(pix) - (half - 1) - shift - t0;
+        const int res = r0 + S - (int)(((float)(r0 + S) + 0.5f) * invs) * S;
+        const T d0 = sub_rn(T(t0), pix);
+        T* row = tb + (size_t)pr * gm.sp;
+        int c = res + r1;
+        c -= c >= S ? S : 0;
+#pragma unroll 4
+        for (int r = r1; r < r2; ++r) {
+          row[c] = es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(half), beta);
+          c = c == S - 1 ? 0 : c + 1;
+        }
+        if (r1 == 0) {
+          // int4 (ru, rv, u residue, v residue), the corners from the margin
+          mb[4 * sl + 1 - axis] = r0 + 1;
+          mb[4 * sl + 3 - axis] = res;
+          if (axis == 0) {
+            vb[2 * sl] = cb[4 * cst + 2 * sl];
+            vb[2 * sl + 1] = cb[4 * cst + 2 * sl + 1];
+          }
+        }
+      }
+    };
+
+    const int gbeg = start + (rank * gm.walks + g) * q;
+    const int gend = min(gbeg + q, end);
+    // the run's column, corner row and its residue, entries since the last
+    // cut; the sums (re, im) of the K rows
+    int curx = -1, currv = 0, curres = 0, since = 0;
+    T sum[K][2];
+#pragma unroll
+    for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
+    auto row_of = [&](int rv, int res, int j) {
+      const int d = b0 + j - res;
+      return rv + (d < 0 ? d + S : d);
+    };
+    // integer adds commute: the tile is the same whatever their order
+    auto flush = [&](int j) {
+      const int y = row_of(currv, curres, j);
+      const int dst = (int)(((float)y + 0.5f) * rinv);  // y / rb
+      const size_t vi = (size_t)(y - dst * gm.rb) * gm.ld + curx;
+      cluster_add(cluster, acc + vi, dst, sum[j][0], rscale, unitf);
+      cluster_add(cluster, acc + nb + vi, dst, sum[j][1], rscale, unitf);
+      sum[j][0] = sum[j][1] = T(0);
+    };
+
+    // coordinates two batches ahead (three buffers), taps one batch ahead
+    // of the walk (two buffers): one barrier a batch
+    int b = 0;
+    issue(0, 0);
+    ska_cp_async_wait_all();
+    if (nbatch > 1) issue(1, 1);
+    __syncthreads();
+    for (int k = 0; k < nbatch; ++k) {
+      stage1(k, b);
+      ska_cp_async_wait_all();  // batch k + 1's copies
+      if (k + 2 < nbatch) issue(k + 2, b == 0 ? 2 : b - 1);
+      // batch k's taps and batch k + 1's coordinates are visible; every
+      // thread is done with batch k - 1's taps and with the buffer of
+      // batch k + 2's coordinates
+      __syncthreads();
+      b = b == 2 ? 0 : b + 1;
+      if (!walker) continue;
+      const int nj = min(stage, gend - (gbeg + (k << lstage)));
+      const size_t s0 = (size_t)(k & 1) * gm.slots + ((size_t)g << lstage);
+      const T* tb = taps + s0 * 2 * gm.sp;
+      const int4* mb = meta + s0;
+      const T* vb = mval + s0 * 2;
+      for (int jj = 0; jj < nj; ++jj) {
+        const int4 m = mb[jj];
+        int dx = a - m.z;
+        dx += dx < 0 ? S : 0;
+        const int x = m.x + dx;
+        if (x != curx || since == kRunCap) {
+          // the column moved (or the runs are kRunCap long): every row's
+          // cell changes
+          if (curx >= 0) {
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              if (j < nvalid) flush(j);
+          }
+          curx = x;
+          if (since == kRunCap) since = 0;  // every thread's runs end together
+          currv = m.y;
+          curres = m.w;
+        } else if (m.y != currv) {
+          // the corner row moved: a row's cell changes where its row does
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            if (j < nvalid && row_of(currv, curres, j) != row_of(m.y, m.w, j)) flush(j);
+          currv = m.y;
+          curres = m.w;
+        }
+        ++since;
+        const T* tp = tb + (size_t)jj * 2 * gm.sp;
+        const T kx = tp[gm.sp + a];
+        const T lr = vb[2 * jj] * kx, li = vb[2 * jj + 1] * kx;
+        T ky[K];
+        load_rows<K>(tp + b0, ky);
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          sum[j][0] = fma_(ky[j], lr, sum[j][0]);
+          sum[j][1] = fma_(ky[j], li, sum[j][1]);
+        }
+      }
+    }
+    if (curx >= 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (j < nvalid) flush(j);
+    }
+    // every CTA's adds to this band are done
+    cluster.sync();
+
+    // overlap-add of the band: the tile and its halo into the integer plane
+    // grids; the margin row and column are not the tile's, untouched cells
+    // are zero and skipped, halo cells past the grid edge are zero (unit
+    // entries lie in the grid) and skipped
+    for (int i = threadIdx.x; i < (z1 - z0) * buf; i += threads) {
+      const int yy = i / buf;
+      const int y = z0 + yy;
+      const int x = i - yy * buf;  // the tile's column: value column x + 1
+      if (y == 0) continue;
+      const int gy = tv0 + y - 1;
+      const int gx = tu0 + x;
+      if (gy >= npix || gx >= npix) continue;
+      const size_t vi = (size_t)(y - rank * gm.rb) * gm.ld + x + 1;
+      u64* gp = grid64 + 2 * kW * (((size_t)plane * npix + gy) * npix + gx);
+      if constexpr (kW == 1) {
+        words_add(gp, &acc[vi], 1);
+        words_add(gp + 1, &acc[nb + vi], 1);
+      } else {
+        u64 w[2];
+        tile_to_int128((long long)acc[vi], wshift, w[0], w[1]);
+        words_add(gp, w, 2);
+        tile_to_int128((long long)acc[nb + vi], wshift, w[0], w[1]);
+        words_add(gp + 2, w, 2);
       }
     }
   }
-#pragma unroll
-  for (int c = 0; c < C; ++c) flush(c);
 }
 
 // The complex grids from the integer ones: value times 2^-kg, or NaN when
@@ -628,22 +1027,74 @@ int launch(const void* u, const void* v, const void* vals, const void* ulo,
   return ska_last_error();
 }
 
-template <typename T, int C>
+template <typename T, int K>
+int launch_wide_k(const WideGeom& gm, const void* u, const void* v,
+                  const void* vals, const void* ulo, const void* vlo,
+                  const void* unit_seg, const void* unit_start,
+                  const void* unit_count, const void* vsum, void* grid64,
+                  int nunits, int npix, int tile, int nta, int support,
+                  double beta, cudaStream_t s) {
+  auto fn = unit_tiles_wide_kernel<T, K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = gm.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // units a cluster: enough clusters for about kWideWaves of them on every
+  // SM, each serving the runs that leaves
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, (int)((long long)nunits * gm.cs / ((long long)sms * kWideWaves)));
+  const int nclusters = (nunits + per - 1) / per;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nclusters * gm.cs));
+  cfg.blockDim = dim3(gm.threads);
+  cfg.dynamicSmemBytes = gm.smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster the card cannot place fails the launch loudly
+  int resident = 0;
+  e = cudaOccupancyMaxActiveClusters(&resident, fn, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, fn, (const T*)u, (const T*)v, (const T*)vals,
+                         (const T*)ulo, (const T*)vlo, (const int*)unit_seg,
+                         (const int*)unit_start, (const int*)unit_count,
+                         (const double*)vsum, (u64*)grid64, npix, tile, nta,
+                         support, gm.lstage, nunits, per, (T)beta);
+  if (e != cudaSuccess) return (int)e;
+  return ska_last_error();
+}
+
+template <typename T>
 int launch_wide(const void* u, const void* v, const void* vals,
                 const void* ulo, const void* vlo, const void* unit_seg,
                 const void* unit_start, const void* unit_count,
                 const void* vsum, void* grid64, int nunits, int npix,
                 int tile, int nta, int support, double beta, cudaStream_t s) {
-  const size_t smem = wide_layout<T>(support).total;
-  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaFuncSetAttribute(unit_tiles_wide_kernel<T, C>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  unit_tiles_wide_kernel<T, C><<<nunits, kWideThreads, smem, s>>>(
-      (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo,
-      (const T*)vlo, (const int*)unit_seg, (const int*)unit_start,
-      (const int*)unit_count, (const double*)vsum, (u64*)grid64, npix, tile,
-      nta, support, (T)beta);
-  return ska_last_error();
+  const WideGeom gm = wide_plan<T>(support, tile);
+  if (gm.cs == 0) return (int)cudaErrorInvalidValue;  // no cluster holds the tile
+#define SKA_UNIT_TILES_WIDE(K)                                                 \
+  launch_wide_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,         \
+                      unit_count, vsum, grid64, nunits, npix, tile, nta,      \
+                      support, beta, s)
+  switch (gm.k) {
+    case 8: return SKA_UNIT_TILES_WIDE(8);
+    case 7: return SKA_UNIT_TILES_WIDE(7);
+    case 6: return SKA_UNIT_TILES_WIDE(6);
+    case 5: return SKA_UNIT_TILES_WIDE(5);
+    default: return SKA_UNIT_TILES_WIDE(4);
+  }
+#undef SKA_UNIT_TILES_WIDE
 }
 
 template <typename T>
@@ -671,20 +1122,13 @@ int launch_support(const void* u, const void* v, const void* vals,
     SKA_UNIT_TILES_CASE(12)
     SKA_UNIT_TILES_CASE(14)
     SKA_UNIT_TILES_CASE(16)
-    default: {
+    default:
       // odd supports and supports past 16: the wide variant
       if (support < 2 || support > 64 || support > tile)
         return (int)cudaErrorInvalidValue;
-      const int classes = (support * support + kWideThreads - 1) / kWideThreads;
-#define SKA_UNIT_TILES_WIDE(C)                                               \
-  launch_wide<T, C>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count, \
-                    vsum, grid64, nunits, npix, tile, nta, support, beta, s)
-      rc = classes == 1   ? SKA_UNIT_TILES_WIDE(1)
-           : classes == 2 ? SKA_UNIT_TILES_WIDE(2)
-           : classes == 3 ? SKA_UNIT_TILES_WIDE(3)
-                          : SKA_UNIT_TILES_WIDE(4);
-#undef SKA_UNIT_TILES_WIDE
-    }
+      rc = launch_wide<T>(u, v, vals, ulo, vlo, unit_seg, unit_start,
+                          unit_count, vsum, grid64, nunits, npix, tile, nta,
+                          support, beta, s);
   }
 #undef SKA_UNIT_TILES_CASE
   if (rc != 0) return rc;
@@ -720,4 +1164,18 @@ SKA_EXPORT int ska_unit_tiles(const void* u, const void* v, const void* vals,
   return launch_support<float>(u, v, vals, ulo, vlo, unit_seg, unit_start,
                                unit_count, vsum, grid64, grid, nunits,
                                nplanes, npix, tile, nta, support, beta, s);
+}
+
+// The wide variant's launch geometry at an odd support or a support past 16
+// (support, up to 64 and the tile) on tiles of `tile` cells, f64 as
+// ska_unit_tiles's: what 0 the CTAs of a cluster, 1 the threads of a CTA, 2
+// its dynamic shared bytes, 3 its walks, 4 the rows of a column a thread
+// owns, 5 the entries a walk stages a batch; 0 where no cluster of 8 CTAs
+// holds the tile (ska_unit_tiles refuses it).
+SKA_EXPORT int ska_unit_tiles_wide_geometry(int support, int tile, int f64, int what) {
+  if (support < 2 || support > 64 || support > tile) return 0;
+  const WideGeom gm = f64 ? wide_plan<double>(support, tile) : wide_plan<float>(support, tile);
+  if (gm.cs == 0) return 0;
+  const int v[] = {gm.cs, gm.threads, (int)gm.smem, gm.walks, gm.k, 1 << gm.lstage};
+  return what >= 0 && what < 6 ? v[what] : 0;
 }

@@ -15,7 +15,7 @@ Gridding runs kernel K9 (``csrc/unit_tiles.cu``) through
 the overlap-add into the plane grids in one launch, summed in fixed point
 (the same bits on every run), at every support from 2 to the tile (at
 most 64): even supports to 16 through a shared tile, odd and wider ones
-through K9's wide variant, which flushes straight into the grids. Its plain version
+through K9's wide variant, whose tile is held over a cluster of CTAs. Its plain version
 :func:`unit_tiles_plain` is the XLA formulation written in PyTorch: the
 dense ES factors over each unit's tile, ``(kv * val) @ ku^T`` as a batched
 matmul, and an ``index_add_`` of the tiles into the grids. Degridding
@@ -269,6 +269,16 @@ def unit_tiles(
         raise ValueError(f"tile {tile} must divide npixel {npixel}")
     if (u_lo is None) != (v_lo is None):
         raise ValueError("u_lo and v_lo: give both or neither")
+    f64 = rdtype == torch.float64
+    if (support % 2 or support > 16) and not kernels.query(
+        "ska_unit_tiles_wide_geometry", support, tile, int(f64), 0
+    ):
+        # the wide variant holds the tile's integer words in the shared
+        # memory of a cluster of at most 8 CTAs
+        raise ValueError(
+            f"tile {tile} at support {support}: the kernel's tile does not "
+            f"fit a cluster of 8 CTAs"
+        )
     k = kernels.KERNELS["unit_tiles"]
     chk = kernels.check_cuda_tensor
     n = u_s.shape[0]
@@ -284,7 +294,7 @@ def unit_tiles(
     # 128-bit pair in f64), scaled by the stream's bound: the sum of |re| +
     # |im| over the values (every tap product is at most 1)
     vsum = torch.view_as_real(vals_s).abs().sum(dtype=torch.float64).reshape(1)
-    words = 2 if rdtype == torch.float64 else 1
+    words = 2 if f64 else 1
     grid64 = torch.empty(
         (nplanes, npixel, npixel, 2, words), dtype=torch.int64, device=dev
     )
@@ -307,7 +317,7 @@ def unit_tiles(
         npixel // tile,
         support,
         float(beta),
-        1 if rdtype == torch.float64 else 0,
+        int(f64),
     )
     return out
 

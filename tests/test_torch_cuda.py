@@ -1512,6 +1512,186 @@ def test_unit_tiles_refuses_a_support_past_the_tile(dev):
         stream.grid(**dict(kw, support=17))
 
 
+def _k9_streams(dev, u64, v64, dtype, support, tile, npix, unit, with_lo, vals=None):
+    """The tiled gridder's entry stream of f64 positions (u64, v64) on
+    ``dtype`` (f32: the positions rounded to f32), 4 linear w-planes of
+    npix^2 and units of at most ``unit`` entries, and the same stream in
+    f64; every fifth position an integer with a negative residual where
+    ``with_lo`` (the window a cell lower). Returns the streams and the
+    grid keywords."""
+    rng = np.random.default_rng(41)
+    n = u64.size
+    ints = np.arange(n) % 5 == 0
+    if with_lo:
+        u64 = np.where(ints, np.round(u64), u64)
+        v64 = np.where(ints, np.round(v64), v64)
+    lo = np.where(ints, -3e-9 if dtype == torch.float64 else -3e-6, 0.0)
+    p0 = rng.integers(0, 3, n)
+    frac = rng.uniform(0, 1, n)
+    if vals is None:
+        vals = rng.uniform(0.5, 1.5, n) * np.exp(1j * rng.uniform(-np.pi, np.pi, n))
+    streams = []
+    for dt in (dtype, torch.float64):
+        def t(a):
+            return None if a is None else torch.as_tensor(np.asarray(a, np.float64)).to(dev, dt)
+        cd = torch.complex128 if dt == torch.float64 else torch.complex64
+        streams.append(entry_stream(
+            t(u64 if dtype == torch.float64 else u64.astype(np.float32)),
+            t(v64 if dtype == torch.float64 else v64.astype(np.float32)),
+            torch.as_tensor(vals).to(dev, cd), torch.as_tensor(p0).to(dev), t(frac),
+            t(lo if with_lo else None), t(lo if with_lo else None), npixel=npix,
+            support=support, nplanes=4, tile=tile, unit=unit,
+        ))
+    return streams, dict(npixel=npix, tile=tile, support=support, beta=2.3 * support)
+
+
+def _k9_check(streams, kw, dtype, bits=True):
+    """One launch of K9 against unit_tiles_plain accumulated in f64 (f32
+    to 1e-5 of the grid maximum, f64 to 1e-12) and, with ``bits``, a second
+    launch to the same bits."""
+    stream, ref_stream = streams
+    before = kernels.KERNELS["unit_tiles"].launches
+    out = stream.grid(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["unit_tiles"].launches == before + 1
+    ref = ref_stream.grid(plain=True, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert ref.abs().max() > 0
+    assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()
+    if bits:
+        assert torch.equal(stream.grid(**kw), out)
+    return out
+
+
+def _k9_wide_geometry(support, tile, dtype):
+    f64 = int(dtype == torch.float64)
+    return [kernels.query("ska_unit_tiles_wide_geometry", support, tile, f64, w)
+            for w in range(6)]
+
+
+_K9_WIDE = [7, 9, 15, 17, 24, 31, 32, 33, 48, 64]
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tile", [56, 64])
+@pytest.mark.parametrize("support", _K9_WIDE)
+def test_unit_tiles_wide_tile_matches_plain(dev, support, tile, dtype, with_lo):
+    """K9's wide variant (the tile held in shared memory, in bands over a
+    cluster where one CTA cannot hold it) on a core-heavy stream of full
+    units (4096 entries) and sparse ones, tiles 56 and 64 (at 56 the
+    support 64 is past the tile and refused): against unit_tiles_plain
+    accumulated in f64, f32 to 1e-5 of the grid maximum and f64 to 1e-12;
+    two launches give the same bits."""
+    npix = 4 * tile
+    if support > tile:
+        (stream, _), kw = _k9_streams(dev, np.asarray([30.2]), np.asarray([40.7]), dtype,
+                                      min(support, tile), tile, npix, 4096, with_lo)
+        with pytest.raises(ValueError, match=f"support {support}"):
+            stream.grid(**dict(kw, support=support))
+        return
+    rng = np.random.default_rng(support)
+    n = 30000
+    core = rng.normal(npix / 2, npix / 12, (2, n - 3000))
+    wide = rng.uniform(0, npix, (2, 3000))
+    u64, v64 = np.concatenate([core, wide], axis=1)
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, npix, 4096, with_lo)
+    assert int(streams[0].unit_count.max()) == 4096
+    _k9_check(streams, kw, dtype)
+
+
+_K9_CLUSTERS = [(24, 128, torch.float64), (32, 128, torch.float64), (48, 128, torch.float64),
+                (64, 64, torch.float32), (64, 64, torch.float64), (33, 256, torch.float32)]
+
+
+def test_unit_tiles_wide_clusters(dev):
+    """The geometries that the wide tests reach: the tiles of
+    _K9_CLUSTERS need a cluster of several CTAs; every support of the
+    wide tests keeps at most an eighth of its classes idle from 7 up; no
+    cluster holds the tile of 512 at support 17."""
+    for support, tile, dtype in _K9_CLUSTERS:
+        assert _k9_wide_geometry(support, tile, dtype)[0] > 1, (support, tile, dtype)
+    for dtype in (torch.float32, torch.float64):
+        for support in _K9_WIDE:
+            cs, threads, smem, walks, k, stage = _k9_wide_geometry(support, 64, dtype)
+            assert cs in (1, 2, 4, 8) and 0 < smem <= 232448 and stage >= 1
+            assert 8 * walks * support * support >= 7 * threads * k, (support, dtype)
+        assert _k9_wide_geometry(17, 512, dtype)[0] == 0
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("support,tile,dtype", _K9_CLUSTERS)
+def test_unit_tiles_wide_cluster_tiles_match_plain(dev, support, tile, dtype, with_lo):
+    """K9's wide variant on tiles that a cluster of CTAs holds in bands
+    (f64 at supports 24, 32 and 48 on tile 128; both types at
+    64; f32 at 33 on 256), on a core-heavy stream of full units: against
+    unit_tiles_plain accumulated in f64, f32 to 1e-5 of the grid maximum
+    and f64 to 1e-12; two launches give the same bits."""
+    npix = 4 * tile
+    rng = np.random.default_rng(support + tile)
+    n = 30000
+    core = rng.normal(npix / 2, tile / 3, (2, n - 3000))
+    wide = rng.uniform(0, npix, (2, 3000))
+    u64, v64 = np.concatenate([core, wide], axis=1)
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, npix, 4096, with_lo)
+    assert int(streams[0].unit_count.max()) == 4096
+    _k9_check(streams, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("support", [7, 24, 33])
+@pytest.mark.parametrize("case", ["one_entry_units", "one_window", "one_segment"])
+def test_unit_tiles_wide_unit_shapes_match_plain(dev, case, support, dtype):
+    """K9's wide variant on units of one entry each (a run a unit, or the
+    units of one segment served as one run), on 4096-entry units whose
+    entries all lie on one window (the kRunCap cuts of every class) and on
+    many consecutive units of 100 entries of one segment: against
+    unit_tiles_plain accumulated in f64; the same bits on two launches."""
+    rng = np.random.default_rng(53)
+    tile, npix = 64, 256
+    if case == "one_entry_units":
+        u64, v64 = rng.uniform(3, npix - 70, (2, 500))
+        unit = 1
+    elif case == "one_window":
+        u64, v64 = np.full(3 * 4096 + 17, 100.3), np.full(3 * 4096 + 17, 77.6)
+        unit = 4096
+    else:
+        u64, v64 = rng.uniform(tile, 2 * tile, (2, 5000))
+        unit = 100
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, npix, unit, True)
+    if case == "one_window":
+        assert int((streams[0].unit_count == 4096).sum()) >= 3
+    _k9_check(streams, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("support", [17, 64])
+def test_unit_tiles_wide_nan_value_gives_nan_grids(dev, support, dtype):
+    """A NaN value makes the stream's bound NaN: every cell of the wide
+    variant's grids is NaN, as the plain version's sums are where the
+    value lands."""
+    rng = np.random.default_rng(59)
+    u64, v64 = rng.uniform(3, 180, (2, 2000))
+    vals = np.ones(2000, np.complex128)
+    vals[777] = complex(float("nan"), 0.0)
+    (stream, _), kw = _k9_streams(dev, u64, v64, dtype, support, 64, 256, 4096, False,
+                                  vals=vals)
+    assert torch.isnan(stream.grid(**kw)).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_unit_tiles_wide_refuses_a_tile_no_cluster_holds(dev, dtype):
+    """A tile whose fixed-point words no cluster of 8 CTAs holds (512 at
+    support 17) raises ValueError before a launch."""
+    tile = 512
+    (stream, _), kw = _k9_streams(dev, np.asarray([30.2, 31.7]), np.asarray([40.7, 41.1]),
+                                  dtype, 17, tile, 2 * tile, 4096, False)
+    before = kernels.KERNELS["unit_tiles"].launches
+    with pytest.raises(ValueError, match="cluster of 8"):
+        stream.grid(**kw)
+    assert kernels.KERNELS["unit_tiles"].launches == before
+
+
 def _chip_smoke():
     """``chip_smoke.py`` at the checkout's root: its small calibration
     slices run the same observation on any device."""

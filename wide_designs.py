@@ -38,17 +38,18 @@ OUT = ROOT / "build" / "wide_designs"
 CSRC = Path("ska_sdp_func_python_torch") / "csrc"
 
 
-def build(others: list[Path]) -> dict:
-    """Compile each other checkout's grid.cu and degrid.cu, each into its
-    own shared library; returns {(name, source): ctypes library}."""
+def build(others: list[Path], sources=("grid", "degrid"), out: Path = OUT) -> dict:
+    """Compile each other checkout's ``sources`` (``grid.cu`` and
+    ``degrid.cu`` by default), each into its own shared library under
+    ``out``; returns {(name, source): ctypes library}."""
     from ska_sdp_func_python_torch import kernels
 
-    OUT.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     jobs = {}
     for tree in others:
         inc = tree / CSRC if (tree / CSRC).is_dir() else tree
-        for src in ("grid", "degrid"):
-            so = OUT / f"{tree.name}_{src}.so"
+        for src in sources:
+            so = out / f"{tree.name}_{src}.so"
             cmd = [kernels._nvcc(), *kernels._NVCC_FLAGS, f"-I{inc}", "-shared",
                    "-o", str(so), str(inc / f"{src}.cu")]
             jobs[tree.name, src] = (so, subprocess.Popen(
