@@ -230,8 +230,22 @@ Phases, each on lines of its own:
      phase 7's observation card against CPU, and a spectral component
      list (fluxes on 5 channels) through the fused ical of the config-4
      cube, its DFT card against CPU.
+ 17. tiles the imaging API never picks (after phase 16, on the flagship):
+     the limit table of K1 and K9 (the largest tile each takes, by
+     window span and nacc or by support and dtype, from the library's
+     route queries; fails if any tile up to 512 is refused); (a)
+     ``make_grid_plan`` + ``grid_with_plan`` at support 8 on the
+     flagship's linear plan at tiles 112 and 336 (in turns: the cluster's
+     band rows printed beside the tile plus span) and its nearest plan at
+     168, K1's wide variant launched, two calls to the same bits, against
+     the plain version (1e-5) and the grids at the API's tile 56 (1e-5,
+     and whether the bits are equal), with K1's time beside the narrow
+     kernel's at 56; (b) ``tiled_grid`` on phase 16b's full-width stream
+     in f32 at support 8, tiles 128 and 512 (in turns), and in f64 at
+     support 16, tile 128: K9's wide variant, the same checks against its
+     plain version and the API's tile 64 (1e-5 in f32, 1e-12 in f64).
 Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d,
-15a and 16a-c resets the launch counters just before it and fails unless
+15a, 16a-c and 17a-b resets the launch counters just before it and fails unless
 every kernel of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
@@ -246,6 +260,7 @@ Usage: python3 chip_smoke.py
        python3 chip_smoke.py --phase15-only       (the build, phase 15 and
                                                    15d's repeats)
        python3 chip_smoke.py --phase16-only       (the build and phase 16)
+       python3 chip_smoke.py --phase17-only       (the build and phase 17)
 """
 
 from __future__ import annotations
@@ -501,6 +516,18 @@ UNIT16_PEAK_TOL = 0.02
 DFT16_TOL = 1e-5
 SKYMODEL16_TOL = EPS_FAST
 GAINCAL16_TOL = 1e-3
+
+# phase 17: tiles the imaging API never picks (it picks 56 at the
+# flagship's npad 1344 and 64 at the epsilon observation's 2048), which
+# the JAX package takes wherever they divide the grid. (a) K1 on the
+# flagship's plan at support 8: (tile, nearest plane), linear at 112 and
+# 336 (served in turns) and nearest at 168; (b) K9 on phase 16b's
+# full-width stream: (real dtype, support, tiles). Each is held to its
+# plain version and to the grids at the API's tile, to K1's and K9's
+# tolerances. LIMIT17_MAX: the largest tile the limit table looks at.
+TILES17 = ((112, False), (336, False), (168, True))
+UNIT17 = (("f32", 8, (128, 512)), ("f64", 16, (128,)))
+LIMIT17_MAX = 4096
 
 
 def say(*args):
@@ -4585,24 +4612,35 @@ def run_wide_supports(vis, model, phases):
     return counts, rows, restored
 
 
-def unit_stream16(vis, model, support):
-    """Phase 9's observation (UNIT16_TIMES integrations) as the
-    tiled gridder's entry stream on linear w-planes at ``support``, in the
-    observation's precision, and its geometry."""
+def unit_inputs16(vis, model, support, tile=None):
+    """The tiled gridder's inputs for ``vis`` on UNIT16_NW linear w-planes
+    at ``support`` and padding 2, in the observation's precision: the
+    positional arguments and keywords of ``tiled_grid`` (and
+    ``entry_stream``), and the geometry of its grid (``tile`` None: the
+    imaging API's tile)."""
     from ska_sdp_func_python_torch.ops import imaging as im
     from ska_sdp_func_python_torch.ops.gridding import _es_beta
-    from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
 
     npad = im._npad_for(model.npixel, 2.0)
     uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
     u, v = im._pixels(uvw[:, 0], uvw[:, 1], npad, model.cellsize, False)
     p0, frac, _ = im._w_planes(uvw[:, 2], UNIT16_NW)
     weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
-    geo = dict(npixel=npad, tile=im._tile_for(npad), support=support,
+    geo = dict(npixel=npad, tile=tile or im._tile_for(npad), support=support,
                beta=_es_beta(support, npad / model.npixel))
-    stream = entry_stream(u, v, weighted, p0, frac, npixel=npad, support=support,
-                          nplanes=UNIT16_NW, tile=geo["tile"], unit=im._UNIT_GRID)
-    return stream, geo
+    kw = dict(npixel=npad, support=support, nplanes=UNIT16_NW, tile=geo["tile"],
+              unit=im._UNIT_GRID)
+    return (u, v, weighted, p0, frac), kw, geo
+
+
+def unit_stream16(vis, model, support, tile=None):
+    """Phase 9's observation (UNIT16_TIMES integrations, or all of it) as
+    the tiled gridder's entry stream on linear w-planes at ``support``, in
+    the observation's precision, and its geometry."""
+    from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
+
+    args, kw, geo = unit_inputs16(vis, model, support, tile)
+    return entry_stream(*args, **kw), geo
 
 
 def run_unit_tiles_wide(cfg, device):
@@ -4888,6 +4926,253 @@ def main16() -> int:
     return 0
 
 
+def flagship_grid_plan(vis, geo, tile, nearest=False):
+    """The flagship's plan as the imaging API builds it (its pixel
+    coordinates and w-planes at the geometry ``geo`` of its plan at
+    support 8), at ``tile``, on linear or nearest planes."""
+    from ska_sdp_func_python_torch.ops.gridding_plan import make_grid_plan
+    from ska_sdp_func_python_torch.ops.imaging import _w_planes
+
+    uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
+    npad = geo["npad"]
+    scale = npad * geo["cellsize"]
+    p0, frac, _ = _w_planes(uvw[:, 2], geo["nw"], "nearest" if nearest else "linear")
+    return make_grid_plan(-uvw[:, 0] * scale + npad // 2, uvw[:, 1] * scale + npad // 2,
+                          p0, frac, npixel=npad, support=geo["support"], nplanes=geo["nw"],
+                          tile=tile, beta=geo["beta"])
+
+
+def _large_tile_gate(label, out, ref, tol):
+    """The grids ``out`` on a large tile against ``ref``, the same stream's
+    grids at the imaging API's tile: (rel error, equal bits); fails past
+    ``tol`` of the maximum."""
+    import torch
+
+    rel = float((out - ref).abs().max()) / float(ref.abs().max())
+    same = torch.equal(out, ref)
+    say(f"{label}: against the API's tile rel {rel:.3e} (tolerance {tol:g}), the same bits: {same}")
+    if not rel <= tol:
+        raise AssertionError(f"{label} disagrees with the grids at the API's tile")
+    return rel, same
+
+
+def run_large_tiles_plan(vis, model):
+    """Phase 17a: ``make_grid_plan`` + ``grid_with_plan`` at support 8 on
+    the flagship at the tiles of TILES17 (the launch counters reset just
+    before the two calls of each and read just after; K1 launched, the
+    two calls to the same bits, its route and the cluster's band rows
+    beside the tile plus span); K1 on each plan against its plain version
+    accumulated in f64 (grid_row), and against the grids of the plan at
+    the imaging API's tile. Returns (launch counts summed over the calls,
+    kernel rows by configuration)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.gridding_fused import grid
+    from ska_sdp_func_python_torch.ops.gridding_plan import grid_with_plan, sort_values
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+
+    t0 = time.perf_counter()
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    api = make_visibility_plan(vis, model, context="ng").plans[0]
+    geo = dict(npad=api.npad, cellsize=api.cellsize, nw=api.nw, support=api.support,
+               beta=api.gp.beta)
+    own = flagship_grid_plan(vis, geo, api.gp.tile)
+    if not all(torch.equal(getattr(own, f), getattr(api.gp, f))
+               for f in ("perm", "korder", "ku", "kv", "frac", "chunk_start")):
+        raise AssertionError("17a: the plan built here differs from the imaging API's")
+    del own
+    launches = {name: 0 for name in KERNELS}
+    rows, refs = {}, {}
+    for tile, nearest in TILES17:
+        ref_gp = flagship_grid_plan(vis, geo, api.gp.tile, nearest) if nearest else api.gp
+        if nearest not in refs:
+            ref_vals = sort_values(ref_gp, weighted)
+            refs[nearest] = (grid_with_plan(ref_gp, weighted),
+                             timed(lambda: grid(ref_gp, ref_vals), 10))
+            del ref_vals
+        if nearest:
+            del ref_gp
+        gp = flagship_grid_plan(vis, geo, tile, nearest)
+        mode = "nearest" if nearest else "linear"
+        label = f"17a flagship support {gp.support} {mode} tile {tile}"
+        nacc = 2 if nearest else 4
+        route = kernels.query("ska_grid_route", gp.span, tile, nacc)
+        band = kernels.query("ska_grid_wide_geometry", gp.span, tile, nacc, 6)
+        say(f"{label}: route {route} (1 narrow, 2 the wide kernel's bands over its cluster "
+            f"hold the tile, 3 in turns); the cluster's band rows {band} beside the tile plus "
+            f"span {tile + gp.span}; {wide_geometry(gp)}")
+        if route < 2 or (tile == 336 and not gp.span <= band < tile + gp.span):
+            raise AssertionError(f"{label}: route {route}, band rows {band}")
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        out = [grid_with_plan(gp, weighted) for _ in range(2)]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        for k in launches:
+            launches[k] += counts[k]
+        same = torch.equal(out[0], out[1])
+        say(f"{label}: make_grid_plan + grid_with_plan twice, the same bits: {same}; "
+            f"launches {counts}")
+        _launch_gate(label, counts, ("grid", "permute"))
+        if not same:
+            raise AssertionError(f"{label}: two calls differ")
+        _large_tile_gate(label, out[0], refs[nearest][0], KERNELS["grid"][0])
+        del out
+        row = grid_row(gp, sort_values(gp, weighted), label)
+        say(f"{label}: K1 {row['ms']:.4f} ms against the narrow kernel's "
+            f"{refs[nearest][1]:.4f} ms at the API's tile {api.gp.tile} (CUDA events), bound "
+            f"{row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows[f"flagship support {gp.support} {mode} tile {tile}"] = {"grid": row}
+        del gp
+        torch.cuda.empty_cache()
+    del refs
+    torch.cuda.empty_cache()
+    say(f"17a: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def run_large_tiles_unit(cfg, device):
+    """Phase 17b: ``tiled_grid`` on phase 16b's full-width stream (phase
+    9's whole observation, padding 2) at the supports and tiles of UNIT17
+    (the launch counters reset just before the two calls of each and read
+    just after; K9 launched, the two calls to the same bits, its route and
+    the cluster's band rows); K9 on each stream against its plain version
+    accumulated in f64 (compare_unit_tiles), and against the grids at the
+    imaging API's tile. Returns (launch counts summed over the calls, kernel
+    rows by configuration)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.gridding_tiled import tiled_grid
+
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in KERNELS}
+    rows = {}
+    for name, support, tiles in UNIT17:
+        f64 = name == "f64"
+        dtype = torch.float64 if f64 else torch.float32
+        tol, peak = (UNIT_TILES_F64_TOL, PEAK_F64_S) if f64 else (KERNELS["unit_tiles"][0], PEAK_F32_S)
+        vis, model, _, _ = observation9(cfg, device, dtype)
+        ref_stream, ref_geo = unit_stream16(vis, model, support)
+        ref = ref_stream.grid(**ref_geo)
+        ref_ms = timed(lambda: ref_stream.grid(**ref_geo), 5)
+        del ref_stream
+        for tile in tiles:
+            args, kw, geo = unit_inputs16(vis, model, support, tile)
+            label = f"17b {name} support {support} tile {tile}"
+            route = kernels.query("ska_unit_tiles_route", support, tile, int(f64))
+            band = kernels.query("ska_unit_tiles_wide_geometry", support, tile, int(f64), 6)
+            say(f"{label}: route {route} (1 narrow, 2 the wide variant's bands over its "
+                f"cluster hold the tile, 3 in turns); the cluster's band rows {band} beside "
+                f"the tile plus support and its margin row {tile + support + 1}")
+            if route < 2:
+                raise AssertionError(f"{label}: route {route}")
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out = [tiled_grid(*args, beta=geo["beta"], **kw) for _ in range(2)]
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            for k in launches:
+                launches[k] += counts[k]
+            same = torch.equal(out[0], out[1])
+            say(f"{label}: tiled_grid twice ({int(args[0].shape[0])} visibilities), the same "
+                f"bits: {same}; launches {counts}")
+            _launch_gate(label, counts, ("unit_tiles",))
+            if not same:
+                raise AssertionError(f"{label}: two calls differ")
+            _large_tile_gate(label, out[0], ref, tol)
+            del out, args
+            stream, geo = unit_stream16(vis, model, support, tile)
+            row = compare_unit_tiles(stream, geo, label, tol, peak)
+            say(f"{label}: K9 {row['ms']:.4f} ms against {ref_ms:.4f} ms at the API's tile "
+                f"{ref_geo['tile']} (CUDA events), bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_by']})")
+            rows[f"{name} support {support} tile {tile} full stream"] = row
+            del stream
+            torch.cuda.empty_cache()
+        del vis, model, ref
+        torch.cuda.empty_cache()
+    say(f"17b: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def route_limits():
+    """Phase 17's limit table, from the library's own route queries: for
+    K1 each window span (supports 1 to 64) on linear (nacc 4) and nearest
+    or one-plane plans (nacc 2), for K9 each support (2 to 64) in f32 and
+    f64, the largest tile the narrow kernel holds, the largest tile taken
+    (up to LIMIT17_MAX) and every tile up to 512 (from the support up)
+    that is refused; fails if any is."""
+    import ctypes
+
+    from ska_sdp_func_python_torch import kernels
+
+    lib = kernels.load_library()
+    refused = []
+    for kernel, symbol, keys in (("K1", "ska_grid_route", (4, 2)),
+                                 ("K9", "ska_unit_tiles_route", (0, 1))):
+        fn = getattr(lib, symbol)
+        fn.argtypes = [ctypes.c_int] * 3
+        fn.restype = ctypes.c_int
+        for key in keys:
+            line = []
+            sizes = range(2, 65, 2) if kernel == "K1" else range(2, 65)
+            for size in sizes:
+                routes = [fn(size, t, key) for t in range(1, 513)]
+                narrow = max([t for t, r in enumerate(routes, 1) if r == 1], default=0)
+                refused += [(kernel, key, size, t) for t, r in enumerate(routes, 1)
+                            if r == 0 and t >= size]
+                largest = next((t for t in range(LIMIT17_MAX, 0, -1) if fn(size, t, key)), 0)
+                line.append(f"{size}: {narrow or '-'}/{largest}")
+            what = (f"K1 (grid) nacc {key}, by window span" if kernel == "K1"
+                    else f"K9 (unit_tiles) {'f64' if key else 'f32'}, by support")
+            say(f"17 limits {what} (the narrow kernel's largest tile / the largest tile taken, "
+                f"to {LIMIT17_MAX}): " + ", ".join(line))
+    say(f"17 limits: tiles up to 512 refused: {refused or 'none'}")
+    if refused:
+        raise AssertionError(f"17: refused tiles up to 512: {refused}")
+
+
+def run_phase17(cfg, device, vis, model):
+    """Phase 17 (a, b, the limit table). Returns (launch counts by shape,
+    K1 rows by configuration, K9 rows by configuration)."""
+    t0 = time.perf_counter()
+    route_limits()
+    by_shape = {}
+    counts, rows = run_large_tiles_plan(vis, model)
+    by_shape["flagship plans on large tiles (phase 17a)"] = counts
+    counts, unit_rows = run_large_tiles_unit(cfg, device)
+    by_shape["epsilon observation, tiled_grid on large tiles (phase 17b)"] = counts
+    say(f"phase 17: {time.perf_counter() - t0:.1f} s")
+    return by_shape, rows, unit_rows
+
+
+def main17() -> int:
+    """``--phase17-only``: the build and phase 17 on the flagship."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels.build_library()
+    kernels.load_library()
+    say(f"build: {time.perf_counter() - t_start:.1f} s")
+    cfg, vis, model, _ = simulate(device, rmax=40000.0, ntimes=76, npixel=1024)
+    by_shape, rows, unit_rows = run_phase17(cfg, device, vis, model)
+    for shape, counts in by_shape.items():
+        say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    print_rows("17", {**rows, **{f"unit_tiles {k}": {"unit_tiles": r} for k, r in unit_rows.items()}})
+    say(f"command: {time.perf_counter() - t_start:.1f} s")
+    say(card)
+    return 0
+
+
 def print_rows(tag, rows):
     """One line a configuration: each kernel's time, bound, plain time and
     error."""
@@ -5011,6 +5296,12 @@ def main() -> int:
         for name in launches:
             launches[name] += counts[name]
         by_shape[shape] = counts
+    torch.cuda.empty_cache()
+    counts17, rows17, unit_rows17 = run_phase17(cfg, device, vis, model)
+    for shape, counts in counts17.items():
+        for name in launches:
+            launches[name] += counts[name]
+        by_shape[shape] = counts
     del vis, model
     torch.cuda.empty_cache()
     counts = run_periphery(device)
@@ -5067,8 +5358,12 @@ def main() -> int:
     print_rows("13", rows13)
     print_rows("16", {**rows16, **{f"unit_tiles {k}": {"unit_tiles": r}
                                    for k, r in unit_rows16.items()}})
-    held = {"grid": list(rows13) + list(rows16), "degrid": list(rows13) + list(rows16),
-            "unit_tiles": ["phase 9 epsilon streams"] + list(unit_rows16)}
+    print_rows("17", {**rows17, **{f"unit_tiles {k}": {"unit_tiles": r}
+                                   for k, r in unit_rows17.items()}})
+    held = {"grid": list(rows13) + list(rows16) + [f"17a {k}" for k in rows17],
+            "degrid": list(rows13) + list(rows16),
+            "unit_tiles": (["phase 9 epsilon streams"] + list(unit_rows16)
+                           + [f"17b {k}" for k in unit_rows17])}
 
     say(json.dumps({
         "kernels": [
@@ -5120,6 +5415,9 @@ if __name__ == "__main__":
     ap.add_argument("--phase16-only", action="store_true",
                     help="only build the kernels and run phase 16 (supports past 16, "
                          "the sky-component periphery)")
+    ap.add_argument("--phase17-only", action="store_true",
+                    help="only build the kernels and run phase 17 (tiles the imaging API "
+                         "never picks, and the limit table)")
     ap.add_argument("--phase14-child", nargs=4, metavar=("RANK", "PORT", "INPUTS", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5132,6 +5430,8 @@ if __name__ == "__main__":
         sys.exit(main15())
     if args.phase16_only:
         sys.exit(main16())
+    if args.phase17_only:
+        sys.exit(main17())
     if args.profile_streamed:
         sys.exit(profile_streamed(args.wire, args.store_uvw))
     if args.repeat_selfcal:

@@ -99,6 +99,17 @@
 // rest (with them compiled out it runs 9-15% faster), most of that the
 // kRunCap cuts, since dense windows keep one cell for hundreds of entries
 // (6-12% faster without them, which would loosen the numerics).
+//
+// Windows of 16 cells or fewer on tiles whose int64 rows one block cannot
+// hold (a linear plan's tile past 65-74 cells, by span, a nearest or
+// single-plane plan's past 99-106) take grid_wide_kernel too, chosen by geometry before the
+// launch (grid_route): a thread owns every row of its column up to 8 (K =
+// span, one row block) or two blocks of 6 or 8 rows, a CTA of 512 threads
+// runs a walk of span x ceil(span / K) threads for each of them, and a
+// batch stages at most one entry a thread (down to 2 entries a walk), so
+// that one loader thread stages each entry. The units, the turns and the
+// bits are the wide variant's; where the narrow kernel holds the tile it
+// stays the route.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -333,7 +344,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 // ---------------------------------------------------------------------------
 // The wide variant: windows of 17 to 64 cells.
 
-// Launch geometry of the wide variant at window span `span` (even, 18 to
+// Launch geometry of the wide variant at window span `span` (even, 2 to
 // 64) on tiles of `tile` cells, `nacc` words a cell.
 struct WideGeom {
   int k;        // classes a thread owns: k consecutive rows of one column
@@ -381,7 +392,13 @@ __host__ __device__ inline WideGeom wide_geom(int span, int tile, int nacc, int 
 // 8 classes of 4 words spill at 64 a thread)
 template <int K>
 constexpr int wide_threads() {
-  return K == 4 ? 1024 : 768;
+  return K <= 4 ? 1024 : 768;
+}
+
+// float4s of a stored tap row: the plan's tap width (8, 16, 32 or 64
+// floats, the power of two from 8 up that holds the span) over 4
+__host__ __device__ inline int tap_vecs(int span) {
+  return span <= 8 ? 2 : span <= 16 ? 4 : span <= 32 ? 8 : 16;
 }
 
 // Classes a thread and threads a CTA (measured on the flagship's plans,
@@ -390,8 +407,15 @@ constexpr int wide_threads() {
 // threads (512, 768, 1024) that give 8 walks a CTA, or with 8 rows a
 // thread that keep three quarters of them walking. Fewer walks a chunk
 // end fewer runs (a walk flushes every class at its end); too few leave
-// the SM short of work.
+// the SM short of work. Windows of 16 cells or fewer: every row of a
+// column a thread up to a span of 8, else two blocks of 6 (spans 10, 12)
+// or 8 rows (14, 16), and 512 threads.
 inline void wide_choice(int span, int& k, int& threads) {
+  if (span <= 16) {
+    k = span <= 8 ? span : span <= 12 ? 6 : 8;
+    threads = 512;
+    return;
+  }
   const int w6 = (6 - span % 6) % 6, w4 = (4 - span % 4) % 4;
   k = span % 16 == 0 ? 8 : w6 <= w4 ? 6 : 4;
   const int group = span * ((span + k - 1) / k);
@@ -403,26 +427,32 @@ inline void wide_choice(int span, int& k, int& threads) {
 }
 
 // The least cluster (1, 2, 4 or 8 CTAs) whose bands of the tile fit a
-// block's shared memory beside batches of 32, 16 or 8 entries a walk, the
-// largest batch that fits. Fewer CTAs a cluster keep more of the flushes
-// in the CTA's own shared memory. Where no cluster holds the whole tile,
-// 8 CTAs with batches of 8 hold as many rows as fit, and the kernel serves
-// each run in turns; cs 0 when those rows cannot hold one window's span.
+// block's shared memory beside batches of 32, 16 or 8 entries a walk (at
+// windows of 16 cells or fewer down to 2), the largest batch that fits
+// with at most one staged entry a thread. Fewer CTAs a cluster keep more
+// of the flushes in the CTA's own shared memory. Where no cluster holds
+// the whole tile, 8 CTAs with batches of 8 (fewer where the threads need
+// it) hold as many rows as fit, and the kernel serves each run in turns;
+// cs 0 when those rows cannot hold one window's span.
 inline WideGeom wide_plan(int span, int tile, int nacc) {
   int k, threads;
   wide_choice(span, k, threads);
+  const int least = span > 16 ? 8 : 2;
+  auto valid = [](const WideGeom& g) { return g.groups >= 1 && g.slots <= g.threads; };
   for (int cs = 1; cs <= 8; cs *= 2)
-    for (int stage = 32; stage >= 8; stage /= 2) {
+    for (int stage = 32; stage >= least; stage /= 2) {
       const WideGeom g = wide_geom(span, tile, nacc, k, threads, cs, stage);
-      if (g.groups >= 1 && g.cs * g.rb >= tile + span) return g;
+      if (valid(g) && g.cs * g.rb >= tile + span) return g;
     }
-  WideGeom g = wide_geom(span, tile, nacc, k, threads, 8, 8);
-  if (g.groups < 1 || g.cs * g.rb < span) g.cs = 0;
+  int stage = 8;
+  while (stage > least && !valid(wide_geom(span, tile, nacc, k, threads, 8, stage))) stage /= 2;
+  WideGeom g = wide_geom(span, tile, nacc, k, threads, 8, stage);
+  if (!valid(g) || g.cs * g.rb < span) g.cs = 0;
   return g;
 }
 
 // K classes a thread (wide_choice), NACC as grid_kernel's; wv: float4s of a
-// stored tap row (8 or 16). A cluster of CTAs serves the chunks [per c,
+// stored tap row (tap_vecs). A cluster of CTAs serves the chunks [per c,
 // per (c + 1)), one run of consecutive chunks of one segment at a time:
 // a run's entries are one walk's stream, so a walk's registers are flushed
 // once at its end, not once a chunk.
@@ -725,6 +755,14 @@ __global__ void grid_convert(const long long* __restrict__ grid64,
     grid[i] = ok ? (float)((double)grid64[i] * unit) : __int_as_float(0x7fc00000);
 }
 
+// The narrow kernel's dynamic shared memory at window span `span` (16 or
+// less: residue period 8 up to 8, else 16) on tiles of `tile` cells, the
+// tile's rows `ld` words apart
+inline size_t narrow_smem(int span, int tile, int nacc, int ld) {
+  const size_t stage = span > 8 ? sizeof(Stage<16>) : sizeof(Stage<8>);
+  return 2 * stage + (size_t)nacc * (tile + span) * ld * sizeof(long long);
+}
+
 template <int P, int NACC, bool kFull>
 int launch(const void* vals, const void* iu0, const void* iv0,
            const void* frac, const void* ku, const void* kv, const void* order,
@@ -733,12 +771,10 @@ int launch(const void* vals, const void* iu0, const void* iv0,
            void* grid64, int nchunks, int npix, int tile, int nta, int support,
            cudaStream_t s) {
   const int buf = tile + support;
-  auto smem_of = [&](int ld) {
-    return 2 * sizeof(Stage<P>) + (size_t)NACC * buf * ld * sizeof(long long);
-  };
   int ld = tile_ld(buf);
-  if (smem_of(ld) > kMaxSmem) ld = buf;  // unpadded rows: bank conflicts only
-  const size_t smem = smem_of(ld);
+  // unpadded rows: bank conflicts only
+  if (narrow_smem(support, tile, NACC, ld) > kMaxSmem) ld = buf;
+  const size_t smem = narrow_smem(support, tile, NACC, ld);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // tile too large
   cudaFuncSetAttribute(grid_kernel<P, NACC, kFull>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -800,8 +836,7 @@ int launch_wide_k(const WideGeom& gm, const void* vals, const void* iu0,
                          (const int*)chunk_seg, (const int*)chunk_start,
                          (const int*)chunk_count, (const float*)tap_bound,
                          (const float*)vsum, (unsigned long long*)grid64, npix,
-                         tile, nta, span, span > 32 ? 16 : 8, gm.stage, nchunks,
-                         per);
+                         tile, nta, span, tap_vecs(span), gm.stage, nchunks, per);
   if (e != cudaSuccess) return (int)e;
   return ska_last_error();
 }
@@ -820,10 +855,27 @@ int launch_wide(const void* vals, const void* iu0, const void* iv0,
   launch_wide_k<K, NACC>(gm, vals, iu0, iv0, frac, ku, kv, order, chunk_seg,  \
                          chunk_start, chunk_count, tap_bound, vsum, grid64,   \
                          nchunks, npix, tile, nta, span, s)
-  const int rc = gm.k == 8 ? SKA_GRID_WIDE_K(8) : gm.k == 6 ? SKA_GRID_WIDE_K(6)
-                                                             : SKA_GRID_WIDE_K(4);
+  switch (gm.k) {
+    case 8: return SKA_GRID_WIDE_K(8);
+    case 6: return SKA_GRID_WIDE_K(6);
+    case 4: return SKA_GRID_WIDE_K(4);
+    default: return SKA_GRID_WIDE_K(2);
+  }
 #undef SKA_GRID_WIDE_K
-  return rc;
+}
+
+// How ska_grid serves windows of `span` cells on tiles of `tile` cells
+// (nacc as ska_grid's): 0 it refuses them; 1 the narrow kernel (16 cells
+// or fewer, the whole tile in one block); 2 the wide kernel, the whole
+// tile in its cluster's bands; 3 the wide kernel in turns (its bands hold
+// fewer rows than the tile's, at least one window's).
+inline int grid_route(int span, int tile, int nacc) {
+  if (span < 1 || span > 64 || tile < 1) return 0;
+  if (span <= 16 && narrow_smem(span, tile, nacc, tile + span) <= kMaxSmem) return 1;
+  if (span % 2 || span > tile) return 0;
+  const WideGeom g = wide_plan(span, tile, nacc);
+  if (g.cs == 0) return 0;
+  return g.cs * g.rb >= tile + span ? 2 : 3;
 }
 
 }  // namespace
@@ -854,8 +906,8 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         void* stream) {
   const cudaStream_t s = (cudaStream_t)stream;
   const size_t n = 2 * (size_t)nplanes * npix * npix;
-  if (support < 1 || support > 64) return (int)cudaErrorInvalidValue;
-  if (support > 16 && support > tile) return (int)cudaErrorInvalidValue;
+  const int route = grid_route(support, tile, nacc);
+  if (route == 0) return (int)cudaErrorInvalidValue;
   if (n == 0) return 0;
   cudaMemsetAsync(grid64, 0, n * sizeof(long long), s);
   if (nchunks > 0) {
@@ -865,7 +917,7 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         nchunks, npix, tile, nta, support, s)
     const bool four = nacc == 4;
     int rc;
-    if (support > 16)
+    if (route > 1)
       rc = four ? launch_wide<4>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
                                  chunk_start, chunk_count, tap_bound, vsum,
                                  grid64, nchunks, npix, tile, nta, support, s)
@@ -891,7 +943,8 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
   return ska_last_error();
 }
 
-// The wide variant's launch geometry at window span `span` (17 to 64) on
+// The wide variant's launch geometry at window span `span` (even, 2 to
+// 64; at 16 or less it runs where ska_grid_route says 2 or 3) on
 // tiles of `tile` cells, nacc as ska_grid's: what 0 the CTAs of a cluster,
 // 1 the threads of a CTA, 2 its dynamic shared bytes, 3 its walks, 4 the
 // classes a thread owns, 5 the entries a walk stages a batch, 6 the tile
@@ -905,16 +958,13 @@ SKA_EXPORT int ska_grid_wide_geometry(int span, int tile, int nacc, int what) {
   return what >= 0 && what < 7 ? v[what] : 0;
 }
 
-// 1 where ska_grid takes windows of `span` cells on tiles of `tile` cells
-// (nacc as ska_grid's), 0 where the tile's int64 rows do not fit a block's
-// shared memory (the narrow kernel holds the whole tile, the wide kernel
-// at least one window's rows).
-SKA_EXPORT int ska_grid_fits(int span, int tile, int nacc) {
-  if (span < 1 || span > 64 || (span > 16 && span > tile)) return 0;
-  if (span > 16) return wide_plan(span, tile, nacc).cs != 0;
-  const size_t stage = span > 8 ? sizeof(Stage<16>) : sizeof(Stage<8>);
-  const size_t buf = (size_t)tile + span;
-  return 2 * stage + (size_t)nacc * buf * buf * sizeof(long long) <= kMaxSmem;
+// How ska_grid serves windows of `span` cells on tiles of `tile` cells
+// (nacc as ska_grid's), decided before any launch: 0 refused (the wide
+// kernel's bands over a cluster of 8 cannot hold one window's rows), 1 the
+// narrow kernel, 2 the wide kernel holding the whole tile, 3 the wide
+// kernel in turns.
+SKA_EXPORT int ska_grid_route(int span, int tile, int nacc) {
+  return grid_route(span, tile, nacc);
 }
 
 // The complex64 grids from int64 ones (n floats: 2 a cell) summed over

@@ -108,9 +108,17 @@
 // add_int128 forms it, not in every flush. A cluster serves consecutive
 // units, each run of them on one segment as one stream, and overlap-adds
 // the run's rows of the tile into grid64 once, skipping untouched cells.
-// A tile that no cluster of 8 holds (512 at S 17) is refused, and the
-// wrapper raises ValueError first. The conversion is the narrow kernel's,
-// and a launch gives the same bits on every run.
+// Where no cluster of 8 holds the whole tile (512 at S 17), 8 CTAs hold as
+// many rows as fit and serve each run in turns, as K1's wide variant
+// does: the run's entries follow their window's corner row, so a turn is
+// the longest stretch of them whose windows (S + 1 rows, one early where
+// a corner is an integer with a negative residual) the bands hold, with
+// its own units in f64; a tile whose bands cannot hold one window is
+// refused, and the wrapper raises ValueError first. Even supports to 16
+// take this variant too on tiles the narrow kernel cannot hold (past
+// 97-115 cells in f32, 64-81 in f64), chosen by geometry before the launch
+// (unit_tiles_route). The conversion is the narrow kernel's, and a launch
+// gives the same bits on every run.
 //
 // What bounds the wide variant on the card (NVIDIA H100 80GB HBM3; copies
 // of this source with one passage changed, timed by unit_designs.py;
@@ -489,7 +497,6 @@ __host__ __device__ inline WideGeom wide_geom(int S, int tile, int k, int thread
   const int buf = tile + S;
   g.rows = buf + 1;
   g.ld = (buf + 1) | 1;
-  g.rb = (g.rows + cs - 1) / cs;
   // coords [3 batches][u, v, ulo, vlo, val re/im][cst]; taps [2][slots][kv,
   // ku][sp]; meta [2][slots] int4; mval [2][slots][2]; red [2] int and one
   // u64; acc [re, im][rb][ld] int64 words
@@ -498,7 +505,11 @@ __host__ __device__ inline WideGeom wide_geom(int S, int tile, int k, int thread
   g.mval = align16(g.meta + 2 * (size_t)g.slots * 16);
   g.red = align16(g.mval + 2 * (size_t)g.slots * 2 * sizeof(T));
   g.acc = g.red + 16;
-  g.smem = g.acc + 2 * (size_t)g.rb * g.ld * sizeof(u64);
+  // a CTA's band: its share of the tile's rows, or as many as fit
+  const size_t row = 2 * (size_t)g.ld * sizeof(u64);
+  const int fit = g.acc < kMaxSmem ? (int)((kMaxSmem - g.acc) / row) : 0;
+  g.rb = min((g.rows + cs - 1) / cs, fit);
+  g.smem = g.acc + row * g.rb;
   return g;
 }
 
@@ -535,7 +546,10 @@ inline void wide_choice(int S, bool f64, int& k, int& threads) {
 // block's shared memory beside batches of 8 entries a walk or more (or,
 // at the small supports of 16 walks a CTA or more, of a tap a thread), the
 // largest batch (up to 32) that fits; failing that, the most entries a
-// batch that any cluster fits. cs 0 where no cluster of 8 holds the tile.
+// batch that any cluster fits. Where no cluster holds the whole tile, 8
+// CTAs with batches of 8 entries a walk (fewer where the bands need it)
+// hold as many rows as fit, and the kernel serves each run in turns; cs 0
+// where those rows cannot hold one window's S + 1.
 template <typename T>
 inline WideGeom wide_plan(int S, int tile) {
   int k = 4, threads = 1024;
@@ -545,11 +559,16 @@ inline WideGeom wide_plan(int S, int tile) {
   for (int cs = 1; cs <= 8; cs *= 2)
     for (int ls = 5; ls >= 0; --ls) {
       const WideGeom g = wide_geom<T>(S, tile, k, threads, cs, ls);
-      if (g.smem > kMaxSmem) continue;
+      if (g.cs * g.rb < g.rows) continue;
       if (ls >= 3 || (g.walks >= 16 && 2 * g.slots * S >= threads)) return g;
       if (best.cs == 0 || g.slots > best.slots) best = g;
       break;
     }
+  if (best.cs != 0) return best;
+  for (int ls = 3; ls >= 0; --ls) {
+    const WideGeom g = wide_geom<T>(S, tile, k, threads, 8, ls);
+    if (g.cs * g.rb >= S + 1) return g;
+  }
   return best;
 }
 
@@ -702,6 +721,7 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
   const int b0 = (rr - a * gm.nbb) * K;
   const int nvalid = walker ? min(K, S - b0) : 0;
   const float rinv = 1.f / gm.rb;
+  const int held = cs * gm.rb;  // the bands' rows: the tile's, or fewer
 
   const int c1 = min(nunits, (int)(blockIdx.x / cs + 1) * per);
   for (int c0 = (blockIdx.x / cs) * per; c0 < c1;) {
@@ -711,258 +731,283 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
     while (ce < c1 && unit_seg[ce] == seg &&
            unit_start[ce] == unit_start[ce - 1] + unit_count[ce - 1])
       ++ce;
-    const int start = unit_start[c0];
-    const int end = unit_start[ce - 1] + unit_count[ce - 1];
+    const int rstart = unit_start[c0];
+    const int rend = unit_start[ce - 1] + unit_count[ce - 1];
     c0 = ce;
-    if (end <= start) continue;  // the same for every CTA of the cluster
     const int plane = seg / ntiles;
     const int t = seg - plane * ntiles;
     const int tv0 = (t / nta) * tile;
     const int tu0 = (t % nta) * tile;
-    // the run's rows of the tile, from the margin row 0: a window starts
-    // at most one row before its hi coordinate's corner row
-    __syncthreads();  // the previous run's overlap-add has read the band and its rows
-    u64* rmax = reinterpret_cast<u64*>(red + 2);
-    if (threadIdx.x == 0) {
-      red[0] = INT_MAX;
-      red[1] = INT_MIN;
-      *rmax = 0ull;
-    }
-    __syncthreads();
-    int rlo = INT_MAX, rhi = INT_MIN;
-    double vmax = 0.0;  // the run's largest |re| + |im| (f64)
-    for (int p = start + threadIdx.x; p < end; p += threads) {
-      const int r = (int)floor_(v[p]);
-      rlo = min(rlo, r);
-      rhi = max(rhi, r);
-      if constexpr (kW == 2) vmax = fmax(vmax, fabs((double)vals[2 * (size_t)p]) +
-                                                     fabs((double)vals[2 * (size_t)p + 1]));
-    }
-    rlo = __reduce_min_sync(0xffffffffu, rlo);
-    rhi = __reduce_max_sync(0xffffffffu, rhi);
-    if constexpr (kW == 2) {
-      // non-negative doubles order as their bits
-      u64 b = (u64)__double_as_longlong(vmax);
+    // Where the bands hold fewer rows than the tile (large tiles), the run
+    // is served in turns: the longest stretch of its entries whose windows
+    // the bands hold (a segment's entries follow their window's corner
+    // row, floor(v) - (half - 1)), the bands starting at the stretch's
+    // first window row. Each turn is a run of its own: its units (f64),
+    // its walks' flushes and its overlap-add. yb: the bands' first row,
+    // from the margin row 0.
+    for (int start = rstart, end; start < rend; start = end) {
+      end = rend;
+      int yb = 0;
+      if (held < gm.rows) {
+        yb = max(0, (int)floor_(v[start]) - (half - 1) - tv0);
+        // the last corner row whose window (rows r - (half - 1) - tv0 up to S
+        // + 1 of them, from the margin) ends in the bands
+        const int last = yb + held - S - 1 + (half - 1) + tv0;
+        int lo = start + 1, hi = rend;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if ((int)floor_(v[mid]) > last) hi = mid;
+          else lo = mid + 1;
+        }
+        end = lo;
+      }
+      // the turn's rows of the tile, from the margin row 0: a window starts
+      // at most one row before its hi coordinate's corner row
+      __syncthreads();  // the previous turn's overlap-add has read the band and its rows
+      u64* rmax = reinterpret_cast<u64*>(red + 2);
+      if (threadIdx.x == 0) {
+        red[0] = INT_MAX;
+        red[1] = INT_MIN;
+        *rmax = 0ull;
+      }
+      __syncthreads();
+      int rlo = INT_MAX, rhi = INT_MIN;
+      double vmax = 0.0;  // the run's largest |re| + |im| (f64)
+      for (int p = start + threadIdx.x; p < end; p += threads) {
+        const int r = (int)floor_(v[p]);
+        rlo = min(rlo, r);
+        rhi = max(rhi, r);
+        if constexpr (kW == 2) vmax = fmax(vmax, fabs((double)vals[2 * (size_t)p]) +
+                                                       fabs((double)vals[2 * (size_t)p + 1]));
+      }
+      rlo = __reduce_min_sync(0xffffffffu, rlo);
+      rhi = __reduce_max_sync(0xffffffffu, rhi);
+      if constexpr (kW == 2) {
+        // non-negative doubles order as their bits
+        u64 b = (u64)__double_as_longlong(vmax);
 #pragma unroll
-      for (int o = 16; o > 0; o >>= 1) {
-        const u64 ob = __shfl_xor_sync(0xffffffffu, b, o);
-        b = ob > b ? ob : b;
+        for (int o = 16; o > 0; o >>= 1) {
+          const u64 ob = __shfl_xor_sync(0xffffffffu, b, o);
+          b = ob > b ? ob : b;
+        }
+        if ((threadIdx.x & 31) == 0) atomicMax(rmax, b);
       }
-      if ((threadIdx.x & 31) == 0) atomicMax(rmax, b);
-    }
-    if ((threadIdx.x & 31) == 0) {
-      atomicMin(red, rlo);
-      atomicMax(red + 1, rhi);
-    }
-    __syncthreads();
-    // f64: the run's own units 2^-kr, 2^(61 - kr) above count x its largest
-    // value (every cell of the run), one int64 word a value in the tile;
-    // the overlap-add puts them into the launch units, 2^wshift finer
-    double rscale = scale;
-    int wshift = 0;
-    if constexpr (kW == 2) {
-      int er = 0;
-      frexp((double)(end - start) * __longlong_as_double((long long)*rmax), &er);
-      const int kr = 61 - er;
-      rscale = ldexp(1.0, kr);
-      wshift = kg - kr;
-    }
-    const int y0 = max(0, red[0] - (half - 1) - tv0);
-    const int y1 = min(gm.rows, red[1] - (half - 1) - tv0 + S + 1);
-    const int z0 = max(y0, rank * gm.rb);
-    const int z1 = min(y1, (rank + 1) * gm.rb);
-    const int zn = max(0, z1 - z0) * gm.ld;
-    for (int c = 0; c < 2; ++c) {
-      u64* zp = acc + ((size_t)c * nb + (size_t)(z0 - rank * gm.rb) * gm.ld);
-      for (int i = threadIdx.x; i < zn; i += threads) zp[i] = 0ull;
-    }
-    // every band is zero before any CTA of the cluster adds to it
-    cluster.sync();
+      if ((threadIdx.x & 31) == 0) {
+        atomicMin(red, rlo);
+        atomicMax(red + 1, rhi);
+      }
+      __syncthreads();
+      // f64: the run's own units 2^-kr, 2^(61 - kr) above count x its largest
+      // value (every cell of the run), one int64 word a value in the tile;
+      // the overlap-add puts them into the launch units, 2^wshift finer
+      double rscale = scale;
+      int wshift = 0;
+      if constexpr (kW == 2) {
+        int er = 0;
+        frexp((double)(end - start) * __longlong_as_double((long long)*rmax), &er);
+        const int kr = 61 - er;
+        rscale = ldexp(1.0, kr);
+        wshift = kg - kr;
+      }
+      const int y0 = max(0, red[0] - (half - 1) - tv0);
+      const int y1 = min(gm.rows, red[1] - (half - 1) - tv0 + S + 1);
+      // this CTA's band of the turn's rows; ys its first row
+      const int ys = yb + rank * gm.rb;
+      const int z0 = max(y0, ys);
+      const int z1 = min(y1, ys + gm.rb);
+      const int zn = max(0, z1 - z0) * gm.ld;
+      for (int c = 0; c < 2; ++c) {
+        u64* zp = acc + ((size_t)c * nb + (size_t)(z0 - ys) * gm.ld);
+        for (int i = threadIdx.x; i < zn; i += threads) zp[i] = 0ull;
+      }
+      // every band is zero before any CTA of the cluster adds to it
+      cluster.sync();
 
-    // walk w of the cluster's cs * walks takes [start + w q, start + (w + 1) q)
-    const int count = end - start;
-    const int nwalks = cs * gm.walks;
-    const int q = (count + nwalks - 1) / nwalks;
-    const int nbatch = (q + stage - 1) >> lstage;
-    auto pos_of = [&](int k, int sl) {
-      const int w = rank * gm.walks + (sl >> lstage);
-      const int p = start + w * q + (k << lstage) + (sl & (stage - 1));
-      return p < min(start + (w + 1) * q, end) ? p : -1;
-    };
-    // batch k's coordinates and values into coordinate buffer b by cp.async
-    auto issue = [&](int k, int b) {
-      T* cb = coords + (size_t)b * 6 * cst;
-      for (int sl = threadIdx.x; sl < gm.slots; sl += threads) {
-        const int p = pos_of(k, sl);
-        if (p < 0) continue;
-        ska_cp_async<sizeof(T)>(cb + sl, u + p);
-        ska_cp_async<sizeof(T)>(cb + cst + sl, v + p);
-        if (ulo != nullptr) {
-          ska_cp_async<sizeof(T)>(cb + 2 * cst + sl, ulo + p);
-          ska_cp_async<sizeof(T)>(cb + 3 * cst + sl, vlo + p);
+      // walk w of the cluster's cs * walks takes [start + w q, start + (w + 1) q)
+      const int count = end - start;
+      const int nwalks = cs * gm.walks;
+      const int q = (count + nwalks - 1) / nwalks;
+      const int nbatch = (q + stage - 1) >> lstage;
+      auto pos_of = [&](int k, int sl) {
+        const int w = rank * gm.walks + (sl >> lstage);
+        const int p = start + w * q + (k << lstage) + (sl & (stage - 1));
+        return p < min(start + (w + 1) * q, end) ? p : -1;
+      };
+      // batch k's coordinates and values into coordinate buffer b by cp.async
+      auto issue = [&](int k, int b) {
+        T* cb = coords + (size_t)b * 6 * cst;
+        for (int sl = threadIdx.x; sl < gm.slots; sl += threads) {
+          const int p = pos_of(k, sl);
+          if (p < 0) continue;
+          ska_cp_async<sizeof(T)>(cb + sl, u + p);
+          ska_cp_async<sizeof(T)>(cb + cst + sl, v + p);
+          if (ulo != nullptr) {
+            ska_cp_async<sizeof(T)>(cb + 2 * cst + sl, ulo + p);
+            ska_cp_async<sizeof(T)>(cb + 3 * cst + sl, vlo + p);
+          }
+          ska_cp_async<2 * sizeof(T)>(cb + 4 * cst + 2 * sl, vals + 2 * (size_t)p);
         }
-        ska_cp_async<2 * sizeof(T)>(cb + 4 * cst + 2 * sl, vals + 2 * (size_t)p);
-      }
-      ska_cp_async_commit();
-    };
-    // stage 1: batch k's taps from coordinate buffer b, one tap an item,
-    // stored by residue class (tap r of a window starting at cell r0 is
-    // class (r0 + r) mod S), and each entry's corner, residues and value
-    auto stage1 = [&](int k, int b) {
-      const T* cb = coords + (size_t)b * 6 * cst;
-      T* tb = taps + (size_t)(k & 1) * gm.slots * 2 * gm.sp;
-      int* mb = reinterpret_cast<int*>(meta + (k & 1) * gm.slots);
-      T* vb = mval + (size_t)(k & 1) * gm.slots * 2;
-      if (p1 >= pstep) return;
-      for (int pr = p1; pr < 2 * gm.slots; pr += pstep) {
-        const int sl = pr >> 1;
-        const int axis = pr & 1;  // 0: v (rows), 1: u (columns)
-        if (pos_of(k, sl) < 0) continue;
-        const T pix = cb[(1 - axis) * cst + sl];
-        const T lo = ulo == nullptr ? T(0) : cb[(3 - axis) * cst + sl];
-        const int t0 = axis == 0 ? tv0 : tu0;
-        // the window of the S taps starts at floor(pix + lo) - (half - 1):
-        // one cell lower than the hi coordinate's window when hi is an
-        // integer and lo < 0 (|lo| < 1). Unit entries lie in the grid, so
-        // only a tap left of cell 0 of the tile (r0 = -1, which the dense
-        // form does not have either) falls outside; it lands in the margin
-        const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
-        const int r0 = (int)floor_(pix) - (half - 1) - shift - t0;
-        const int res = r0 + S - (int)(((float)(r0 + S) + 0.5f) * invs) * S;
-        const T d0 = sub_rn(T(t0), pix);
-        T* row = tb + (size_t)pr * gm.sp;
-        int c = res + r1;
-        c -= c >= S ? S : 0;
+        ska_cp_async_commit();
+      };
+      // stage 1: batch k's taps from coordinate buffer b, one tap an item,
+      // stored by residue class (tap r of a window starting at cell r0 is
+      // class (r0 + r) mod S), and each entry's corner, residues and value
+      auto stage1 = [&](int k, int b) {
+        const T* cb = coords + (size_t)b * 6 * cst;
+        T* tb = taps + (size_t)(k & 1) * gm.slots * 2 * gm.sp;
+        int* mb = reinterpret_cast<int*>(meta + (k & 1) * gm.slots);
+        T* vb = mval + (size_t)(k & 1) * gm.slots * 2;
+        if (p1 >= pstep) return;
+        for (int pr = p1; pr < 2 * gm.slots; pr += pstep) {
+          const int sl = pr >> 1;
+          const int axis = pr & 1;  // 0: v (rows), 1: u (columns)
+          if (pos_of(k, sl) < 0) continue;
+          const T pix = cb[(1 - axis) * cst + sl];
+          const T lo = ulo == nullptr ? T(0) : cb[(3 - axis) * cst + sl];
+          const int t0 = axis == 0 ? tv0 : tu0;
+          // the window of the S taps starts at floor(pix + lo) - (half - 1):
+          // one cell lower than the hi coordinate's window when hi is an
+          // integer and lo < 0 (|lo| < 1). Unit entries lie in the grid, so
+          // only a tap left of cell 0 of the tile (r0 = -1, which the dense
+          // form does not have either) falls outside; it lands in the margin
+          const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
+          const int r0 = (int)floor_(pix) - (half - 1) - shift - t0;
+          const int res = r0 + S - (int)(((float)(r0 + S) + 0.5f) * invs) * S;
+          const T d0 = sub_rn(T(t0), pix);
+          T* row = tb + (size_t)pr * gm.sp;
+          int c = res + r1;
+          c -= c >= S ? S : 0;
 #pragma unroll 4
-        for (int r = r1; r < r2; ++r) {
-          row[c] = es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(half), beta);
-          c = c == S - 1 ? 0 : c + 1;
-        }
-        if (r1 == 0) {
-          // int4 (ru, rv, u residue, v residue), the corners from the margin
-          mb[4 * sl + 1 - axis] = r0 + 1;
-          mb[4 * sl + 3 - axis] = res;
-          if (axis == 0) {
-            vb[2 * sl] = cb[4 * cst + 2 * sl];
-            vb[2 * sl + 1] = cb[4 * cst + 2 * sl + 1];
+          for (int r = r1; r < r2; ++r) {
+            row[c] = es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(half), beta);
+            c = c == S - 1 ? 0 : c + 1;
+          }
+          if (r1 == 0) {
+            // int4 (ru, rv, u residue, v residue), the corners from the margin
+            mb[4 * sl + 1 - axis] = r0 + 1;
+            mb[4 * sl + 3 - axis] = res;
+            if (axis == 0) {
+              vb[2 * sl] = cb[4 * cst + 2 * sl];
+              vb[2 * sl + 1] = cb[4 * cst + 2 * sl + 1];
+            }
           }
         }
-      }
-    };
+      };
 
-    const int gbeg = start + (rank * gm.walks + g) * q;
-    const int gend = min(gbeg + q, end);
-    // the run's column, corner row and its residue, entries since the last
-    // cut; the sums (re, im) of the K rows
-    int curx = -1, currv = 0, curres = 0, since = 0;
-    T sum[K][2];
+      const int gbeg = start + (rank * gm.walks + g) * q;
+      const int gend = min(gbeg + q, end);
+      // the run's column, corner row and its residue, entries since the last
+      // cut; the sums (re, im) of the K rows
+      int curx = -1, currv = 0, curres = 0, since = 0;
+      T sum[K][2];
 #pragma unroll
-    for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
-    auto row_of = [&](int rv, int res, int j) {
-      const int d = b0 + j - res;
-      return rv + (d < 0 ? d + S : d);
-    };
-    // integer adds commute: the tile is the same whatever their order
-    auto flush = [&](int j) {
-      const int y = row_of(currv, curres, j);
-      const int dst = (int)(((float)y + 0.5f) * rinv);  // y / rb
-      const size_t vi = (size_t)(y - dst * gm.rb) * gm.ld + curx;
-      cluster_add(cluster, acc + vi, dst, sum[j][0], rscale, unitf);
-      cluster_add(cluster, acc + nb + vi, dst, sum[j][1], rscale, unitf);
-      sum[j][0] = sum[j][1] = T(0);
-    };
+      for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
+      auto row_of = [&](int rv, int res, int j) {
+        const int d = b0 + j - res;
+        return rv + (d < 0 ? d + S : d);
+      };
+      // integer adds commute: the tile is the same whatever their order
+      auto flush = [&](int j) {
+        const int y = row_of(currv, curres, j) - yb;  // from the bands' first row
+        const int dst = (int)(((float)y + 0.5f) * rinv);  // y / rb
+        const size_t vi = (size_t)(y - dst * gm.rb) * gm.ld + curx;
+        cluster_add(cluster, acc + vi, dst, sum[j][0], rscale, unitf);
+        cluster_add(cluster, acc + nb + vi, dst, sum[j][1], rscale, unitf);
+        sum[j][0] = sum[j][1] = T(0);
+      };
 
-    // coordinates two batches ahead (three buffers), taps one batch ahead
-    // of the walk (two buffers): one barrier a batch
-    int b = 0;
-    issue(0, 0);
-    ska_cp_async_wait_all();
-    if (nbatch > 1) issue(1, 1);
-    __syncthreads();
-    for (int k = 0; k < nbatch; ++k) {
-      stage1(k, b);
-      ska_cp_async_wait_all();  // batch k + 1's copies
-      if (k + 2 < nbatch) issue(k + 2, b == 0 ? 2 : b - 1);
-      // batch k's taps and batch k + 1's coordinates are visible; every
-      // thread is done with batch k - 1's taps and with the buffer of
-      // batch k + 2's coordinates
+      // coordinates two batches ahead (three buffers), taps one batch ahead
+      // of the walk (two buffers): one barrier a batch
+      int b = 0;
+      issue(0, 0);
+      ska_cp_async_wait_all();
+      if (nbatch > 1) issue(1, 1);
       __syncthreads();
-      b = b == 2 ? 0 : b + 1;
-      if (!walker) continue;
-      const int nj = min(stage, gend - (gbeg + (k << lstage)));
-      const size_t s0 = (size_t)(k & 1) * gm.slots + ((size_t)g << lstage);
-      const T* tb = taps + s0 * 2 * gm.sp;
-      const int4* mb = meta + s0;
-      const T* vb = mval + s0 * 2;
-      for (int jj = 0; jj < nj; ++jj) {
-        const int4 m = mb[jj];
-        int dx = a - m.z;
-        dx += dx < 0 ? S : 0;
-        const int x = m.x + dx;
-        if (x != curx || since == kRunCap) {
-          // the column moved (or the runs are kRunCap long): every row's
-          // cell changes
-          if (curx >= 0) {
+      for (int k = 0; k < nbatch; ++k) {
+        stage1(k, b);
+        ska_cp_async_wait_all();  // batch k + 1's copies
+        if (k + 2 < nbatch) issue(k + 2, b == 0 ? 2 : b - 1);
+        // batch k's taps and batch k + 1's coordinates are visible; every
+        // thread is done with batch k - 1's taps and with the buffer of
+        // batch k + 2's coordinates
+        __syncthreads();
+        b = b == 2 ? 0 : b + 1;
+        if (!walker) continue;
+        const int nj = min(stage, gend - (gbeg + (k << lstage)));
+        const size_t s0 = (size_t)(k & 1) * gm.slots + ((size_t)g << lstage);
+        const T* tb = taps + s0 * 2 * gm.sp;
+        const int4* mb = meta + s0;
+        const T* vb = mval + s0 * 2;
+        for (int jj = 0; jj < nj; ++jj) {
+          const int4 m = mb[jj];
+          int dx = a - m.z;
+          dx += dx < 0 ? S : 0;
+          const int x = m.x + dx;
+          if (x != curx || since == kRunCap) {
+            // the column moved (or the runs are kRunCap long): every row's
+            // cell changes
+            if (curx >= 0) {
+#pragma unroll
+              for (int j = 0; j < K; ++j)
+                if (j < nvalid) flush(j);
+            }
+            curx = x;
+            if (since == kRunCap) since = 0;  // every thread's runs end together
+            currv = m.y;
+            curres = m.w;
+          } else if (m.y != currv) {
+            // the corner row moved: a row's cell changes where its row does
 #pragma unroll
             for (int j = 0; j < K; ++j)
-              if (j < nvalid) flush(j);
+              if (j < nvalid && row_of(currv, curres, j) != row_of(m.y, m.w, j)) flush(j);
+            currv = m.y;
+            curres = m.w;
           }
-          curx = x;
-          if (since == kRunCap) since = 0;  // every thread's runs end together
-          currv = m.y;
-          curres = m.w;
-        } else if (m.y != currv) {
-          // the corner row moved: a row's cell changes where its row does
+          ++since;
+          const T* tp = tb + (size_t)jj * 2 * gm.sp;
+          const T kx = tp[gm.sp + a];
+          const T lr = vb[2 * jj] * kx, li = vb[2 * jj + 1] * kx;
+          T ky[K];
+          load_rows<K>(tp + b0, ky);
 #pragma unroll
-          for (int j = 0; j < K; ++j)
-            if (j < nvalid && row_of(currv, curres, j) != row_of(m.y, m.w, j)) flush(j);
-          currv = m.y;
-          curres = m.w;
-        }
-        ++since;
-        const T* tp = tb + (size_t)jj * 2 * gm.sp;
-        const T kx = tp[gm.sp + a];
-        const T lr = vb[2 * jj] * kx, li = vb[2 * jj + 1] * kx;
-        T ky[K];
-        load_rows<K>(tp + b0, ky);
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          sum[j][0] = fma_(ky[j], lr, sum[j][0]);
-          sum[j][1] = fma_(ky[j], li, sum[j][1]);
+          for (int j = 0; j < K; ++j) {
+            sum[j][0] = fma_(ky[j], lr, sum[j][0]);
+            sum[j][1] = fma_(ky[j], li, sum[j][1]);
+          }
         }
       }
-    }
-    if (curx >= 0) {
+      if (curx >= 0) {
 #pragma unroll
-      for (int j = 0; j < K; ++j)
-        if (j < nvalid) flush(j);
-    }
-    // every CTA's adds to this band are done
-    cluster.sync();
+        for (int j = 0; j < K; ++j)
+          if (j < nvalid) flush(j);
+      }
+      // every CTA's adds to this band are done
+      cluster.sync();
 
-    // overlap-add of the band: the tile and its halo into the integer plane
-    // grids; the margin row and column are not the tile's, untouched cells
-    // are zero and skipped, halo cells past the grid edge are zero (unit
-    // entries lie in the grid) and skipped
-    for (int i = threadIdx.x; i < (z1 - z0) * buf; i += threads) {
-      const int yy = i / buf;
-      const int y = z0 + yy;
-      const int x = i - yy * buf;  // the tile's column: value column x + 1
-      if (y == 0) continue;
-      const int gy = tv0 + y - 1;
-      const int gx = tu0 + x;
-      if (gy >= npix || gx >= npix) continue;
-      const size_t vi = (size_t)(y - rank * gm.rb) * gm.ld + x + 1;
-      u64* gp = grid64 + 2 * kW * (((size_t)plane * npix + gy) * npix + gx);
-      if constexpr (kW == 1) {
-        words_add(gp, &acc[vi], 1);
-        words_add(gp + 1, &acc[nb + vi], 1);
-      } else {
-        u64 w[2];
-        tile_to_int128((long long)acc[vi], wshift, w[0], w[1]);
-        words_add(gp, w, 2);
-        tile_to_int128((long long)acc[nb + vi], wshift, w[0], w[1]);
-        words_add(gp + 2, w, 2);
+      // overlap-add of the band: the tile and its halo into the integer plane
+      // grids; the margin row and column are not the tile's, untouched cells
+      // are zero and skipped, halo cells past the grid edge are zero (unit
+      // entries lie in the grid) and skipped
+      for (int i = threadIdx.x; i < (z1 - z0) * buf; i += threads) {
+        const int yy = i / buf;
+        const int y = z0 + yy;
+        const int x = i - yy * buf;  // the tile's column: value column x + 1
+        if (y == 0) continue;
+        const int gy = tv0 + y - 1;
+        const int gx = tu0 + x;
+        if (gy >= npix || gx >= npix) continue;
+        const size_t vi = (size_t)(y - ys) * gm.ld + x + 1;
+        u64* gp = grid64 + 2 * kW * (((size_t)plane * npix + gy) * npix + gx);
+        if constexpr (kW == 1) {
+          words_add(gp, &acc[vi], 1);
+          words_add(gp + 1, &acc[nb + vi], 1);
+        } else {
+          u64 w[2];
+          tile_to_int128((long long)acc[vi], wshift, w[0], w[1]);
+          words_add(gp, w, 2);
+          tile_to_int128((long long)acc[nb + vi], wshift, w[0], w[1]);
+          words_add(gp + 2, w, 2);
+        }
       }
     }
   }
@@ -996,22 +1041,26 @@ __global__ void unit_tiles_convert(const u64* __restrict__ grid64,
   }
 }
 
+// The narrow kernel's dynamic shared memory at an even support S (16 or
+// less) on tiles of `tile` cells, the tile's rows `ld` values apart
+template <typename T>
+inline size_t narrow_smem(int S, int tile, int ld) {
+  constexpr int kBatch = Batch<T>::kSize;
+  return 2 * sizeof(Coords<T>) + kBatch * 2 * (size_t)S * sizeof(T) +
+         2 * (size_t)(tile + S) * ld * Fixed<T>::kWords * sizeof(u64) +
+         4 * kBatch * sizeof(int);
+}
+
 template <typename T, int S>
 int launch(const void* u, const void* v, const void* vals, const void* ulo,
            const void* vlo, const void* unit_seg, const void* unit_start,
            const void* unit_count, const void* vsum, void* grid64,
            int nunits, int npix, int tile, int nta, double beta,
            cudaStream_t s) {
-  constexpr int kBatch = Batch<T>::kSize;
   const int buf = tile + S;
-  auto smem_of = [&](int ld) {
-    return 2 * sizeof(Coords<T>) + kBatch * 2 * (size_t)S * sizeof(T) +
-           2 * (size_t)buf * ld * Fixed<T>::kWords * sizeof(u64) +
-           4 * kBatch * sizeof(int);
-  };
   int ld = buf + 1;  // padded rows against bank conflicts
-  if (smem_of(ld) > kMaxSmem) ld = buf;  // unpadded: bank conflicts only
-  const size_t smem = smem_of(ld);
+  if (narrow_smem<T>(S, tile, ld) > kMaxSmem) ld = buf;  // unpadded: bank conflicts only
+  const size_t smem = narrow_smem<T>(S, tile, ld);
   if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;  // tile too large
   cudaFuncSetAttribute(unit_tiles_kernel<T, S>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1097,6 +1146,20 @@ int launch_wide(const void* u, const void* v, const void* vals,
 #undef SKA_UNIT_TILES_WIDE
 }
 
+// How ska_unit_tiles serves support S on tiles of `tile` cells: 0 it
+// refuses it; 1 the narrow kernel (even S to 16, the whole tile in one
+// block); 2 the wide variant, the whole tile in its cluster's bands; 3 the
+// wide variant in turns (its bands hold fewer rows than the tile's, at
+// least one window's).
+template <typename T>
+inline int unit_tiles_route(int S, int tile) {
+  if (S < 2 || S > 64 || S > tile) return 0;
+  if (S % 2 == 0 && S <= 16 && narrow_smem<T>(S, tile, tile + S) <= kMaxSmem) return 1;
+  const WideGeom g = wide_plan<T>(S, tile);
+  if (g.cs == 0) return 0;
+  return g.cs * g.rb >= g.rows ? 2 : 3;
+}
+
 template <typename T>
 int launch_support(const void* u, const void* v, const void* vals,
                    const void* ulo, const void* vlo, const void* unit_seg,
@@ -1104,6 +1167,8 @@ int launch_support(const void* u, const void* v, const void* vals,
                    const void* vsum, void* grid64, void* grid, int nunits,
                    int nplanes, int npix, int tile, int nta, int support,
                    double beta, cudaStream_t s) {
+  const int route = unit_tiles_route<T>(support, tile);
+  if (route == 0) return (int)cudaErrorInvalidValue;
   const size_t n = 2 * (size_t)nplanes * npix * npix;
   cudaMemsetAsync(grid64, 0, n * Fixed<T>::kWords * sizeof(u64), s);
   int rc = 0;
@@ -1113,22 +1178,23 @@ int launch_support(const void* u, const void* v, const void* vals,
                       unit_count, vsum, grid64, nunits, npix, tile, nta,     \
                       beta, s);                                              \
     break;
-  switch (support) {
-    SKA_UNIT_TILES_CASE(2)
-    SKA_UNIT_TILES_CASE(4)
-    SKA_UNIT_TILES_CASE(6)
-    SKA_UNIT_TILES_CASE(8)
-    SKA_UNIT_TILES_CASE(10)
-    SKA_UNIT_TILES_CASE(12)
-    SKA_UNIT_TILES_CASE(14)
-    SKA_UNIT_TILES_CASE(16)
-    default:
-      // odd supports and supports past 16: the wide variant
-      if (support < 2 || support > 64 || support > tile)
-        return (int)cudaErrorInvalidValue;
-      rc = launch_wide<T>(u, v, vals, ulo, vlo, unit_seg, unit_start,
-                          unit_count, vsum, grid64, nunits, npix, tile, nta,
-                          support, beta, s);
+  if (route == 1) {
+    switch (support) {
+      SKA_UNIT_TILES_CASE(2)
+      SKA_UNIT_TILES_CASE(4)
+      SKA_UNIT_TILES_CASE(6)
+      SKA_UNIT_TILES_CASE(8)
+      SKA_UNIT_TILES_CASE(10)
+      SKA_UNIT_TILES_CASE(12)
+      SKA_UNIT_TILES_CASE(14)
+      SKA_UNIT_TILES_CASE(16)
+    }
+  } else {
+    // odd supports, supports past 16, and tiles the narrow kernel cannot
+    // hold: the wide variant
+    rc = launch_wide<T>(u, v, vals, ulo, vlo, unit_seg, unit_start,
+                        unit_count, vsum, grid64, nunits, npix, tile, nta,
+                        support, beta, s);
   }
 #undef SKA_UNIT_TILES_CASE
   if (rc != 0) return rc;
@@ -1166,16 +1232,27 @@ SKA_EXPORT int ska_unit_tiles(const void* u, const void* v, const void* vals,
                                nplanes, npix, tile, nta, support, beta, s);
 }
 
-// The wide variant's launch geometry at an odd support or a support past 16
-// (support, up to 64 and the tile) on tiles of `tile` cells, f64 as
-// ska_unit_tiles's: what 0 the CTAs of a cluster, 1 the threads of a CTA, 2
-// its dynamic shared bytes, 3 its walks, 4 the rows of a column a thread
-// owns, 5 the entries a walk stages a batch; 0 where no cluster of 8 CTAs
-// holds the tile (ska_unit_tiles refuses it).
+// How ska_unit_tiles serves `support` on tiles of `tile` cells (f64 as its
+// own), decided before any launch: 0 refused (the wide variant's bands
+// over a cluster of 8 cannot hold one window's rows), 1 the narrow kernel,
+// 2 the wide variant holding the whole tile, 3 the wide variant in turns.
+SKA_EXPORT int ska_unit_tiles_route(int support, int tile, int f64) {
+  return f64 ? unit_tiles_route<double>(support, tile) : unit_tiles_route<float>(support, tile);
+}
+
+// The wide variant's launch geometry at `support` (2 to 64 and the tile;
+// it runs where ska_unit_tiles_route says 2 or 3) on tiles of `tile`
+// cells, f64 as ska_unit_tiles's: what 0 the CTAs of a cluster, 1 the
+// threads of a CTA, 2 its dynamic shared bytes, 3 its walks, 4 the rows of
+// a column a thread owns, 5 the entries a walk stages a batch, 6 the rows
+// of the tile (with its margin row) the cluster's bands hold (fewer than
+// tile + support + 1: runs in turns); 0 where the bands over a cluster of
+// 8 CTAs cannot hold one window's rows.
 SKA_EXPORT int ska_unit_tiles_wide_geometry(int support, int tile, int f64, int what) {
   if (support < 2 || support > 64 || support > tile) return 0;
   const WideGeom gm = f64 ? wide_plan<double>(support, tile) : wide_plan<float>(support, tile);
   if (gm.cs == 0) return 0;
-  const int v[] = {gm.cs, gm.threads, (int)gm.smem, gm.walks, gm.k, 1 << gm.lstage};
-  return what >= 0 && what < 6 ? v[what] : 0;
+  const int v[] = {gm.cs, gm.threads, (int)gm.smem, gm.walks, gm.k, 1 << gm.lstage,
+                   gm.cs * gm.rb};
+  return what >= 0 && what < 7 ? v[what] : 0;
 }

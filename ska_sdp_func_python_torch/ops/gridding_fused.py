@@ -18,9 +18,12 @@ path's limit) and windows up to :data:`MAX_SPAN` cells; the taps then take
 at width 64 and half that at 32.
 
 Windows of up to 16 cells run K1's shared-tile kernel and K3's groups of
-8 or 16 lanes; wider ones K1's wide variant (register sums flushed
-straight into the int64 grids) and K3's whole-warp variant (each lane one
-or two columns).
+8 or 16 lanes; wider ones K1's wide variant (the tile's int64 rows in
+bands over a thread block cluster, served in turns where the bands hold
+fewer rows than the tile) and K3's whole-warp variant (each lane one or
+two columns). K1's wide variant also takes windows of up to 16 cells on
+tiles whose int64 rows one block cannot hold (``ska_grid_route``), so K1
+takes every tile up to 512 at every window.
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the hand-written kernel (``csrc/grid.cu``,
@@ -183,12 +186,12 @@ def grid(plan, vals: torch.Tensor, *, raw: bool = False, bound=None) -> torch.Te
     npix = plan.npixel
     _check_taps(plan, (plan.n,))
     nacc = 4 if plan.wstacked else 2
-    if not kernels.query("ska_grid_fits", plan.span, plan.tile, nacc):
+    if not kernels.query("ska_grid_route", plan.span, plan.tile, nacc):
         raise ValueError(
-            f"tile {plan.tile}: K1 on the card holds a tile's int64 rows in a "
-            f"block's shared memory (windows past 16 cells: one window's "
-            f"{plan.span} rows over a cluster of 8); this plan's tile is too "
-            f"large for windows of {plan.span} cells, plan with a smaller tile"
+            f"tile {plan.tile}: K1 on the card holds at least one window's "
+            f"{plan.span} rows of its tile's int64 words in the shared memory "
+            f"of a cluster of 8 CTAs, and a tile of {plan.tile} at windows of "
+            f"{plan.span} cells is past that; plan with a smaller tile"
         )
     vals_ptr = chk("vals", vals, torch.complex64, dev)
     # the kernel accumulates in int64 fixed point, scaled by the stream's

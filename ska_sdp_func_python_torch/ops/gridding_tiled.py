@@ -14,8 +14,10 @@ Gridding runs kernel K9 (``csrc/unit_tiles.cu``) through
 :func:`unit_tiles`: the unit compute, the reduction of units onto tiles and
 the overlap-add into the plane grids in one launch, summed in fixed point
 (the same bits on every run), at every support from 2 to the tile (at
-most 64): even supports to 16 through a shared tile, odd and wider ones
-through K9's wide variant, whose tile is held over a cluster of CTAs. Its plain version
+most 64) and every tile up to 512: even supports to 16 through a shared
+tile where one block holds it, odd and wider ones, and larger tiles,
+through K9's wide variant, whose tile is held in bands over a cluster of
+CTAs (in turns where the bands hold fewer rows than the tile). Its plain version
 :func:`unit_tiles_plain` is the XLA formulation written in PyTorch: the
 dense ES factors over each unit's tile, ``(kv * val) @ ku^T`` as a batched
 matmul, and an ``index_add_`` of the tiles into the grids. Degridding
@@ -270,14 +272,13 @@ def unit_tiles(
     if (u_lo is None) != (v_lo is None):
         raise ValueError("u_lo and v_lo: give both or neither")
     f64 = rdtype == torch.float64
-    if (support % 2 or support > 16) and not kernels.query(
-        "ska_unit_tiles_wide_geometry", support, tile, int(f64), 0
-    ):
-        # the wide variant holds the tile's integer words in the shared
-        # memory of a cluster of at most 8 CTAs
+    if not kernels.query("ska_unit_tiles_route", support, tile, int(f64)):
+        # the wide variant holds the tile's integer words in bands of rows
+        # over a cluster of at most 8 CTAs, at least one window's rows
         raise ValueError(
-            f"tile {tile} at support {support}: the kernel's tile does not "
-            f"fit a cluster of 8 CTAs"
+            f"tile {tile} at support {support}: the kernel holds at least one "
+            f"window's {support + 1} rows of its tile's integer words in the "
+            f"shared memory of a cluster of 8 CTAs, and this tile is past that"
         )
     k = kernels.KERNELS["unit_tiles"]
     chk = kernels.check_cuda_tensor

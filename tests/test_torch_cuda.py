@@ -20,12 +20,13 @@ launch to launch; held against the plain version accumulated in f64) and
 ``degrid`` (one entry's f32
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
-launch, at supports 4 to 64 (the wide variants past 16) and on linear,
-nearest-plane and single-plane plans; ``unit_tiles`` (fixed-point sums: int64 in f32, a
+launch, at supports 2 to 64 (the wide variants past 16 and on tiles the
+narrow kernel cannot hold, up to 512) and on linear, nearest-plane and
+single-plane plans; ``unit_tiles`` (fixed-point sums: int64 in f32, a
 128-bit pair in f64, the same bits from launch to launch) agrees with its
 plain version accumulated in f64 to 1e-5 of the grid maximum in f32 and to
 1e-12 in f64, at even supports to 16 and, through its wide variant, at
-odd ones and up to 64. The calibration paths (the composed "TG" ical with a sky component,
+odd ones, up to 64 and on tiles up to 512. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
 image) and the streamed cycle over a store launch their kernels on the
 card and agree with the CPU run to the slice bounds: gains 1e-4, peak
@@ -1323,11 +1324,12 @@ def test_grid_and_degrid_wide_on_large_tiles_match_plain(dev, support, tile, mod
     assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
-@pytest.mark.parametrize("support,tile", [(64, 1024), (8, 128)])
+@pytest.mark.parametrize("support,tile", [(64, 1024), (8, 4096)])
 def test_grid_refuses_a_tile_it_cannot_hold(dev, support, tile):
-    """One past the largest tile: at span 64 a linear plan's bands over a
-    cluster of 8 hold fewer than one window's rows at tile 1024, and the
-    narrow kernel holds no tile of 128 at support 8; K1's wrapper raises
+    """Past the largest tile: a linear plan's bands over a cluster of 8
+    hold fewer than one window's rows at span 64 on tile 1024 and at span
+    8 on tile 4096 (the wide variant takes windows of 8 cells on tiles the
+    narrow kernel cannot hold, up to 3159 cells); K1's wrapper raises
     ValueError naming the tile before any launch."""
     plan = _support_plan(dev, support, "linear", n=200, npix=tile, nplanes=3, tile=tile)
     vals = torch.ones(plan.n, device=dev, dtype=torch.complex64)
@@ -1335,6 +1337,40 @@ def test_grid_refuses_a_tile_it_cannot_hold(dev, support, tile):
     with pytest.raises(ValueError, match=f"tile {tile}"):
         grid(plan, vals)
     assert kernels.KERNELS["grid"].launches == before
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("tile", [96, 128, 256])
+@pytest.mark.parametrize("support", [2, 8, 16])
+def test_grid_narrow_windows_on_large_tiles_match_plain(dev, support, tile, mode):
+    """Windows of up to 16 cells on tiles of a 768^2 grid: where the
+    narrow kernel holds the tile's int64 rows (96 on a nearest plan) it
+    stays K1's route, elsewhere K1's wide variant takes them over a
+    cluster's bands (in turns at 256 on a linear plan). Against the plain
+    version accumulated in f64, to 1e-5 of the maximum, with the same bits
+    on a second launch; K3 against its plain version (it reads the grids
+    from device memory at any tile)."""
+    plan = _support_plan(dev, support, mode, n=40000, npix=768, nplanes=3, tile=tile)
+    nacc = 4 if mode == "linear" else 2
+    route = kernels.query("ska_grid_route", plan.span, tile, nacc)
+    assert route == (1 if tile == 96 and mode == "nearest" else
+                     3 if tile == 256 and mode == "linear" else 2)
+    if route == 3:
+        rows = kernels.query("ska_grid_wide_geometry", plan.span, tile, nacc, 6)
+        assert plan.span <= rows < tile + plan.span
+    g = torch.Generator(device=dev).manual_seed(support + tile)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    before = kernels.KERNELS["grid"].launches
+    out = grid(plan, vals)
+    assert torch.equal(grid(plan, vals), out)
+    assert kernels.KERNELS["grid"].launches == before + 2
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    out = degrid(plan, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 @pytest.mark.parametrize("wstacked", [True, False], ids=["wstacked", "nearest"])
@@ -1566,7 +1602,7 @@ def _k9_check(streams, kw, dtype, bits=True):
 def _k9_wide_geometry(support, tile, dtype):
     f64 = int(dtype == torch.float64)
     return [kernels.query("ska_unit_tiles_wide_geometry", support, tile, f64, w)
-            for w in range(6)]
+            for w in range(7)]
 
 
 _K9_WIDE = [7, 9, 15, 17, 24, 31, 32, 33, 48, 64]
@@ -1613,10 +1649,15 @@ def test_unit_tiles_wide_clusters(dev):
         assert _k9_wide_geometry(support, tile, dtype)[0] > 1, (support, tile, dtype)
     for dtype in (torch.float32, torch.float64):
         for support in _K9_WIDE:
-            cs, threads, smem, walks, k, stage = _k9_wide_geometry(support, 64, dtype)
+            cs, threads, smem, walks, k, stage, rows = _k9_wide_geometry(support, 64, dtype)
             assert cs in (1, 2, 4, 8) and 0 < smem <= 232448 and stage >= 1
             assert 8 * walks * support * support >= 7 * threads * k, (support, dtype)
-        assert _k9_wide_geometry(17, 512, dtype)[0] == 0
+            assert rows >= 64 + support + 1
+        # no cluster holds the tile of 512 at support 17: 8 CTAs serve it in
+        # turns; at 64 on tile 4096 their bands cannot hold one window
+        cs, _, smem, _, _, _, rows = _k9_wide_geometry(17, 512, dtype)
+        assert cs == 8 and 17 + 1 <= rows < 512 + 17 + 1 and smem <= 232448
+        assert _k9_wide_geometry(64, 4096, dtype)[0] == 0
 
 
 @pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
@@ -1681,15 +1722,70 @@ def test_unit_tiles_wide_nan_value_gives_nan_grids(dev, support, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_unit_tiles_wide_refuses_a_tile_no_cluster_holds(dev, dtype):
-    """A tile whose fixed-point words no cluster of 8 CTAs holds (512 at
-    support 17) raises ValueError before a launch."""
-    tile = 512
-    (stream, _), kw = _k9_streams(dev, np.asarray([30.2, 31.7]), np.asarray([40.7, 41.1]),
-                                  dtype, 17, tile, 2 * tile, 4096, False)
+    """A tile of whose fixed-point words a cluster of 8 CTAs cannot hold
+    one window's rows (4096 at support 64) raises ValueError before a
+    launch."""
+    tile, support = 4096, 64
+    (stream, _), kw = _k9_streams(dev, np.asarray([300.2, 310.7]), np.asarray([400.7, 410.1]),
+                                  dtype, support, tile, 2 * tile, 4096, False)
     before = kernels.KERNELS["unit_tiles"].launches
     with pytest.raises(ValueError, match="cluster of 8"):
         stream.grid(**kw)
     assert kernels.KERNELS["unit_tiles"].launches == before
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("tile", [128, 512])
+@pytest.mark.parametrize("support", [2, 8, 16])
+def test_unit_tiles_narrow_supports_on_large_tiles_match_plain(dev, support, tile, dtype,
+                                                               with_lo):
+    """Even supports to 16 on tiles the narrow kernel cannot hold: K9's
+    wide variant, its whole tile in a cluster's bands at 128 and in turns
+    at 512, on a core-heavy stream whose units span the tile's rows (so a
+    run takes several turns, and with ``with_lo`` windows start a row
+    early at their edges): against unit_tiles_plain accumulated in f64,
+    f32 to 1e-5 of the grid maximum and f64 to 1e-12; two launches give
+    the same bits."""
+    f64 = int(dtype == torch.float64)
+    assert kernels.query("ska_unit_tiles_route", support, tile, f64) == (2 if tile == 128 else 3)
+    npix = 2 * tile
+    rng = np.random.default_rng(support + tile)
+    n = 30000
+    core = rng.normal(npix / 2, tile / 3, (2, n - 3000))
+    wide = rng.uniform(0, npix, (2, 3000))
+    u64, v64 = np.concatenate([core, wide], axis=1)
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, npix, 4096, with_lo)
+    _k9_check(streams, kw, dtype)
+
+
+def test_route_tables_take_every_tile(dev):
+    """The libraries' own route queries: K1 takes every window (supports 1
+    to 64, linear and one-plane plans) and K9 every support (2 to 64, f32
+    and f64) on every tile up to 512 that divides a 1024^2 or a 2048^2 grid
+    and holds the support; the narrow kernels stay the route at the tiles
+    the imaging API picks."""
+    tiles = sorted({t for n in (1024, 2048) for t in range(1, 513) if n % t == 0})
+    refused = []
+    for support in range(1, 65):
+        span = support + support % 2
+        for t in tiles:
+            if t < support or (support % 2 and support % t == 0):
+                continue  # the plan takes supports up to its tile
+            for nacc in (4, 2):
+                if not kernels.query("ska_grid_route", span, t, nacc):
+                    refused.append(("grid", support, t, nacc))
+            for f64 in (0, 1):
+                if support >= 2 and not kernels.query("ska_unit_tiles_route", support, t, f64):
+                    refused.append(("unit_tiles", support, t, f64))
+    assert refused == []
+    for tile in (56, 64, 48, 32, 16, 8):
+        for support in range(1, min(tile, 16) + 1):
+            span = support + support % 2
+            assert kernels.query("ska_grid_route", span, tile, 4) == 1, (support, tile)
+            if support % 2 == 0:
+                for f64 in (0, 1):
+                    assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 1
 
 
 def _chip_smoke():
