@@ -231,9 +231,10 @@ Phases, each on lines of its own:
      list (fluxes on 5 channels) through the fused ical of the config-4
      cube, its DFT card against CPU.
  17. tiles the imaging API never picks (after phase 16, on the flagship):
-     the limit table of K1 and K9 (the largest tile each takes, by
-     window span and nacc or by support and dtype, from the library's
-     route queries; fails if any tile up to 512 is refused); (a)
+     the limit table of K1 and K9 (by window span and nacc or by support
+     and dtype, from the library's route queries: the largest tile the
+     narrow kernel and the cluster-banded routes take, and every tile
+     taken; fails if any tile from the support up is refused); (a)
      ``make_grid_plan`` + ``grid_with_plan`` at support 8 on the
      flagship's linear plan at tiles 112 and 336 (in turns: the cluster's
      band rows printed beside the tile plus span) and its nearest plan at
@@ -244,8 +245,25 @@ Phases, each on lines of its own:
      in f32 at support 8, tiles 128 and 512 (in turns), and in f64 at
      support 16, tile 128: K9's wide variant, the same checks against its
      plain version and the API's tile 64 (1e-5 in f32, 1e-12 in f64).
+ 18. every support and tile the JAX package's gridders take (after phase
+     17, on the flagship): (a) ``make_grid_plan`` + ``grid_with_plan`` on
+     the flagship's whole plan at supports 48 and 64 with one tile the
+     whole 1344^2 padded grid, past any cluster's bands: K1's
+     device-memory route launched, two calls to the same bits, against
+     the grids at the API's tile and its plain version in f64 (1e-5); (b)
+     the same and ``degrid_with_plan`` on the flagship's first million
+     entries at windows past 64 cells (supports 72 on tile 192, 97 on 448,
+     128 on 1344), linear and nearest: K1's device-memory route and K3's
+     long-window kernel against their plain versions (1e-5), twice to the
+     same bits; (c) ``tiled_grid`` on phase 16b's full-width stream with
+     one tile the whole 2048^2 grid at supports 48 and 64, f32 and f64,
+     and (d) on tile 256 at supports 96, 128 and 1 on 16b's stream cut to
+     8 integrations: K9's device-memory route launched, twice to the same
+     bits, against its plain version (1e-5 in f32, 1e-12 in f64; in (c)
+     the plain version at the API's tile 64). Each prints its route, its
+     time and its bound.
 Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d,
-15a, 16a-c and 17a-b resets the launch counters just before it and fails unless
+15a, 16a-c, 17a-b and 18a-d resets the launch counters just before it and fails unless
 every kernel of its path launched. The script then
 prints the grid and unit_tiles launches of each observation, the kernels
 JSON line (launches summed over those phases), the card line, and, last,
@@ -261,6 +279,7 @@ Usage: python3 chip_smoke.py
                                                    15d's repeats)
        python3 chip_smoke.py --phase16-only       (the build and phase 16)
        python3 chip_smoke.py --phase17-only       (the build and phase 17)
+       python3 chip_smoke.py --phase18-only       (the build and phase 18)
 """
 
 from __future__ import annotations
@@ -528,6 +547,24 @@ GAINCAL16_TOL = 1e-3
 TILES17 = ((112, False), (336, False), (168, True))
 UNIT17 = (("f32", 8, (128, 512)), ("f64", 16, (128,)))
 LIMIT17_MAX = 4096
+
+# phase 18: every support and tile the JAX package's gridders take. (a) K1
+# on the flagship's whole plan at the supports of SUPPORTS18 with one tile
+# the whole padded grid (TILE18), where no cluster's bands hold one
+# window's rows; (b) K1 and K3 on the flagship's first million entries at
+# windows past 64 cells, (support, tile), on linear and nearest planes;
+# (c) K9 on phase 16b's full-width stream with one tile its whole 2048^2
+# grid at the supports of UNIT18_FULL, (d) at the supports of UNIT18 (past
+# 64, and 1) on tile UNIT18_TILE, on 16b's stream cut to UNIT16_TIMES
+# integrations; both in f32 and f64. Each is held to its plain version at
+# K1's, K3's and K9's tolerances.
+SUPPORTS18 = (48, 64)
+TILE18 = 1344
+WIDE18 = ((72, 192), (97, 448), (128, 1344))
+UNIT18_FULL = (48, 64)
+UNIT18_TILE_FULL = 2048
+UNIT18 = (96, 128, 1)
+UNIT18_TILE = 256
 
 
 def say(*args):
@@ -847,17 +884,32 @@ def permute_bound(n, shared=0, npay=1):
     return bound(n * 4 + npay * n * (8 + 8), 0)
 
 
-def grid_row(gp, vals, label, plain_reps=1):
+def once_timed(fn):
+    """(fn(), its device time in ms: one run, CUDA events)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def grid_row(gp, vals, label, plain_reps=1, reps=10):
     """The grid kernel against its plain version accumulated in f64 (in
     pieces) on plan ``gp`` and plan-ordered ``vals``, and a second launch
-    to the same bits; times both (the plain version in f64) and prints the
-    row with its bound. Returns the kernel row."""
+    to the same bits; times both (the plain version in f64; ``plain_reps``
+    0: the reference run's own time) and prints the row with its bound.
+    Returns the kernel row."""
     import torch
 
     from ska_sdp_func_python_torch.ops.gridding_fused import grid
 
     piece = _plain_piece(gp)
-    ref = grid_plain_pieces(gp, vals.to(torch.complex128), piece)
+    ref, ref_ms = once_timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128), piece))
     out = grid(gp, vals)
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
@@ -865,8 +917,9 @@ def grid_row(gp, vals, label, plain_reps=1):
     del ref, out
     nchunks = int(gp.chunk_seg.shape[0])
     row = _row(
-        err, rel, timed(lambda: grid(gp, vals), 10),
-        timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128), piece), plain_reps),
+        err, rel, timed(lambda: grid(gp, vals), reps),
+        timed(lambda: grid_plain_pieces(gp, vals.to(torch.complex128), piece), plain_reps)
+        if plain_reps else ref_ms,
         grid_bound(gp),
     )
     say(
@@ -2748,9 +2801,13 @@ def unit_tiles_bound(stream, geo, peak_ops):
     return bound(nbytes, n * (4 * s * s + 22 * s), peak_ops)
 
 
-def compare_unit_tiles(stream, geo, label, tol, peak_ops):
+def compare_unit_tiles(stream, geo, label, tol, peak_ops, plain_at=None, reps=5,
+                       plain_f64=True):
     """unit_tiles against its plain version accumulated in f64 on the
-    same stream; times both. Returns the kernel row."""
+    same stream (``plain_at``: (stream, geometry) of the same visibilities
+    on another tile, where the plain version runs in its place;
+    ``plain_f64`` False: the plain version in the stream's own precision);
+    times both. Returns the kernel row."""
     import dataclasses
 
     import torch
@@ -2758,20 +2815,17 @@ def compare_unit_tiles(stream, geo, label, tol, peak_ops):
     def f64(x):
         return None if x is None else x.to(torch.float64)
 
+    ref_src, ref_geo = plain_at or (stream, geo)
     ref_stream = dataclasses.replace(
-        stream, u=f64(stream.u), v=f64(stream.v), u_lo=f64(stream.u_lo),
-        v_lo=f64(stream.v_lo), vals=stream.vals.to(torch.complex128),
-    )
+        ref_src, u=f64(ref_src.u), v=f64(ref_src.v), u_lo=f64(ref_src.u_lo),
+        v_lo=f64(ref_src.v_lo), vals=ref_src.vals.to(torch.complex128),
+    ) if plain_f64 else ref_src
     out = stream.grid(**geo)
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    ref = ref_stream.grid(plain=True, **geo)
-    end.record()
-    torch.cuda.synchronize()
-    plain_ms = start.elapsed_time(end)
+    ref, plain_ms = once_timed(lambda: ref_stream.grid(plain=True, **ref_geo))
     err = float((out.to(torch.complex128) - ref).abs().max())
-    rel = err / float(ref.abs().max())
+    peak = float(ref.abs().max())
+    # support 1: the ES kernel of half width 0 is zero, so both grids are zero
+    rel = err / peak if peak else (0.0 if err == 0 else float("inf"))
     del ref
     # phase 15d: K9 sums in fixed point, so a second launch gives the
     # same bits
@@ -2781,7 +2835,7 @@ def compare_unit_tiles(stream, geo, label, tol, peak_ops):
     nunits = int(stream.unit_seg.shape[0])
     s = geo["support"]
     row = _row(
-        err, rel, timed(lambda: stream.grid(**geo), 5), plain_ms,
+        err, rel, timed(lambda: stream.grid(**geo), reps), plain_ms,
         unit_tiles_bound(stream, geo, peak_ops),
     )
     say(
@@ -2789,7 +2843,8 @@ def compare_unit_tiles(stream, geo, label, tol, peak_ops):
         f"{int(stream.unit_count.max())}, {stream.nplanes} planes of "
         f"{geo['npixel']}^2, tile {geo['tile']}, support {s}: max abs err "
         f"{err:.3e}, rel {rel:.3e} (tolerance {tol:g}); kernel {row['ms']:.3f} "
-        f"ms, plain (f64, one run) {plain_ms:.3f} ms, bound "
+        f"ms, plain ({'f64' if plain_f64 else 'its own precision'}, one run"
+        f"{', at tile ' + str(ref_geo['tile']) if plain_at else ''}) {plain_ms:.3f} ms, bound "
         f"{row['bound_ms']:.4f} ms ({row['bound_by']}); 15d: a second launch gives the "
         f"same bits: {same}"
     )
@@ -3480,9 +3535,10 @@ def profile_streamed(wire: str = "f16", store_uvw: bool = False,
 # phase 13: the rest of the single-device imaging and CLEAN API
 
 
-def degrid_row(gp, label):
+def degrid_row(gp, label, plain_reps=1, reps=20):
     """K3 against its plain version (in pieces) on plan ``gp`` with random
-    grids; times both and prints the row with its bound. Returns the row."""
+    grids; times both (``plain_reps`` 0: the plain version's reference run
+    itself) and prints the row with its bound. Returns the row."""
     import torch
 
     from ska_sdp_func_python_torch.ops.gridding_fused import degrid
@@ -3491,14 +3547,15 @@ def degrid_row(gp, label):
     grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g,
                         device=gp.perm.device, dtype=torch.complex64)
     piece = _plain_piece(gp)
-    ref = degrid_plain_pieces(gp, grids, piece)
+    ref, ref_ms = once_timed(lambda: degrid_plain_pieces(gp, grids, piece))
     out = degrid(gp, grids)
     err = float((out - ref).abs().max())
     rel = err / float(ref.abs().max())
     same = torch.equal(out, degrid(gp, grids))
     del ref, out
-    row = _row(err, rel, timed(lambda: degrid(gp, grids), 20),
-               timed(lambda: degrid_plain_pieces(gp, grids, piece), 1), degrid_bound(gp))
+    row = _row(err, rel, timed(lambda: degrid(gp, grids), reps),
+               timed(lambda: degrid_plain_pieces(gp, grids, piece), plain_reps)
+               if plain_reps else ref_ms, degrid_bound(gp))
     say(
         f"degrid {label}: {gp.n_in} entries, {gp.nplanes} planes of {gp.npixel}^2: "
         f"max abs err {err:.3e}, rel {rel:.3e} (tolerance {KERNELS['degrid'][0]:g}); "
@@ -3513,15 +3570,19 @@ def degrid_row(gp, label):
     return row
 
 
-def plan_kernels(gp, vals, label):
+def plan_kernels(gp, vals, label, plain_reps=1, reps=(10, 20)):
     """K1 (two launches to the same bits) and K3 against their plain
-    versions on plan ``gp``, at its support and plane mode. Returns the
-    rows by kernel."""
+    versions on plan ``gp``, at its support and plane mode (``plain_reps``
+    and ``reps`` as grid_row's and degrid_row's). Returns the rows by
+    kernel."""
     mode = "nearest" if gp.nearest else "linear" if gp.wstacked else "one plane"
     label = f"{label} (support {gp.support}, span {gp.span}, {mode}, taps {gp.ku.shape[1]} wide)"
-    if gp.span > 16:
+    if 16 < gp.span <= 64:
         say(f"launch geometry {label}: {wide_geometry(gp)}")
-    return {"grid": grid_row(gp, vals, label), "degrid": degrid_row(gp, label)}
+    elif gp.span > 64:
+        say(f"launch geometry {label}: {dev_geometry(gp)}")
+    return {"grid": grid_row(gp, vals, label, plain_reps, reps[0]),
+            "degrid": degrid_row(gp, label, plain_reps, reps[1])}
 
 
 def wide_geometry(gp):
@@ -3537,6 +3598,20 @@ def wide_geometry(gp):
             f"bytes a CTA, {walks} walk(s) a CTA of {k} rows a thread, {stage} entries "
             f"a walk a batch; K3 {k3[0]} threads and {k3[1]} shared bytes a CTA, "
             f"{k3[2]} walk positions a CTA")
+
+
+def dev_geometry(gp):
+    """The launch geometry of K1's device-memory route and K3's route on
+    plan ``gp``, as the library reports them."""
+    from ska_sdp_func_python_torch.kernels import query
+
+    nacc = 4 if gp.wstacked else 2
+    threads, smem, walks, k, stage, nsl = (
+        query("ska_grid_dev_geometry", gp.span, w) for w in range(6))
+    return (f"K1 route {query('ska_grid_route', gp.span, gp.tile, nacc)} (4: device memory), "
+            f"{threads} threads and {smem} shared bytes a CTA, {walks} walk(s) a CTA of "
+            f"{k} rows a thread, {nsl} CTA(s) a walk, {stage} entries a walk a batch; K3 "
+            f"route {query('ska_degrid_route', gp.span)} (4: a warp an entry)")
 
 
 def run_support_flagship(vis, model, phases):
@@ -5099,39 +5174,54 @@ def run_large_tiles_unit(cfg, device):
 
 def route_limits():
     """Phase 17's limit table, from the library's own route queries: for
-    K1 each window span (supports 1 to 64) on linear (nacc 4) and nearest
-    or one-plane plans (nacc 2), for K9 each support (2 to 64) in f32 and
-    f64, the largest tile the narrow kernel holds, the largest tile taken
-    (up to LIMIT17_MAX) and every tile up to 512 (from the support up)
-    that is refused; fails if any is."""
+    K1 each window span (2 to 128: supports 1 to 128) on linear (nacc 4)
+    and nearest or one-plane plans (nacc 2), for K9 each support (1 to
+    128) in f32 and f64: the largest tile the narrow kernel holds, the
+    largest its cluster-banded wide variant serves (up to LIMIT17_MAX;
+    past it, and past a span of 64, the device-memory route serves), and
+    whether every tile from the support up is taken: every tile up to 512
+    and every one that divides a 1024^2, 1344^2, 2048^2 or 4096^2 grid;
+    fails if any is refused."""
     import ctypes
 
     from ska_sdp_func_python_torch import kernels
 
     lib = kernels.load_library()
+    tiles = sorted(set(range(1, 513)) | {t for n in (1024, 1344, 2048, 4096)
+                                         for t in range(1, n + 1) if n % t == 0})
     refused = []
-    for kernel, symbol, keys in (("K1", "ska_grid_route", (4, 2)),
-                                 ("K9", "ska_unit_tiles_route", (0, 1))):
+    for kernel, symbol, keys, sizes in (("K1", "ska_grid_route", (4, 2), range(2, 129, 2)),
+                                        ("K9", "ska_unit_tiles_route", (0, 1), range(1, 129))):
         fn = getattr(lib, symbol)
         fn.argtypes = [ctypes.c_int] * 3
         fn.restype = ctypes.c_int
         for key in keys:
             line = []
-            sizes = range(2, 65, 2) if kernel == "K1" else range(2, 65)
             for size in sizes:
-                routes = [fn(size, t, key) for t in range(1, 513)]
-                narrow = max([t for t, r in enumerate(routes, 1) if r == 1], default=0)
-                refused += [(kernel, key, size, t) for t, r in enumerate(routes, 1)
-                            if r == 0 and t >= size]
-                largest = next((t for t in range(LIMIT17_MAX, 0, -1) if fn(size, t, key)), 0)
-                line.append(f"{size}: {narrow or '-'}/{largest}")
+                routes = {t: fn(size, t, key) for t in tiles if t >= size}
+                narrow = max([t for t, r in routes.items() if r == 1], default=0)
+                refused += [(kernel, key, size, t) for t, r in routes.items() if r == 0]
+                banded = 0
+                if size <= 64:
+                    # the banded routes' tiles end where the device-memory
+                    # route's begin: the last tile not on route 4
+                    lo, hi = size, LIMIT17_MAX + 1
+                    while lo < hi:
+                        mid = (lo + hi) // 2
+                        if fn(size, mid, key) == 4:
+                            hi = mid
+                        else:
+                            lo = mid + 1
+                    banded = lo - 1 if lo - 1 >= size and fn(size, lo - 1, key) in (2, 3) else 0
+                every = "every tile" if all(routes.values()) else "REFUSED"
+                line.append(f"{size}: {narrow or '-'}/{banded or '-'}/{every}")
             what = (f"K1 (grid) nacc {key}, by window span" if kernel == "K1"
                     else f"K9 (unit_tiles) {'f64' if key else 'f32'}, by support")
-            say(f"17 limits {what} (the narrow kernel's largest tile / the largest tile taken, "
-                f"to {LIMIT17_MAX}): " + ", ".join(line))
-    say(f"17 limits: tiles up to 512 refused: {refused or 'none'}")
+            say(f"17 limits {what} (the narrow kernel's largest tile / the cluster-banded "
+                f"routes' largest, to {LIMIT17_MAX} / the tiles taken): " + ", ".join(line))
+    say(f"17 limits: tiles refused: {refused or 'none'}")
     if refused:
-        raise AssertionError(f"17: refused tiles up to 512: {refused}")
+        raise AssertionError(f"17: refused tiles: {refused[:20]}")
 
 
 def run_phase17(cfg, device, vis, model):
@@ -5168,6 +5258,267 @@ def main17() -> int:
     for shape, counts in by_shape.items():
         say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
     print_rows("17", {**rows, **{f"unit_tiles {k}": {"unit_tiles": r} for k, r in unit_rows.items()}})
+    say(f"command: {time.perf_counter() - t_start:.1f} s")
+    say(card)
+    return 0
+
+
+def flagship_geometry(vis, model):
+    """The flagship's plan geometry as the imaging API builds it (padding
+    1.25: npad 1344, nw 6)."""
+    from ska_sdp_func_python_torch.ops.imaging import make_visibility_plan
+
+    p0 = make_visibility_plan(vis, model, context="ng").plans[0]
+    return dict(npad=p0.npad, cellsize=p0.cellsize, nw=p0.nw, npixel=model.npixel)
+
+
+def at_support(geo, support):
+    """``geo`` at ``support``, with the imaging API's ES beta for it."""
+    from ska_sdp_func_python_torch.ops.gridding import _es_beta
+
+    return dict(geo, support=support, beta=_es_beta(support, geo["npad"] / geo["npixel"]))
+
+
+def _main_path_twice(label, kernel_names, fn):
+    """``fn`` twice, the launch counters reset just before and read just
+    after: every kernel of ``kernel_names`` launched, the two results the
+    same bits. Returns (the first result, the counts)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    out = [fn() for _ in range(2)]
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    same = torch.equal(out[0], out[1])
+    say(f"{label}: twice, the same bits: {same}; launches {counts}")
+    _launch_gate(label, counts, kernel_names)
+    if not same:
+        raise AssertionError(f"{label}: two calls differ")
+    return out[0], counts
+
+
+def run_any_tile_plan(vis, model):
+    """Phase 18a: ``make_grid_plan`` + ``grid_with_plan`` on the flagship's
+    whole stream at the supports of SUPPORTS18 with one tile the whole
+    padded grid (TILE18), where no cluster's bands hold one window's rows:
+    K1's device-memory route launched, two calls to the same bits, against
+    the grids at the API's tile (56, or 64 where the support is wider) and,
+    through grid_row, against its plain version accumulated in f64 in
+    pieces with its time and bound. Returns (launch counts summed over the
+    calls, kernel rows by configuration)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.gridding_fused import grid
+    from ska_sdp_func_python_torch.ops.gridding_plan import grid_with_plan, sort_values
+
+    t0 = time.perf_counter()
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    launches = {name: 0 for name in KERNELS}
+    rows = {}
+    base = flagship_geometry(vis, model)
+    for support in SUPPORTS18:
+        ref_tile = 56 if support <= 56 else 64
+        geo = at_support(base, support)
+        ref_gp = flagship_grid_plan(vis, geo, ref_tile)
+        ref = grid_with_plan(ref_gp, weighted)
+        ref_vals = sort_values(ref_gp, weighted)
+        ref_ms = timed(lambda: grid(ref_gp, ref_vals), 5)
+        del ref_gp, ref_vals
+        gp = flagship_grid_plan(vis, geo, TILE18)
+        label = f"18a flagship support {support} linear tile {TILE18}"
+        route = kernels.query("ska_grid_route", gp.span, TILE18, 4)
+        say(f"{label}: route {route} (4: device memory); {dev_geometry(gp)}")
+        if route != 4:
+            raise AssertionError(f"{label}: route {route}")
+        out, counts = _main_path_twice(label, ("grid", "permute"),
+                                       lambda: grid_with_plan(gp, weighted))
+        for k in launches:
+            launches[k] += counts[k]
+        _large_tile_gate(label, out, ref, KERNELS["grid"][0])
+        del out, ref
+        row = grid_row(gp, sort_values(gp, weighted), label, plain_reps=0, reps=5)
+        say(f"{label}: K1 {row['ms']:.4f} ms against K1w's {ref_ms:.4f} ms at tile {ref_tile} "
+            f"(CUDA events), bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        rows[f"flagship support {support} linear tile {TILE18}"] = {"grid": row}
+        del gp
+        torch.cuda.empty_cache()
+    say(f"18a: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def run_long_windows(vis, model):
+    """Phase 18b: K1 and K3 at windows past 64 cells on the flagship's
+    first million entries, at the (support, tile) pairs of WIDE18, linear
+    and nearest: ``make_grid_plan`` + ``grid_with_plan`` and
+    ``degrid_with_plan`` twice each (the launch counters reset just before
+    and read just after; grid, degrid and permute launched, the same bits),
+    then K1's device-memory route and K3's long-window kernel against their
+    plain versions in pieces (plan_kernels). Returns (launch counts summed
+    over the calls, kernel rows by configuration)."""
+    import torch
+
+    from ska_sdp_func_python_torch.ops.gridding_plan import (
+        degrid_with_plan, grid_with_plan, make_grid_plan, sort_values)
+    from ska_sdp_func_python_torch.ops.imaging import _w_planes
+
+    t0 = time.perf_counter()
+    weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
+    uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
+    n_sub = min(1 << 20, uvw.shape[0])
+    uvw, weighted = uvw[:n_sub], weighted[:n_sub]
+    launches = {name: 0 for name in KERNELS}
+    rows = {}
+    base = flagship_geometry(vis, model)
+    for support, tile in WIDE18:
+        geo = at_support(base, support)
+        npad, scale = geo["npad"], geo["npad"] * geo["cellsize"]
+        for nearest in (False, True):
+            mode = "nearest" if nearest else "linear"
+            p0, frac, _ = _w_planes(uvw[:, 2], geo["nw"], mode)
+            gp = make_grid_plan(-uvw[:, 0] * scale + npad // 2, uvw[:, 1] * scale + npad // 2,
+                                p0, frac, npixel=npad, support=support, nplanes=geo["nw"],
+                                tile=tile, beta=geo["beta"])
+            label = f"18b flagship 1M subset support {support} {mode} tile {tile}"
+            g = torch.Generator(device=weighted.device).manual_seed(support)
+            grids = torch.randn((gp.nplanes, npad, npad), generator=g,
+                                device=weighted.device, dtype=torch.complex64)
+            _, counts = _main_path_twice(
+                label, ("grid", "degrid", "permute"),
+                lambda: torch.cat([grid_with_plan(gp, weighted).reshape(-1),
+                                   degrid_with_plan(gp, grids)]))
+            for k in launches:
+                launches[k] += counts[k]
+            del grids
+            rows[f"flagship 1M subset support {support} {mode} tile {tile}"] = plan_kernels(
+                gp, sort_values(gp, weighted), label, plain_reps=0, reps=(5, 5))
+            del gp
+            torch.cuda.empty_cache()
+    say(f"18b: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def f32_taps_deviation(stream, geo, label):
+    """Prints (no gate) how far K9's f32 grids of ``stream`` lie from its
+    plain version accumulated in f64, beside beta x 2^-24: past a support
+    of 64 the f32 ES taps' beta (sqrt(1 - nu^2) - 1) cancels that much
+    away, in the plain version in f32 and the JAX package alike."""
+    import dataclasses
+
+    import torch
+
+    ref = dataclasses.replace(stream, u=stream.u.double(), v=stream.v.double(),
+                              vals=stream.vals.to(torch.complex128)).grid(plain=True, **geo)
+    err = float((stream.grid(**geo).to(torch.complex128) - ref).abs().max())
+    peak = float(ref.abs().max())
+    say(f"{label}: against the plain version accumulated in f64 rel "
+        f"{err / peak if peak else 0.0:.3e}, beside beta x 2^-24 = {geo['beta'] * 2.0**-24:.3e} "
+        f"(not gated)")
+
+
+def run_any_support_unit(cfg, device):
+    """Phase 18c-d: ``tiled_grid`` on phase 16b's full-width stream (phase
+    9's whole observation, padding 2, 2048^2) with one tile the whole grid
+    (UNIT18_TILE_FULL) at the supports of UNIT18_FULL, f32 and f64, where
+    no cluster's bands hold one window's rows (c); then at the supports of
+    UNIT18 (past 64, and 1) on tile UNIT18_TILE, on 16b's stream cut to
+    UNIT16_TIMES integrations (d). Each twice (the launch counters reset
+    just before and read just after; K9 launched, the same bits) and K9's
+    device-memory route against its plain version (compare_unit_tiles): in
+    (c) the plain version at the API's tile 64, whose grids equal the plain
+    version's at one tile the grid (the same sums, partitioned otherwise:
+    tests/test_torch_any_support.py), since the dense plain form at tile
+    2048 takes minutes; in f64 accumulated in f64 (1e-12), in f32 in (c)
+    accumulated in f64 (1e-5) and in (d) in f32 (1e-5: past 64 the f32 ES
+    taps, evaluated alike by the kernel, the plain version and the JAX
+    package, lie about 1e-5 from the f64 ones). Returns (launch counts
+    summed over the calls, kernel rows by configuration)."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+    from ska_sdp_func_python_torch.ops.gridding_tiled import tiled_grid
+
+    t0 = time.perf_counter()
+    launches = {name: 0 for name in KERNELS}
+    rows = {}
+    for name, dtype, tol, peak in (("f32", torch.float32, KERNELS["unit_tiles"][0], PEAK_F32_S),
+                                   ("f64", torch.float64, UNIT_TILES_F64_TOL, PEAK_F64_S)):
+        f64 = int(dtype == torch.float64)
+        for part, ntimes, supports, tile in (("c", None, UNIT18_FULL, UNIT18_TILE_FULL),
+                                             ("d", UNIT16_TIMES, UNIT18, UNIT18_TILE)):
+            vis, model, _, _ = observation9(cfg, device, dtype,
+                                            **({} if ntimes is None else {"ntimes": ntimes}))
+            where = "full stream" if ntimes is None else f"{ntimes} integrations"
+            for support in supports:
+                args, kw, geo = unit_inputs16(vis, model, support, tile)
+                label = f"18{part} {name} support {support} tile {tile} {where}"
+                route = kernels.query("ska_unit_tiles_route", support, tile, f64)
+                say(f"{label}: route {route} (4: device memory); a CTA "
+                    + ", ".join(f"{what} {kernels.query('ska_unit_tiles_dev_geometry', support, f64, w)}"
+                                for w, what in enumerate(("threads", "shared bytes", "walks",
+                                                          "rows a thread", "entries a batch",
+                                                          "CTAs a walk"))))
+                if route != 4:
+                    raise AssertionError(f"{label}: route {route}")
+                _, counts = _main_path_twice(
+                    label, ("unit_tiles",), lambda: tiled_grid(*args, beta=geo["beta"], **kw))
+                for k in launches:
+                    launches[k] += counts[k]
+                del args
+                stream, geo = unit_stream16(vis, model, support, tile)
+                plain_at = unit_stream16(vis, model, support) if part == "c" else None
+                row = compare_unit_tiles(stream, geo, label, tol, peak, plain_at=plain_at,
+                                         reps=3, plain_f64=bool(f64) or part == "c")
+                rows[f"{name} support {support} tile {tile} {where}"] = row
+                if part == "d" and not f64:
+                    f32_taps_deviation(stream, geo, label)
+                del stream, plain_at
+                torch.cuda.empty_cache()
+            del vis, model
+            torch.cuda.empty_cache()
+    say(f"18c-d: {time.perf_counter() - t0:.1f} s")
+    return launches, rows
+
+
+def run_phase18(cfg, device, vis, model):
+    """Phase 18 (a-d). Returns (launch counts by shape, K1/K3 rows by
+    configuration, K9 rows by configuration)."""
+    t0 = time.perf_counter()
+    by_shape = {}
+    counts, rows = run_any_tile_plan(vis, model)
+    by_shape["flagship plan, one tile the padded grid (phase 18a)"] = counts
+    counts, more = run_long_windows(vis, model)
+    rows.update(more)
+    by_shape["flagship 1M subset, windows past 64 cells (phase 18b)"] = counts
+    counts, unit_rows = run_any_support_unit(cfg, device)
+    by_shape["epsilon observation, tiled_grid at any support and tile (phase 18c-d)"] = counts
+    say(f"phase 18: {time.perf_counter() - t0:.1f} s")
+    return by_shape, rows, unit_rows
+
+
+def main18() -> int:
+    """``--phase18-only``: the build and phase 18 on the flagship."""
+    import torch
+
+    from ska_sdp_func_python_torch import kernels
+
+    if not torch.cuda.is_available():
+        raise SystemExit("chip_smoke: no CUDA device; nothing was run")
+    t_start = time.perf_counter()
+    device = torch.device("cuda", 0)
+    card = card_line()
+    say(f"device: {card}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    kernels.build_library()
+    kernels.load_library()
+    say(f"build: {time.perf_counter() - t_start:.1f} s")
+    cfg, vis, model, _ = simulate(device, rmax=40000.0, ntimes=76, npixel=1024)
+    by_shape, rows, unit_rows = run_phase18(cfg, device, vis, model)
+    for shape, counts in by_shape.items():
+        say(f"launches at the {shape}: " + ", ".join(f"{k} {v}" for k, v in counts.items()))
+    print_rows("18", {**rows, **{f"unit_tiles {k}": {"unit_tiles": r} for k, r in unit_rows.items()}})
     say(f"command: {time.perf_counter() - t_start:.1f} s")
     say(card)
     return 0
@@ -5302,6 +5653,12 @@ def main() -> int:
         for name in launches:
             launches[name] += counts[name]
         by_shape[shape] = counts
+    torch.cuda.empty_cache()
+    counts18, rows18, unit_rows18 = run_phase18(cfg, device, vis, model)
+    for shape, counts in counts18.items():
+        for name in launches:
+            launches[name] += counts[name]
+        by_shape[shape] = counts
     del vis, model
     torch.cuda.empty_cache()
     counts = run_periphery(device)
@@ -5360,10 +5717,15 @@ def main() -> int:
                                    for k, r in unit_rows16.items()}})
     print_rows("17", {**rows17, **{f"unit_tiles {k}": {"unit_tiles": r}
                                    for k, r in unit_rows17.items()}})
-    held = {"grid": list(rows13) + list(rows16) + [f"17a {k}" for k in rows17],
-            "degrid": list(rows13) + list(rows16),
+    print_rows("18", {**rows18, **{f"unit_tiles {k}": {"unit_tiles": r}
+                                   for k, r in unit_rows18.items()}})
+    held = {"grid": (list(rows13) + list(rows16) + [f"17a {k}" for k in rows17]
+                     + [f"18 {k}" for k in rows18]),
+            "degrid": list(rows13) + list(rows16) + [f"18 {k}" for k, r in rows18.items()
+                                                     if "degrid" in r],
             "unit_tiles": (["phase 9 epsilon streams"] + list(unit_rows16)
-                           + [f"17b {k}" for k in unit_rows17])}
+                           + [f"17b {k}" for k in unit_rows17]
+                           + [f"18 {k}" for k in unit_rows18])}
 
     say(json.dumps({
         "kernels": [
@@ -5418,6 +5780,9 @@ if __name__ == "__main__":
     ap.add_argument("--phase17-only", action="store_true",
                     help="only build the kernels and run phase 17 (tiles the imaging API "
                          "never picks, and the limit table)")
+    ap.add_argument("--phase18-only", action="store_true",
+                    help="only build the kernels and run phase 18 (every support and tile "
+                         "the JAX package's gridders take)")
     ap.add_argument("--phase14-child", nargs=4, metavar=("RANK", "PORT", "INPUTS", "OUT"),
                     help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -5432,6 +5797,8 @@ if __name__ == "__main__":
         sys.exit(main16())
     if args.phase17_only:
         sys.exit(main17())
+    if args.phase18_only:
+        sys.exit(main18())
     if args.profile_streamed:
         sys.exit(profile_streamed(args.wire, args.store_uvw))
     if args.repeat_selfcal:

@@ -45,7 +45,7 @@
 // channel bases are 64-bit; a window's offset within its channel's planes
 // is 32-bit (the wrapper refuses larger planes).
 //
-// Windows wider than 16 cells (supports 17 to 64) take
+// Windows of 17 to 64 cells (supports 17 to 64) take
 // degrid_wide_kernel. A CTA of 512 threads (one an SM: its shared memory
 // is nearly full) serves 2048 consecutive walk positions. It loads their
 // fields once, then serves them in pieces: the longest run of positions
@@ -70,6 +70,13 @@
 // the box costs 2% or less; the pass over the rows is left: four FMAs a cell and
 // plane pair, a broadcast load of kv a row, the lanes past the span idle,
 // with 16 warps an SM to hide their latencies.
+//
+// Windows past 64 cells (supports 65 to the tile) take degrid_long_kernel:
+// a warp an entry, walking the window in pieces of 32 columns and groups
+// of 32 rows straight from device memory (L1 and L2 serve the overlap of
+// consecutive entries' windows, which the walk order keeps close), with a
+// reduction over the lanes in a fixed order. ska_degrid_route names the
+// route of a span.
 #include "common.cuh"
 
 namespace {
@@ -510,12 +517,104 @@ __global__ void __launch_bounds__(kWideThreads, 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// Windows past 64 cells: a warp an entry.
+
+constexpr int kLongThreads = 256;
+constexpr int kLongWarps = kLongThreads / 32;
+
+// Warp t of the launch serves walk position t of its channel (blockIdx.y):
+// its entry's window is walked a piece of 32 columns at a time, lane x
+// reading column x of the piece on every row (one coalesced 256-byte read
+// a row and plane), each row weighted by its kv tap, which lane r of a
+// group of 32 rows loads and a shuffle hands round. Each lane then weights
+// its column sums by its ku tap and the plane weights and adds them to its
+// running sum, piece after piece; five xor-shuffles reduce the warp's
+// lanes, in the same order on every launch. W: the tap rows' width.
+template <bool kWStacked>
+__global__ void __launch_bounds__(kLongThreads)
+    degrid_long_kernel(const float2* __restrict__ grid, const int* __restrict__ iu0,
+                       const int* __restrict__ iv0, const int* __restrict__ plane,
+                       const float* __restrict__ frac, const float* __restrict__ ku,
+                       const float* __restrict__ kv, const int* __restrict__ korder,
+                       const int* __restrict__ n_in_c, long long n_in0,
+                       float2* __restrict__ out, long long n, int npix, int nplanes,
+                       int span, int W) {
+  const int c = blockIdx.y;
+  const int lane = threadIdx.x & 31;
+  const long long t = (long long)blockIdx.x * kLongWarps + (threadIdx.x >> 5);
+  if (t >= n) return;  // whole warps
+  const long long base = (long long)c * n;
+  const long long n_in = n_in_c ? (long long)n_in_c[c] : n_in0;
+  if (t >= n_in) {
+    if (lane == 0) out[base + t] = make_float2(0.f, 0.f);
+    return;
+  }
+  const long long i = base + korder[base + t];
+  const int plane_size = npix * npix;
+  const float2* w = grid + (size_t)c * nplanes * plane_size +
+                    (plane[i] * plane_size + iv0[i] * npix + iu0[i]);
+  const float* kvr = kv + i * W;
+  const float* kur = ku + i * W;
+  const float f = kWStacked ? frac[i] : 0.f;
+  float sr = 0.f, si = 0.f;
+  for (int x0 = 0; x0 < span; x0 += 32) {
+    const int x = x0 + lane;
+    const bool col = x < span;
+    float lr = 0.f, li = 0.f, hr = 0.f, hq = 0.f;
+    for (int r0 = 0; r0 < span; r0 += 32) {
+      const float kvl = r0 + lane < span ? kvr[r0 + lane] : 0.f;
+      const int nr = min(32, span - r0);
+      const float2* q = w + (size_t)r0 * npix + x;
+#pragma unroll 8
+      for (int rr = 0; rr < nr; ++rr) {
+        const float k = __shfl_sync(0xffffffffu, kvl, rr);
+        if (col) {
+          const float2 lo = q[(size_t)rr * npix];
+          lr = fmaf(lo.x, k, lr);
+          li = fmaf(lo.y, k, li);
+          if (kWStacked) {
+            const float2 hi = q[(size_t)rr * npix + plane_size];
+            hr = fmaf(hi.x, k, hr);
+            hq = fmaf(hi.y, k, hq);
+          }
+        }
+      }
+    }
+    if (col) {
+      const float kx = kur[x];
+      float ar = lr * kx, ai = li * kx;
+      if (kWStacked) {
+        const float w0 = 1.f - f;
+        ar = ar * w0 + (hr * kx) * f;
+        ai = ai * w0 + (hq * kx) * f;
+      }
+      sr += ar;
+      si += ai;
+    }
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    sr += __shfl_xor_sync(0xffffffffu, sr, o);
+    si += __shfl_xor_sync(0xffffffffu, si, o);
+  }
+  if (lane == 0) out[i] = make_float2(sr, si);
+}
+
+// How ska_degrid serves windows of `span` cells: 1 the narrow kernel (16
+// or fewer), 2 the wide variant (17 to 64), 4 the long-window kernel (past
+// 64); 0 below one cell.
+inline int degrid_route(int span) {
+  return span < 1 ? 0 : span <= 16 ? 1 : span <= 64 ? 2 : 4;
+}
+
 }  // namespace
 
 // grid: [nchan, nplanes, npix, npix] complex64 with nplanes * npix^2 <
 // 2^31; iu0, iv0, plane, frac, out: [nchan, n]; ku, kv: [nchan, n, W], W
 // = 8, 16, 32 or 64, the power of two from 8 up that holds the window
-// (support <= 64); korder: the walk order,
+// (`support`, the window's span), past a window of 64 cells the span
+// rounded up to a multiple of 8; korder: the walk order,
 // [nchan, n] (a single plan: [n_in]); n_in: int32 [nchan] on the device,
 // or null for one channel whose n_in is n_in0. wstacked 1: plane pairs
 // (linear w); 0: one plane an entry (single-plane and nearest plans).
@@ -525,10 +624,21 @@ SKA_EXPORT int ska_degrid(const void* grid, const void* iu0, const void* iv0,
                           long long n_in0, void* out, long long n, int nchan,
                           int npix, int nplanes, int support, int wstacked,
                           void* stream) {
-  if (support < 1 || support > 64) return (int)cudaErrorInvalidValue;
+  const int route = degrid_route(support);
+  if (route == 0) return (int)cudaErrorInvalidValue;
   if (n == 0 || nchan == 0) return 0;
   const dim3 grd((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nchan);
-  if (support > 16) {
+  if (route == 4) {
+    auto lng = wstacked ? degrid_long_kernel<true> : degrid_long_kernel<false>;
+    const dim3 grl((unsigned)((n + kLongWarps - 1) / kLongWarps), (unsigned)nchan);
+    lng<<<grl, kLongThreads, 0, (cudaStream_t)stream>>>(
+        (const float2*)grid, (const int*)iu0, (const int*)iv0,
+        (const int*)plane, (const float*)frac, (const float*)ku,
+        (const float*)kv, (const int*)korder, (const int*)n_in, n_in0,
+        (float2*)out, n, npix, nplanes, support, (support + 7) / 8 * 8);
+    return ska_last_error();
+  }
+  if (route == 2) {
     auto wide = wstacked ? degrid_wide_kernel<1, false, true>
                          : degrid_wide_kernel<1, false, false>;
     if (support > 40)
@@ -560,6 +670,11 @@ SKA_EXPORT int ska_degrid(const void* grid, const void* iu0, const void* iv0,
       (float2*)out, n, npix, nplanes, support);
   return ska_last_error();
 }
+
+// How ska_degrid serves windows of `span` cells, decided before any
+// launch: 1 the narrow kernel, 2 the wide variant, 4 the long-window
+// kernel; 0 refused (below one cell).
+SKA_EXPORT int ska_degrid_route(int span) { return degrid_route(span); }
 
 // The wide variant's launch geometry: what 0 the threads of a CTA, 1 its
 // dynamic shared bytes, 2 the walk positions it serves; 0 past them.

@@ -62,7 +62,7 @@
 // still fits beside them; where the padded row stride would not fit, the
 // rows go unpadded (ld = buf), which costs bank conflicts, not results.
 //
-// Windows wider than 16 cells (supports 17 to 64, each up to the plan's
+// Windows of 17 to 64 cells (supports 17 to 64, each up to the plan's
 // tile) take grid_wide_kernel: Romein's walk at the residue period of the
 // window's own span, so every class has exactly one cell in every window
 // and no thread walks an entry for nothing. A thread owns K consecutive
@@ -81,7 +81,8 @@
 // tile (tile 256 on a linear plan), they hold as many rows as fit and a
 // run is served in turns of consecutive entries whose windows those rows
 // hold; a tile whose rows cannot hold one window (span 64 at tile 1024 on
-// a linear plan) is refused, and the wrapper raises ValueError first. Every flush is a 64-bit atomic add on the cluster
+// a linear plan) takes the device-memory route below. Every flush is a
+// 64-bit atomic add on the cluster
 // address, which the card performs in one instruction, where the same add
 // on the CTA's own shared address is a compare-and-swap loop. A cluster
 // serves a few consecutive chunks, each run of them on one segment as one
@@ -110,6 +111,20 @@
 // that one loader thread stages each entry. The units, the turns and the
 // bits are the wide variant's; where the narrow kernel holds the tile it
 // stays the route.
+//
+// Windows past 64 cells, and tiles of which a cluster's bands cannot hold
+// one window's rows (a linear plan's tile past 3159 cells at span 8, 793
+// at span 64), take grid_dev_kernel, the device-memory route: the wide
+// variant's walk (period = span, K rows of a column a thread, K 8 past a
+// span of 64) with no shared tile, each register run flushed straight into
+// grid64 by a 64-bit integer add on device memory (one RED.E.ADD.64), so
+// the sums stay order-free and two launches give the same bits. Where one
+// walk's classes need more threads than a CTA runs (span 128 at K 8: 2048),
+// they are split in slices of a CTA's threads, blockIdx.y, each slice
+// walking the same entries. A CTA serves a few consecutive chunks, each
+// run of them on one segment as one stream. It has no tile limit; the
+// tile only orders the stream. The units, the conversion and the bits'
+// independence of the order are grid_kernel's.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -396,9 +411,10 @@ constexpr int wide_threads() {
 }
 
 // float4s of a stored tap row: the plan's tap width (8, 16, 32 or 64
-// floats, the power of two from 8 up that holds the span) over 4
+// floats, the power of two from 8 up that holds the span; past a span of
+// 64 the span rounded up to a multiple of 8) over 4
 __host__ __device__ inline int tap_vecs(int span) {
-  return span <= 8 ? 2 : span <= 16 ? 4 : span <= 32 ? 8 : 16;
+  return span <= 8 ? 2 : span <= 16 ? 4 : span <= 32 ? 8 : span <= 64 ? 16 : (span + 7) / 8 * 2;
 }
 
 // Classes a thread and threads a CTA (measured on the flagship's plans,
@@ -741,6 +757,265 @@ __global__ void __launch_bounds__(wide_threads<K>(), 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The device-memory route: windows of any span on tiles of any size.
+
+constexpr int kDevWaves = 16;  // about this many device-route CTAs an SM serves
+
+// Launch geometry of the device-memory route at window span `span` (even)
+struct DevGeom {
+  int k;        // classes a thread owns: k consecutive rows of one column
+  int threads;  // of a CTA
+  int nbb;      // row blocks of a column
+  int group;    // threads of one walk: span columns times nbb row blocks
+  int groups;   // walks of a CTA (1 where a walk takes several CTAs)
+  int nsl;      // CTAs of one walk: its classes in slices of `threads`
+  int stage;    // entries a walk stages a batch
+  int tv;       // float4s of a staged tap row (span taps, zero past)
+  int slot;     // float4s of one staged entry: ku, kv, then two of fields
+  int slots;    // entries a CTA stages a batch
+  size_t smem;  // two batches
+};
+
+__host__ __device__ inline DevGeom dev_geom(int span, int k, int threads, int stage) {
+  DevGeom g;
+  g.k = k;
+  g.threads = threads;
+  g.nbb = (span + k - 1) / k;
+  g.group = span * g.nbb;
+  g.groups = g.group <= threads ? threads / g.group : 1;
+  g.nsl = (g.group + threads - 1) / threads;
+  g.stage = stage;
+  g.tv = (span + 3) / 4;
+  g.slot = 2 * g.tv + 2;
+  g.slots = g.groups * stage;
+  g.smem = 2 * (size_t)g.slots * g.slot * sizeof(float4);
+  return g;
+}
+
+// The wide variant's classes a thread and threads a CTA up to a span of
+// 64, 8 rows a thread and 768 threads past it; the largest batch (32
+// entries a walk down to 1) with at most one staged entry a thread that
+// fits a block's shared memory. threads 0 where no batch fits (spans past
+// 14,524 cells).
+inline DevGeom dev_plan(int span) {
+  int k = 8, threads = wide_threads<8>();
+  if (span <= 64) wide_choice(span, k, threads);
+  for (int stage = 32; stage >= 1; stage /= 2) {
+    const DevGeom g = dev_geom(span, k, threads, stage);
+    if (g.slots <= g.threads && g.smem <= kMaxSmem) return g;
+  }
+  DevGeom g = dev_geom(span, k, threads, 1);
+  g.threads = 0;
+  return g;
+}
+
+// K classes a thread, NACC as grid_kernel's; wv: float4s of a stored tap
+// row (tap_vecs). CTA (x, y) serves slice y of the classes of the chunks
+// [per x, per (x + 1)), one run of consecutive chunks of one segment at a
+// time, and adds each register run to grid64 in device memory.
+template <int K, int NACC>
+__global__ void __launch_bounds__(wide_threads<K>(), 1)
+    grid_dev_kernel(const float2* __restrict__ vals,
+                    const int* __restrict__ iu0, const int* __restrict__ iv0,
+                    const float* __restrict__ frac,
+                    const float4* __restrict__ ku,
+                    const float4* __restrict__ kv,
+                    const int* __restrict__ order,
+                    const int* __restrict__ chunk_seg,
+                    const int* __restrict__ chunk_start,
+                    const int* __restrict__ chunk_count,
+                    const float* __restrict__ tap_bound,
+                    const float* __restrict__ vsum,
+                    unsigned long long* __restrict__ grid64, int npix, int nta,
+                    int span, int wv, int stage, int nchunks, int per) {
+  const int threads = blockDim.x;
+  const DevGeom gm = dev_geom(span, K, threads, stage);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float4* stg = reinterpret_cast<float4*>(smem_raw);  // [2][slots][slot]
+
+  const float total = vsum[0] * tap_bound[0];
+  if (!isfinite(total)) return;  // the conversion writes NaN
+  const int kg = grid_exponent(total);
+  const double unit = ldexp(1.0, kg);
+  const float unitf = kg <= 127 ? ldexpf(1.f, kg) : 0.f;  // as the wide variant's
+  const int ntiles = nta * nta;
+  const size_t plane_words = 2 * (size_t)npix * npix;
+
+  // loader role: thread stages piece (threadIdx % kper) of slot
+  // (threadIdx / kper), the ku and kv rows by cp.async; piece 0 loads the
+  // entry's fields into registers and publishes them before the batch's
+  // barrier
+  const int kper = threads / gm.slots;
+  const int slot = threadIdx.x / kper;
+  const int piece = threadIdx.x - slot * kper;
+  const bool loader = slot < gm.slots;
+  const int lw = slot / stage;
+  const int ntask = 2 * gm.tv;
+  // walk role: walk g of the CTA, class slot r of the walk; the thread owns
+  // the classes (a, b0 + j), j < nvalid, of residue period span. Each class
+  // has exactly one cell in every window: (iu0 + ((a - iu0) mod span),
+  // iv0 + dy_j), dy_j = (b0 + j - iv0) mod span = wrap(dy0 + j).
+  const int g = gm.nsl > 1 ? 0 : threadIdx.x / gm.group;
+  const int r = gm.nsl > 1 ? (int)blockIdx.y * threads + threadIdx.x
+                           : threadIdx.x - g * gm.group;
+  const bool walker = gm.nsl > 1 ? r < gm.group : g < gm.groups;
+  const int a = r / gm.nbb;
+  const int b0 = (r - a * gm.nbb) * K;
+  const int nvalid = walker ? min(K, span - b0) : 0;
+  auto wrap = [&](int d) { return d >= span ? d - span : d; };
+
+  const int c1 = min(nchunks, (int)(blockIdx.x + 1) * per);
+  for (int c0 = (int)blockIdx.x * per; c0 < c1;) {
+    // the run: chunks [c0, ce) of one segment, entries [start, end)
+    const int seg = chunk_seg[c0];
+    int ce = c0 + 1;
+    while (ce < c1 && chunk_seg[ce] == seg) ++ce;
+    const int start = chunk_start[c0];
+    const int end = chunk_start[ce - 1] + chunk_count[ce - 1];
+    c0 = ce;
+    unsigned long long* gp0 = grid64 + (size_t)(seg / ntiles) * plane_words;
+    __syncthreads();  // every thread is done with the previous run's batches
+
+    // walk w of the CTA's groups takes [start + w q, start + (w + 1) q)
+    const int q = (end - start + gm.groups - 1) / gm.groups;
+    const int nbatch = (q + stage - 1) / stage;
+    const int lbeg = start + lw * q + slot % stage;
+    const int lend = min(start + (lw + 1) * q, end);
+    auto entry_of = [&](int k) {
+      const int p = lbeg + k * stage;
+      return loader && p < lend ? order[p] : -1;
+    };
+    int e_pend = -1, u_pend = 0, v_pend = 0;
+    float2 val_pend = make_float2(0.f, 0.f);
+    float f_pend = 0.f;
+    auto slot_of = [&](int k) {
+      return stg + ((size_t)(k & 1) * gm.slots + slot) * gm.slot;
+    };
+    auto issue = [&](int k, int e) {
+      e_pend = e;
+      if (e >= 0) {
+        float4* s = slot_of(k);
+        for (int task = piece; task < ntask; task += kper) {
+          if (task < gm.tv)
+            ska_cp_async<16>(s + task, ku + (size_t)e * wv + task);
+          else
+            ska_cp_async<16>(s + task, kv + (size_t)e * wv + (task - gm.tv));
+        }
+        if (piece == 0) {
+          val_pend = vals[e];
+          u_pend = iu0[e];
+          v_pend = iv0[e];
+          if (NACC == 4) f_pend = frac[e];
+        }
+      }
+      ska_cp_async_commit();
+    };
+    // the values weighted for the lower and upper plane; the corner and its
+    // residues mod span
+    auto publish = [&](int k) {
+      if (e_pend >= 0 && piece == 0) {
+        float4* s = slot_of(k) + 2 * gm.tv;
+        const float w0 = 1.f - f_pend;
+        s[0] = make_float4(val_pend.x * w0, val_pend.y * w0, val_pend.x * f_pend,
+                           val_pend.y * f_pend);
+        reinterpret_cast<int4*>(s)[1] =
+            make_int4(u_pend, v_pend, u_pend % span, v_pend % span);
+      }
+    };
+
+    const int gbeg = start + g * q;
+    const int gend = min(gbeg + q, end);
+    // the run's column, corner row, its dy0 and entries so far; the sums
+    int curx = -1, currv = 0, dy0 = 0, since = 0;
+    float sum[K][NACC];
+#pragma unroll
+    for (int j = 0; j < K; ++j)
+#pragma unroll
+      for (int w = 0; w < NACC; ++w) sum[j][w] = 0.f;
+    // integer adds commute: the grid is the same whatever their order
+    auto flush = [&](int j) {
+      unsigned long long* p = gp0 + 2 * ((size_t)(currv + wrap(dy0 + j)) * npix + curx);
+#pragma unroll
+      for (int w = 0; w < NACC; ++w) {
+        const long long v = unitf != 0.f ? __float2ll_rn(sum[j][w] * unitf)
+                                         : __double2ll_rn((double)sum[j][w] * unit);
+        if (v != 0) atomicAdd(p + (w & 1) + (w >> 1) * plane_words, (unsigned long long)v);
+        sum[j][w] = 0.f;
+      }
+    };
+
+    int e_next = entry_of(0);
+    issue(0, e_next);
+    e_next = entry_of(1);
+    for (int k = 0; k < nbatch; ++k) {
+      publish(k);
+      ska_cp_async_wait_all();
+      // batch k is visible; every thread is done with batch k - 1's buffer
+      __syncthreads();
+      if (k + 1 < nbatch) {
+        issue(k + 1, e_next);
+        e_next = entry_of(k + 2);
+      }
+      if (!walker) continue;
+      const float4* sb = stg + ((size_t)(k & 1) * gm.slots + g * stage) * gm.slot;
+      const int nj = min(stage, gend - (gbeg + k * stage));
+      for (int jj = 0; jj < nj; ++jj) {
+        const float4* rec = sb + jj * gm.slot;
+        const float* tp = reinterpret_cast<const float*>(rec);
+        const float4 wval = rec[2 * gm.tv];
+        const int4 cv = reinterpret_cast<const int4*>(rec)[2 * gm.tv + 1];
+        int dx = a - cv.z;
+        dx += dx < 0 ? span : 0;
+        const int x = cv.x + dx;
+        if (x != curx || since == kRunCap) {
+          // the column moved (or the runs are kRunCap long): every class's
+          // cell changes
+          if (curx >= 0) {
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              if (j < nvalid) flush(j);
+          }
+          curx = x;
+          if (since == kRunCap) since = 0;  // every thread's runs end together
+          const int d = b0 - cv.w;
+          dy0 = d < 0 ? d + span : d;
+          currv = cv.y;
+        } else if (cv.y != currv) {
+          // the corner row moved: a class's cell changes where its row does
+          int d = b0 - cv.w;
+          d += d < 0 ? span : 0;
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            if (j < nvalid && currv + wrap(dy0 + j) != cv.y + wrap(d + j)) flush(j);
+          dy0 = d;
+          currv = cv.y;
+        }
+        ++since;
+        const float kx = tp[dx];
+        const float lr = wval.x * kx, li = wval.y * kx;
+        const float hr = wval.z * kx, hi = wval.w * kx;
+        const float* kvr = tp + 4 * gm.tv;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const float ky = kvr[wrap(dy0 + j)];
+          sum[j][0] = fmaf(ky, lr, sum[j][0]);
+          sum[j][1] = fmaf(ky, li, sum[j][1]);
+          if (NACC == 4) {
+            sum[j][2] = fmaf(ky, hr, sum[j][2]);
+            sum[j][3] = fmaf(ky, hi, sum[j][3]);
+          }
+        }
+      }
+    }
+    if (curx >= 0) {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (j < nvalid) flush(j);
+    }
+  }
+}
+
 // The complex64 grids from the int64 ones: value times 2^-kg, or NaN when
 // the bound is not finite.
 __global__ void grid_convert(const long long* __restrict__ grid64,
@@ -864,25 +1139,79 @@ int launch_wide(const void* vals, const void* iu0, const void* iv0,
 #undef SKA_GRID_WIDE_K
 }
 
+template <int K, int NACC>
+int launch_dev_k(const DevGeom& gm, const void* vals, const void* iu0,
+                 const void* iv0, const void* frac, const void* ku,
+                 const void* kv, const void* order, const void* chunk_seg,
+                 const void* chunk_start, const void* chunk_count,
+                 const void* tap_bound, const void* vsum, void* grid64,
+                 int nchunks, int npix, int nta, int span, cudaStream_t s) {
+  auto fn = grid_dev_kernel<K, NACC>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
+  if (e != cudaSuccess) return (int)e;
+  // chunks a CTA: about kDevWaves CTAs an SM over the launch, each walking
+  // runs of as many entries as that leaves
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, (int)((long long)nchunks * gm.nsl / ((long long)sms * kDevWaves)));
+  const int nblocks = (nchunks + per - 1) / per;
+  fn<<<dim3((unsigned)nblocks, (unsigned)gm.nsl), gm.threads, gm.smem, s>>>(
+      (const float2*)vals, (const int*)iu0, (const int*)iv0, (const float*)frac,
+      (const float4*)ku, (const float4*)kv, (const int*)order, (const int*)chunk_seg,
+      (const int*)chunk_start, (const int*)chunk_count, (const float*)tap_bound,
+      (const float*)vsum, (unsigned long long*)grid64, npix, nta, span, tap_vecs(span),
+      gm.stage, nchunks, per);
+  return ska_last_error();
+}
+
+template <int NACC>
+int launch_dev(const void* vals, const void* iu0, const void* iv0,
+               const void* frac, const void* ku, const void* kv,
+               const void* order, const void* chunk_seg, const void* chunk_start,
+               const void* chunk_count, const void* tap_bound, const void* vsum,
+               void* grid64, int nchunks, int npix, int nta, int span,
+               cudaStream_t s) {
+  const DevGeom gm = dev_plan(span);
+  if (gm.threads == 0) return (int)cudaErrorInvalidValue;  // no batch fits
+#define SKA_GRID_DEV_K(K)                                                     \
+  launch_dev_k<K, NACC>(gm, vals, iu0, iv0, frac, ku, kv, order, chunk_seg,  \
+                        chunk_start, chunk_count, tap_bound, vsum, grid64,   \
+                        nchunks, npix, nta, span, s)
+  switch (gm.k) {
+    case 8: return SKA_GRID_DEV_K(8);
+    case 6: return SKA_GRID_DEV_K(6);
+    case 4: return SKA_GRID_DEV_K(4);
+    default: return SKA_GRID_DEV_K(2);
+  }
+#undef SKA_GRID_DEV_K
+}
+
 // How ska_grid serves windows of `span` cells on tiles of `tile` cells
 // (nacc as ska_grid's): 0 it refuses them; 1 the narrow kernel (16 cells
 // or fewer, the whole tile in one block); 2 the wide kernel, the whole
 // tile in its cluster's bands; 3 the wide kernel in turns (its bands hold
-// fewer rows than the tile's, at least one window's).
+// fewer rows than the tile's, at least one window's); 4 the device-memory
+// route (windows past 64 cells, and tiles no cluster's bands serve).
 inline int grid_route(int span, int tile, int nacc) {
-  if (span < 1 || span > 64 || tile < 1) return 0;
+  if (span < 1 || tile < 1) return 0;
   if (span <= 16 && narrow_smem(span, tile, nacc, tile + span) <= kMaxSmem) return 1;
   if (span % 2 || span > tile) return 0;
-  const WideGeom g = wide_plan(span, tile, nacc);
-  if (g.cs == 0) return 0;
-  return g.cs * g.rb >= tile + span ? 2 : 3;
+  if (span <= 64) {
+    const WideGeom g = wide_plan(span, tile, nacc);
+    if (g.cs != 0) return g.cs * g.rb >= tile + span ? 2 : 3;
+  }
+  return dev_plan(span).threads ? 4 : 0;
 }
 
 }  // namespace
 
 // vals [n] complex64; iu0, iv0, order [n] int32; frac [n] f32; ku, kv
-// [n, P] f32 (P = 8, 16, 32 or 64: the power of two from 8 up that holds
-// the window, support <= 64), 16-byte aligned; chunk_*: [nchunks] int32; tap_bound [1] f32, the plan's; vsum
+// [n, P] f32 (P = 8, 16, 32 or 64, the power of two from 8 up that holds
+// the window; past a window of 64 cells the span rounded up to a multiple
+// of 8), 16-byte aligned; chunk_*: [nchunks] int32; tap_bound [1] f32, the plan's; vsum
 // [1] f32, the sum of |re| + |im| over vals; grid64 [nplanes, npix, npix,
 // 2] int64 scratch; grid [nplanes, npix, npix] complex64 out. nacc 4:
 // linear w-stacking (plane pairs); 2: one plane a segment (single-plane or
@@ -917,7 +1246,14 @@ SKA_EXPORT int ska_grid(const void* vals, const void* iu0, const void* iv0,
                         nchunks, npix, tile, nta, support, s)
     const bool four = nacc == 4;
     int rc;
-    if (route > 1)
+    if (route == 4)
+      rc = four ? launch_dev<4>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
+                                chunk_start, chunk_count, tap_bound, vsum, grid64,
+                                nchunks, npix, nta, support, s)
+                : launch_dev<2>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
+                                chunk_start, chunk_count, tap_bound, vsum, grid64,
+                                nchunks, npix, nta, support, s);
+    else if (route > 1)
       rc = four ? launch_wide<4>(vals, iu0, iv0, frac, ku, kv, order, chunk_seg,
                                  chunk_start, chunk_count, tap_bound, vsum,
                                  grid64, nchunks, npix, tile, nta, support, s)
@@ -959,12 +1295,23 @@ SKA_EXPORT int ska_grid_wide_geometry(int span, int tile, int nacc, int what) {
 }
 
 // How ska_grid serves windows of `span` cells on tiles of `tile` cells
-// (nacc as ska_grid's), decided before any launch: 0 refused (the wide
-// kernel's bands over a cluster of 8 cannot hold one window's rows), 1 the
-// narrow kernel, 2 the wide kernel holding the whole tile, 3 the wide
-// kernel in turns.
+// (nacc as ska_grid's), decided before any launch: 0 refused (an odd span,
+// or one past the tile), 1 the narrow kernel, 2 the wide kernel holding
+// the whole tile, 3 the wide kernel in turns, 4 the device-memory route.
 SKA_EXPORT int ska_grid_route(int span, int tile, int nacc) {
   return grid_route(span, tile, nacc);
+}
+
+// The device-memory route's launch geometry at window span `span` (even;
+// it runs where ska_grid_route says 4): what 0 the threads of a CTA, 1 its
+// dynamic shared bytes, 2 its walks, 3 the classes a thread owns, 4 the
+// entries a walk stages a batch, 5 the CTAs (slices) of one walk; 0 past
+// them.
+SKA_EXPORT int ska_grid_dev_geometry(int span, int what) {
+  if (span < 2 || span % 2) return 0;
+  const DevGeom gm = dev_plan(span);
+  const int v[] = {gm.threads, (int)gm.smem, gm.groups, gm.k, gm.stage, gm.nsl};
+  return gm.threads && what >= 0 && what < 6 ? v[what] : 0;
 }
 
 // The complex64 grids from int64 ones (n floats: 2 a cell) summed over

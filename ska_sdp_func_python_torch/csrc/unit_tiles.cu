@@ -113,8 +113,8 @@
 // does: the run's entries follow their window's corner row, so a turn is
 // the longest stretch of them whose windows (S + 1 rows, one early where
 // a corner is an integer with a negative residual) the bands hold, with
-// its own units in f64; a tile whose bands cannot hold one window is
-// refused, and the wrapper raises ValueError first. Even supports to 16
+// its own units in f64; a tile whose bands cannot hold one window takes
+// the device-memory route below. Even supports to 16
 // take this variant too on tiles the narrow kernel cannot hold (past
 // 97-115 cells in f32, 64-81 in f64), chosen by geometry before the launch
 // (unit_tiles_route). The conversion is the narrow kernel's, and a launch
@@ -133,6 +133,19 @@
 // thread and every flush into device memory, kept 81-97% of its time
 // with its flushes compiled out: its walk bound it (f64: also its
 // serial taps).
+//
+// Support 1, supports past 64 (up to the tile) and tiles of which a
+// cluster's bands cannot hold one window's rows (3494 cells at support 24
+// in f32 down to 1530 at 64 in f64) take unit_tiles_dev_kernel, the
+// device-memory route: the wide variant's taps (stage 1, the same
+// operations) and walk (period S, K rows of a column a thread, K 8 past
+// 64), with no shared tile: each register run goes straight into the
+// fixed-point grids in device memory, one 64-bit integer add in f32, the
+// 128-bit pair with its carry in f64, so a launch gives the same bits on
+// every run. A walk whose classes need more threads than a CTA runs
+// (support 128 at K 8: 2048) is split in slices of a CTA's threads,
+// blockIdx.y, each slice taking the same entries. At support 1 the ES
+// kernel of half width 0 is zero, and the grids are.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -1013,6 +1026,256 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
   }
 }
 
+// ---------------------------------------------------------------------------
+// The device-memory route: every support from 1 to the tile, on any tile.
+
+constexpr int kDevWaves = 16;  // about this many device-route CTAs an SM serves
+
+// Launch geometry of the device-memory route at support S
+struct DevGeom {
+  int k;        // rows of one column a thread owns
+  int threads;  // of a CTA
+  int nbb;      // row blocks of a column: ceil(S / k)
+  int group;    // threads of one walk: S columns times nbb row blocks
+  int walks;    // walks of a CTA (1 where a walk takes several CTAs)
+  int nsl;      // CTAs of one walk: its classes in slices of `threads`
+  int stage;    // entries a walk takes a batch
+  int slots;    // entries a CTA takes a batch
+  int sp;       // taps of a staged axis row (by residue class; 16-byte rows)
+  size_t meta, mval, smem;  // byte offsets of the arrays; total
+};
+
+template <typename T>
+__host__ __device__ inline DevGeom dev_geom(int S, int k, int threads, int stage) {
+  DevGeom g;
+  g.k = k;
+  g.threads = threads;
+  g.nbb = (S + k - 1) / k;
+  g.group = S * g.nbb;
+  g.walks = g.group <= threads ? threads / g.group : 1;
+  g.nsl = (g.group + threads - 1) / threads;
+  g.stage = stage;
+  g.slots = g.walks * stage;
+  const int vec = 16 / (int)sizeof(T);
+  const int taps = S > g.nbb * k ? S : g.nbb * k;
+  g.sp = (taps + vec - 1) / vec * vec;
+  // taps [slots][kv, ku][sp]; meta [slots] int4; mval [slots][2]
+  g.meta = align16((size_t)g.slots * 2 * g.sp * sizeof(T));
+  g.mval = g.meta + (size_t)g.slots * 16;
+  g.smem = align16(g.mval + (size_t)g.slots * 2 * sizeof(T));
+  return g;
+}
+
+// The wide variant's rows a thread and threads a CTA up to a support of
+// 64, 8 rows a thread and its most threads past it; the largest batch (32
+// entries a walk down to 1) of at most one entry a thread that fits a
+// block's shared memory. threads 0 where no batch fits.
+template <typename T>
+inline DevGeom dev_plan(int S) {
+  const bool f64 = sizeof(T) == 8;
+  int k = 8, threads = wide_most(f64);
+  if (S <= 64) wide_choice(S, f64, k, threads);
+  for (int stage = 32; stage >= 1; stage /= 2) {
+    const DevGeom g = dev_geom<T>(S, k, threads, stage);
+    if (g.slots <= g.threads && g.smem <= kMaxSmem) return g;
+  }
+  DevGeom g = dev_geom<T>(S, k, threads, 1);
+  g.threads = 0;
+  return g;
+}
+
+// w += r in units of 1/scale in device memory, skipping a zero: one int64
+// word (f32), or the 128-bit pair (f64, fixed_add)
+__device__ __forceinline__ void dev_add(u64* w, float r, double scale) {
+  const long long q = __double2ll_rn((double)r * scale);
+  if (q != 0) atomicAdd(w, (u64)q);
+}
+__device__ __forceinline__ void dev_add(u64* w, double r, double scale) {
+  fixed_add(w, r, scale);
+}
+
+// K rows of a column a thread. CTA (x, y) serves slice y of the classes of
+// the units [per x, per (x + 1)), one run of consecutive units of one
+// segment at a time. Each batch: the taps of its entries by residue class
+// into shared memory (stage 1, as the wide variant computes them, so they
+// keep their bits), a barrier, the walks (Romein's, at period S), each
+// register run added to the fixed-point grids in device memory: an int64
+// word a value in f32; in f64 the launch's 128-bit pair of words, the
+// carry from the low word's old value (add_int128). A cell left of the
+// unit's tile (a window a cell early at the tile's first row or column)
+// is not the dense form's and is dropped, as the narrow kernel drops it.
+template <typename T, int K>
+__global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
+    unit_tiles_dev_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                          const T* __restrict__ vals, const T* __restrict__ ulo,
+                          const T* __restrict__ vlo,
+                          const int* __restrict__ unit_seg,
+                          const int* __restrict__ unit_start,
+                          const int* __restrict__ unit_count,
+                          const double* __restrict__ vsum,
+                          u64* __restrict__ grid64, int npix, int tile, int nta,
+                          int S, int stage, int nunits, int per, T beta) {
+  constexpr int kW = Fixed<T>::kWords;
+  const int threads = blockDim.x;
+  const DevGeom gm = dev_geom<T>(S, K, threads, stage);
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* taps = reinterpret_cast<T*>(smem_raw);
+  int4* meta = reinterpret_cast<int4*>(smem_raw + gm.meta);
+  T* mval = reinterpret_cast<T*>(smem_raw + gm.mval);
+  const int half = S / 2;
+
+  const double total = vsum[0];
+  if (!isfinite(total)) return;  // the conversion writes NaN
+  const double scale = ldexp(1.0, fixed_exponent<T>(total));
+  const int ntiles = nta * nta;
+
+  // walk role: walk g of the CTA, class slot r of the walk; the thread owns
+  // the classes (a, b0 + j), j < nvalid, of residue period S
+  const int g = gm.nsl > 1 ? 0 : threadIdx.x / gm.group;
+  const int rr = gm.nsl > 1 ? (int)blockIdx.y * threads + threadIdx.x
+                            : threadIdx.x - g * gm.group;
+  const bool walker = gm.nsl > 1 ? rr < gm.group : g < gm.walks;
+  const int a = rr / gm.nbb;
+  const int b0 = (rr - a * gm.nbb) * K;
+  const int nvalid = walker ? min(K, S - b0) : 0;
+
+  const int c1 = min(nunits, (int)(blockIdx.x + 1) * per);
+  for (int c0 = (int)blockIdx.x * per; c0 < c1;) {
+    // the run: units [c0, ce) of one segment, entries [start, end)
+    const int seg = unit_seg[c0];
+    int ce = c0 + 1;
+    while (ce < c1 && unit_seg[ce] == seg &&
+           unit_start[ce] == unit_start[ce - 1] + unit_count[ce - 1])
+      ++ce;
+    const int start = unit_start[c0];
+    const int end = unit_start[ce - 1] + unit_count[ce - 1];
+    c0 = ce;
+    const int plane = seg / ntiles;
+    const int t = seg - plane * ntiles;
+    const int tv0 = (t / nta) * tile;
+    const int tu0 = (t % nta) * tile;
+    u64* gp0 = grid64 + 2 * kW * (size_t)plane * npix * npix;
+
+    // walk w of the CTA's walks takes [start + w q, start + (w + 1) q)
+    const int q = (end - start + gm.walks - 1) / gm.walks;
+    const int nbatch = (q + stage - 1) / stage;
+    auto pos_of = [&](int k, int sl) {
+      const int w = sl / stage;
+      const int p = start + w * q + k * stage + (sl - w * stage);
+      return p < min(start + (w + 1) * q, end) ? p : -1;
+    };
+
+    const int gbeg = start + g * q;
+    const int gend = min(gbeg + q, end);
+    // the run's column, corner row and its residue, entries since the last
+    // cut; the sums (re, im) of the K rows
+    int curx = 0, currv = 0, curres = 0, since = 0;
+    bool open = false;
+    T sum[K][2];
+#pragma unroll
+    for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
+    auto row_of = [&](int rv, int res, int j) {
+      const int d = b0 + j - res;
+      return rv + (d < 0 ? d + S : d);
+    };
+    // integer adds commute: the grids are the same whatever their order
+    auto flush = [&](int j) {
+      const int y = row_of(currv, curres, j);
+      if (y >= 0 && curx >= 0 && tv0 + y < npix && tu0 + curx < npix) {
+        u64* w = gp0 + 2 * kW * ((size_t)(tv0 + y) * npix + (tu0 + curx));
+        dev_add(w, sum[j][0], scale);
+        dev_add(w + kW, sum[j][1], scale);
+      }
+      sum[j][0] = sum[j][1] = T(0);
+    };
+
+    for (int k = 0; k < nbatch; ++k) {
+      // every thread is done with the previous batch's taps
+      __syncthreads();
+      // stage 1: batch k's taps, one an item, stored by residue class (tap r
+      // of a window starting at cell r0 is class (r0 + r) mod S), and each
+      // entry's corner, residues and value
+      for (int i = threadIdx.x; i < 2 * gm.slots * S; i += threads) {
+        const int pr = i / S;
+        const int r = i - pr * S;
+        const int sl = pr >> 1;
+        const int axis = pr & 1;  // 0: v (rows), 1: u (columns)
+        const int p = pos_of(k, sl);
+        if (p < 0) continue;
+        const T pix = axis == 0 ? v[p] : u[p];
+        const T lo = ulo == nullptr ? T(0) : (axis == 0 ? vlo[p] : ulo[p]);
+        const int t0 = axis == 0 ? tv0 : tu0;
+        // the window of the S taps starts at floor(pix + lo) - (half - 1):
+        // one cell lower than the hi coordinate's window when hi is an
+        // integer and lo < 0 (|lo| < 1)
+        const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
+        const int r0 = (int)floor_(pix) - (half - 1) - shift - t0;
+        const int res = (r0 % S + S) % S;
+        const T d0 = sub_rn(T(t0), pix);
+        const int c = res + r < S ? res + r : res + r - S;
+        taps[(size_t)pr * gm.sp + c] = es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(half), beta);
+        if (r == 0) {
+          // int4 (ru, rv, u residue, v residue), tile-relative corners
+          int* m = reinterpret_cast<int*>(meta + sl);
+          m[1 - axis] = r0;
+          m[3 - axis] = res;
+          if (axis == 0) {
+            mval[2 * sl] = vals[2 * (size_t)p];
+            mval[2 * sl + 1] = vals[2 * (size_t)p + 1];
+          }
+        }
+      }
+      __syncthreads();
+      if (!walker) continue;
+      const int nj = min(stage, gend - (gbeg + k * stage));
+      const int s0 = g * stage;
+      for (int jj = 0; jj < nj; ++jj) {
+        const int sl = s0 + jj;
+        const int4 m = meta[sl];
+        int dx = a - m.z;
+        dx += dx < 0 ? S : 0;
+        const int x = m.x + dx;
+        if (!open || x != curx || since == kRunCap) {
+          // the column moved (or the runs are kRunCap long): every row's
+          // cell changes
+          if (open) {
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              if (j < nvalid) flush(j);
+          }
+          open = true;
+          curx = x;
+          if (since == kRunCap) since = 0;  // every thread's runs end together
+          currv = m.y;
+          curres = m.w;
+        } else if (m.y != currv) {
+          // the corner row moved: a row's cell changes where its row does
+#pragma unroll
+          for (int j = 0; j < K; ++j)
+            if (j < nvalid && row_of(currv, curres, j) != row_of(m.y, m.w, j)) flush(j);
+          currv = m.y;
+          curres = m.w;
+        }
+        ++since;
+        const T* tp = taps + (size_t)sl * 2 * gm.sp;
+        const T kx = tp[gm.sp + a];
+        const T lr = mval[2 * sl] * kx, li = mval[2 * sl + 1] * kx;
+#pragma unroll
+        for (int j = 0; j < K; ++j) {
+          const T ky = tp[b0 + j];
+          sum[j][0] = fma_(ky, lr, sum[j][0]);
+          sum[j][1] = fma_(ky, li, sum[j][1]);
+        }
+      }
+    }
+    if (open) {
+#pragma unroll
+      for (int j = 0; j < K; ++j)
+        if (j < nvalid) flush(j);
+    }
+  }
+}
+
 // The complex grids from the integer ones: value times 2^-kg, or NaN when
 // the bound is not finite. n values (2 a cell).
 template <typename T>
@@ -1146,18 +1409,69 @@ int launch_wide(const void* u, const void* v, const void* vals,
 #undef SKA_UNIT_TILES_WIDE
 }
 
+template <typename T, int K>
+int launch_dev_k(const DevGeom& gm, const void* u, const void* v,
+                 const void* vals, const void* ulo, const void* vlo,
+                 const void* unit_seg, const void* unit_start,
+                 const void* unit_count, const void* vsum, void* grid64,
+                 int nunits, int npix, int tile, int nta, int support,
+                 double beta, cudaStream_t s) {
+  auto fn = unit_tiles_dev_kernel<T, K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
+  if (e != cudaSuccess) return (int)e;
+  // units a CTA: about kDevWaves CTAs an SM over the launch
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, (int)((long long)nunits * gm.nsl / ((long long)sms * kDevWaves)));
+  const int nblocks = (nunits + per - 1) / per;
+  fn<<<dim3((unsigned)nblocks, (unsigned)gm.nsl), gm.threads, gm.smem, s>>>(
+      (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo, (const T*)vlo,
+      (const int*)unit_seg, (const int*)unit_start, (const int*)unit_count,
+      (const double*)vsum, (u64*)grid64, npix, tile, nta, support, gm.stage, nunits,
+      per, (T)beta);
+  return ska_last_error();
+}
+
+template <typename T>
+int launch_dev(const void* u, const void* v, const void* vals,
+               const void* ulo, const void* vlo, const void* unit_seg,
+               const void* unit_start, const void* unit_count,
+               const void* vsum, void* grid64, int nunits, int npix,
+               int tile, int nta, int support, double beta, cudaStream_t s) {
+  const DevGeom gm = dev_plan<T>(support);
+  if (gm.threads == 0) return (int)cudaErrorInvalidValue;  // no batch fits
+#define SKA_UNIT_TILES_DEV(K)                                                  \
+  launch_dev_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,          \
+                     unit_count, vsum, grid64, nunits, npix, tile, nta,       \
+                     support, beta, s)
+  switch (gm.k) {
+    case 8: return SKA_UNIT_TILES_DEV(8);
+    case 7: return SKA_UNIT_TILES_DEV(7);
+    case 6: return SKA_UNIT_TILES_DEV(6);
+    case 5: return SKA_UNIT_TILES_DEV(5);
+    default: return SKA_UNIT_TILES_DEV(4);
+  }
+#undef SKA_UNIT_TILES_DEV
+}
+
 // How ska_unit_tiles serves support S on tiles of `tile` cells: 0 it
-// refuses it; 1 the narrow kernel (even S to 16, the whole tile in one
-// block); 2 the wide variant, the whole tile in its cluster's bands; 3 the
-// wide variant in turns (its bands hold fewer rows than the tile's, at
-// least one window's).
+// refuses it (S past the tile, or below 1); 1 the narrow kernel (even S to
+// 16, the whole tile in one block); 2 the wide variant, the whole tile in
+// its cluster's bands; 3 the wide variant in turns (its bands hold fewer
+// rows than the tile's, at least one window's); 4 the device-memory route
+// (support 1, supports past 64, and tiles no cluster's bands serve).
 template <typename T>
 inline int unit_tiles_route(int S, int tile) {
-  if (S < 2 || S > 64 || S > tile) return 0;
+  if (S < 1 || S > tile) return 0;
   if (S % 2 == 0 && S <= 16 && narrow_smem<T>(S, tile, tile + S) <= kMaxSmem) return 1;
-  const WideGeom g = wide_plan<T>(S, tile);
-  if (g.cs == 0) return 0;
-  return g.cs * g.rb >= g.rows ? 2 : 3;
+  if (S >= 2 && S <= 64) {
+    const WideGeom g = wide_plan<T>(S, tile);
+    if (g.cs != 0) return g.cs * g.rb >= g.rows ? 2 : 3;
+  }
+  return dev_plan<T>(S).threads ? 4 : 0;
 }
 
 template <typename T>
@@ -1178,7 +1492,10 @@ int launch_support(const void* u, const void* v, const void* vals,
                       unit_count, vsum, grid64, nunits, npix, tile, nta,     \
                       beta, s);                                              \
     break;
-  if (route == 1) {
+  if (route == 4) {
+    rc = launch_dev<T>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count,
+                       vsum, grid64, nunits, npix, tile, nta, support, beta, s);
+  } else if (route == 1) {
     switch (support) {
       SKA_UNIT_TILES_CASE(2)
       SKA_UNIT_TILES_CASE(4)
@@ -1191,7 +1508,7 @@ int launch_support(const void* u, const void* v, const void* vals,
     }
   } else {
     // odd supports, supports past 16, and tiles the narrow kernel cannot
-    // hold: the wide variant
+    // hold: the wide variant, where its cluster's bands serve the tile
     rc = launch_wide<T>(u, v, vals, ulo, vlo, unit_seg, unit_start,
                         unit_count, vsum, grid64, nunits, npix, tile, nta,
                         support, beta, s);
@@ -1233,11 +1550,24 @@ SKA_EXPORT int ska_unit_tiles(const void* u, const void* v, const void* vals,
 }
 
 // How ska_unit_tiles serves `support` on tiles of `tile` cells (f64 as its
-// own), decided before any launch: 0 refused (the wide variant's bands
-// over a cluster of 8 cannot hold one window's rows), 1 the narrow kernel,
-// 2 the wide variant holding the whole tile, 3 the wide variant in turns.
+// own), decided before any launch: 0 refused (a support past the tile, as
+// the JAX package's tiled gridder refuses it), 1 the narrow kernel, 2 the
+// wide variant holding the whole tile, 3 the wide variant in turns, 4 the
+// device-memory route.
 SKA_EXPORT int ska_unit_tiles_route(int support, int tile, int f64) {
   return f64 ? unit_tiles_route<double>(support, tile) : unit_tiles_route<float>(support, tile);
+}
+
+// The device-memory route's launch geometry at `support` (it runs where
+// ska_unit_tiles_route says 4), f64 as ska_unit_tiles's: what 0 the
+// threads of a CTA, 1 its dynamic shared bytes, 2 its walks, 3 the rows of
+// a column a thread owns, 4 the entries a walk takes a batch, 5 the CTAs
+// (slices) of one walk; 0 past them.
+SKA_EXPORT int ska_unit_tiles_dev_geometry(int support, int f64, int what) {
+  if (support < 1) return 0;
+  const DevGeom gm = f64 ? dev_plan<double>(support) : dev_plan<float>(support);
+  const int v[] = {gm.threads, (int)gm.smem, gm.walks, gm.k, gm.stage, gm.nsl};
+  return gm.threads && what >= 0 && what < 6 ? v[what] : 0;
 }
 
 // The wide variant's launch geometry at `support` (2 to 64 and the tile;

@@ -10,20 +10,25 @@ the only) w-plane, the plane fraction and the separable ES taps of each
 axis over the plan's window (``span`` cells: the support, one more for an
 odd support, see ``gridding_plan``), zero-padded to the kernels' width
 (:func:`tap_width`: 8 up to a span of 8, 16 up to 16, 32 up to 32 and 64
-up to 64) as ``[n, width]`` arrays. The width is a power of two, not the
-span, because it is K1's residue-class period and the lanes of K3 that
-serve one entry. A plan takes any support up to its tile (the JAX plan
-path's limit) and windows up to :data:`MAX_SPAN` cells; the taps then take
-2 x 4 x width bytes an entry: at the flagship (9,942,016 entries) 5.1 GB
-at width 64 and half that at 32.
+up to 64; past 64 the span rounded up to a multiple of 8) as ``[n,
+width]`` arrays. Up to 64 the width is a power of two, not the span,
+because it is K1's residue-class period and the lanes of K3 that serve one
+entry; past 64 it is only the rows' 16-byte alignment. A plan takes any
+support up to its tile, as the JAX plan path does; the taps then take 2 x
+4 x width bytes an entry: at the flagship (9,942,016 entries) 5.1 GB at
+width 64 and 7.6 GB at support 96 (width 96).
 
 Windows of up to 16 cells run K1's shared-tile kernel and K3's groups of
-8 or 16 lanes; wider ones K1's wide variant (the tile's int64 rows in
-bands over a thread block cluster, served in turns where the bands hold
-fewer rows than the tile) and K3's whole-warp variant (each lane one or
-two columns). K1's wide variant also takes windows of up to 16 cells on
-tiles whose int64 rows one block cannot hold (``ska_grid_route``), so K1
-takes every tile up to 512 at every window.
+8 or 16 lanes; windows of 17 to 64 K1's wide variant (the tile's int64
+rows in bands over a thread block cluster, served in turns where the bands
+hold fewer rows than the tile) and K3's whole-warp variant (each lane one
+or two columns). K1's wide variant also takes windows of up to 16 cells on
+tiles whose int64 rows one block cannot hold. Windows past 64 cells, and
+tiles of which a cluster's bands cannot hold one window's rows, take K1's
+device-memory route (its register runs added straight into the int64
+grids) and K3's long-window kernel (a warp an entry, walking the window a
+row at a time). ``ska_grid_route`` and ``ska_degrid_route`` name the route
+of a geometry; every support up to the tile has one, on every tile.
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA
 tensor it launches the hand-written kernel (``csrc/grid.cu``,
@@ -40,7 +45,6 @@ import torch
 from .. import kernels
 
 __all__ = [
-    "MAX_SPAN",
     "window_span",
     "tap_width",
     "grid",
@@ -55,13 +59,6 @@ __all__ = [
 ]
 
 
-# the widest window the plan kernels take: K1's residue-class period and
-# K3's columns a lane stop at 64 (two 32-cell halves per axis); the JAX
-# plan path's own limit, a support up to the tile, stays inside it at
-# every tile the imaging API picks (at most 64)
-MAX_SPAN = 64
-
-
 def window_span(support: int) -> int:
     """Cells of each window of a ``support``-wide kernel: the support, one
     more for an odd one."""
@@ -70,13 +67,13 @@ def window_span(support: int) -> int:
 
 def tap_width(span: int) -> int:
     """Width of the stored tap rows of a plan whose windows are ``span``
-    cells wide: the residue-class period of K1 and the lanes of K3 that
-    serve one entry (8, 16, 32 or 64)."""
-    if not 1 <= span <= MAX_SPAN:
-        raise ValueError(
-            f"a window of {span} cells: the plan kernels take windows of 1 "
-            f"to {MAX_SPAN} cells"
-        )
+    cells wide: up to 64 the residue-class period of K1 and the lanes of
+    K3 that serve one entry (8, 16, 32 or 64); past 64 the span rounded up
+    to a multiple of 8 (16-byte rows of whole float4s)."""
+    if span < 1:
+        raise ValueError(f"a window of {span} cells: the plan kernels take windows of 1 cell or more")
+    if span > 64:
+        return (span + 7) // 8 * 8
     width = 8
     while width < span:
         width *= 2
@@ -186,13 +183,6 @@ def grid(plan, vals: torch.Tensor, *, raw: bool = False, bound=None) -> torch.Te
     npix = plan.npixel
     _check_taps(plan, (plan.n,))
     nacc = 4 if plan.wstacked else 2
-    if not kernels.query("ska_grid_route", plan.span, plan.tile, nacc):
-        raise ValueError(
-            f"tile {plan.tile}: K1 on the card holds at least one window's "
-            f"{plan.span} rows of its tile's int64 words in the shared memory "
-            f"of a cluster of 8 CTAs, and a tile of {plan.tile} at windows of "
-            f"{plan.span} cells is past that; plan with a smaller tile"
-        )
     vals_ptr = chk("vals", vals, torch.complex64, dev)
     # the kernel accumulates in int64 fixed point, scaled by the stream's
     # bound: the sum of |re| + |im| over vals times the plan's tap bound

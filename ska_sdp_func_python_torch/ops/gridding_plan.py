@@ -13,8 +13,10 @@ consecutive entries share cells). Values move between natural and plan
 order through ``permute.permute_apply`` (kernel K4) with the stored
 permutation, in place of the JAX package's rank-keyed sorts.
 
-A plan takes any support from 1 to its tile (the JAX plan path's limit;
-windows up to ``gridding_fused.MAX_SPAN`` cells), and linear (a
+A plan takes any support from 1 to its tile (the JAX plan path's limit,
+on the card too: past a window of 64 cells, or on a tile of which no
+cluster holds one window's rows, K1 and K3 take their device-memory and
+long-window routes), and linear (a
 plane pair an entry) or nearest-plane (one plane an entry, ``plane_idx``
 without ``plane_frac``) w-stacking, as the JAX plan path does. An odd
 support follows the JAX kernels, which evaluate the ES kernel densely
@@ -37,7 +39,7 @@ from dataclasses import dataclass
 
 import torch
 
-from .gridding_fused import _es_taps, degrid, grid, tap_width, window_span
+from .gridding_fused import _es_taps, degrid, grid, window_span
 from .permute import permute_apply
 
 __all__ = [
@@ -66,7 +68,9 @@ class GridPlan:
     iv0: torch.Tensor  # int32 [n] clipped window corner (v)
     plane: torch.Tensor  # int32 [n] lower (nearest: the only) w-plane
     frac: torch.Tensor  # f32 [n] fraction to the upper plane (nearest: 0)
-    ku: torch.Tensor  # f32 [n, tap_width(span)] u taps, zero past span
+    # f32 [n, tap_width(span)] u taps, zero past span (past a span of 64
+    # the rows are the span rounded up to a multiple of 8 floats)
+    ku: torch.Tensor
     kv: torch.Tensor  # f32 [n, tap_width(span)] v taps
     chunk_seg: torch.Tensor  # int32 [nchunks]
     chunk_start: torch.Tensor  # int32 [nchunks]
@@ -230,7 +234,8 @@ def make_grid_plan(
     JAX package's ``make_grid_plan``): ``plane_idx`` and ``plane_frac``
     give linear w-stacking over ``nplanes`` planes, ``plane_idx`` alone a
     nearest-plane plan (each entry on its one plane, ``nplanes`` segments
-    of tiles). ``support`` is 1 to ``tile`` (a larger one raises
+    of tiles). ``support`` is 1 to ``tile``, as in the JAX package, and
+    the card takes every such support on every tile (a larger one raises
     ``ValueError``: its windows would reach past the next tile's, where
     the JAX package fails on a negative index). ``chunk`` is the most
     entries one grid CTA takes (None: :func:`default_chunk`); it changes only how the
@@ -244,8 +249,9 @@ def make_grid_plan(
             f"support {support} is wider than the tile {tile}: a plan takes "
             f"supports 1 to its tile"
         )
+    if support < 1:
+        raise ValueError(f"support {support}: a plan takes supports 1 to its tile")
     odd = support % 2
-    tap_width(support + odd)  # raises below support 1 and past MAX_SPAN
     if odd and support % tile == 0:
         # the spare cell past a window at the tile's start would leave the grid
         raise ValueError(f"tile {tile} divides the odd support {support}")

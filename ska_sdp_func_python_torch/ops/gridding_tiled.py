@@ -13,11 +13,15 @@ gathered once through the permutation and read in place.
 Gridding runs kernel K9 (``csrc/unit_tiles.cu``) through
 :func:`unit_tiles`: the unit compute, the reduction of units onto tiles and
 the overlap-add into the plane grids in one launch, summed in fixed point
-(the same bits on every run), at every support from 2 to the tile (at
-most 64) and every tile up to 512: even supports to 16 through a shared
-tile where one block holds it, odd and wider ones, and larger tiles,
-through K9's wide variant, whose tile is held in bands over a cluster of
-CTAs (in turns where the bands hold fewer rows than the tile). Its plain version
+(the same bits on every run), at every support from 1 to the tile and on
+every tile, as the JAX package's: even supports to 16 through a shared
+tile where one block holds it, odd ones and supports to 64, and larger
+tiles, through K9's wide variant, whose tile is held in bands over a
+cluster of CTAs (in turns where the bands hold fewer rows than the tile);
+supports past 64, support 1 and tiles of which no cluster holds one
+window's rows through K9's device-memory route, which adds its register
+runs straight into the fixed-point grids (``ska_unit_tiles_route`` names
+the route). Its plain version
 :func:`unit_tiles_plain` is the XLA formulation written in PyTorch: the
 dense ES factors over each unit's tile, ``(kv * val) @ ku^T`` as a batched
 matmul, and an ``index_add_`` of the tiles into the grids. Degridding
@@ -262,24 +266,16 @@ def unit_tiles(
     if rdtype not in (torch.float32, torch.float64):
         raise TypeError(f"u_s: dtype {rdtype}, expected float32 or float64")
     cdtype = torch.complex128 if rdtype == torch.float64 else torch.complex64
-    if not 2 <= support <= min(tile, 64):
+    if not 1 <= support <= tile:
         raise ValueError(
-            f"support {support}: the kernel takes 2 to the tile ({tile}) and "
-            f"at most 64"
+            f"support {support}: the kernel takes 1 to the tile ({tile}), as "
+            f"the JAX package's tiled gridder does"
         )
     if npixel % tile:
         raise ValueError(f"tile {tile} must divide npixel {npixel}")
     if (u_lo is None) != (v_lo is None):
         raise ValueError("u_lo and v_lo: give both or neither")
     f64 = rdtype == torch.float64
-    if not kernels.query("ska_unit_tiles_route", support, tile, int(f64)):
-        # the wide variant holds the tile's integer words in bands of rows
-        # over a cluster of at most 8 CTAs, at least one window's rows
-        raise ValueError(
-            f"tile {tile} at support {support}: the kernel holds at least one "
-            f"window's {support + 1} rows of its tile's integer words in the "
-            f"shared memory of a cluster of 8 CTAs, and this tile is past that"
-        )
     k = kernels.KERNELS["unit_tiles"]
     chk = kernels.check_cuda_tensor
     n = u_s.shape[0]

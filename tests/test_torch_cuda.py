@@ -21,12 +21,16 @@ launch to launch; held against the plain version accumulated in f64) and
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
 launch, at supports 2 to 64 (the wide variants past 16 and on tiles the
-narrow kernel cannot hold, up to 512) and on linear, nearest-plane and
-single-plane plans; ``unit_tiles`` (fixed-point sums: int64 in f32, a
-128-bit pair in f64, the same bits from launch to launch) agrees with its
-plain version accumulated in f64 to 1e-5 of the grid maximum in f32 and to
-1e-12 in f64, at even supports to 16 and, through its wide variant, at
-odd ones, up to 64 and on tiles up to 512. The calibration paths (the composed "TG" ical with a sky component,
+narrow kernel cannot hold, up to 512), past 64 (K1's device-memory route,
+K3's long-window kernel) and on tiles no cluster holds, and on linear,
+nearest-plane and single-plane plans; ``unit_tiles`` (fixed-point sums:
+int64 in f32, a 128-bit pair in f64, the same bits from launch to launch)
+agrees with its plain version accumulated in f64 to 1e-5 of the grid
+maximum in f32 and to 1e-12 in f64, at even supports to 16 and, through
+its wide variant, at odd ones, up to 64 and on tiles up to 512, and
+through its device-memory route at support 1, past 64 (f32 against the
+plain version in f32, whose taps it shares) and on tiles no cluster
+holds. The route queries take every support on every tile. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
 image) and the streamed cycle over a store launch their kernels on the
 card and agree with the CPU run to the slice bounds: gains 1e-4, peak
@@ -1326,17 +1330,23 @@ def test_grid_and_degrid_wide_on_large_tiles_match_plain(dev, support, tile, mod
 
 @pytest.mark.parametrize("support,tile", [(64, 1024), (8, 4096)])
 def test_grid_refuses_a_tile_it_cannot_hold(dev, support, tile):
-    """Past the largest tile: a linear plan's bands over a cluster of 8
-    hold fewer than one window's rows at span 64 on tile 1024 and at span
-    8 on tile 4096 (the wide variant takes windows of 8 cells on tiles the
-    narrow kernel cannot hold, up to 3159 cells); K1's wrapper raises
-    ValueError naming the tile before any launch."""
-    plan = _support_plan(dev, support, "linear", n=200, npix=tile, nplanes=3, tile=tile)
-    vals = torch.ones(plan.n, device=dev, dtype=torch.complex64)
+    """Past the largest tile a cluster serves: a linear plan's bands over
+    a cluster of 8 hold fewer than one window's rows at span 64 on tile
+    1024 and at span 8 on tile 4096, where K1 refused the tile until its
+    device-memory route took it (``ska_grid_route`` 4): against the plain
+    version accumulated in f64, to 1e-5 of the maximum, with the same bits
+    on a second launch; one launch a call."""
+    plan = _support_plan(dev, support, "linear", n=2000, npix=tile, nplanes=3, tile=tile)
+    assert kernels.query("ska_grid_wide_geometry", plan.span, tile, 4, 0) == 0
+    assert kernels.query("ska_grid_route", plan.span, tile, 4) == 4
+    g = torch.Generator(device=dev).manual_seed(support + tile)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
     before = kernels.KERNELS["grid"].launches
-    with pytest.raises(ValueError, match=f"tile {tile}"):
-        grid(plan, vals)
-    assert kernels.KERNELS["grid"].launches == before
+    out = grid(plan, vals)
+    assert torch.equal(grid(plan, vals), out)
+    assert kernels.KERNELS["grid"].launches == before + 2
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
 
 
 @pytest.mark.parametrize("mode", ["linear", "nearest"])
@@ -1723,15 +1733,18 @@ def test_unit_tiles_wide_nan_value_gives_nan_grids(dev, support, dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_unit_tiles_wide_refuses_a_tile_no_cluster_holds(dev, dtype):
     """A tile of whose fixed-point words a cluster of 8 CTAs cannot hold
-    one window's rows (4096 at support 64) raises ValueError before a
-    launch."""
+    one window's rows (4096 at support 64), which K9 refused until its
+    device-memory route took it (``ska_unit_tiles_route`` 4): against
+    unit_tiles_plain accumulated in f64 (f32 to 1e-5 of the grid maximum,
+    f64 to 1e-12), two launches to the same bits."""
     tile, support = 4096, 64
-    (stream, _), kw = _k9_streams(dev, np.asarray([300.2, 310.7]), np.asarray([400.7, 410.1]),
-                                  dtype, support, tile, 2 * tile, 4096, False)
-    before = kernels.KERNELS["unit_tiles"].launches
-    with pytest.raises(ValueError, match="cluster of 8"):
-        stream.grid(**kw)
-    assert kernels.KERNELS["unit_tiles"].launches == before
+    f64 = int(dtype == torch.float64)
+    assert _k9_wide_geometry(support, tile, dtype)[0] == 0
+    assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 4
+    rng = np.random.default_rng(61)
+    u64, v64 = rng.normal(2048, 300, (2, 3000))
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, tile, 1024, True)
+    _k9_check(streams, kw, dtype)
 
 
 @pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
@@ -1761,31 +1774,165 @@ def test_unit_tiles_narrow_supports_on_large_tiles_match_plain(dev, support, til
 
 def test_route_tables_take_every_tile(dev):
     """The libraries' own route queries: K1 takes every window (supports 1
-    to 64, linear and one-plane plans) and K9 every support (2 to 64, f32
-    and f64) on every tile up to 512 that divides a 1024^2 or a 2048^2 grid
-    and holds the support; the narrow kernels stay the route at the tiles
-    the imaging API picks."""
-    tiles = sorted({t for n in (1024, 2048) for t in range(1, 513) if n % t == 0})
+    to 256, linear and one-plane plans), K3 every window, and K9 every
+    support (1 to 256, f32 and f64) on every tile that divides a 1024^2,
+    1344^2, 2048^2 or 4096^2 grid and holds the support, and a support as
+    wide as the tile at every such tile from 512 to 4096; the narrow
+    kernels stay the route at the tiles the imaging API picks."""
+    tiles = sorted({t for n in (1024, 1344, 2048, 4096) for t in range(1, n + 1) if n % t == 0})
+    cases = [(s, t) for s in range(1, 257) for t in tiles
+             if t >= s and not (s % 2 and s % t == 0)]
+    cases += [(t, t) for t in tiles if 512 <= t <= 4096 and t > 256]
     refused = []
-    for support in range(1, 65):
+    for support, t in cases:
         span = support + support % 2
-        for t in tiles:
-            if t < support or (support % 2 and support % t == 0):
-                continue  # the plan takes supports up to its tile
-            for nacc in (4, 2):
-                if not kernels.query("ska_grid_route", span, t, nacc):
-                    refused.append(("grid", support, t, nacc))
-            for f64 in (0, 1):
-                if support >= 2 and not kernels.query("ska_unit_tiles_route", support, t, f64):
-                    refused.append(("unit_tiles", support, t, f64))
+        for nacc in (4, 2):
+            if not kernels.query("ska_grid_route", span, t, nacc):
+                refused.append(("grid", support, t, nacc))
+        for f64 in (0, 1):
+            if not kernels.query("ska_unit_tiles_route", support, t, f64):
+                refused.append(("unit_tiles", support, t, f64))
+        if not kernels.query("ska_degrid_route", span):
+            refused.append(("degrid", support, t))
     assert refused == []
     for tile in (56, 64, 48, 32, 16, 8):
         for support in range(1, min(tile, 16) + 1):
             span = support + support % 2
             assert kernels.query("ska_grid_route", span, tile, 4) == 1, (support, tile)
+            assert kernels.query("ska_degrid_route", span) == 1
             if support % 2 == 0:
                 for f64 in (0, 1):
                     assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 1
+
+
+# sha256 of the routes 1-3 of K1 (spans 2-64, nacc 4 then 2) and K9
+# (supports 2-64, f32 then f64) on tiles 1-512, one byte a query (route 4
+# and refusals as 0), taken from the library before the device-memory
+# routes were added
+_ROUTES_1_3 = {
+    "grid": "46241d1a76196b56420435a02bc2f7b48a94f01d72b7b5285946ddbd6b097b44",
+    "unit_tiles": "1c7613c0fc96e0cf4a46cb1fe3c7b0a8086feee35a6eaf62c5c87256b5babc72",
+}
+
+
+def _routes_1_3(kernel):
+    import hashlib
+
+    if kernel == "grid":
+        rows = [kernels.query("ska_grid_route", s, t, nacc)
+                for nacc in (4, 2) for s in range(2, 65, 2) for t in range(1, 513)]
+    else:
+        rows = [kernels.query("ska_unit_tiles_route", s, t, f64)
+                for f64 in (0, 1) for s in range(2, 65) for t in range(1, 513)]
+    return hashlib.sha256(bytes(r if r < 4 else 0 for r in rows)).hexdigest()
+
+
+def test_routes_1_to_3_unchanged_up_to_tile_512(dev):
+    """K1's and K9's narrow kernel and cluster-banded routes (1-3) take the
+    same geometries as before the device-memory route (4) was added: on
+    tiles 1-512 every query that gave 1, 2 or 3 gives it still, and route
+    4 appears only where the library refused (0)."""
+    for kernel, digest in _ROUTES_1_3.items():
+        assert _routes_1_3(kernel) == digest, kernel
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support,tile", [(72, 96), (97, 448), (128, 256)])
+def test_grid_and_degrid_past_64_cells_match_plain(dev, support, tile, mode):
+    """Windows past 64 cells (an odd support's are S + 1): K1's
+    device-memory route (``ska_grid_route`` 4) and K3's long-window kernel
+    (``ska_degrid_route`` 4) against their plain versions (K1's
+    accumulated in f64), to 1e-5 of the maximum; two launches of each give
+    the same bits, one launch a call."""
+    npix = 2 * tile if tile < 448 else tile
+    plan = _support_plan(dev, support, mode, n=4000, npix=npix, nplanes=3, tile=tile)
+    nacc = 4 if mode == "linear" else 2
+    assert plan.ku.shape[1] == (plan.span + 7) // 8 * 8
+    assert kernels.query("ska_grid_route", plan.span, tile, nacc) == 4
+    assert kernels.query("ska_degrid_route", plan.span) == 4
+    g = torch.Generator(device=dev).manual_seed(support)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    before = kernels.launch_counts()
+    out = grid(plan, vals)
+    assert torch.equal(grid(plan, vals), out)
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    grids = torch.randn(ref.shape, generator=g, device=dev, dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    out = degrid(plan, grids)
+    assert torch.equal(degrid(plan, grids), out)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+    after = kernels.launch_counts()
+    assert after["grid"] == before["grid"] + 2 and after["degrid"] == before["degrid"] + 2
+
+
+@pytest.mark.parametrize("frac", ["random", None], ids=["wstacked", "one-plane"])
+def test_degrid_stack_past_64_cells_matches_plain(dev, frac):
+    """K3's long-window kernel over a stack of three channel plans of
+    unequal n_in at support 80 in one launch, against degrid_stack_plain
+    to 1e-5 of the maximum."""
+    rng = np.random.default_rng(71)
+    npix, nplanes, n, support = 256, 3, 3000, 80
+    plans = []
+    for c in range(3):
+        u = rng.uniform(-10, npix + 10 - 40 * c, n)
+        v = rng.uniform(-10, npix + 10, n)
+        p0 = torch.as_tensor(rng.integers(0, nplanes - 1, n)).to(dev)
+        f = torch.as_tensor(rng.uniform(0, 1, n)).to(dev) if frac else None
+        plans.append(make_grid_plan(
+            torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0 if frac else None, f,
+            npixel=npix, support=support, nplanes=nplanes if frac else 1, tile=128))
+    st = _stack(plans)
+    assert len({p.n_in for p in plans}) > 1
+    grids = torch.randn((3, st.nplanes, npix, npix), device=dev, dtype=torch.complex64)
+    out = degrid_stack(st, grids)
+    ref = degrid_stack_plain(st, grids)
+    torch.cuda.synchronize()
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("with_lo", [False, True], ids=["hi", "hi+lo"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("support,tile", [(72, 96), (80, 192), (97, 256), (128, 256)])
+def test_unit_tiles_past_64_matches_plain(dev, support, tile, dtype, with_lo):
+    """K9's device-memory route (``ska_unit_tiles_route`` 4) at supports
+    past 64 on a core-heavy stream of full units: f64 against
+    unit_tiles_plain in f64 to 1e-12 of the grid maximum; f32 against
+    unit_tiles_plain on the same f32 stream to 1e-5, since past 64 the f32
+    taps themselves (the ES kernel's beta (sqrt(1 - nu^2) - 1) loses about
+    beta x 2^-24 to cancellation, which the plain version and the JAX
+    package evaluate alike) lie 1.15e-5 of the maximum from the f64 grids
+    at support 128; two launches give the same bits."""
+    f64 = int(dtype == torch.float64)
+    assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 4
+    npix = 2 * tile
+    rng = np.random.default_rng(support + tile)
+    n = 6000
+    core = rng.normal(npix / 2, tile / 3, (2, n - 600))
+    wide = rng.uniform(0, npix, (2, 600))
+    u64, v64 = np.concatenate([core, wide], axis=1)
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, npix, 1024, with_lo)
+    if dtype == torch.float32:
+        streams = (streams[0], streams[0])
+    _k9_check(streams, kw, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_unit_tiles_at_support_1_gives_zero_grids(dev, dtype):
+    """Support 1: the ES kernel of half width 0 is zero everywhere, so K9's
+    device-memory route and its plain version give zero grids; the
+    launch is counted."""
+    f64 = int(dtype == torch.float64)
+    assert kernels.query("ska_unit_tiles_route", 1, 64, f64) == 4
+    rng = np.random.default_rng(73)
+    u64, v64 = rng.uniform(0, 256, (2, 3000))
+    (stream, ref_stream), kw = _k9_streams(dev, u64, v64, dtype, 1, 64, 256, 1024, False)
+    before = kernels.KERNELS["unit_tiles"].launches
+    out = stream.grid(**kw)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["unit_tiles"].launches == before + 1
+    assert not out.abs().max() and not ref_stream.grid(plain=True, **kw).abs().max()
 
 
 def _chip_smoke():
