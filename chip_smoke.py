@@ -258,10 +258,13 @@ Phases, each on lines of its own:
      same bits; (c) ``tiled_grid`` on phase 16b's full-width stream with
      one tile the whole 2048^2 grid at supports 48 and 64, f32 and f64,
      and (d) on tile 256 at supports 96, 128 and 1 on 16b's stream cut to
-     8 integrations: K9's device-memory route launched, twice to the same
-     bits, against its plain version (1e-5 in f32, 1e-12 in f64; in (c)
-     the plain version at the API's tile 64). Each prints its route, its
-     time and its bound.
+     8 integrations, at support 97 on tile 448 on the same integrations
+     gridded at padding 1.25 (1344^2), and at support 384 on tile 512,
+     whose window no cluster holds (route 4's device-memory walk): K9's
+     route 4 launched, twice to the same bits, against its plain version
+     (1e-5 in f32, 1e-12 in f64; in (c) the plain version at the API's
+     tile 64). Each prints its route, its launch geometry, its time and
+     its bound.
 Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d,
 15a, 16a-c, 17a-b and 18a-d resets the launch counters just before it and fails unless
 every kernel of its path launched. The script then
@@ -554,17 +557,19 @@ LIMIT17_MAX = 4096
 # window's rows; (b) K1 and K3 on the flagship's first million entries at
 # windows past 64 cells, (support, tile), on linear and nearest planes;
 # (c) K9 on phase 16b's full-width stream with one tile its whole 2048^2
-# grid at the supports of UNIT18_FULL, (d) at the supports of UNIT18 (past
-# 64, and 1) on tile UNIT18_TILE, on 16b's stream cut to UNIT16_TIMES
-# integrations; both in f32 and f64. Each is held to its plain version at
-# K1's, K3's and K9's tolerances.
+# grid at the supports of UNIT18_FULL, (d) at the (support, tile, padding)
+# of UNIT18 (past 64, and 1; 97 on tile 448, a tile no power of two, of the
+# 1344^2 grid that padding 1.25 gives; 384 on tile 512, whose window and
+# halo no cluster holds, so that route 4 walks in device memory), on 16b's
+# stream cut to UNIT16_TIMES integrations; both in f32 and f64. Each is held
+# to its plain version at K1's, K3's and K9's tolerances.
 SUPPORTS18 = (48, 64)
 TILE18 = 1344
 WIDE18 = ((72, 192), (97, 448), (128, 1344))
 UNIT18_FULL = (48, 64)
 UNIT18_TILE_FULL = 2048
-UNIT18 = (96, 128, 1)
-UNIT18_TILE = 256
+UNIT18 = ((96, 256, 2.0), (128, 256, 2.0), (1, 256, 2.0), (97, 448, 1.25),
+          (384, 512, 2.0))
 
 
 def say(*args):
@@ -3608,10 +3613,30 @@ def dev_geometry(gp):
     nacc = 4 if gp.wstacked else 2
     threads, smem, walks, k, stage, nsl = (
         query("ska_grid_dev_geometry", gp.span, w) for w in range(6))
+    k3 = [query("ska_degrid_long_geometry", gp.span, w) for w in range(6)]
     return (f"K1 route {query('ska_grid_route', gp.span, gp.tile, nacc)} (4: device memory), "
             f"{threads} threads and {smem} shared bytes a CTA, {walks} walk(s) a CTA of "
             f"{k} rows a thread, {nsl} CTA(s) a walk, {stage} entries a walk a batch; K3 "
-            f"route {query('ska_degrid_route', gp.span)} (4: a warp an entry)")
+            f"route {query('ska_degrid_route', gp.span)} (4: long windows in bands)"
+            + (f", {k3[0]} threads and {k3[1]} shared bytes a CTA, {k3[2]} walk positions "
+               f"a CTA, {k3[3]} columns a lane in {k3[4]} chunk(s), bands of {k3[5]} cells"
+               if k3[0] else ""))
+
+
+def band_geometry(support, tile, f64):
+    """The launch geometry of K9's route 4 at ``support`` on tiles of
+    ``tile`` cells, as the library reports it."""
+    from ska_sdp_func_python_torch.kernels import query
+
+    v = [query("ska_unit_tiles_band_geometry", support, tile, int(f64), w) for w in range(11)]
+    if support == 1:
+        return "no launch (the taps of support 1 are zero)"
+    if not v[0]:
+        return "the device-memory walk (no cluster holds a window)"
+    return (f"sub-tiles of {v[6]} x {v[7]} window corners held by a cluster of {v[0]} CTA(s), "
+            f"{v[1]} threads and {v[2]} shared bytes a CTA, {v[3]} walk(s) a CTA of {v[4]} "
+            f"rows a thread, {v[8]} CTA(s) a walk in {v[9]} pass(es), {v[5]} entries a "
+            f"walk a batch in {v[10]} tap buffer(s)")
 
 
 def run_support_flagship(vis, model, phases):
@@ -4687,16 +4712,16 @@ def run_wide_supports(vis, model, phases):
     return counts, rows, restored
 
 
-def unit_inputs16(vis, model, support, tile=None):
+def unit_inputs16(vis, model, support, tile=None, padding=2.0):
     """The tiled gridder's inputs for ``vis`` on UNIT16_NW linear w-planes
-    at ``support`` and padding 2, in the observation's precision: the
+    at ``support`` and ``padding``, in the observation's precision: the
     positional arguments and keywords of ``tiled_grid`` (and
     ``entry_stream``), and the geometry of its grid (``tile`` None: the
     imaging API's tile)."""
     from ska_sdp_func_python_torch.ops import imaging as im
     from ska_sdp_func_python_torch.ops.gridding import _es_beta
 
-    npad = im._npad_for(model.npixel, 2.0)
+    npad = im._npad_for(model.npixel, padding)
     uvw = vis.uvw_lambda[:, :, 0].reshape(-1, 3)
     u, v = im._pixels(uvw[:, 0], uvw[:, 1], npad, model.cellsize, False)
     p0, frac, _ = im._w_planes(uvw[:, 2], UNIT16_NW)
@@ -4708,13 +4733,13 @@ def unit_inputs16(vis, model, support, tile=None):
     return (u, v, weighted, p0, frac), kw, geo
 
 
-def unit_stream16(vis, model, support, tile=None):
+def unit_stream16(vis, model, support, tile=None, padding=2.0):
     """Phase 9's observation (UNIT16_TIMES integrations, or all of it) as
-    the tiled gridder's entry stream on linear w-planes at ``support``, in
-    the observation's precision, and its geometry."""
+    the tiled gridder's entry stream on linear w-planes at ``support`` and
+    ``padding``, in the observation's precision, and its geometry."""
     from ska_sdp_func_python_torch.ops.gridding_tiled import entry_stream
 
-    args, kw, geo = unit_inputs16(vis, model, support, tile)
+    args, kw, geo = unit_inputs16(vis, model, support, tile, padding)
     return entry_stream(*args, **kw), geo
 
 
@@ -5350,6 +5375,21 @@ def run_any_tile_plan(vis, model):
     return launches, rows
 
 
+def long_window_plan(uvw, base, support, tile, mode):
+    """Phase 18b's plan of the entries ``uvw`` at ``support`` on tiles of
+    ``tile`` cells, on ``mode`` ("linear" or "nearest") w-planes of the
+    flagship's geometry ``base`` (flagship_geometry)."""
+    from ska_sdp_func_python_torch.ops.gridding_plan import make_grid_plan
+    from ska_sdp_func_python_torch.ops.imaging import _w_planes
+
+    geo = at_support(base, support)
+    npad, scale = geo["npad"], geo["npad"] * geo["cellsize"]
+    p0, frac, _ = _w_planes(uvw[:, 2], geo["nw"], mode)
+    return make_grid_plan(-uvw[:, 0] * scale + npad // 2, uvw[:, 1] * scale + npad // 2,
+                          p0, frac, npixel=npad, support=support, nplanes=geo["nw"],
+                          tile=tile, beta=geo["beta"])
+
+
 def run_long_windows(vis, model):
     """Phase 18b: K1 and K3 at windows past 64 cells on the flagship's
     first million entries, at the (support, tile) pairs of WIDE18, linear
@@ -5362,8 +5402,7 @@ def run_long_windows(vis, model):
     import torch
 
     from ska_sdp_func_python_torch.ops.gridding_plan import (
-        degrid_with_plan, grid_with_plan, make_grid_plan, sort_values)
-    from ska_sdp_func_python_torch.ops.imaging import _w_planes
+        degrid_with_plan, grid_with_plan, sort_values)
 
     t0 = time.perf_counter()
     weighted = (vis.vis * vis.imaging_weight)[:, :, 0, 0].reshape(-1)
@@ -5374,17 +5413,11 @@ def run_long_windows(vis, model):
     rows = {}
     base = flagship_geometry(vis, model)
     for support, tile in WIDE18:
-        geo = at_support(base, support)
-        npad, scale = geo["npad"], geo["npad"] * geo["cellsize"]
-        for nearest in (False, True):
-            mode = "nearest" if nearest else "linear"
-            p0, frac, _ = _w_planes(uvw[:, 2], geo["nw"], mode)
-            gp = make_grid_plan(-uvw[:, 0] * scale + npad // 2, uvw[:, 1] * scale + npad // 2,
-                                p0, frac, npixel=npad, support=support, nplanes=geo["nw"],
-                                tile=tile, beta=geo["beta"])
+        for mode in ("linear", "nearest"):
+            gp = long_window_plan(uvw, base, support, tile, mode)
             label = f"18b flagship 1M subset support {support} {mode} tile {tile}"
             g = torch.Generator(device=weighted.device).manual_seed(support)
-            grids = torch.randn((gp.nplanes, npad, npad), generator=g,
+            grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g,
                                 device=weighted.device, dtype=torch.complex64)
             _, counts = _main_path_twice(
                 label, ("grid", "degrid", "permute"),
@@ -5423,12 +5456,13 @@ def run_any_support_unit(cfg, device):
     """Phase 18c-d: ``tiled_grid`` on phase 16b's full-width stream (phase
     9's whole observation, padding 2, 2048^2) with one tile the whole grid
     (UNIT18_TILE_FULL) at the supports of UNIT18_FULL, f32 and f64, where
-    no cluster's bands hold one window's rows (c); then at the supports of
-    UNIT18 (past 64, and 1) on tile UNIT18_TILE, on 16b's stream cut to
+    no cluster's bands hold one window's rows (c); then at the (support,
+    tile, padding) of UNIT18 (past 64, 1, and past the largest window a
+    cluster holds) on 16b's stream cut to
     UNIT16_TIMES integrations (d). Each twice (the launch counters reset
     just before and read just after; K9 launched, the same bits) and K9's
-    device-memory route against its plain version (compare_unit_tiles): in
-    (c) the plain version at the API's tile 64, whose grids equal the plain
+    route 4 against its plain version (compare_unit_tiles): in (c) the
+    plain version at the API's tile 64, whose grids equal the plain
     version's at one tile the grid (the same sums, partitioned otherwise:
     tests/test_torch_any_support.py), since the dense plain form at tile
     2048 takes minutes; in f64 accumulated in f64 (1e-12), in f32 in (c)
@@ -5447,20 +5481,22 @@ def run_any_support_unit(cfg, device):
     for name, dtype, tol, peak in (("f32", torch.float32, KERNELS["unit_tiles"][0], PEAK_F32_S),
                                    ("f64", torch.float64, UNIT_TILES_F64_TOL, PEAK_F64_S)):
         f64 = int(dtype == torch.float64)
-        for part, ntimes, supports, tile in (("c", None, UNIT18_FULL, UNIT18_TILE_FULL),
-                                             ("d", UNIT16_TIMES, UNIT18, UNIT18_TILE)):
+        if not any(s > 1 and not kernels.query("ska_unit_tiles_band_geometry", s, t, f64, 0)
+                   for s, t, _ in UNIT18):
+            raise AssertionError(f"18d {name}: no case runs route 4's device-memory walk")
+        for part, ntimes, cases in (
+                ("c", None, [(s, UNIT18_TILE_FULL, 2.0) for s in UNIT18_FULL]),
+                ("d", UNIT16_TIMES, UNIT18)):
             vis, model, _, _ = observation9(cfg, device, dtype,
                                             **({} if ntimes is None else {"ntimes": ntimes}))
             where = "full stream" if ntimes is None else f"{ntimes} integrations"
-            for support in supports:
-                args, kw, geo = unit_inputs16(vis, model, support, tile)
-                label = f"18{part} {name} support {support} tile {tile} {where}"
+            for support, tile, padding in cases:
+                args, kw, geo = unit_inputs16(vis, model, support, tile, padding)
+                grid_at = "" if padding == 2.0 else f" padding {padding} ({geo['npixel']}^2)"
+                label = f"18{part} {name} support {support} tile {tile} {where}{grid_at}"
                 route = kernels.query("ska_unit_tiles_route", support, tile, f64)
-                say(f"{label}: route {route} (4: device memory); a CTA "
-                    + ", ".join(f"{what} {kernels.query('ska_unit_tiles_dev_geometry', support, f64, w)}"
-                                for w, what in enumerate(("threads", "shared bytes", "walks",
-                                                          "rows a thread", "entries a batch",
-                                                          "CTAs a walk"))))
+                say(f"{label}: route {route} (4: sub-tiles over a cluster); "
+                    f"{band_geometry(support, tile, f64)}")
                 if route != 4:
                     raise AssertionError(f"{label}: route {route}")
                 _, counts = _main_path_twice(
@@ -5468,11 +5504,11 @@ def run_any_support_unit(cfg, device):
                 for k in launches:
                     launches[k] += counts[k]
                 del args
-                stream, geo = unit_stream16(vis, model, support, tile)
+                stream, geo = unit_stream16(vis, model, support, tile, padding)
                 plain_at = unit_stream16(vis, model, support) if part == "c" else None
                 row = compare_unit_tiles(stream, geo, label, tol, peak, plain_at=plain_at,
                                          reps=3, plain_f64=bool(f64) or part == "c")
-                rows[f"{name} support {support} tile {tile} {where}"] = row
+                rows[f"{name} support {support} tile {tile} {where}{grid_at}"] = row
                 if part == "d" and not f64:
                     f32_taps_deviation(stream, geo, label)
                 del stream, plain_at

@@ -71,12 +71,32 @@
 // plane pair, a broadcast load of kv a row, the lanes past the span idle,
 // with 16 warps an SM to hide their latencies.
 //
-// Windows past 64 cells (supports 65 to the tile) take degrid_long_kernel:
-// a warp an entry, walking the window in pieces of 32 columns and groups
-// of 32 rows straight from device memory (L1 and L2 serve the overlap of
-// consecutive entries' windows, which the walk order keeps close), with a
-// reduction over the lanes in a fixed order. ska_degrid_route names the
-// route of a span.
+// Windows past 64 cells (supports 65 to the tile) take degrid_long_kernel,
+// the wide variant's design past a box that fits: a CTA of 512 threads
+// serves 1024 consecutive walk positions in pieces, each the longest run
+// of positions on one plane whose windows' box is at most four bands (at
+// 128 cells a window alone is 256 KiB on a plane pair, more than a
+// block's shared memory), and stages the box into shared memory band
+// after band of rows (198 KiB a band) with cp.async. Every entry whose
+// window meets the band takes the band's rows of it, clipped: lane x holds
+// columns x + 32 c of the window rows (c < 3 to 5, by span, so that the
+// lanes cover the window and 16 columns or more of corner spread in one
+// pass; spans past 144 in chunks of 160 columns), and two entries of one
+// corner row whose corners lie that close share the pass. A lane's kv tap
+// of 32 rows goes round by a shuffle, the ku taps are read once a band.
+// Each band's value of an entry comes from one transposed reduction over
+// the warp, and one lane adds it to the entry's sum in shared memory, band
+// after band, so two launches give the same bits. ska_degrid_route names
+// the route of a span, ska_degrid_long_geometry this kernel's geometry.
+// What holds it (NVIDIA H100 80GB HBM3, 700 W; route4_designs.py,
+// PERF.md): 4.6-5.9 times its bound on phase 18's streams at 72-128 cells,
+// 2.3-5.3 times faster than the design it replaced (a warp an entry,
+// every window row from device memory, most lanes idle in its last piece
+// of 32 columns); the pieces' scan and staging take 2-7% of it, the
+// passes over the band's rows the rest: two shared loads for four (two
+// entries) FMAs a column and plane, the shuffled kv taps, the lanes past
+// the run's span idle. Runs of 4 and 8 entries on 256 threads were 5-17%
+// faster past 97 cells and 9-31% slower at 72, and were not kept.
 #include "common.cuh"
 
 namespace {
@@ -518,21 +538,230 @@ __global__ void __launch_bounds__(kWideThreads, 1)
 }
 
 // ---------------------------------------------------------------------------
-// Windows past 64 cells: a warp an entry.
+// Windows past 64 cells: the piece's window rows staged in bands.
 
-constexpr int kLongThreads = 256;
+constexpr int kLongThreads = 512;  // 16 warps; one CTA an SM
 constexpr int kLongWarps = kLongThreads / 32;
+constexpr int kLongBlock = 1024;   // walk positions of a CTA
+constexpr int kLongRun = 2;        // the most entries of a run
+constexpr int kLongBands = 4;      // a piece's box is at most this many bands
+// float2 cells of a band: what a block's shared memory holds beside the
+// block's fields and partial sums, the scan and the piece (198 KiB)
+constexpr int kLongBandCells = (232448 - 28 * kLongBlock - 24 * kLongWarps - 24) / 8;
 
-// Warp t of the launch serves walk position t of its channel (blockIdx.y):
-// its entry's window is walked a piece of 32 columns at a time, lane x
-// reading column x of the piece on every row (one coalesced 256-byte read
-// a row and plane), each row weighted by its kv tap, which lane r of a
-// group of 32 rows loads and a shuffle hands round. Each lane then weights
-// its column sums by its ku tap and the plane weights and adds them to its
-// running sum, piece after piece; five xor-shuffles reduce the warp's
-// lanes, in the same order on every launch. W: the tap rows' width.
-template <bool kWStacked>
-__global__ void __launch_bounds__(kLongThreads)
+struct LongSmem {
+  float2 box[kLongBandCells];  // [planes][band rows][cols]: a band of the piece's box
+  int e[kLongBlock];           // the block's entries: index in the channel's plan,
+  int u[kLongBlock];           // window corner,
+  int v[kLongBlock];
+  int p[kLongBlock];           // lower plane
+  float f[kLongBlock];         // and plane fraction
+  float2 acc[kLongBlock];      // each position's value, summed band by band
+  int scan[kLongWarps][6];
+  int piece[6];  // size, umin, vmin, rows, cols, plane
+};
+static_assert(sizeof(LongSmem) <= 232448, "LongSmem exceeds a block's shared memory");
+
+// Columns a lane holds in a pass over a run's rows: the window and at
+// least 16 columns of corner spread in 32 kCols columns, at most 5 (spans
+// past 144 take their columns in chunks of 160)
+inline int long_cols(int span) { return span + 16 <= 96 ? 3 : span + 16 <= 128 ? 4 : 5; }
+
+// Chunks of 32 kCols columns a run's pass takes: one up to a span of 144
+__host__ __device__ inline int long_chunks(int span, int cols) {
+  return (span + 16 + 32 * cols - 1) / (32 * cols);
+}
+
+// The piece of the block from position pos: the longest run (at most one
+// entry a thread, at least one) of entries on one plane whose windows'
+// bounding box is at most kLongBands bands.
+__device__ __forceinline__ void long_piece(LongSmem& sm, int pos, int cnt, int span, int np) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int j = pos + tid;
+  const bool has = j < cnt;
+  int b[6];  // umin, -umax, vmin, -vmax, pmin, -pmax
+  b[0] = has ? sm.u[j] : INT_MAX;
+  b[1] = has ? -sm.u[j] : INT_MAX;
+  b[2] = has ? sm.v[j] : INT_MAX;
+  b[3] = has ? -sm.v[j] : INT_MAX;
+  b[4] = has ? sm.p[j] : INT_MAX;
+  b[5] = has ? -sm.p[j] : INT_MAX;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) {
+      const int x = __shfl_up_sync(0xffffffffu, b[k], o);
+      if (lane >= o) b[k] = min(b[k], x);
+    }
+  if (lane == 31)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) sm.scan[warp][k] = b[k];
+  __syncthreads();
+  for (int w = 0; w < warp; ++w)
+#pragma unroll
+    for (int k = 0; k < 6; ++k) b[k] = min(b[k], sm.scan[w][k]);
+  const int rows = span - b[3] - b[2];
+  const int cols = span - b[1] - b[0];
+  const long long cells = (long long)np * rows * cols;
+  // the box grows with the prefix, so the prefixes that fit are the first
+  const bool fits =
+      has && (tid == 0 || (b[4] == -b[5] && cells <= (long long)kLongBands * kLongBandCells));
+  const int size = __syncthreads_count(fits);
+  if (tid == size - 1) {
+    sm.piece[0] = size;
+    sm.piece[1] = b[0];
+    sm.piece[2] = b[2];
+    sm.piece[3] = rows;
+    sm.piece[4] = cols;
+    sm.piece[5] = b[4];
+  }
+  __syncthreads();
+}
+
+// One warp serves the run of m (1 or 2) entries at positions [j, j + m)
+// on the band's rows [ra, rb) of their windows (one corner row v0,
+// corners within [ulo, ulo + spread], spread + span <= 32 kCols chunks):
+// lane x holds columns ulo + x + 32 c of chunk ch (c < kCols) of those rows,
+// read from g0 (window row ra at column ulo; row stride ld, upper plane at
+// + pstride, cmax readable columns) once for both entries, each entry
+// weighting it by its kv tap (a lane's tap of 32 rows handed round by a
+// shuffle) and then, column by column, by its ku tap and the plane
+// weights. A transposed reduction over the warp gives each entry's value
+// on these rows, which one lane adds to the entry's sum in shared memory.
+template <int kCols, bool kWStacked>
+__device__ __forceinline__ void long_run(LongSmem& sm, int j, int m, int ulo, int ra, int rb,
+                                         const float2* g0, int ld, int pstride, int cmax,
+                                         const float* __restrict__ ku,
+                                         const float* __restrict__ kv, long long base, int W,
+                                         int span, int nch) {
+  constexpr int kRows = kCols <= 3 ? 4 : 2;  // rows of loads in flight
+  const int lane = threadIdx.x & 31;
+  const float* kvp[kLongRun];
+  const float* kup[kLongRun];
+  int off[kLongRun];  // the entry's first window column from ulo
+  float fs[kLongRun];
+#pragma unroll
+  for (int t = 0; t < kLongRun; ++t) {
+    const int jj = j + (t < m ? t : 0);
+    const long long i = base + sm.e[jj];
+    kvp[t] = kv + i * W;
+    kup[t] = ku + i * W;
+    off[t] = sm.u[jj] - ulo;
+    fs[t] = kWStacked ? sm.f[jj] : 0.f;
+  }
+  // value 2t is entry t's real part, 2t + 1 its imaginary part
+  float val[2 * kLongRun];
+#pragma unroll
+  for (int q = 0; q < 2 * kLongRun; ++q) val[q] = 0.f;
+#pragma unroll 1
+  for (int ch = 0; ch < nch; ++ch) {
+    const int cb = ch * 32 * kCols;  // the chunk's first column from ulo
+    bool colok[kCols];
+#pragma unroll
+    for (int c = 0; c < kCols; ++c) colok[c] = cb + lane + 32 * c < cmax;
+    float acc[kLongRun][kCols][4];
+#pragma unroll
+    for (int t = 0; t < kLongRun; ++t)
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) acc[t][c][0] = acc[t][c][1] = acc[t][c][2] = acc[t][c][3] = 0.f;
+    const float2* gl = g0 + cb + lane;
+#pragma unroll 1
+    for (int rg = ra; rg < rb; rg += 32) {
+      const int nr = min(32, rb - rg);
+      // lane r holds row rg + r's kv tap of each entry
+      float kvl[kLongRun];
+#pragma unroll
+      for (int t = 0; t < kLongRun; ++t) kvl[t] = t < m && lane < nr ? kvp[t][rg + lane] : 0.f;
+      const float2* gr = gl + (size_t)(rg - ra) * ld;
+#pragma unroll 1
+      for (int r0 = 0; r0 < nr; r0 += kRows) {
+        float2 lo[kRows][kCols], hi[kRows][kCols];
+#pragma unroll
+        for (int q = 0; q < kRows; ++q)
+#pragma unroll
+          for (int c = 0; c < kCols; ++c) {
+            const bool in = colok[c] && r0 + q < nr;
+            const float2* s = gr + (r0 + q) * ld + 32 * c;
+            lo[q][c] = in ? s[0] : make_float2(0.f, 0.f);
+            if (kWStacked) hi[q][c] = in ? s[pstride] : make_float2(0.f, 0.f);
+          }
+#pragma unroll
+        for (int t = 0; t < kLongRun; ++t) {
+          if (t >= m) break;  // uniform in the warp
+#pragma unroll
+          for (int q = 0; q < kRows; ++q) {
+            // rows past nr load zero, and their tap is zero
+            const float k = __shfl_sync(0xffffffffu, kvl[t], r0 + q);
+#pragma unroll
+            for (int c = 0; c < kCols; ++c) {
+              acc[t][c][0] = fmaf(lo[q][c].x, k, acc[t][c][0]);
+              acc[t][c][1] = fmaf(lo[q][c].y, k, acc[t][c][1]);
+              if (kWStacked) {
+                acc[t][c][2] = fmaf(hi[q][c].x, k, acc[t][c][2]);
+                acc[t][c][3] = fmaf(hi[q][c].y, k, acc[t][c][3]);
+              }
+            }
+          }
+        }
+      }
+    }
+    // each lane's share of every entry: its columns weighted by ku and the
+    // planes
+#pragma unroll
+    for (int t = 0; t < kLongRun; ++t) {
+      if (t >= m) break;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const int x = cb + lane + 32 * c - off[t];  // the column in entry t's window
+        if (x < 0 || x >= span) continue;
+        const float kx = kup[t][x];
+        float ar = acc[t][c][0] * kx, ai = acc[t][c][1] * kx;
+        if (kWStacked) {
+          const float w0 = 1.f - fs[t];
+          ar = ar * w0 + (acc[t][c][2] * kx) * fs[t];
+          ai = ai * w0 + (acc[t][c][3] * kx) * fs[t];
+        }
+        val[2 * t] += ar;
+        val[2 * t + 1] += ai;
+      }
+    }
+  }
+  // transposed reduction: at each of the first two steps a lane keeps half
+  // of its values and adds its partner's share of them, so lane L ends
+  // with value L >> 3 summed over the warp
+  int n = 2 * kLongRun;
+#pragma unroll
+  for (int o = 16; o >= 1; o >>= 1) {
+    if (n > 1) {
+      const bool up = lane & o;
+#pragma unroll
+      for (int i = 0; i < kLongRun; ++i) {
+        if (i >= n / 2) break;
+        const float send = up ? val[i] : val[i + n / 2];
+        const float keep = up ? val[i + n / 2] : val[i];
+        val[i] = keep + __shfl_xor_sync(0xffffffffu, send, o);
+      }
+      n /= 2;
+    } else {
+      val[0] += __shfl_xor_sync(0xffffffffu, val[0], o);
+    }
+  }
+  const int idx = lane >> 3;
+  if ((lane & 7) == 0 && (idx >> 1) < m)
+    reinterpret_cast<float*>(sm.acc)[2 * (j + (idx >> 1)) + (idx & 1)] += val[0];
+}
+
+// kCols: columns a lane holds in a pass (long_cols). A CTA serves
+// kLongBlock consecutive walk positions of its channel (blockIdx.y) in
+// pieces (long_piece); each piece's box is staged band after band of rows
+// (as many as a band's cells hold at the box's width), both planes of a
+// pair, and every entry whose window meets the band takes that band's
+// rows of it: the warps take kLongRun positions at a time, and two
+// entries of one corner row whose corners lie within the slack share a
+// pass (long_run). Each entry's value is the sum of its bands' values,
+// added band after band by one lane, so two launches give the same bits.
+template <int kCols, bool kWStacked>
+__global__ void __launch_bounds__(kLongThreads, 1)
     degrid_long_kernel(const float2* __restrict__ grid, const int* __restrict__ iu0,
                        const int* __restrict__ iv0, const int* __restrict__ plane,
                        const float* __restrict__ frac, const float* __restrict__ ku,
@@ -540,65 +769,84 @@ __global__ void __launch_bounds__(kLongThreads)
                        const int* __restrict__ n_in_c, long long n_in0,
                        float2* __restrict__ out, long long n, int npix, int nplanes,
                        int span, int W) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  LongSmem& sm = *reinterpret_cast<LongSmem*>(smem_raw);
+  constexpr int np = kWStacked ? 2 : 1;
   const int c = blockIdx.y;
-  const int lane = threadIdx.x & 31;
-  const long long t = (long long)blockIdx.x * kLongWarps + (threadIdx.x >> 5);
-  if (t >= n) return;  // whole warps
+  const int tid = threadIdx.x;
   const long long base = (long long)c * n;
   const long long n_in = n_in_c ? (long long)n_in_c[c] : n_in0;
-  if (t >= n_in) {
-    if (lane == 0) out[base + t] = make_float2(0.f, 0.f);
-    return;
+  const long long p0 = (long long)blockIdx.x * kLongBlock;
+  for (int k = tid; k < kLongBlock; k += kLongThreads) {
+    const long long pt = p0 + k;
+    if (pt < n_in) {
+      const int e = korder[base + pt];
+      const long long i = base + e;
+      sm.e[k] = e;
+      sm.u[k] = iu0[i];
+      sm.v[k] = iv0[i];
+      sm.p[k] = plane[i];
+      sm.f[k] = kWStacked ? frac[i] : 0.f;
+    } else if (pt < n) {
+      out[base + pt] = make_float2(0.f, 0.f);
+    }
   }
-  const long long i = base + korder[base + t];
+  const int cnt = (int)max(0LL, min((long long)kLongBlock, n_in - p0));
+  if (cnt == 0) return;  // the whole CTA
   const int plane_size = npix * npix;
-  const float2* w = grid + (size_t)c * nplanes * plane_size +
-                    (plane[i] * plane_size + iv0[i] * npix + iu0[i]);
-  const float* kvr = kv + i * W;
-  const float* kur = ku + i * W;
-  const float f = kWStacked ? frac[i] : 0.f;
-  float sr = 0.f, si = 0.f;
-  for (int x0 = 0; x0 < span; x0 += 32) {
-    const int x = x0 + lane;
-    const bool col = x < span;
-    float lr = 0.f, li = 0.f, hr = 0.f, hq = 0.f;
-    for (int r0 = 0; r0 < span; r0 += 32) {
-      const float kvl = r0 + lane < span ? kvr[r0 + lane] : 0.f;
-      const int nr = min(32, span - r0);
-      const float2* q = w + (size_t)r0 * npix + x;
-#pragma unroll 8
-      for (int rr = 0; rr < nr; ++rr) {
-        const float k = __shfl_sync(0xffffffffu, kvl, rr);
-        if (col) {
-          const float2 lo = q[(size_t)rr * npix];
-          lr = fmaf(lo.x, k, lr);
-          li = fmaf(lo.y, k, li);
-          if (kWStacked) {
-            const float2 hi = q[(size_t)rr * npix + plane_size];
-            hr = fmaf(hi.x, k, hr);
-            hq = fmaf(hi.y, k, hq);
+  const float2* gc = grid + (size_t)c * nplanes * plane_size;
+  const int warp = tid >> 5, lane = tid & 31;
+  const int nch = long_chunks(span, kCols);
+  const int slack = 32 * kCols * nch - span;  // corner spread one pass covers
+  __syncthreads();
+  for (int pos = 0; pos < cnt;) {
+    long_piece(sm, pos, min(cnt, pos + kLongThreads), span, np);
+    const int size = sm.piece[0];
+    const int umin = sm.piece[1], vmin = sm.piece[2];
+    const int rows = sm.piece[3], cols = sm.piece[4], pl = sm.piece[5];
+    const int pend = pos + size;
+    for (int k = pos + tid; k < pend; k += kLongThreads) sm.acc[k] = make_float2(0.f, 0.f);
+    // band height: the rows of the box's width that a band holds
+    const int hmax = min(rows, kLongBandCells / (np * cols));
+    for (int y0 = 0; y0 < rows; y0 += hmax) {
+      const int hb = min(hmax, rows - y0);
+      const int bv = vmin + y0;  // the band's first grid row
+      __syncthreads();  // the previous band is served (and the sums zeroed)
+      for (int pr = warp; pr < np * hb; pr += kLongWarps) {
+        const int hi = pr >= hb;
+        const float2* src = gc + (size_t)(pl + hi) * plane_size +
+                            (size_t)(bv + pr - hi * hb) * npix + umin;
+        for (int x = lane; x < cols; x += 32) ska_cp_async<8>(&sm.box[pr * cols + x], src + x);
+      }
+      ska_cp_async_commit();
+      ska_cp_async_wait_all();
+      __syncthreads();
+      for (int q0 = pos + warp * kLongRun; q0 < pend; q0 += kLongWarps * kLongRun) {
+        const int qend = min(q0 + kLongRun, pend);
+        for (int j = q0; j < qend;) {
+          const int v0 = sm.v[j];
+          // the window's rows in the band
+          const int ra = max(0, bv - v0), rb = min(span, bv + hb - v0);
+          if (ra >= rb) {
+            ++j;
+            continue;
           }
+          int ulo = sm.u[j], m = 1;
+          if (j + 1 < qend && sm.v[j + 1] == v0 && abs(sm.u[j + 1] - ulo) <= slack) {
+            ulo = min(ulo, sm.u[j + 1]);
+            m = 2;
+          }
+          long_run<kCols, kWStacked>(sm, j, m, ulo, ra, rb,
+                                     &sm.box[(v0 + ra - bv) * cols + ulo - umin], cols,
+                                     hb * cols, cols - (ulo - umin), ku, kv, base, W, span, nch);
+          j += m;
         }
       }
     }
-    if (col) {
-      const float kx = kur[x];
-      float ar = lr * kx, ai = li * kx;
-      if (kWStacked) {
-        const float w0 = 1.f - f;
-        ar = ar * w0 + (hr * kx) * f;
-        ai = ai * w0 + (hq * kx) * f;
-      }
-      sr += ar;
-      si += ai;
-    }
+    __syncthreads();  // every band's sums are in
+    for (int k = pos + tid; k < pend; k += kLongThreads) out[base + sm.e[k]] = sm.acc[k];
+    pos = pend;
   }
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    sr += __shfl_xor_sync(0xffffffffu, sr, o);
-    si += __shfl_xor_sync(0xffffffffu, si, o);
-  }
-  if (lane == 0) out[i] = make_float2(sr, si);
 }
 
 // How ska_degrid serves windows of `span` cells: 1 the narrow kernel (16
@@ -629,9 +877,17 @@ SKA_EXPORT int ska_degrid(const void* grid, const void* iu0, const void* iv0,
   if (n == 0 || nchan == 0) return 0;
   const dim3 grd((unsigned)((n + kThreads - 1) / kThreads), (unsigned)nchan);
   if (route == 4) {
-    auto lng = wstacked ? degrid_long_kernel<true> : degrid_long_kernel<false>;
-    const dim3 grl((unsigned)((n + kLongWarps - 1) / kLongWarps), (unsigned)nchan);
-    lng<<<grl, kLongThreads, 0, (cudaStream_t)stream>>>(
+    const int kc = long_cols(support);
+    auto lng = wstacked ? degrid_long_kernel<5, true> : degrid_long_kernel<5, false>;
+    if (kc == 3)
+      lng = wstacked ? degrid_long_kernel<3, true> : degrid_long_kernel<3, false>;
+    else if (kc == 4)
+      lng = wstacked ? degrid_long_kernel<4, true> : degrid_long_kernel<4, false>;
+    const cudaError_t e = cudaFuncSetAttribute(
+        lng, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)sizeof(LongSmem));
+    if (e != cudaSuccess) return (int)e;
+    const dim3 grl((unsigned)((n + kLongBlock - 1) / kLongBlock), (unsigned)nchan);
+    lng<<<grl, kLongThreads, sizeof(LongSmem), (cudaStream_t)stream>>>(
         (const float2*)grid, (const int*)iu0, (const int*)iv0,
         (const int*)plane, (const float*)frac, (const float*)ku,
         (const float*)kv, (const int*)korder, (const int*)n_in, n_in0,
@@ -681,4 +937,17 @@ SKA_EXPORT int ska_degrid_route(int span) { return degrid_route(span); }
 SKA_EXPORT int ska_degrid_wide_geometry(int what) {
   const int v[] = {kWideThreads, (int)sizeof(WideSmem), kWideBlock};
   return what >= 0 && what < 3 ? v[what] : 0;
+}
+
+// The long-window kernel's launch geometry at windows of `span` cells
+// (past 64): what 0 the threads of a CTA, 1 its dynamic shared bytes, 2
+// the walk positions it serves, 3 the columns a lane holds in a pass, 4
+// the passes (chunks of columns) a run takes, 5 the float2 cells of a
+// band; 0 past them or at 64 cells or fewer.
+SKA_EXPORT int ska_degrid_long_geometry(int span, int what) {
+  if (degrid_route(span) != 4) return 0;
+  const int kc = long_cols(span);
+  const int v[] = {kLongThreads, (int)sizeof(LongSmem), kLongBlock, kc, long_chunks(span, kc),
+                   kLongBandCells};
+  return what >= 0 && what < 6 ? v[what] : 0;
 }

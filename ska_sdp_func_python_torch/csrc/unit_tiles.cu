@@ -114,7 +114,7 @@
 // the longest stretch of them whose windows (S + 1 rows, one early where
 // a corner is an integer with a negative residual) the bands hold, with
 // its own units in f64; a tile whose bands cannot hold one window takes
-// the device-memory route below. Even supports to 16
+// route 4 below. Even supports to 16
 // take this variant too on tiles the narrow kernel cannot hold (past
 // 97-115 cells in f32, 64-81 in f64), chosen by geometry before the launch
 // (unit_tiles_route). The conversion is the narrow kernel's, and a launch
@@ -134,18 +134,43 @@
 // with its flushes compiled out: its walk bound it (f64: also its
 // serial taps).
 //
-// Support 1, supports past 64 (up to the tile) and tiles of which a
-// cluster's bands cannot hold one window's rows (3494 cells at support 24
-// in f32 down to 1530 at 64 in f64) take unit_tiles_dev_kernel, the
-// device-memory route: the wide variant's taps (stage 1, the same
-// operations) and walk (period S, K rows of a column a thread, K 8 past
-// 64), with no shared tile: each register run goes straight into the
-// fixed-point grids in device memory, one 64-bit integer add in f32, the
-// 128-bit pair with its carry in f64, so a launch gives the same bits on
-// every run. A walk whose classes need more threads than a CTA runs
-// (support 128 at K 8: 2048) is split in slices of a CTA's threads,
-// blockIdx.y, each slice taking the same entries. At support 1 the ES
-// kernel of half width 0 is zero, and the grids are.
+// Supports past 64 (up to the tile) and tiles of which a cluster's bands
+// cannot hold one window's rows (3494 cells at support 24 in f32 down to
+// 1530 at 64 in f64) take route 4, unit_tiles_band_kernel: the wide
+// variant's walks, integer cells and flushes on sub-tiles of the tile that
+// the kernel picks, tr rows by tc columns of window corners (64 columns,
+// 128 past a support of 64), whose cells and halo, every window of their
+// entries whole, a cluster holds in bands of rows: one CTA at supports to
+// 64 (all flushes into the CTA's own shared memory), 4 or 8 past 64. A run
+// of units is served a sub-tile after another: a segment's entries follow
+// their window corner row by row, so a sub-tile's entries are one stretch
+// of the run on each corner row, found by binary search, and every entry
+// is walked once. Past 64 a walk of S x ceil(S / 8) classes (2048 at S
+// 128) is sliced over 2 to 8 CTAs of the cluster: stage 1 computes a
+// batch's taps once for the walk, spread over its CTAs, and writes them
+// into each of their shared memories through distributed shared memory
+// (one cluster barrier a batch); past 8 CTAs' threads a walk's threads
+// take its classes in passes. Flushes are adds on the cluster address,
+// each sub-tile goes into grid64 once, in one overlap-add, and f64 flushes
+// in the sub-tile's own units: a launch gives the same bits on every run.
+// Two designs were measured and dropped (route4_designs.py, PERF.md):
+// bands of the whole tile's width in turns, whose windows the bands clip
+// (at tile 2048 a cluster holds 48 rows; 7 of 8 flushes went into another
+// CTA's shared memory and each entry was walked in 2 to 3 turns), and each
+// CTA walking every entry for its own rows (a cluster barrier and the
+// shared taps' stores every few entries). A window no cluster holds (a
+// support past about 330) takes unit_tiles_dev_kernel, which adds every
+// register run into the fixed-point grids in device memory. At support 1
+// the ES kernel of half width 0 is zero, and so are the grids: nothing is
+// launched but the conversion.
+//
+// What holds route 4 on the card (NVIDIA H100 80GB HBM3, 700 W;
+// route4_designs.py, PERF.md): on phase 18's streams 7.9-15.3 times its
+// bound, 1.1-2.0 times faster than the device-memory design it replaced
+// but for sparse f32 streams past 64 (0.89-1.01 times). About half its
+// time is outside the walk: each sub-tile's binary searches, barriers,
+// zeroing and overlap-add, which thin runs (a few corner rows a cluster)
+// pay for few entries; then stage 1 (the f64 taps a fifth) and the walk.
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -1027,7 +1052,603 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
 }
 
 // ---------------------------------------------------------------------------
-// The device-memory route: every support from 1 to the tile, on any tile.
+// Route 4: supports past 64 and tiles of which no cluster's bands hold one
+// window's rows (support 1 launches nothing: its taps are zero).
+
+constexpr int kBandWaves = 16;  // about this many route-4 clusters an SM serves
+
+// Launch geometry of route 4's sub-tile kernel at support S on tiles of
+// `tile` cells: the walks (Romein's, at residue period S; a walk's classes
+// in slices over nsl CTAs where they outgrow one) and the integer cells of
+// a sub-tile of tr x tc window corners and its halo, held in bands of rows
+// by the cs CTAs of a cluster
+struct BandGeom {
+  int k;        // rows of one column a thread owns
+  int threads;  // of a CTA (0: no geometry fits)
+  int nbb;      // row blocks of a column: ceil(S / k)
+  int group;    // classes of one walk: S columns times nbb row blocks
+  int nsl;      // CTAs of one walk (1, 2, 4 or 8), each a slice of its classes
+  int walks;    // walks of a CTA (1 where a walk takes several CTAs)
+  int npass;    // passes of a walk's threads over its classes (past 8 CTAs' threads)
+  int stage;    // entries a walk takes a batch
+  int slots;    // entries whose taps a CTA holds a batch: its walks' batches
+  int nbuf;     // tap buffers: 2, one barrier a batch; 1, two
+  int sp;       // taps of a staged axis row (by residue class; 16-byte rows)
+  int rt, nr;   // stage 1: rt consecutive taps of an axis row a thread, nr such blocks a row
+  int cs;       // CTAs of a cluster: each holds a band of rb rows of the sub-tile
+  int tr, tc;   // window corners of a sub-tile: rows and columns
+  int rows;     // rows of a sub-tile held: tr + S + 1 (row 0 the margin)
+  int rb;
+  int ld;       // values a held row: tc + S + 1 (column 0 the margin), odd
+  size_t meta, mval, red, seg, acc, smem;  // byte offsets of the arrays; total
+};
+
+template <typename T>
+inline BandGeom band_geom(int S, int k, int threads, int nsl, int cs, int stage, int nbuf,
+                          int tr, int tc) {
+  BandGeom g;
+  g.k = k;
+  g.threads = threads;
+  g.nbb = (S + k - 1) / k;
+  g.group = S * g.nbb;
+  g.nsl = nsl;
+  g.walks = nsl > 1 ? 1 : threads / g.group;
+  g.npass = nsl > 1 ? (g.group + nsl * threads - 1) / (nsl * threads) : 1;
+  g.stage = stage;
+  g.slots = g.walks * stage;
+  g.nbuf = nbuf;
+  const int vec = 16 / (int)sizeof(T);
+  const int taps = S > g.nbb * k ? S : g.nbb * k;
+  g.sp = (taps + vec - 1) / vec * vec;
+  // the block of taps a stage-1 thread computes (the walk's nsl CTAs share
+  // a batch's taps), as the wide variant picks it
+  const int all = nsl * threads;
+  int best = 1 << 30;
+  for (int r = 1; r <= S; ++r) {
+    const int nr = (S + r - 1) / r;
+    const int rows = all / nr;
+    if (rows < 1) continue;
+    const int w = (2 * g.slots + rows - 1) / rows * (r + 1);
+    if (w <= best) {
+      best = w;
+      g.rt = r;
+    }
+  }
+  g.nr = (S + g.rt - 1) / g.rt;
+  g.cs = cs;
+  g.tr = tr;
+  g.tc = tc;
+  g.rows = tr + S + 1;
+  g.ld = (tc + S + 1) | 1;
+  g.rb = (g.rows + cs - 1) / cs;
+  // taps [nbuf][slots][kv, ku][sp]; meta [nbuf][slots] int4; mval
+  // [nbuf][slots][2]; red [2] int and one u64; seg [4][tr + 1] int (per
+  // corner row: its first entry in the sub-tile, the prefix of their
+  // counts, its first entry not yet served, its end); acc [re, im][rb][ld]
+  // int64
+  g.meta = align16((size_t)nbuf * g.slots * 2 * g.sp * sizeof(T));
+  g.mval = align16(g.meta + (size_t)nbuf * g.slots * 16);
+  g.red = align16(g.mval + (size_t)nbuf * g.slots * 2 * sizeof(T));
+  g.seg = g.red + 16;
+  g.acc = align16(g.seg + 4 * (size_t)(tr + 1) * sizeof(int));
+  g.smem = g.acc + 2 * (size_t)g.ld * sizeof(u64) * g.rb;
+  return g;
+}
+
+// The most window corner rows (up to the tile) of a sub-tile of tc columns
+// that cs CTAs hold beside their staging; 0 where not one
+template <typename T>
+inline BandGeom band_rows(int S, int tile, int k, int threads, int nsl, int cs, int stage,
+                          int nbuf, int tc) {
+  int lo = 0, hi = tile;  // the smem grows with tr
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (band_geom<T>(S, k, threads, nsl, cs, stage, nbuf, mid, tc).smem <= kMaxSmem) lo = mid;
+    else hi = mid - 1;
+  }
+  BandGeom g = band_geom<T>(S, k, threads, nsl, cs, stage, nbuf, lo > 0 ? lo : 1, tc);
+  if (lo == 0) g.threads = 0;
+  return g;
+}
+
+// Rows a thread and threads a CTA: the wide variant's choice up to a
+// support of 64; past it 8 rows a thread and a walk's classes over the
+// fewest CTAs (1, 2, 4 or 8) of at most the most threads, further passes
+// past 8. Sub-tiles of 64 corner columns (128 past a support of 64; the
+// tile where it is narrower) and the least cluster whose CTAs hold 32
+// corner rows (the tile's where fewer) beside batches of 16, 32 or 8
+// entries a walk, with the most rows it holds; failing that 8 CTAs and
+// the most rows beside smaller batches, on narrower sub-tiles if need be.
+// threads 0 where no cluster holds one window.
+template <typename T>
+inline BandGeom band_plan(int S, int tile) {
+  const bool f64 = sizeof(T) == 8;
+  const int most = wide_most(f64);
+  int k = 8, threads = most, nsl = 1;
+  if (S <= 64) {
+    wide_choice(S, f64, k, threads);
+  } else {
+    const int group = S * ((S + 7) / 8);
+    while (nsl < 8 && group > nsl * most) nsl *= 2;
+    const int per = (group + nsl - 1) / nsl;
+    threads = min(most, (per + 31) / 32 * 32);
+  }
+  const int tc = min(tile, S <= 64 ? 64 : 128);
+  const int want = min(tile, 32);
+  constexpr int kStages[] = {16, 32, 8};
+  for (int cs = nsl; cs <= 8; cs *= 2)
+    for (const int stage : kStages) {
+      const BandGeom g = band_rows<T>(S, tile, k, threads, nsl, cs, stage, 2, tc);
+      if (g.threads && g.tr >= want) return g;
+    }
+  for (int c = tc; c >= 1; c /= 2)
+    for (int stage = 8; stage >= 1; stage /= 2)
+      for (int nbuf = 2; nbuf >= 1; --nbuf) {
+        const BandGeom g = band_rows<T>(S, tile, k, threads, nsl, 8, stage, nbuf, c);
+        if (g.threads) return g;
+      }
+  BandGeom g = band_geom<T>(S, k, threads, nsl, 8, 1, 1, 1, 1);
+  g.threads = 0;
+  return g;
+}
+
+// K rows of a column a thread. A cluster of gm.cs CTAs serves the units
+// [per c, per (c + 1)), one run of consecutive units of one segment at a
+// time, a sub-tile after another: gm.tr rows of window corners of the run
+// by gm.tc columns, its entries the run's stretch of each corner row with
+// its corner in those columns (a segment's entries follow their window
+// corner, row by row), found by binary search; its cells and halo, every
+// window of its entries whole, held in bands of rb rows over the
+// cluster's CTAs, with a margin row and column for the window's cell left
+// of the sub-tile. Each walk (Romein's, at period S; its classes in slices
+// over gm.nsl CTAs where they outgrow one, a thread's K rows of a column,
+// blk-major) takes a contiguous share of the sub-tile's entries; stage 1
+// computes each batch's taps once for the walk, spread over its CTAs, and
+// writes them into each of their shared memories (distributed shared
+// memory where the walk spans CTAs). A register run is flushed as one
+// 64-bit add on the cluster address (into the CTA's own shared memory
+// where one CTA holds the sub-tile), each sub-tile goes into grid64 once,
+// in one overlap-add, and f64 flushes in the sub-tile's own units, as the
+// wide variant's runs do.
+template <typename T, int K>
+__global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
+    unit_tiles_band_kernel(const T* __restrict__ u, const T* __restrict__ v,
+                           const T* __restrict__ vals, const T* __restrict__ ulo,
+                           const T* __restrict__ vlo, const int* __restrict__ unit_seg,
+                           const int* __restrict__ unit_start,
+                           const int* __restrict__ unit_count,
+                           const double* __restrict__ vsum, u64* __restrict__ grid64,
+                           int npix, int tile, int nta, int S, const BandGeom gm, int nunits,
+                           int per, T beta) {
+  constexpr int kW = Fixed<T>::kWords;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int cs = gm.cs;
+  const int rank = (int)cluster.block_rank();
+  const int threads = gm.threads;
+  const int tid = threadIdx.x;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* taps = reinterpret_cast<T*>(smem_raw);
+  int4* meta = reinterpret_cast<int4*>(smem_raw + gm.meta);
+  T* mval = reinterpret_cast<T*>(smem_raw + gm.mval);
+  int* red = reinterpret_cast<int*>(smem_raw + gm.red);
+  // [tr + 1] each: a corner row's first entry in the sub-tile, the prefix
+  // of their counts, its first entry not yet served, its end
+  int* first = reinterpret_cast<int*>(smem_raw + gm.seg);
+  int* pre = first + gm.tr + 1;
+  int* cur = pre + gm.tr + 1;
+  int* rowend = cur + gm.tr + 1;
+  u64* acc = reinterpret_cast<u64*>(smem_raw + gm.acc);
+  const int nb = gm.rb * gm.ld;  // values of one component's band
+  const int half = S / 2;
+  const int stage = gm.stage;
+  const int tr = gm.tr, tc = gm.tc;
+
+  const double total = vsum[0];
+  if (!isfinite(total)) return;  // the whole cluster leaves; the conversion writes NaN
+  const int kg = fixed_exponent<T>(total);
+  const double scale = ldexp(1.0, kg);
+  // an f32 sum times 2^kg is exact in f32 as in f64 and rounds to the same
+  // integer, where 2^kg is a float
+  const float unitf = kg <= 127 ? ldexpf(1.f, kg) : 0.f;
+  const int ntiles = nta * nta;
+
+  // the walk: CTAs [wbase, wbase + nsl) of the cluster each hold a slice of
+  // walk wid's classes; a CTA of one-CTA walks runs gm.walks of them
+  const int nsl = gm.nsl;
+  const int slice = rank % nsl;
+  const int wbase = rank - slice;
+  const int g = nsl > 1 ? 0 : tid / gm.group;
+  const int wid = nsl > 1 ? rank / nsl : rank * gm.walks + g;
+  const int nwalks = nsl > 1 ? cs / nsl : cs * gm.walks;
+  // stage-1 role: taps [r1, r2) of the batch's axis rows p1, p1 + pstep,
+  // ... (row 2 sl + axis: axis 0 the entry's v taps, 1 its u taps)
+  const int gtid = slice * threads + tid;
+  const int pstep = nsl * threads / gm.nr;
+  const int p1 = gtid / gm.nr;
+  const int r1 = (gtid - p1 * gm.nr) * gm.rt;
+  const int r2 = min(S, r1 + gm.rt);
+  const float rinv = 1.f / gm.rb;
+  // walk role in pass ps: the classes (a, b0 + j), j < nvalid (0: none)
+  int a = 0, b0 = 0, nvalid = 0;
+  auto role = [&](int ps) {
+    const int rr = nsl > 1 ? (ps * nsl + slice) * threads + tid : tid - g * gm.group;
+    const bool walker = nsl > 1 ? rr < gm.group : g < gm.walks;
+    const int blk = walker ? rr / S : 0;
+    a = walker ? rr - blk * S : 0;
+    b0 = blk * K;
+    nvalid = walker ? min(K, S - b0) : 0;
+  };
+  role(0);
+  // a barrier over the CTAs that share a batch's taps
+  auto batch_sync = [&]() {
+    if (nsl > 1)
+      cluster.sync();
+    else
+      __syncthreads();
+  };
+
+  const int c1 = min(nunits, (int)(blockIdx.x / cs + 1) * per);
+  for (int c0 = (blockIdx.x / cs) * per; c0 < c1;) {
+    // the run: units [c0, ce) of one segment, entries [rstart, rend)
+    const int seg = unit_seg[c0];
+    int ce = c0 + 1;
+    while (ce < c1 && unit_seg[ce] == seg &&
+           unit_start[ce] == unit_start[ce - 1] + unit_count[ce - 1])
+      ++ce;
+    const int rstart = unit_start[c0];
+    const int rend = unit_start[ce - 1] + unit_count[ce - 1];
+    c0 = ce;
+    const int plane = seg / ntiles;
+    const int t = seg - plane * ntiles;
+    const int tv0 = (t / nta) * tile;
+    const int tu0 = (t % nta) * tile;
+    // an entry's window corner, tile-relative: floor(pix) - (half - 1) - t0
+    // (one cell lower where the coordinate is an integer with a negative
+    // residual); the run follows the corners' rows, then their columns
+    const int rfirst = (int)floor_(v[rstart]) - (half - 1) - tv0;
+    const int rlast = (int)floor_(v[rend - 1]) - (half - 1) - tv0;
+    for (int R0 = rfirst; R0 <= rlast; R0 += tr) {
+      // each corner row's stretch of the run, [cur, rowend): its entries
+      // not yet served
+      __syncthreads();  // the previous sub-tile is done with cur and rowend
+      for (int i = tid; i < tr; i += threads) {
+        const int fv = R0 + i + (half - 1) + tv0;  // floor(v) of the corner row
+        int b[2];
+        for (int e = 0; e < 2; ++e) {
+          int l = e ? b[0] : rstart, h = rend;
+          while (l < h) {
+            const int mid = (l + h) >> 1;
+            if ((int)floor_(v[mid]) < fv + e) l = mid + 1;
+            else h = mid;
+          }
+          b[e] = l;
+        }
+        cur[i] = b[0];
+        rowend[i] = b[1];
+      }
+      for (int C0 = 0; C0 < tile; C0 += tc) {
+        // the sub-tile's entries: on corner row R0 + i, those left of column
+        // C0 + tc (the row's entries follow their corner's column)
+        __syncthreads();  // the previous sub-tile is done with first, pre, red and the band
+        for (int i = tid; i < tr; i += threads) {
+          const int fu = C0 + tc + (half - 1) + tu0;  // floor(u) past the sub-tile
+          const int lo = cur[i];
+          int l = lo, h = rowend[i];
+          while (l < h) {
+            const int mid = (l + h) >> 1;
+            if ((int)floor_(u[mid]) < fu) l = mid + 1;
+            else h = mid;
+          }
+          first[i] = lo;
+          pre[i + 1] = l - lo;
+          cur[i] = l;
+        }
+        __syncthreads();
+        if (tid == 0) {
+          // and the first and last corner rows with entries
+          red[0] = INT_MAX;
+          red[1] = -1;
+          pre[0] = 0;
+          for (int i = 0; i < tr; ++i) {
+            if (pre[i + 1] > 0) {
+              red[0] = min(red[0], i);
+              red[1] = i;
+            }
+            pre[i + 1] += pre[i];
+          }
+        }
+        __syncthreads();
+        const int count = pre[tr];
+        if (count == 0) continue;  // uniform: every CTA of the cluster skips it
+        // the sub-tile's i-th entry
+        auto entry = [&](int i) {
+          int l = 0, h = tr - 1;  // the corner row: pre[l] <= i < pre[l + 1]
+          while (l < h) {
+            const int mid = (l + h + 1) >> 1;
+            if (pre[mid] <= i) l = mid;
+            else h = mid - 1;
+          }
+          return first[l] + i - pre[l];
+        };
+        u64* rmax = reinterpret_cast<u64*>(red + 2);
+        __syncthreads();  // every thread has read pre[tr]
+        if (tid == 0) *rmax = 0ull;
+        __syncthreads();
+        double scl = scale;
+        int wshift = 0;
+        if constexpr (kW == 2) {
+          double vmax = 0.0;  // the sub-tile's largest |re| + |im|
+          for (int i = tid; i < count; i += threads) {
+            const int p = entry(i);
+            vmax = fmax(vmax, fabs((double)vals[2 * (size_t)p]) +
+                                  fabs((double)vals[2 * (size_t)p + 1]));
+          }
+          // non-negative doubles order as their bits
+          u64 bb = (u64)__double_as_longlong(vmax);
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            const u64 ob = __shfl_xor_sync(0xffffffffu, bb, o);
+            bb = ob > bb ? ob : bb;
+          }
+          if ((tid & 31) == 0) atomicMax(rmax, bb);
+          __syncthreads();
+          // the sub-tile's own units 2^-kr, 2^(61 - kr) above count x its
+          // largest value (every cell of the sub-tile), one int64 word a value
+          // in the band; the overlap-add puts them into the launch units,
+          // 2^wshift finer
+          int er = 0;
+          frexp((double)count * __longlong_as_double((long long)*rmax), &er);
+          const int kr = 61 - er;
+          scl = ldexp(1.0, kr);
+          wshift = kg - kr;
+        }
+        // the held rows the windows reach, [y0, y1) (a window of corner row i
+        // lies in held rows [i, i + S + 1), a row early where its corner is an
+        // integer with a negative residual); this CTA's band of them, from its
+        // first held row ys
+        const int y0 = red[0], y1 = min(gm.rows, red[1] + S + 1);
+        const int ys = rank * gm.rb;
+        const int z0 = max(y0, ys), z1 = min(y1, ys + gm.rb);
+        const int zn = max(0, z1 - z0) * gm.ld;
+        u64* zb = acc + (size_t)(z0 - ys) * gm.ld;
+        for (int c = 0; c < 2; ++c)
+          for (int i = tid; i < zn; i += threads) zb[(size_t)c * nb + i] = 0ull;
+        // every band is zero before any CTA of the cluster adds to it
+        cluster.sync();
+
+        // walk w of the cluster's nwalks takes the sub-tile's entries [w q,
+        // (w + 1) q)
+        const int q = (count + nwalks - 1) / nwalks;
+        const int nbatch = (q + stage - 1) / stage;
+        auto pos_of = [&](int k, int sl) {
+          const int w = nsl > 1 ? wid : rank * gm.walks + sl / stage;
+          const int i = w * q + k * stage + sl % stage;
+          return i < min((w + 1) * q, count) ? entry(i) : -1;
+        };
+        // a value stage 1 computed, into the walk's CTAs' shared memories
+        auto put = [&](auto* s, auto val) {
+          if (nsl == 1) {
+            *s = val;
+          } else {
+            for (int d = 0; d < nsl; ++d) *cluster.map_shared_rank(s, wbase + d) = val;
+          }
+        };
+        // stage 1: batch k's taps into buffer b, one tap an item, stored by
+        // residue class (tap r of a window starting at tile cell r0 is class
+        // (r0 + r) mod S), and each entry's corner in the sub-tile's held
+        // cells (from its margin row and column), residues and value. Only
+        // a tap left of cell 0 of the tile (r0 = -1, which the dense form
+        // does not have either) falls outside the tile; it lands in the
+        // margin and is dropped
+        auto stage1 = [&](int k, int b) {
+          T* tb = taps + (size_t)b * gm.slots * 2 * gm.sp;
+          int* mb = reinterpret_cast<int*>(meta + (size_t)b * gm.slots);
+          T* vb = mval + (size_t)b * gm.slots * 2;
+          if (p1 >= pstep) return;
+          for (int pr = p1; pr < 2 * gm.slots; pr += pstep) {
+            const int sl = pr >> 1;
+            const int axis = pr & 1;  // 0: v (rows), 1: u (columns)
+            const int p = pos_of(k, sl);
+            if (p < 0) continue;
+            const T pix = axis == 0 ? v[p] : u[p];
+            const T lo = ulo == nullptr ? T(0) : (axis == 0 ? vlo[p] : ulo[p]);
+            const int t0 = axis == 0 ? tv0 : tu0;
+            const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
+            const int r0 = (int)floor_(pix) - (half - 1) - shift - t0;
+            const int res = (r0 + S) % S;
+            const T d0 = sub_rn(T(t0), pix);
+            T* row = tb + (size_t)pr * gm.sp;
+            int c = res + r1;
+            c -= c >= S ? S : 0;
+            for (int r = r1; r < r2; ++r) {
+              put(row + c, es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(half), beta));
+              c = c == S - 1 ? 0 : c + 1;
+            }
+            if (r1 == 0) {
+              // int4 (ru, rv, u residue, v residue), the corners in held cells
+              put(mb + 4 * sl + 1 - axis, r0 + 1 - (axis == 0 ? R0 : C0));
+              put(mb + 4 * sl + 3 - axis, res);
+              if (axis == 0) {
+                put(vb + 2 * sl, vals[2 * (size_t)p]);
+                put(vb + 2 * sl + 1, vals[2 * (size_t)p + 1]);
+              }
+            }
+          }
+        };
+
+        const int gbeg = wid * q;
+        const int gend = min(gbeg + q, count);
+        // the run's column, corner row and its residue, entries since the last
+        // cut; the sums (re, im) of the K rows
+        int curx = -1, currv = 0, curres = 0, since = 0;
+        T sum[K][2];
+#pragma unroll
+        for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
+        auto row_of = [&](int rv, int res, int j) {
+          const int d = b0 + j - res;
+          return rv + (d < 0 ? d + S : d);
+        };
+        // integer adds commute: the tile is the same whatever their order
+        auto flush = [&](int j) {
+          const int y = row_of(currv, curres, j);  // the held row
+          const int dst = (int)(((float)y + 0.5f) * rinv);  // y / rb
+          const size_t vi = (size_t)(y - dst * gm.rb) * gm.ld + curx;
+          cluster_add(cluster, acc + vi, dst, sum[j][0], scl, unitf);
+          cluster_add(cluster, acc + nb + vi, dst, sum[j][1], scl, unitf);
+          sum[j][0] = sum[j][1] = T(0);
+        };
+        auto flush_all = [&]() {
+          if (curx >= 0) {
+#pragma unroll
+            for (int j = 0; j < K; ++j)
+              if (j < nvalid) flush(j);
+          }
+          curx = -1;
+        };
+
+        for (int k = 0; k < nbatch; ++k) {
+          const int b = k % gm.nbuf;
+          if (gm.nbuf == 1 && k > 0) batch_sync();  // the walks are done with batch k - 1
+          stage1(k, b);
+          // batch k's taps are visible; with two buffers, every thread is
+          // done with batch k - 1's
+          batch_sync();
+          const int nj = min(stage, gend - (gbeg + k * stage));
+          const size_t s0 = (size_t)b * gm.slots + (nsl > 1 ? 0 : (size_t)g * stage);
+          const T* tb = taps + s0 * 2 * gm.sp;
+          const int4* mb = meta + s0;
+          const T* vb = mval + s0 * 2;
+          for (int ps = 0; ps < gm.npass; ++ps) {
+            if (gm.npass > 1) {
+              role(ps);
+              since = 0;
+            }
+            if (nvalid > 0) {
+              for (int jj = 0; jj < nj; ++jj) {
+                const int4 m = mb[jj];
+                int dx = a - m.z;
+                dx += dx < 0 ? S : 0;
+                const int x = m.x + dx;
+                if (x != curx || since == kRunCap) {
+                  // the column moved (or the runs are kRunCap long): every
+                  // row's cell changes
+                  flush_all();
+                  curx = x;
+                  if (since == kRunCap) since = 0;  // every thread's runs end together
+                  currv = m.y;
+                  curres = m.w;
+                } else if (m.y != currv) {
+                  // the corner row moved: a row's cell changes where its row does
+#pragma unroll
+                  for (int j = 0; j < K; ++j)
+                    if (j < nvalid && row_of(currv, curres, j) != row_of(m.y, m.w, j)) flush(j);
+                  currv = m.y;
+                  curres = m.w;
+                }
+                ++since;
+                const T* tp = tb + (size_t)jj * 2 * gm.sp;
+                const T kx = tp[gm.sp + a];
+                const T lr = vb[2 * jj] * kx, li = vb[2 * jj + 1] * kx;
+                T ky[K];
+                load_rows<K>(tp + b0, ky);
+#pragma unroll
+                for (int j = 0; j < K; ++j) {
+                  sum[j][0] = fma_(ky[j], lr, sum[j][0]);
+                  sum[j][1] = fma_(ky[j], li, sum[j][1]);
+                }
+              }
+            }
+            // a pass's runs end with its batch where the walk takes several
+            if (gm.npass > 1) flush_all();
+          }
+        }
+        flush_all();
+        // every CTA's adds to this band are done
+        cluster.sync();
+
+        // overlap-add of the band: held cell (y, x) is the tile's (R0 - 1 + y,
+        // C0 - 1 + x); tile row or column -1 (a window a cell early at the
+        // tile's first row or column) is not the dense form's, untouched cells
+        // are zero and skipped, halo cells past the grid edge are zero (unit
+        // entries lie in the grid) and skipped
+        for (int i = tid; i < zn; i += threads) {
+          const int yy = i / gm.ld;
+          const int x = i - yy * gm.ld;
+          const int ty = R0 - 1 + z0 + yy, tx = C0 - 1 + x;
+          if (ty < 0 || tx < 0 || x >= tc + S + 1) continue;
+          const int gy = tv0 + ty;
+          const int gx = tu0 + tx;
+          if (gy >= npix || gx >= npix) continue;
+          const size_t vi = (size_t)(z0 - ys + yy) * gm.ld + x;
+          u64* gp = grid64 + 2 * kW * (((size_t)plane * npix + gy) * npix + gx);
+          if constexpr (kW == 1) {
+            words_add(gp, &acc[vi], 1);
+            words_add(gp + 1, &acc[nb + vi], 1);
+          } else {
+            u64 w[2];
+            tile_to_int128((long long)acc[vi], wshift, w[0], w[1]);
+            words_add(gp, w, 2);
+            tile_to_int128((long long)acc[nb + vi], wshift, w[0], w[1]);
+            words_add(gp + 2, w, 2);
+          }
+        }
+      }
+    }
+  }
+}
+
+template <typename T, int K>
+int launch_band_k(const BandGeom& gm, const void* u, const void* v, const void* vals,
+                  const void* ulo, const void* vlo, const void* unit_seg,
+                  const void* unit_start, const void* unit_count, const void* vsum,
+                  void* grid64, int nunits, int npix, int tile, int nta, int support,
+                  double beta, cudaStream_t s) {
+  auto fn = unit_tiles_band_kernel<T, K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = gm.cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  // units a cluster: enough clusters for about kBandWaves of them on every
+  // SM, each serving the runs that leaves (2 waves in place of 16, for
+  // longer runs, took 1.2-1.6 times as long on phase 18's streams: the
+  // densest runs then hold the launch)
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, (int)((long long)nunits * gm.cs / ((long long)sms * kBandWaves)));
+  const int nclusters = (nunits + per - 1) / per;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)(nclusters * gm.cs));
+  cfg.blockDim = dim3(gm.threads);
+  cfg.dynamicSmemBytes = gm.smem;
+  cfg.stream = s;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster the card cannot place fails the launch loudly
+  int resident = 0;
+  e = cudaOccupancyMaxActiveClusters(&resident, fn, &cfg);
+  if (e != cudaSuccess) return (int)e;
+  if (resident == 0) return (int)cudaErrorInvalidConfiguration;
+  e = cudaLaunchKernelEx(&cfg, fn, (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo,
+                         (const T*)vlo, (const int*)unit_seg, (const int*)unit_start,
+                         (const int*)unit_count, (const double*)vsum, (u64*)grid64, npix,
+                         tile, nta, support, gm, nunits, per, (T)beta);
+  if (e != cudaSuccess) return (int)e;
+  return ska_last_error();
+}
+
+// ---------------------------------------------------------------------------
+// Route 4 past the largest window a cluster holds (a support past about
+// 330 cells): every register run added straight into the fixed-point grids
+// in device memory.
 
 constexpr int kDevWaves = 16;  // about this many device-route CTAs an SM serves
 
@@ -1276,6 +1897,77 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
   }
 }
 
+template <typename T, int K>
+int launch_dev_k(const DevGeom& gm, const void* u, const void* v,
+                 const void* vals, const void* ulo, const void* vlo,
+                 const void* unit_seg, const void* unit_start,
+                 const void* unit_count, const void* vsum, void* grid64,
+                 int nunits, int npix, int tile, int nta, int support,
+                 double beta, cudaStream_t s) {
+  auto fn = unit_tiles_dev_kernel<T, K>;
+  cudaError_t e = cudaFuncSetAttribute(
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
+  if (e != cudaSuccess) return (int)e;
+  // units a CTA: about kDevWaves CTAs an SM over the launch
+  int dev = 0, sms = 0;
+  e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  const int per = max(1, (int)((long long)nunits * gm.nsl / ((long long)sms * kDevWaves)));
+  const int nblocks = (nunits + per - 1) / per;
+  fn<<<dim3((unsigned)nblocks, (unsigned)gm.nsl), gm.threads, gm.smem, s>>>(
+      (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo, (const T*)vlo,
+      (const int*)unit_seg, (const int*)unit_start, (const int*)unit_count,
+      (const double*)vsum, (u64*)grid64, npix, tile, nta, support, gm.stage, nunits,
+      per, (T)beta);
+  return ska_last_error();
+}
+
+template <typename T>
+int launch_dev(const void* u, const void* v, const void* vals,
+               const void* ulo, const void* vlo, const void* unit_seg,
+               const void* unit_start, const void* unit_count,
+               const void* vsum, void* grid64, int nunits, int npix,
+               int tile, int nta, int support, double beta, cudaStream_t s) {
+  const DevGeom gm = dev_plan<T>(support);
+  if (gm.threads == 0) return (int)cudaErrorInvalidValue;  // no batch fits
+#define SKA_UNIT_TILES_DEV(K)                                                  \
+  launch_dev_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,          \
+                     unit_count, vsum, grid64, nunits, npix, tile, nta,       \
+                     support, beta, s)
+  switch (gm.k) {
+    case 8: return SKA_UNIT_TILES_DEV(8);
+    case 7: return SKA_UNIT_TILES_DEV(7);
+    case 6: return SKA_UNIT_TILES_DEV(6);
+    case 5: return SKA_UNIT_TILES_DEV(5);
+    default: return SKA_UNIT_TILES_DEV(4);
+  }
+#undef SKA_UNIT_TILES_DEV
+}
+
+template <typename T>
+int launch_band(const void* u, const void* v, const void* vals, const void* ulo,
+                const void* vlo, const void* unit_seg, const void* unit_start,
+                const void* unit_count, const void* vsum, void* grid64, int nunits, int npix,
+                int tile, int nta, int support, double beta, cudaStream_t s) {
+  const BandGeom gm = band_plan<T>(support, tile);
+  if (gm.threads == 0)  // no cluster holds a window
+    return launch_dev<T>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count, vsum, grid64,
+                         nunits, npix, tile, nta, support, beta, s);
+#define SKA_UNIT_TILES_BAND(K)                                                 \
+  launch_band_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,         \
+                      unit_count, vsum, grid64, nunits, npix, tile, nta,      \
+                      support, beta, s)
+  switch (gm.k) {
+    case 8: return SKA_UNIT_TILES_BAND(8);
+    case 7: return SKA_UNIT_TILES_BAND(7);
+    case 6: return SKA_UNIT_TILES_BAND(6);
+    case 5: return SKA_UNIT_TILES_BAND(5);
+    default: return SKA_UNIT_TILES_BAND(4);
+  }
+#undef SKA_UNIT_TILES_BAND
+}
+
 // The complex grids from the integer ones: value times 2^-kg, or NaN when
 // the bound is not finite. n values (2 a cell).
 template <typename T>
@@ -1409,60 +2101,12 @@ int launch_wide(const void* u, const void* v, const void* vals,
 #undef SKA_UNIT_TILES_WIDE
 }
 
-template <typename T, int K>
-int launch_dev_k(const DevGeom& gm, const void* u, const void* v,
-                 const void* vals, const void* ulo, const void* vlo,
-                 const void* unit_seg, const void* unit_start,
-                 const void* unit_count, const void* vsum, void* grid64,
-                 int nunits, int npix, int tile, int nta, int support,
-                 double beta, cudaStream_t s) {
-  auto fn = unit_tiles_dev_kernel<T, K>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
-  if (e != cudaSuccess) return (int)e;
-  // units a CTA: about kDevWaves CTAs an SM over the launch
-  int dev = 0, sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int per = max(1, (int)((long long)nunits * gm.nsl / ((long long)sms * kDevWaves)));
-  const int nblocks = (nunits + per - 1) / per;
-  fn<<<dim3((unsigned)nblocks, (unsigned)gm.nsl), gm.threads, gm.smem, s>>>(
-      (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo, (const T*)vlo,
-      (const int*)unit_seg, (const int*)unit_start, (const int*)unit_count,
-      (const double*)vsum, (u64*)grid64, npix, tile, nta, support, gm.stage, nunits,
-      per, (T)beta);
-  return ska_last_error();
-}
-
-template <typename T>
-int launch_dev(const void* u, const void* v, const void* vals,
-               const void* ulo, const void* vlo, const void* unit_seg,
-               const void* unit_start, const void* unit_count,
-               const void* vsum, void* grid64, int nunits, int npix,
-               int tile, int nta, int support, double beta, cudaStream_t s) {
-  const DevGeom gm = dev_plan<T>(support);
-  if (gm.threads == 0) return (int)cudaErrorInvalidValue;  // no batch fits
-#define SKA_UNIT_TILES_DEV(K)                                                  \
-  launch_dev_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,          \
-                     unit_count, vsum, grid64, nunits, npix, tile, nta,       \
-                     support, beta, s)
-  switch (gm.k) {
-    case 8: return SKA_UNIT_TILES_DEV(8);
-    case 7: return SKA_UNIT_TILES_DEV(7);
-    case 6: return SKA_UNIT_TILES_DEV(6);
-    case 5: return SKA_UNIT_TILES_DEV(5);
-    default: return SKA_UNIT_TILES_DEV(4);
-  }
-#undef SKA_UNIT_TILES_DEV
-}
-
 // How ska_unit_tiles serves support S on tiles of `tile` cells: 0 it
 // refuses it (S past the tile, or below 1); 1 the narrow kernel (even S to
 // 16, the whole tile in one block); 2 the wide variant, the whole tile in
 // its cluster's bands; 3 the wide variant in turns (its bands hold fewer
-// rows than the tile's, at least one window's); 4 the device-memory route
-// (support 1, supports past 64, and tiles no cluster's bands serve).
+// rows than the tile's, at least one window's); 4 route 4 (support 1,
+// supports past 64, and tiles no cluster's bands serve a window of).
 template <typename T>
 inline int unit_tiles_route(int S, int tile) {
   if (S < 1 || S > tile) return 0;
@@ -1471,7 +2115,7 @@ inline int unit_tiles_route(int S, int tile) {
     const WideGeom g = wide_plan<T>(S, tile);
     if (g.cs != 0) return g.cs * g.rb >= g.rows ? 2 : 3;
   }
-  return dev_plan<T>(S).threads ? 4 : 0;
+  return S == 1 || band_plan<T>(S, tile).threads || dev_plan<T>(S).threads ? 4 : 0;
 }
 
 template <typename T>
@@ -1493,8 +2137,11 @@ int launch_support(const void* u, const void* v, const void* vals,
                       beta, s);                                              \
     break;
   if (route == 4) {
-    rc = launch_dev<T>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count,
-                       vsum, grid64, nunits, npix, tile, nta, support, beta, s);
+    // support 1: the ES kernel of half width 0 is zero, so every tap is and
+    // the grids are (the conversion writes NaN where the bound is not finite)
+    if (support > 1)
+      rc = launch_band<T>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count,
+                          vsum, grid64, nunits, npix, tile, nta, support, beta, s);
   } else if (route == 1) {
     switch (support) {
       SKA_UNIT_TILES_CASE(2)
@@ -1552,22 +2199,30 @@ SKA_EXPORT int ska_unit_tiles(const void* u, const void* v, const void* vals,
 // How ska_unit_tiles serves `support` on tiles of `tile` cells (f64 as its
 // own), decided before any launch: 0 refused (a support past the tile, as
 // the JAX package's tiled gridder refuses it), 1 the narrow kernel, 2 the
-// wide variant holding the whole tile, 3 the wide variant in turns, 4 the
-// device-memory route.
+// wide variant holding the whole tile, 3 the wide variant in turns, 4
+// route 4 (sub-tiles; no launch at support 1; device memory past the
+// largest window a cluster holds).
 SKA_EXPORT int ska_unit_tiles_route(int support, int tile, int f64) {
   return f64 ? unit_tiles_route<double>(support, tile) : unit_tiles_route<float>(support, tile);
 }
 
-// The device-memory route's launch geometry at `support` (it runs where
-// ska_unit_tiles_route says 4), f64 as ska_unit_tiles's: what 0 the
-// threads of a CTA, 1 its dynamic shared bytes, 2 its walks, 3 the rows of
-// a column a thread owns, 4 the entries a walk takes a batch, 5 the CTAs
-// (slices) of one walk; 0 past them.
-SKA_EXPORT int ska_unit_tiles_dev_geometry(int support, int f64, int what) {
-  if (support < 1) return 0;
-  const DevGeom gm = f64 ? dev_plan<double>(support) : dev_plan<float>(support);
-  const int v[] = {gm.threads, (int)gm.smem, gm.walks, gm.k, gm.stage, gm.nsl};
-  return gm.threads && what >= 0 && what < 6 ? v[what] : 0;
+// Route 4's launch geometry at `support` (2 to the tile; it runs where
+// ska_unit_tiles_route says 4) on tiles of `tile` cells, f64 as
+// ska_unit_tiles's: what 0 the CTAs of a cluster, 1 the threads of a CTA,
+// 2 its dynamic shared bytes, 3 its walks (1 where a walk spans CTAs), 4
+// the rows of a column a thread owns, 5 the entries a walk takes a batch,
+// 6 and 7 the rows and columns of window corners of a sub-tile, 8 the CTAs
+// of one walk, 9 the passes of a walk's threads over its classes, 10 the
+// tap buffers; 0 past them, at support 1 (no launch) and where no cluster
+// holds a window (the device-memory walk serves it).
+SKA_EXPORT int ska_unit_tiles_band_geometry(int support, int tile, int f64, int what) {
+  if (support < 2 || support > tile) return 0;
+  const BandGeom gm =
+      f64 ? band_plan<double>(support, tile) : band_plan<float>(support, tile);
+  if (gm.threads == 0) return 0;
+  const int v[] = {gm.cs, gm.threads, (int)gm.smem, gm.walks, gm.k, gm.stage,
+                   gm.tr, gm.tc, gm.nsl, gm.npass, gm.nbuf};
+  return what >= 0 && what < 11 ? v[what] : 0;
 }
 
 // The wide variant's launch geometry at `support` (2 to 64 and the tile;

@@ -26,8 +26,10 @@ or two columns). K1's wide variant also takes windows of up to 16 cells on
 tiles whose int64 rows one block cannot hold. Windows past 64 cells, and
 tiles of which a cluster's bands cannot hold one window's rows, take K1's
 device-memory route (its register runs added straight into the int64
-grids) and K3's long-window kernel (a warp an entry, walking the window a
-row at a time). ``ska_grid_route`` and ``ska_degrid_route`` name the route
+grids); windows past 64 cells take K3's long-window kernel, which stages
+each piece's window rows in shared memory band after band and serves two
+entries of a corner row in one pass over a band's rows, each lane three to
+five columns. ``ska_grid_route`` and ``ska_degrid_route`` name the route
 of a geometry; every support up to the tile has one, on every tile.
 
 Each wrapper takes its plain version only for tensors on the CPU; on a CUDA

@@ -18,10 +18,14 @@ every tile, as the JAX package's: even supports to 16 through a shared
 tile where one block holds it, odd ones and supports to 64, and larger
 tiles, through K9's wide variant, whose tile is held in bands over a
 cluster of CTAs (in turns where the bands hold fewer rows than the tile);
-supports past 64, support 1 and tiles of which no cluster holds one
-window's rows through K9's device-memory route, which adds its register
-runs straight into the fixed-point grids (``ska_unit_tiles_route`` names
-the route). Its plain version
+supports past 64 and tiles of which no cluster holds one window's rows
+through K9's route 4, which serves the tile a sub-tile of window corners
+after another, each with its halo held in shared memory over a cluster,
+and whose walks past 64 span the CTAs of a cluster, sharing each batch's
+taps through distributed shared memory; support 1, whose taps are zero,
+launches only the conversion (``ska_unit_tiles_route`` names the route
+of a geometry, ``ska_unit_tiles_band_geometry`` route 4's launch). Its
+plain version
 :func:`unit_tiles_plain` is the XLA formulation written in PyTorch: the
 dense ES factors over each unit's tile, ``(kv * val) @ ku^T`` as a batched
 matmul, and an ``index_add_`` of the tiles into the grids. Degridding

@@ -22,15 +22,17 @@ sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
 launch, at supports 2 to 64 (the wide variants past 16 and on tiles the
 narrow kernel cannot hold, up to 512), past 64 (K1's device-memory route,
-K3's long-window kernel) and on tiles no cluster holds, and on linear,
+K3's long-window kernel, its windows straddling the bands it stages, on
+dense and sparse streams) and on tiles no cluster holds, and on linear,
 nearest-plane and single-plane plans; ``unit_tiles`` (fixed-point sums:
 int64 in f32, a 128-bit pair in f64, the same bits from launch to launch)
 agrees with its plain version accumulated in f64 to 1e-5 of the grid
 maximum in f32 and to 1e-12 in f64, at even supports to 16 and, through
 its wide variant, at odd ones, up to 64 and on tiles up to 512, and
-through its device-memory route at support 1, past 64 (f32 against the
-plain version in f32, whose taps it shares) and on tiles no cluster
-holds. The route queries take every support on every tile. The calibration paths (the composed "TG" ical with a sky component,
+through its route 4 at support 1, past 64 (f32 against the plain version
+in f32, whose taps it shares), on tiles no cluster holds a window of
+(windows straddling its sub-tiles and bands, sparse streams, f64 sums
+whose low words carry) and past the largest window a cluster holds. The route queries take every support on every tile. The calibration paths (the composed "TG" ical with a sky component,
 the fused "TB" bandpass cube, the full-Jones "T" + "B" chain on an MFS
 image) and the streamed cycle over a store launch their kernels on the
 card and agree with the CPU run to the slice bounds: gains 1e-4, peak
@@ -1933,6 +1935,146 @@ def test_unit_tiles_at_support_1_gives_zero_grids(dev, dtype):
     torch.cuda.synchronize()
     assert kernels.KERNELS["unit_tiles"].launches == before + 1
     assert not out.abs().max() and not ref_stream.grid(plain=True, **kw).abs().max()
+
+
+def _long_plan(dev, case, support, mode, npix, tile):
+    """A plan on 3 planes of npix^2: "straddle", 20,000 entries in a core
+    of sigma npix / 12, so that a piece of K3's walk takes several corner
+    rows and its box several bands, whose edges the windows straddle;
+    "sparse", 3,000 entries spread over the grid, so that nearly every
+    walk position moves the window corner."""
+    rng = np.random.default_rng(support + 7 * (case == "sparse"))
+    if case == "straddle":
+        u, v = rng.normal(npix / 2, npix / 12, (2, 20000))
+    else:
+        u, v = rng.uniform(-10, npix + 10, (2, 3000))
+    n = u.size
+    p0 = torch.as_tensor(rng.integers(0, 2, n)).to(dev)
+    frac = torch.as_tensor(rng.uniform(0, 1, n)).to(dev) if mode == "linear" else None
+    return make_grid_plan(torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, frac,
+                          npixel=npix, support=support, nplanes=3, tile=tile)
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support", [72, 97, 128, 160])
+@pytest.mark.parametrize("case", ["straddle", "sparse"])
+def test_degrid_long_windows_in_bands_match_plain(dev, case, support, mode):
+    """K3's long-window kernel (``ska_degrid_route`` 4), which stages each
+    piece's window rows in bands of shared memory: windows that straddle a
+    band's edge (a dense core; at 128 cells a window on a plane pair is
+    larger than a band by itself, and past a span of 144 a run takes its
+    columns in two chunks) and a sparse stream on which nearly every entry
+    moves the window corner, linear and nearest. Against degrid_plain to
+    1e-5 of the maximum; two launches give the same bits."""
+    npix, tile = (512, 256) if case == "straddle" else (1024, 256)
+    plan = _long_plan(dev, case, support, mode, npix, tile)
+    assert kernels.query("ska_degrid_route", plan.span) == 4
+    cells = kernels.query("ska_degrid_long_geometry", plan.span, 5)
+    cols = kernels.query("ska_degrid_long_geometry", plan.span, 3)
+    assert cells > 0 and 32 * cols >= min(plan.span + 16, 160)
+    if support >= 128 and mode == "linear":
+        assert 2 * plan.span ** 2 > cells  # a window alone takes two bands
+    assert kernels.query("ska_degrid_long_geometry", plan.span, 4) == (2 if support == 160 else 1)
+    g = torch.Generator(device=dev).manual_seed(support)
+    grids = torch.randn((plan.nplanes, npix, npix), generator=g, device=dev,
+                        dtype=torch.complex64)
+    ref = degrid_plain(plan, grids)
+    before = kernels.KERNELS["degrid"].launches
+    out = degrid(plan, grids)
+    assert torch.equal(degrid(plan, grids), out)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["degrid"].launches == before + 2
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+def _route4_streams(dev, case, support, tile, dtype):
+    """K9's entry streams (``_k9_streams``, with split coordinates) for
+    route 4 on 4 planes of npix^2 (twice the tile, the tile itself from
+    2048): "straddle", 8,000 entries in a core of sigma tile / 4 over
+    units of at most 1024, so that a run's windows straddle its turns'
+    band edges; "sparse", 3,000 entries spread over the grid, so that
+    nearly every entry moves the window corner."""
+    npix = tile if tile >= 2048 else 2 * tile
+    rng = np.random.default_rng(support + tile + 3 * (case == "sparse"))
+    if case == "straddle":
+        u64, v64 = np.clip(rng.normal(npix / 2, tile / 4, (2, 8000)), 0, npix - 1)
+    else:
+        u64, v64 = rng.uniform(0, npix, (2, 3000))
+    return _k9_streams(dev, u64, v64, dtype, support, tile, npix, 1024, True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+@pytest.mark.parametrize("support,tile", [(96, 256), (128, 256), (64, 2048), (128, 2048)])
+@pytest.mark.parametrize("case", ["straddle", "sparse"])
+def test_unit_tiles_route4_bands_match_plain(dev, case, support, tile, dtype):
+    """K9's route 4 (``ska_unit_tiles_route`` 4), which serves a run a
+    sub-tile of window corners after another, each with its halo held in
+    shared memory over a cluster: windows that straddle the sub-tiles'
+    edges and the CTAs' bands (a dense core) and a sparse stream on which
+    nearly every entry moves the corner, past 64 (a walk's classes over
+    several CTAs, stage 1's taps shared through distributed shared memory)
+    and on tile 2048 at supports 64 and 128 (where the whole tile's rows
+    held by a cluster are fewer than a window's). f64 against
+    unit_tiles_plain in f64 to 1e-12 of the grid maximum; f32 against the
+    plain version accumulated in f64 at 64 and in f32 past it (its taps
+    are the plain version's) to 1e-5; two launches give the same bits."""
+    f64 = int(dtype == torch.float64)
+    assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 4
+    geo = [kernels.query("ska_unit_tiles_band_geometry", support, tile, f64, w)
+           for w in range(11)]
+    cs, threads, smem, walks, k, stage, tr, tc, nsl, npass, nbuf = geo
+    assert threads > 0 and smem <= 232448 and npass == 1 and cs % nsl == 0
+    assert 1 <= tr <= tile and 1 <= tc <= tile and tr * tc < tile * tile  # sub-tiles
+    if support <= 64:
+        assert cs == 1  # one CTA holds a sub-tile: every flush into its own band
+    else:
+        assert nsl > 1  # a walk spans CTAs, which share stage 1's taps
+    streams, kw = _route4_streams(dev, case, support, tile, dtype)
+    if dtype == torch.float32 and support > 64:
+        streams = (streams[0], streams[0])
+    _k9_check(streams, kw, dtype)
+
+
+def test_unit_tiles_past_the_largest_window_a_cluster_holds(dev):
+    """A support of 384 on tile 512: no cluster holds one window and its
+    halo (386 x 386 int64 pairs), so route 4 adds K9's register runs into
+    the fixed-point grids in device memory (``ska_unit_tiles_band_geometry``
+    0): in f64 against unit_tiles_plain in f64 to 1e-12 of the grid
+    maximum, two launches to the same bits. (In f32 the ES taps' beta
+    (sqrt(1 - nu^2) - 1) loses about beta x 2^-24 = 5.3e-5 to
+    cancellation at this support, in the plain version too: no f32 grid
+    is right to 1e-5 here.)"""
+    support, tile, dtype = 384, 512, torch.float64
+    f64 = 1
+    assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 4
+    assert kernels.query("ska_unit_tiles_band_geometry", support, tile, f64, 0) == 0
+    assert kernels.query("ska_unit_tiles_band_geometry", 256, tile, f64, 0) > 0
+    rng = np.random.default_rng(79)
+    u64, v64 = rng.normal(512, 120, (2, 1500))
+    streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, 1024, 1024, True)
+    _k9_check(streams, kw, dtype)
+
+
+@pytest.mark.parametrize("support,tile", [(48, 2048), (96, 256)])
+def test_unit_tiles_route4_f64_low_words_carry(dev, support, tile):
+    """K9's route 4 in f64 on a stream whose cells lie near the launch's
+    bound and gather the flushes of many turns and clusters: 6,000 values
+    of one sign on a few window corners, over units of at most 64, so that
+    the 128-bit sums' low words overflow and carry into the high words
+    again and again. Against unit_tiles_plain in f64 to 1e-12 of the grid
+    maximum; two launches give the same bits."""
+    assert kernels.query("ska_unit_tiles_route", support, tile, 1) == 4
+    npix = tile if tile >= 2048 else 2 * tile
+    rng = np.random.default_rng(support)
+    n = 6000
+    corners = rng.uniform(npix / 4, 3 * npix / 4, (2, 5))
+    pick = rng.integers(0, 5, n)
+    u64 = corners[0][pick] + rng.uniform(0, 0.999, n)
+    v64 = corners[1][pick] + rng.uniform(0, 0.999, n)
+    vals = rng.uniform(0.9, 1.0, n) * (1.0 + 1.0j)
+    streams, kw = _k9_streams(dev, u64, v64, torch.float64, support, tile, npix, 64, False,
+                              vals=vals)
+    _k9_check(streams, kw, torch.float64)
 
 
 def _chip_smoke():

@@ -13,14 +13,18 @@ On phase 16b's stream (``chip_smoke.unit_stream16``: phase 9's
 observation cut to ``chip_smoke.UNIT16_TIMES`` integrations, 6 linear
 planes of 2048^2, tile 64) at the supports of ``chip_smoke.UNIT16``, and
 with ``--full`` on the whole observation (76 integrations) at
-``FULL_SUPPORTS``, in f32 and f64, the script prints the stream's units,
+``FULL_SUPPORTS``, or with ``--phase18`` on phase 18c's and 18d's streams
+(the whole observation with one tile the 2048^2 grid at
+``chip_smoke.UNIT18_FULL``; 16b's integrations at the (support, tile,
+padding) of ``chip_smoke.UNIT18``: K9's route 4), in f32 and f64, the
+script prints the stream's units,
 entries a unit and the share of consecutive entries on one window corner
 and plane; each other's largest difference from the package over the
 package's maximum; the package's launch geometry; and each design's time
 with CUDA events over a few launches after a warm-up: the others, the
 package twice, then the others in reverse order, beside the bound.
 
-Usage: python3 unit_designs.py --other DIR [DIR ...] [--full]
+Usage: python3 unit_designs.py --other DIR [DIR ...] [--full | --phase18]
 """
 
 from __future__ import annotations
@@ -53,8 +57,11 @@ def stream_facts(stream, npix):
 def geometry(support, tile, f64):
     from ska_sdp_func_python_torch import kernels
 
-    if support % 2 == 0 and support <= 16:
+    route = kernels.query("ska_unit_tiles_route", support, tile, int(f64))
+    if route == 1:
         return "the narrow kernel"
+    if route == 4:
+        return f"route 4, {cs.band_geometry(support, tile, f64)}"
     v = [kernels.query("ska_unit_tiles_wide_geometry", support, tile, int(f64), w)
          for w in range(6)]
     return (f"cluster {v[0]}, {v[1]} threads, {v[2]} shared bytes, {v[3]} walks of "
@@ -70,8 +77,11 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, nargs="+", required=True,
                     help="checkouts (or csrc copies) of other designs")
-    ap.add_argument("--full", action="store_true",
-                    help="also time the whole observation's stream")
+    cells = ap.add_mutually_exclusive_group()
+    cells.add_argument("--full", action="store_true",
+                       help="also time the whole observation's stream")
+    cells.add_argument("--phase18", action="store_true",
+                       help="phase 18c-d's streams (route 4) in place of phase 16b's")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("unit_designs: no CUDA device; nothing was run")
@@ -97,17 +107,25 @@ def main() -> int:
     cfg = create_named_configuration("LOW", rmax=40000.0)
     names = [o.name for o in others]
     turns = (*names, "package", "package", *reversed(names))
-    cells = [("16b", cs.UNIT16_TIMES, cs.UNIT16, 5)]
-    if args.full:
-        cells.append(("full", 76, FULL_SUPPORTS, 3))
-    for where, ntimes, supports, reps in cells:
+    # (where, integrations, (support, tile (None: the API's), padding) of
+    # each stream, launches a time)
+    if args.phase18:
+        cells = [("18c", 76, [(s, cs.UNIT18_TILE_FULL, 2.0) for s in cs.UNIT18_FULL], 3),
+                 ("18d", cs.UNIT16_TIMES, cs.UNIT18, 3)]
+    else:
+        cells = [("16b", cs.UNIT16_TIMES, [(s, None, 2.0) for s in cs.UNIT16], 5)]
+        if args.full:
+            cells.append(("full", 76, [(s, None, 2.0) for s in FULL_SUPPORTS], 3))
+    for where, ntimes, cases, reps in cells:
         for dtype in (torch.float32, torch.float64):
             f64 = dtype == torch.float64
             peak = cs.PEAK_F64_S if f64 else cs.PEAK_F32_S
             vis, model, _, _ = cs.observation9(cfg, device, dtype, ntimes=ntimes)
-            for support in supports:
-                stream, geo = cs.unit_stream16(vis, model, support)
-                label = f"K9 {where} {'f64' if f64 else 'f32'} support {support}"
+            for support, tile, padding in cases:
+                stream, geo = cs.unit_stream16(vis, model, support, tile, padding)
+                label = (f"K9 {where} {'f64' if f64 else 'f32'} support {support}"
+                         + ("" if tile is None else f" tile {tile}")
+                         + ("" if padding == 2.0 else f" padding {padding}"))
                 nunits, per_unit, same = stream_facts(stream, geo["npixel"])
                 cs.say(f"{label}: {int(stream.u.shape[0])} entries, {nunits} units, "
                        f"{per_unit:.1f} entries a unit, consecutive entries on one window "
@@ -118,7 +136,7 @@ def main() -> int:
                 for name in names:
                     use(name)
                     out = stream.grid(**geo)
-                    diff = float((out - ref).abs().max()) / peak_ref
+                    diff = float((out - ref).abs().max()) / peak_ref if peak_ref else 0.0
                     cs.say(f"{label}: {name} vs package, largest difference {diff:.3e} "
                            f"of the maximum")
                     del out

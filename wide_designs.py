@@ -10,9 +10,12 @@ package's flags, all builds started together) into
 ``build/wide_designs/``, each under the name of its directory.
 
 On the flagship's plans at ``chip_smoke.SUPPORTS16`` (the full stream, or
-its first 1,048,576 entries) the script times, with CUDA events over 10
-(K1) or 20 (K3) launches after a warm-up, the others, the package twice,
-then the others in reverse order, and prints each other's largest
+its first 1,048,576 entries), or with ``--phase18`` on phase 18b's (its
+first 1,048,576 entries at the (support, tile) of ``chip_smoke.WIDE18``,
+windows past 64 cells, linear and nearest planes: K1's device-memory
+route and K3's long-window kernel), the script times, with CUDA events
+over 10 (K1) or 20 (K3) launches after a warm-up, the others, the package
+twice, then the others in reverse order, and prints each other's largest
 difference from the package over the package's maximum, the launch
 geometry, the walk-order statistics of each plan and each kernel's bound.
 With ``--ical`` it then runs the flagship Hogbom ``ical`` at
@@ -20,7 +23,7 @@ With ``--ical`` it then runs the flagship Hogbom ``ical`` at
 the first other's kernels, the package's twice and the first other's
 again, printing each cycle's wall and K1's and K3's device time a launch.
 
-Usage: python3 wide_designs.py --other DIR [DIR ...] [--ical]
+Usage: python3 wide_designs.py --other DIR [DIR ...] [--phase18] [--ical]
 """
 
 from __future__ import annotations
@@ -97,6 +100,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--other", type=Path, nargs="+", required=True,
                     help="checkouts (or csrc copies) of other designs")
+    ap.add_argument("--phase18", action="store_true",
+                    help="phase 18b's plans (windows past 64 cells) in place of phase 16a's")
     ap.add_argument("--ical", action="store_true", help="also time the support-24 ical")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -130,22 +135,37 @@ def main() -> int:
     del p0
     names = [o.name for o in others]
     turns = (*names, "package", "package", *reversed(names))
-    for support, full in cs.SUPPORTS16:
-        if full:
-            gp = make_visibility_plan(vis, model, context="ng", support=support).plans[0].gp
-            where, vals = "flagship", sort_values(gp, weighted)
-        else:
-            gp = make_imaging_plan(uvw[:n_sub, 0], uvw[:n_sub, 1], uvw[:n_sub, 2],
-                                   support=support, **geometry).gp
-            where, vals = "flagship 1M subset", sort_values(gp, weighted[:n_sub])
+
+    def plans():
+        """(label, plan, sorted values) of each cell, one at a time."""
+        if args.phase18:
+            base = cs.flagship_geometry(vis, model)
+            for support, tile in cs.WIDE18:
+                for mode in ("linear", "nearest"):
+                    gp = cs.long_window_plan(uvw[:n_sub], base, support, tile, mode)
+                    yield (f"flagship 1M subset support {support} {mode} tile {tile}", gp,
+                           sort_values(gp, weighted[:n_sub]))
+            return
+        for support, full in cs.SUPPORTS16:
+            if full:
+                gp = make_visibility_plan(vis, model, context="ng", support=support).plans[0].gp
+                yield f"flagship support {support}", gp, sort_values(gp, weighted)
+            else:
+                gp = make_imaging_plan(uvw[:n_sub, 0], uvw[:n_sub, 1], uvw[:n_sub, 2],
+                                       support=support, **geometry).gp
+                yield (f"flagship 1M subset support {support}", gp,
+                       sort_values(gp, weighted[:n_sub]))
+
+    for where, gp, vals in plans():
         g = torch.Generator(device=device).manual_seed(13)
         grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g, device=device,
                             dtype=torch.complex64)
-        label = f"{where} support {support} (span {gp.span}, {gp.n_in} entries)"
+        label = f"{where} (span {gp.span}, {gp.n_in} entries)"
         same, per_corner, nseg = walk_stats(gp)
+        launch = cs.dev_geometry(gp) if gp.span > 64 else cs.wide_geometry(gp)
         cs.say(f"{label}: consecutive walk positions on one plane and window corner {same:.3f}, "
                f"{per_corner:.1f} entries a corner and plane; {nseg} segments, "
-               f"{int(gp.chunk_seg.shape[0])} chunks; {cs.wide_geometry(gp)}")
+               f"{int(gp.chunk_seg.shape[0])} chunks; {launch}")
         use("package")
         ref = (grid(gp, vals), degrid(gp, grids))
         for name in names:
