@@ -248,23 +248,26 @@ Phases, each on lines of its own:
  18. every support and tile the JAX package's gridders take (after phase
      17, on the flagship): (a) ``make_grid_plan`` + ``grid_with_plan`` on
      the flagship's whole plan at supports 48 and 64 with one tile the
-     whole 1344^2 padded grid, past any cluster's bands: K1's
-     device-memory route launched, two calls to the same bits, against
-     the grids at the API's tile and its plain version in f64 (1e-5); (b)
+     whole 1344^2 padded grid, past any cluster's bands: K1's route 4
+     (sub-tiles of window corners over a cluster) launched, two calls to
+     the same bits, against the grids at the API's tile and its plain
+     version in f64 (1e-5), its time beside K1w's at the API's tile; (b)
      the same and ``degrid_with_plan`` on the flagship's first million
      entries at windows past 64 cells (supports 72 on tile 192, 97 on 448,
-     128 on 1344), linear and nearest: K1's device-memory route and K3's
-     long-window kernel against their plain versions (1e-5), twice to the
-     same bits; (c) ``tiled_grid`` on phase 16b's full-width stream with
-     one tile the whole 2048^2 grid at supports 48 and 64, f32 and f64,
+     128 on 1344), linear and nearest: K1's route 4 and K3's long-window
+     kernel against their plain versions (1e-5), twice to the same bits,
+     K1's f32 grids beside beta x 2^-24 (not gated); (c) ``tiled_grid``
+     on phase 16b's full-width stream with one tile the whole 2048^2 grid
+     at supports 48 and 64, f32 and f64,
      and (d) on tile 256 at supports 96, 128 and 1 on 16b's stream cut to
      8 integrations, at support 97 on tile 448 on the same integrations
      gridded at padding 1.25 (1344^2), and at support 384 on tile 512,
-     whose window no cluster holds (route 4's device-memory walk): K9's
-     route 4 launched, twice to the same bits, against its plain version
+     whose window no cluster holds (route 4 in blocks of the held cells,
+     windows clipped to each): K9's route 4 launched, twice to the same
+     bits, against its plain version
      (1e-5 in f32, 1e-12 in f64; in (c) the plain version at the API's
      tile 64). Each prints its route, its launch geometry, its time and
-     its bound.
+     its bound and its time over it.
 Each of phases 4-6, 8b-c, 9b-e, 10a-b, 11a-c, 12a-c, 13a-d, 14a, b, d,
 15a, 16a-c, 17a-b and 18a-d resets the launch counters just before it and fails unless
 every kernel of its path launched. The script then
@@ -560,8 +563,9 @@ LIMIT17_MAX = 4096
 # grid at the supports of UNIT18_FULL, (d) at the (support, tile, padding)
 # of UNIT18 (past 64, and 1; 97 on tile 448, a tile no power of two, of the
 # 1344^2 grid that padding 1.25 gives; 384 on tile 512, whose window and
-# halo no cluster holds, so that route 4 walks in device memory), on 16b's
-# stream cut to UNIT16_TIMES integrations; both in f32 and f64. Each is held
+# halo no cluster holds, so that route 4 serves the held cells in blocks,
+# windows clipped to each), on 16b's stream cut to UNIT16_TIMES
+# integrations; both in f32 and f64. Each is held
 # to its plain version at K1's, K3's and K9's tolerances.
 SUPPORTS18 = (48, 64)
 TILE18 = 1344
@@ -3585,7 +3589,7 @@ def plan_kernels(gp, vals, label, plain_reps=1, reps=(10, 20)):
     if 16 < gp.span <= 64:
         say(f"launch geometry {label}: {wide_geometry(gp)}")
     elif gp.span > 64:
-        say(f"launch geometry {label}: {dev_geometry(gp)}")
+        say(f"launch geometry {label}: {route4_geometry(gp)}")
     return {"grid": grid_row(gp, vals, label, plain_reps, reps[0]),
             "degrid": degrid_row(gp, label, plain_reps, reps[1])}
 
@@ -3605,22 +3609,33 @@ def wide_geometry(gp):
             f"{k3[2]} walk positions a CTA")
 
 
-def dev_geometry(gp):
-    """The launch geometry of K1's device-memory route and K3's route on
-    plan ``gp``, as the library reports them."""
+def route4_geometry(gp):
+    """The launch geometry of K1's route 4 and K3's route on plan ``gp``,
+    as the library reports them."""
     from ska_sdp_func_python_torch.kernels import query
 
     nacc = 4 if gp.wstacked else 2
-    threads, smem, walks, k, stage, nsl = (
-        query("ska_grid_dev_geometry", gp.span, w) for w in range(6))
+    v = [query("ska_grid_band_geometry", gp.span, gp.tile, nacc, w) for w in range(13)]
     k3 = [query("ska_degrid_long_geometry", gp.span, w) for w in range(6)]
-    return (f"K1 route {query('ska_grid_route', gp.span, gp.tile, nacc)} (4: device memory), "
-            f"{threads} threads and {smem} shared bytes a CTA, {walks} walk(s) a CTA of "
-            f"{k} rows a thread, {nsl} CTA(s) a walk, {stage} entries a walk a batch; K3 "
-            f"route {query('ska_degrid_route', gp.span)} (4: long windows in bands)"
+    return (f"K1 route {query('ska_grid_route', gp.span, gp.tile, nacc)} (4: sub-tiles over a "
+            f"cluster), {_band_text(v)}; K3 route {query('ska_degrid_route', gp.span)} (4: long "
+            "windows in bands)"
             + (f", {k3[0]} threads and {k3[1]} shared bytes a CTA, {k3[2]} walk positions "
                f"a CTA, {k3[3]} columns a lane in {k3[4]} chunk(s), bands of {k3[5]} cells"
                if k3[0] else ""))
+
+
+def _band_text(v):
+    """Route 4's launch geometry (the 13 fields of ``ska_grid_band_geometry``
+    or ``ska_unit_tiles_band_geometry``) in words."""
+    if not v[0]:
+        return "no geometry"
+    held = (f"held in blocks of {v[11]} rows by {v[12]} columns, windows clipped to each"
+            if v[11] else "held whole")
+    return (f"sub-tiles of {v[6]} x {v[7]} window corners {held} by a cluster of {v[0]} "
+            f"CTA(s), {v[1]} threads and {v[2]} shared bytes a CTA, {v[3]} walk(s) a CTA of "
+            f"{v[4]} rows a thread, {v[8]} CTA(s) a walk in {v[9]} pass(es), {v[5]} entries "
+            f"a walk a batch in {v[10]} tap buffer(s)")
 
 
 def band_geometry(support, tile, f64):
@@ -3628,15 +3643,10 @@ def band_geometry(support, tile, f64):
     ``tile`` cells, as the library reports it."""
     from ska_sdp_func_python_torch.kernels import query
 
-    v = [query("ska_unit_tiles_band_geometry", support, tile, int(f64), w) for w in range(11)]
+    v = [query("ska_unit_tiles_band_geometry", support, tile, int(f64), w) for w in range(13)]
     if support == 1:
         return "no launch (the taps of support 1 are zero)"
-    if not v[0]:
-        return "the device-memory walk (no cluster holds a window)"
-    return (f"sub-tiles of {v[6]} x {v[7]} window corners held by a cluster of {v[0]} CTA(s), "
-            f"{v[1]} threads and {v[2]} shared bytes a CTA, {v[3]} walk(s) a CTA of {v[4]} "
-            f"rows a thread, {v[8]} CTA(s) a walk in {v[9]} pass(es), {v[5]} entries a "
-            f"walk a batch in {v[10]} tap buffer(s)")
+    return _band_text(v)
 
 
 def run_support_flagship(vis, model, phases):
@@ -5203,7 +5213,7 @@ def route_limits():
     and nearest or one-plane plans (nacc 2), for K9 each support (1 to
     128) in f32 and f64: the largest tile the narrow kernel holds, the
     largest its cluster-banded wide variant serves (up to LIMIT17_MAX;
-    past it, and past a span of 64, the device-memory route serves), and
+    past it, and past a span of 64, route 4 serves), and
     whether every tile from the support up is taken: every tile up to 512
     and every one that divides a 1024^2, 1344^2, 2048^2 or 4096^2 grid;
     fails if any is refused."""
@@ -5228,8 +5238,8 @@ def route_limits():
                 refused += [(kernel, key, size, t) for t, r in routes.items() if r == 0]
                 banded = 0
                 if size <= 64:
-                    # the banded routes' tiles end where the device-memory
-                    # route's begin: the last tile not on route 4
+                    # the banded routes' tiles end where route 4's begin:
+                    # the last tile not on route 4
                     lo, hi = size, LIMIT17_MAX + 1
                     while lo < hi:
                         mid = (lo + hi) // 2
@@ -5329,10 +5339,11 @@ def run_any_tile_plan(vis, model):
     """Phase 18a: ``make_grid_plan`` + ``grid_with_plan`` on the flagship's
     whole stream at the supports of SUPPORTS18 with one tile the whole
     padded grid (TILE18), where no cluster's bands hold one window's rows:
-    K1's device-memory route launched, two calls to the same bits, against
-    the grids at the API's tile (56, or 64 where the support is wider) and,
-    through grid_row, against its plain version accumulated in f64 in
-    pieces with its time and bound. Returns (launch counts summed over the
+    K1's route 4 launched, two calls to the same bits, against the grids
+    at the API's tile (56, or 64 where the support is wider) and, through
+    grid_row, against its plain version accumulated in f64 in pieces with
+    its time, its bound and its time over it, beside K1w's time at the
+    API's tile. Returns (launch counts summed over the
     calls, kernel rows by configuration)."""
     import torch
 
@@ -5356,7 +5367,7 @@ def run_any_tile_plan(vis, model):
         gp = flagship_grid_plan(vis, geo, TILE18)
         label = f"18a flagship support {support} linear tile {TILE18}"
         route = kernels.query("ska_grid_route", gp.span, TILE18, 4)
-        say(f"{label}: route {route} (4: device memory); {dev_geometry(gp)}")
+        say(f"{label}: route {route} (4: sub-tiles over a cluster); {route4_geometry(gp)}")
         if route != 4:
             raise AssertionError(f"{label}: route {route}")
         out, counts = _main_path_twice(label, ("grid", "permute"),
@@ -5367,7 +5378,8 @@ def run_any_tile_plan(vis, model):
         del out, ref
         row = grid_row(gp, sort_values(gp, weighted), label, plain_reps=0, reps=5)
         say(f"{label}: K1 {row['ms']:.4f} ms against K1w's {ref_ms:.4f} ms at tile {ref_tile} "
-            f"(CUDA events), bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+            f"(CUDA events), bound {row['bound_ms']:.4f} ms ({row['bound_by']}), "
+            f"{row['ms'] / row['bound_ms']:.1f} x the bound")
         rows[f"flagship support {support} linear tile {TILE18}"] = {"grid": row}
         del gp
         torch.cuda.empty_cache()
@@ -5396,8 +5408,10 @@ def run_long_windows(vis, model):
     and nearest: ``make_grid_plan`` + ``grid_with_plan`` and
     ``degrid_with_plan`` twice each (the launch counters reset just before
     and read just after; grid, degrid and permute launched, the same bits),
-    then K1's device-memory route and K3's long-window kernel against their
-    plain versions in pieces (plan_kernels). Returns (launch counts summed
+    then K1's route 4 and K3's long-window kernel against their plain
+    versions in pieces (plan_kernels), each K1 row with its time over its
+    bound and its f32 grids' distance from the plain version accumulated
+    in f64 beside beta x 2^-24 (not gated). Returns (launch counts summed
     over the calls, kernel rows by configuration)."""
     import torch
 
@@ -5426,8 +5440,13 @@ def run_long_windows(vis, model):
             for k in launches:
                 launches[k] += counts[k]
             del grids
-            rows[f"flagship 1M subset support {support} {mode} tile {tile}"] = plan_kernels(
-                gp, sort_values(gp, weighted), label, plain_reps=0, reps=(5, 5))
+            row = plan_kernels(gp, sort_values(gp, weighted), label, plain_reps=0, reps=(5, 5))
+            k1 = row["grid"]
+            say(f"{label}: K1 {k1['ms']:.4f} ms, {k1['ms'] / k1['bound_ms']:.1f} x the bound "
+                f"({k1['bound_ms']:.4f} ms, {k1['bound_by']}); its f32 grids against grid_plain "
+                f"accumulated in f64 rel {k1['rel']:.3e}, beside beta x 2^-24 = "
+                f"{at_support(base, support)['beta'] * 2.0**-24:.3e} (not gated)")
+            rows[f"flagship 1M subset support {support} {mode} tile {tile}"] = row
             del gp
             torch.cuda.empty_cache()
     say(f"18b: {time.perf_counter() - t0:.1f} s")
@@ -5481,9 +5500,12 @@ def run_any_support_unit(cfg, device):
     for name, dtype, tol, peak in (("f32", torch.float32, KERNELS["unit_tiles"][0], PEAK_F32_S),
                                    ("f64", torch.float64, UNIT_TILES_F64_TOL, PEAK_F64_S)):
         f64 = int(dtype == torch.float64)
-        if not any(s > 1 and not kernels.query("ska_unit_tiles_band_geometry", s, t, f64, 0)
-                   for s, t, _ in UNIT18):
-            raise AssertionError(f"18d {name}: no case runs route 4's device-memory walk")
+        # every case but support 1 runs the band kernel, 384 on tile 512 in
+        # blocks, windows clipped to each
+        for s, t, _ in UNIT18:
+            geo = [kernels.query("ska_unit_tiles_band_geometry", s, t, f64, w) for w in (0, 11)]
+            if s > 1 and (not geo[0] or bool(geo[1]) != (s == 384)):
+                raise AssertionError(f"18d {name}: support {s} tile {t}: band geometry {geo}")
         for part, ntimes, cases in (
                 ("c", None, [(s, UNIT18_TILE_FULL, 2.0) for s in UNIT18_FULL]),
                 ("d", UNIT16_TIMES, UNIT18)):

@@ -153,24 +153,53 @@
 // take its classes in passes. Flushes are adds on the cluster address,
 // each sub-tile goes into grid64 once, in one overlap-add, and f64 flushes
 // in the sub-tile's own units: a launch gives the same bits on every run.
-// Two designs were measured and dropped (route4_designs.py, PERF.md):
-// bands of the whole tile's width in turns, whose windows the bands clip
-// (at tile 2048 a cluster holds 48 rows; 7 of 8 flushes went into another
-// CTA's shared memory and each entry was walked in 2 to 3 turns), and each
-// CTA walking every entry for its own rows (a cluster barrier and the
-// shared taps' stores every few entries). A window no cluster holds (a
-// support past about 330) takes unit_tiles_dev_kernel, which adds every
-// register run into the fixed-point grids in device memory. At support 1
-// the ES kernel of half width 0 is zero, and so are the grids: nothing is
-// launched but the conversion.
+// Two designs were measured and dropped (PERF.md): bands of the
+// whole tile's width in turns, whose windows the bands clip (at tile 2048
+// a cluster holds 48 rows; 7 of 8 flushes went into another CTA's shared
+// memory and each entry was walked in 2 to 3 turns), and each CTA walking
+// every entry for its own rows (a cluster barrier and the shared taps'
+// stores every few entries). At support 1 the ES kernel of half width 0
+// is zero, and so are the grids: nothing is launched but the conversion.
+//
+// Past the largest window a cluster holds with its halo (a support past
+// about 330: at 384 a window's 386 x 386 int64 pairs are 2.4 MB, a cluster
+// of 8 CTAs has 1.86 MB) the same kernel takes its clipped form
+// (band_clip): sub-tiles of min(tile, 2 S, 1024) corners a side whose held
+// cells 8 CTAs serve in blocks, each CTA rb rows of a block by wb columns
+// (about square: 256 by 256 in f32, 192 by 256 in f64), each CTA's rows
+// its own and each of their cells one thread's (8 rows of a column). A
+// block is walked by the entries whose windows meet its rows, in every
+// CTA: stage 1 computes an entry's taps over the block's rows and columns
+// (zero outside its window; each CTA its own rows' kv taps and a share of
+// the ku taps, written into every CTA's shared memory), in es_tap's
+// operation order, so the taps keep the whole form's bits; a thread skips
+// an entry whose ku tap of its column is zero and adds its cells' sums to
+// its own shared words every kRunCap entries, and each block goes into
+// grid64 in its own overlap-add, f64 in the sub-tile's units. A block's
+// entries are found per corner row by binary search on the columns their
+// windows can reach, and a batch's corners and offsets are formed once an
+// entry before its taps. The taps of an entry are computed again in every
+// block it meets: at 384 on tile 512 (18d) a copy whose ku taps cost
+// nothing ran at most 2% faster, so they are not kept across blocks.
+// It replaces a walk that added every register run straight into the
+// fixed-point grids in device memory (in f64 two words a value with the
+// carry). A first version of the blocks kept the whole form's walk,
+// every class of the window a thread and the rows outside the block
+// masked, and took six times the replaced walk's time: every thread
+// walked every entry in every block it met.
 //
 // What holds route 4 on the card (NVIDIA H100 80GB HBM3, 700 W;
-// route4_designs.py, PERF.md): on phase 18's streams 7.9-15.3 times its
-// bound, 1.1-2.0 times faster than the device-memory design it replaced
-// but for sparse f32 streams past 64 (0.89-1.01 times). About half its
-// time is outside the walk: each sub-tile's binary searches, barriers,
-// zeroing and overlap-add, which thin runs (a few corner rows a cluster)
-// pay for few entries; then stage 1 (the f64 taps a fifth) and the walk.
+// unit_designs.py --phase18, PERF.md): on phase 18's streams 7.9-15.3 times
+// its bound where a cluster holds a sub-tile whole, 1.1-2.0 times faster
+// than the device-memory design it replaced but for sparse f32 streams
+// past 64 (0.89-1.01 times). About half its time is outside the walk:
+// each sub-tile's binary searches, barriers, zeroing and overlap-add,
+// which thin runs (a few corner rows a cluster) pay for few entries; then
+// stage 1 (the f64 taps a fifth) and the walk. In blocks, at 384 on tile
+// 512 (18d): 17.1 (f32) and 16.1 (f64) times its bound, level with the
+// device-memory walk it replaced in f32 (2% slower) and 1.44 times faster
+// in f64; a copy with the walk compiled out keeps 52-56% of the launch
+// (stage 1, each block's searches, barriers and overlap-add).
 #include <cooperative_groups.h>
 
 #include "common.cuh"
@@ -1083,6 +1112,13 @@ struct BandGeom {
   size_t meta, mval, red, seg, acc, smem;  // byte offsets of the arrays; total
 };
 
+// The clipped form (band_clip), where the cluster's bands hold fewer rows
+// than a sub-tile's, cs rb < rows: the held cells in blocks of cs rb rows by
+// ld - 1 columns, a slot's sp taps the kv of a CTA's rb rows and the ku of
+// the block's columns. (Kept out of BandGeom's fields: the kernel's
+// parameters grew past what the whole form's launches run fastest with.)
+__host__ __device__ inline bool band_clipped(const BandGeom& g) { return g.cs * g.rb < g.rows; }
+
 template <typename T>
 inline BandGeom band_geom(int S, int k, int threads, int nsl, int cs, int stage, int nbuf,
                           int tr, int tc) {
@@ -1151,6 +1187,51 @@ inline BandGeom band_rows(int S, int tile, int k, int threads, int nsl, int cs, 
   return g;
 }
 
+// The clipped form, where no cluster holds one sub-tile's held rows whole
+// (a window past about 330 cells): sub-tiles of min(tile, 2 S, 1024)
+// corners a side whose held cells 8 CTAs serve in blocks, each CTA rb = 8
+// nbk rows of a block by wb columns, a thread 8 rows of one column (wb nbk
+// threads); nbk the row blocks nearest to a square block (8 rb about wb),
+// then the widest wb (multiples of 32) and the largest batch (64 entries
+// down to 1, two tap buffers before one) that fit. threads 0 where none
+// fits.
+template <typename T>
+inline BandGeom band_clip(int S, int tile) {
+  const int most = wide_most(sizeof(T) == 8);
+  const int t = min(min(tile, 2 * S), 1024);
+  int nbk = 1;
+  while ((nbk + 1) * (nbk + 1) * 64 <= most) ++nbk;
+  BandGeom g = band_geom<T>(S, 8, most, 1, 8, 1, 1, t, t);
+  g.nsl = g.walks = g.npass = 1;
+  g.rt = g.nr = 1;
+  g.group = most;
+  for (; nbk >= 1; --nbk)
+    for (int wb = most / nbk / 32 * 32; wb >= 32; wb -= 32)
+      for (int stage = 64; stage >= 1; stage /= 2)
+        for (int nbuf = 2; nbuf >= 1; --nbuf) {
+          g.threads = nbk * wb;
+          g.stage = g.slots = stage;
+          g.nbuf = nbuf;
+          g.rb = 8 * nbk;  // a multiple of the taps a 16-byte load holds
+          g.ld = wb | 1;   // wb even
+          g.sp = g.rb + wb;
+          if (!band_clipped(g)) continue;  // the whole form serves such a sub-tile
+          // taps [nbuf][stage][kv rows, ku columns]; meta: a batch's
+          // entries [stage] int4 and [stage][4] T; mval [nbuf][stage][2];
+          // red; seg [6][t + 1] (the whole form's and, per corner row, its
+          // first entry in the block and the prefix of their counts); acc
+          g.meta = align16((size_t)nbuf * stage * g.sp * sizeof(T));
+          g.mval = align16(g.meta + (size_t)stage * (16 + 4 * sizeof(T)));
+          g.red = align16(g.mval + (size_t)nbuf * stage * 2 * sizeof(T));
+          g.seg = g.red + 16;
+          g.acc = align16(g.seg + 6 * (size_t)(t + 1) * sizeof(int));
+          g.smem = g.acc + 2 * (size_t)g.ld * sizeof(u64) * g.rb;
+          if (g.smem <= kMaxSmem) return g;
+        }
+  g.threads = 0;
+  return g;
+}
+
 // Rows a thread and threads a CTA: the wide variant's choice up to a
 // support of 64; past it 8 rows a thread and a walk's classes over the
 // fewest CTAs (1, 2, 4 or 8) of at most the most threads, further passes
@@ -1187,9 +1268,7 @@ inline BandGeom band_plan(int S, int tile) {
         const BandGeom g = band_rows<T>(S, tile, k, threads, nsl, 8, stage, nbuf, c);
         if (g.threads) return g;
       }
-  BandGeom g = band_geom<T>(S, k, threads, nsl, 8, 1, 1, 1, 1);
-  g.threads = 0;
-  return g;
+  return band_clip<T>(S, tile);
 }
 
 // K rows of a column a thread. A cluster of gm.cs CTAs serves the units
@@ -1210,7 +1289,7 @@ inline BandGeom band_plan(int S, int tile) {
 // where one CTA holds the sub-tile), each sub-tile goes into grid64 once,
 // in one overlap-add, and f64 flushes in the sub-tile's own units, as the
 // wide variant's runs do.
-template <typename T, int K>
+template <typename T, int K, bool kClip>
 __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
     unit_tiles_band_kernel(const T* __restrict__ u, const T* __restrict__ v,
                            const T* __restrict__ vals, const T* __restrict__ ulo,
@@ -1402,6 +1481,221 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
           scl = ldexp(1.0, kr);
           wshift = kg - kr;
         }
+        if constexpr (kClip) {
+          // no cluster holds a window whole: the held cells in blocks of hb
+          // rows by wb columns (band_clip), every CTA's rb rows of a block
+          // its own and every cell of them one thread's; a block is walked
+          // by the entries whose windows meet its rows, in every CTA, with
+          // each entry's taps over the block's rows and columns (zero
+          // outside its window)
+          const int y0 = red[0], y1 = min(gm.rows, red[1] + S + 1);
+          const int hb = cs * gm.rb, wb = gm.ld - 1;  // a block's rows and columns
+          const int cols = tc + S + 1;                // the sub-tile's held columns
+          const int kvw = gm.rb;                      // a slot's kv taps, then its ku
+          const int cc = tid % wb, blk = tid / wb;    // the thread's column and row block
+          // [tr + 1] each: a corner row's first entry in the block, the prefix
+          // of their counts
+          int* bfirst = rowend + gm.tr + 1;
+          int* bpre = bfirst + gm.tr + 1;
+          // a batch's entries: int4 (entry, v corner, u corner, -) and
+          // T (t0 - v, t0 - u, v residual, u residual), as stage 1 forms them
+          int4* prep = reinterpret_cast<int4*>(smem_raw + gm.meta);
+          T* prept = reinterpret_cast<T*>(prep + stage);
+          for (int Y0 = y0; Y0 < y1; Y0 += hb)
+            for (int X0 = 0; X0 < cols; X0 += wb) {
+              const int wbw = min(wb, cols - X0);  // the block's columns
+              // the block's entries: on corner rows i whose windows meet its
+              // rows (Y0 - S <= i < Y0 + hb), those whose windows meet its
+              // columns (a window starts at held column floor(u) - (half - 1)
+              // - shift - tu0 + 1 - C0, shift 0 or 1, and spans S columns)
+              const int ilo = max(0, Y0 - S), ihi = min(tr, Y0 + hb);
+              if (ilo >= ihi || pre[ihi] == pre[ilo]) continue;  // uniform over the cluster
+              __syncthreads();  // every thread is done with the previous block's entries
+              const int fa = (half - 1) + tu0 + C0 - 1;
+              for (int i = tid; i < tr; i += threads) {
+                int b[2] = {first[i], first[i]};
+                if (i >= ilo && i < ihi) {
+                  const int h0 = first[i] + pre[i + 1] - pre[i];
+                  for (int e = 0; e < 2; ++e) {
+                    const int fu = e ? X0 + wbw + fa + 1 : X0 - S + 1 + fa;
+                    int l = e ? b[0] : first[i], h = h0;
+                    while (l < h) {
+                      const int mid = (l + h) >> 1;
+                      if ((int)floor_(u[mid]) < fu) l = mid + 1;
+                      else h = mid;
+                    }
+                    b[e] = l;
+                  }
+                }
+                bfirst[i] = b[0];
+                bpre[i + 1] = b[1] - b[0];
+              }
+              __syncthreads();
+              if (tid == 0) {
+                bpre[0] = 0;
+                for (int i = 0; i < tr; ++i) bpre[i + 1] += bpre[i];
+              }
+              __syncthreads();
+              const int ecount = bpre[tr];
+              if (ecount == 0) continue;  // uniform over the cluster
+              // the block's i-th entry
+              auto bentry = [&](int i) {
+                int l = ilo, h = ihi - 1;  // the corner row: bpre[l] <= i < bpre[l + 1]
+                while (l < h) {
+                  const int mid = (l + h + 1) >> 1;
+                  if (bpre[mid] <= i) l = mid;
+                  else h = mid - 1;
+                }
+                return bfirst[l] + i - bpre[l];
+              };
+              // every CTA is done with the previous block's taps and band
+              cluster.sync();
+              for (int c = 0; c < 2; ++c)
+                for (int i = tid; i < nb; i += threads) acc[(size_t)c * nb + i] = 0ull;
+              const int nku = (wbw + cs - 1) / cs;  // the block's ku taps a CTA computes
+              const int items = gm.rb + nku;
+              // stage 1: batch k's taps into buffer b: each entry's corners,
+              // offsets and value once, then each CTA its own rows' kv taps
+              // and every cs-th column's ku taps, those into every CTA's
+              // shared memory, in es_tap's operation order (the whole form's
+              // bits)
+              auto stage1c = [&](int k, int b) {
+                T* tb = taps + (size_t)b * stage * gm.sp;
+                T* vb = mval + (size_t)b * stage * 2;
+                for (int sl = tid; sl < stage; sl += threads) {
+                  const int i = k * stage + sl;
+                  if (i >= ecount) break;
+                  const int p = bentry(i);
+                  int r0[2];
+                  T d0[2], lo[2];
+                  for (int axis = 0; axis < 2; ++axis) {
+                    const T pix = axis == 0 ? v[p] : u[p];
+                    lo[axis] = ulo == nullptr ? T(0) : (axis == 0 ? vlo[p] : ulo[p]);
+                    const int t0 = axis == 0 ? tv0 : tu0;
+                    const int shift = (pix == floor_(pix) && lo[axis] < T(0)) ? 1 : 0;
+                    r0[axis] = (int)floor_(pix) - (half - 1) - shift - t0;
+                    d0[axis] = sub_rn(T(t0), pix);
+                  }
+                  prep[sl] = make_int4(p, r0[0], r0[1], 0);
+                  prept[4 * sl] = d0[0];
+                  prept[4 * sl + 1] = d0[1];
+                  prept[4 * sl + 2] = lo[0];
+                  prept[4 * sl + 3] = lo[1];
+                  vb[2 * sl] = vals[2 * (size_t)p];
+                  vb[2 * sl + 1] = vals[2 * (size_t)p + 1];
+                }
+                __syncthreads();
+                for (int it = tid; it < stage * items; it += threads) {
+                  const int sl = it / items, t = it - sl * items;
+                  if (k * stage + sl >= ecount) break;
+                  const int axis = t < gm.rb ? 0 : 1;  // 0: v (rows), 1: u (columns)
+                  const int x = axis == 0 ? t : rank + cs * (t - gm.rb);
+                  if (axis == 1 && x >= wbw) continue;
+                  const int4 m = prep[sl];
+                  const int r0 = axis == 0 ? m.y : m.z;
+                  // the tap's held row (column) and its place in the window
+                  const int d = (axis == 0 ? Y0 + rank * gm.rb + t : X0 + x) -
+                                (r0 + 1 - (axis == 0 ? R0 : C0));
+                  T tap = T(0);
+                  if (d >= 0 && d < S)
+                    tap = es_tap(sub_rn(add_rn(prept[4 * sl + axis], T(r0 + d)),
+                                        prept[4 * sl + 2 + axis]),
+                                 T(half), beta);
+                  T* row = tb + (size_t)sl * gm.sp;
+                  if (axis == 0) {
+                    row[t] = tap;
+                  } else {
+                    for (int q = 0; q < cs; ++q) *cluster.map_shared_rank(row + kvw + x, q) = tap;
+                  }
+                }
+              };
+              const bool walker = cc < wbw;
+              int since = 0;
+              T sum[K][2];
+#pragma unroll
+              for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
+              // the sums into the thread's own cells (no other thread adds to them)
+              auto flushc = [&]() {
+#pragma unroll
+                for (int j = 0; j < K; ++j) {
+                  const int yy = blk * K + j;
+                  if (yy < gm.rb) {
+                    const size_t vi = (size_t)yy * gm.ld + cc;
+                    long long q0, q1;
+                    if constexpr (sizeof(T) == 4) {
+                      q0 = unitf != 0.f ? __float2ll_rn(sum[j][0] * unitf)
+                                        : __double2ll_rn((double)sum[j][0] * scl);
+                      q1 = unitf != 0.f ? __float2ll_rn(sum[j][1] * unitf)
+                                        : __double2ll_rn((double)sum[j][1] * scl);
+                    } else {
+                      q0 = __double2ll_rn(sum[j][0] * scl);
+                      q1 = __double2ll_rn(sum[j][1] * scl);
+                    }
+                    acc[vi] += (u64)q0;
+                    acc[nb + vi] += (u64)q1;
+                  }
+                  sum[j][0] = sum[j][1] = T(0);
+                }
+              };
+              // batch k from buffer b: a thread skips an entry whose ku tap of
+              // its column is zero (the column lies outside the window)
+              auto walk = [&](int k, int b) {
+                const int nj = min(stage, ecount - k * stage);
+                const T* tb = taps + (size_t)b * stage * gm.sp;
+                const T* vb = mval + (size_t)b * stage * 2;
+                for (int jj = 0; jj < nj; ++jj) {
+                  const T* tp = tb + (size_t)jj * gm.sp;
+                  const T kx = tp[kvw + cc];
+                  if (kx == T(0)) continue;
+                  const T lr = vb[2 * jj] * kx, li = vb[2 * jj + 1] * kx;
+                  T ky[K];
+                  load_rows<K>(tp + blk * K, ky);
+#pragma unroll
+                  for (int j = 0; j < K; ++j) {
+                    sum[j][0] = fma_(ky[j], lr, sum[j][0]);
+                    sum[j][1] = fma_(ky[j], li, sum[j][1]);
+                  }
+                  if (++since == kRunCap) {  // bounds a sequential sum
+                    flushc();
+                    since = 0;
+                  }
+                }
+              };
+              const int nbatch = (ecount + stage - 1) / stage;
+              for (int k = 0; k < nbatch; ++k) {
+                const int b = k % gm.nbuf;
+                if (gm.nbuf == 1 && k > 0) cluster.sync();  // every CTA is done with batch k - 1
+                stage1c(k, b);
+                // batch k's taps are in every CTA; with two buffers, every
+                // thread is done with batch k - 1's
+                cluster.sync();
+                if (walker) walk(k, b);
+              }
+              if (walker) flushc();
+              __syncthreads();
+              // overlap-add of the CTA's rows of the block, as below
+              for (int i = tid; i < nb; i += threads) {
+                const int yy = i / gm.ld;
+                const int x = i - yy * gm.ld;
+                const int ty = R0 - 1 + Y0 + rank * gm.rb + yy, tx = C0 - 1 + X0 + x;
+                if (ty < 0 || tx < 0 || x >= wbw) continue;
+                const int gy = tv0 + ty;
+                const int gx = tu0 + tx;
+                if (gy >= npix || gx >= npix) continue;
+                u64* gp = grid64 + 2 * kW * (((size_t)plane * npix + gy) * npix + gx);
+                if constexpr (kW == 1) {
+                  words_add(gp, &acc[i], 1);
+                  words_add(gp + 1, &acc[nb + i], 1);
+                } else {
+                  u64 w[2];
+                  tile_to_int128((long long)acc[i], wshift, w[0], w[1]);
+                  words_add(gp, w, 2);
+                  tile_to_int128((long long)acc[nb + i], wshift, w[0], w[1]);
+                  words_add(gp + 2, w, 2);
+                }
+              }
+            }
+        } else {
         // the held rows the windows reach, [y0, y1) (a window of corner row i
         // lies in held rows [i, i + S + 1), a row early where its corner is an
         // integer with a negative residual); this CTA's band of them, from its
@@ -1592,18 +1886,19 @@ __global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
             words_add(gp + 2, w, 2);
           }
         }
+        }
       }
     }
   }
 }
 
-template <typename T, int K>
+template <typename T, int K, bool kClip>
 int launch_band_k(const BandGeom& gm, const void* u, const void* v, const void* vals,
                   const void* ulo, const void* vlo, const void* unit_seg,
                   const void* unit_start, const void* unit_count, const void* vsum,
                   void* grid64, int nunits, int npix, int tile, int nta, int support,
                   double beta, cudaStream_t s) {
-  auto fn = unit_tiles_band_kernel<T, K>;
+  auto fn = unit_tiles_band_kernel<T, K, kClip>;
   cudaError_t e = cudaFuncSetAttribute(
       fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
   if (e == cudaSuccess)
@@ -1645,319 +1940,20 @@ int launch_band_k(const BandGeom& gm, const void* u, const void* v, const void* 
   return ska_last_error();
 }
 
-// ---------------------------------------------------------------------------
-// Route 4 past the largest window a cluster holds (a support past about
-// 330 cells): every register run added straight into the fixed-point grids
-// in device memory.
-
-constexpr int kDevWaves = 16;  // about this many device-route CTAs an SM serves
-
-// Launch geometry of the device-memory route at support S
-struct DevGeom {
-  int k;        // rows of one column a thread owns
-  int threads;  // of a CTA
-  int nbb;      // row blocks of a column: ceil(S / k)
-  int group;    // threads of one walk: S columns times nbb row blocks
-  int walks;    // walks of a CTA (1 where a walk takes several CTAs)
-  int nsl;      // CTAs of one walk: its classes in slices of `threads`
-  int stage;    // entries a walk takes a batch
-  int slots;    // entries a CTA takes a batch
-  int sp;       // taps of a staged axis row (by residue class; 16-byte rows)
-  size_t meta, mval, smem;  // byte offsets of the arrays; total
-};
-
-template <typename T>
-__host__ __device__ inline DevGeom dev_geom(int S, int k, int threads, int stage) {
-  DevGeom g;
-  g.k = k;
-  g.threads = threads;
-  g.nbb = (S + k - 1) / k;
-  g.group = S * g.nbb;
-  g.walks = g.group <= threads ? threads / g.group : 1;
-  g.nsl = (g.group + threads - 1) / threads;
-  g.stage = stage;
-  g.slots = g.walks * stage;
-  const int vec = 16 / (int)sizeof(T);
-  const int taps = S > g.nbb * k ? S : g.nbb * k;
-  g.sp = (taps + vec - 1) / vec * vec;
-  // taps [slots][kv, ku][sp]; meta [slots] int4; mval [slots][2]
-  g.meta = align16((size_t)g.slots * 2 * g.sp * sizeof(T));
-  g.mval = g.meta + (size_t)g.slots * 16;
-  g.smem = align16(g.mval + (size_t)g.slots * 2 * sizeof(T));
-  return g;
-}
-
-// The wide variant's rows a thread and threads a CTA up to a support of
-// 64, 8 rows a thread and its most threads past it; the largest batch (32
-// entries a walk down to 1) of at most one entry a thread that fits a
-// block's shared memory. threads 0 where no batch fits.
-template <typename T>
-inline DevGeom dev_plan(int S) {
-  const bool f64 = sizeof(T) == 8;
-  int k = 8, threads = wide_most(f64);
-  if (S <= 64) wide_choice(S, f64, k, threads);
-  for (int stage = 32; stage >= 1; stage /= 2) {
-    const DevGeom g = dev_geom<T>(S, k, threads, stage);
-    if (g.slots <= g.threads && g.smem <= kMaxSmem) return g;
-  }
-  DevGeom g = dev_geom<T>(S, k, threads, 1);
-  g.threads = 0;
-  return g;
-}
-
-// w += r in units of 1/scale in device memory, skipping a zero: one int64
-// word (f32), or the 128-bit pair (f64, fixed_add)
-__device__ __forceinline__ void dev_add(u64* w, float r, double scale) {
-  const long long q = __double2ll_rn((double)r * scale);
-  if (q != 0) atomicAdd(w, (u64)q);
-}
-__device__ __forceinline__ void dev_add(u64* w, double r, double scale) {
-  fixed_add(w, r, scale);
-}
-
-// K rows of a column a thread. CTA (x, y) serves slice y of the classes of
-// the units [per x, per (x + 1)), one run of consecutive units of one
-// segment at a time. Each batch: the taps of its entries by residue class
-// into shared memory (stage 1, as the wide variant computes them, so they
-// keep their bits), a barrier, the walks (Romein's, at period S), each
-// register run added to the fixed-point grids in device memory: an int64
-// word a value in f32; in f64 the launch's 128-bit pair of words, the
-// carry from the low word's old value (add_int128). A cell left of the
-// unit's tile (a window a cell early at the tile's first row or column)
-// is not the dense form's and is dropped, as the narrow kernel drops it.
-template <typename T, int K>
-__global__ void __launch_bounds__(wide_most(sizeof(T) == 8), 1)
-    unit_tiles_dev_kernel(const T* __restrict__ u, const T* __restrict__ v,
-                          const T* __restrict__ vals, const T* __restrict__ ulo,
-                          const T* __restrict__ vlo,
-                          const int* __restrict__ unit_seg,
-                          const int* __restrict__ unit_start,
-                          const int* __restrict__ unit_count,
-                          const double* __restrict__ vsum,
-                          u64* __restrict__ grid64, int npix, int tile, int nta,
-                          int S, int stage, int nunits, int per, T beta) {
-  constexpr int kW = Fixed<T>::kWords;
-  const int threads = blockDim.x;
-  const DevGeom gm = dev_geom<T>(S, K, threads, stage);
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* taps = reinterpret_cast<T*>(smem_raw);
-  int4* meta = reinterpret_cast<int4*>(smem_raw + gm.meta);
-  T* mval = reinterpret_cast<T*>(smem_raw + gm.mval);
-  const int half = S / 2;
-
-  const double total = vsum[0];
-  if (!isfinite(total)) return;  // the conversion writes NaN
-  const double scale = ldexp(1.0, fixed_exponent<T>(total));
-  const int ntiles = nta * nta;
-
-  // walk role: walk g of the CTA, class slot r of the walk; the thread owns
-  // the classes (a, b0 + j), j < nvalid, of residue period S
-  const int g = gm.nsl > 1 ? 0 : threadIdx.x / gm.group;
-  const int rr = gm.nsl > 1 ? (int)blockIdx.y * threads + threadIdx.x
-                            : threadIdx.x - g * gm.group;
-  const bool walker = gm.nsl > 1 ? rr < gm.group : g < gm.walks;
-  const int a = rr / gm.nbb;
-  const int b0 = (rr - a * gm.nbb) * K;
-  const int nvalid = walker ? min(K, S - b0) : 0;
-
-  const int c1 = min(nunits, (int)(blockIdx.x + 1) * per);
-  for (int c0 = (int)blockIdx.x * per; c0 < c1;) {
-    // the run: units [c0, ce) of one segment, entries [start, end)
-    const int seg = unit_seg[c0];
-    int ce = c0 + 1;
-    while (ce < c1 && unit_seg[ce] == seg &&
-           unit_start[ce] == unit_start[ce - 1] + unit_count[ce - 1])
-      ++ce;
-    const int start = unit_start[c0];
-    const int end = unit_start[ce - 1] + unit_count[ce - 1];
-    c0 = ce;
-    const int plane = seg / ntiles;
-    const int t = seg - plane * ntiles;
-    const int tv0 = (t / nta) * tile;
-    const int tu0 = (t % nta) * tile;
-    u64* gp0 = grid64 + 2 * kW * (size_t)plane * npix * npix;
-
-    // walk w of the CTA's walks takes [start + w q, start + (w + 1) q)
-    const int q = (end - start + gm.walks - 1) / gm.walks;
-    const int nbatch = (q + stage - 1) / stage;
-    auto pos_of = [&](int k, int sl) {
-      const int w = sl / stage;
-      const int p = start + w * q + k * stage + (sl - w * stage);
-      return p < min(start + (w + 1) * q, end) ? p : -1;
-    };
-
-    const int gbeg = start + g * q;
-    const int gend = min(gbeg + q, end);
-    // the run's column, corner row and its residue, entries since the last
-    // cut; the sums (re, im) of the K rows
-    int curx = 0, currv = 0, curres = 0, since = 0;
-    bool open = false;
-    T sum[K][2];
-#pragma unroll
-    for (int j = 0; j < K; ++j) sum[j][0] = sum[j][1] = T(0);
-    auto row_of = [&](int rv, int res, int j) {
-      const int d = b0 + j - res;
-      return rv + (d < 0 ? d + S : d);
-    };
-    // integer adds commute: the grids are the same whatever their order
-    auto flush = [&](int j) {
-      const int y = row_of(currv, curres, j);
-      if (y >= 0 && curx >= 0 && tv0 + y < npix && tu0 + curx < npix) {
-        u64* w = gp0 + 2 * kW * ((size_t)(tv0 + y) * npix + (tu0 + curx));
-        dev_add(w, sum[j][0], scale);
-        dev_add(w + kW, sum[j][1], scale);
-      }
-      sum[j][0] = sum[j][1] = T(0);
-    };
-
-    for (int k = 0; k < nbatch; ++k) {
-      // every thread is done with the previous batch's taps
-      __syncthreads();
-      // stage 1: batch k's taps, one an item, stored by residue class (tap r
-      // of a window starting at cell r0 is class (r0 + r) mod S), and each
-      // entry's corner, residues and value
-      for (int i = threadIdx.x; i < 2 * gm.slots * S; i += threads) {
-        const int pr = i / S;
-        const int r = i - pr * S;
-        const int sl = pr >> 1;
-        const int axis = pr & 1;  // 0: v (rows), 1: u (columns)
-        const int p = pos_of(k, sl);
-        if (p < 0) continue;
-        const T pix = axis == 0 ? v[p] : u[p];
-        const T lo = ulo == nullptr ? T(0) : (axis == 0 ? vlo[p] : ulo[p]);
-        const int t0 = axis == 0 ? tv0 : tu0;
-        // the window of the S taps starts at floor(pix + lo) - (half - 1):
-        // one cell lower than the hi coordinate's window when hi is an
-        // integer and lo < 0 (|lo| < 1)
-        const int shift = (pix == floor_(pix) && lo < T(0)) ? 1 : 0;
-        const int r0 = (int)floor_(pix) - (half - 1) - shift - t0;
-        const int res = (r0 % S + S) % S;
-        const T d0 = sub_rn(T(t0), pix);
-        const int c = res + r < S ? res + r : res + r - S;
-        taps[(size_t)pr * gm.sp + c] = es_tap(sub_rn(add_rn(d0, T(r0 + r)), lo), T(half), beta);
-        if (r == 0) {
-          // int4 (ru, rv, u residue, v residue), tile-relative corners
-          int* m = reinterpret_cast<int*>(meta + sl);
-          m[1 - axis] = r0;
-          m[3 - axis] = res;
-          if (axis == 0) {
-            mval[2 * sl] = vals[2 * (size_t)p];
-            mval[2 * sl + 1] = vals[2 * (size_t)p + 1];
-          }
-        }
-      }
-      __syncthreads();
-      if (!walker) continue;
-      const int nj = min(stage, gend - (gbeg + k * stage));
-      const int s0 = g * stage;
-      for (int jj = 0; jj < nj; ++jj) {
-        const int sl = s0 + jj;
-        const int4 m = meta[sl];
-        int dx = a - m.z;
-        dx += dx < 0 ? S : 0;
-        const int x = m.x + dx;
-        if (!open || x != curx || since == kRunCap) {
-          // the column moved (or the runs are kRunCap long): every row's
-          // cell changes
-          if (open) {
-#pragma unroll
-            for (int j = 0; j < K; ++j)
-              if (j < nvalid) flush(j);
-          }
-          open = true;
-          curx = x;
-          if (since == kRunCap) since = 0;  // every thread's runs end together
-          currv = m.y;
-          curres = m.w;
-        } else if (m.y != currv) {
-          // the corner row moved: a row's cell changes where its row does
-#pragma unroll
-          for (int j = 0; j < K; ++j)
-            if (j < nvalid && row_of(currv, curres, j) != row_of(m.y, m.w, j)) flush(j);
-          currv = m.y;
-          curres = m.w;
-        }
-        ++since;
-        const T* tp = taps + (size_t)sl * 2 * gm.sp;
-        const T kx = tp[gm.sp + a];
-        const T lr = mval[2 * sl] * kx, li = mval[2 * sl + 1] * kx;
-#pragma unroll
-        for (int j = 0; j < K; ++j) {
-          const T ky = tp[b0 + j];
-          sum[j][0] = fma_(ky, lr, sum[j][0]);
-          sum[j][1] = fma_(ky, li, sum[j][1]);
-        }
-      }
-    }
-    if (open) {
-#pragma unroll
-      for (int j = 0; j < K; ++j)
-        if (j < nvalid) flush(j);
-    }
-  }
-}
-
-template <typename T, int K>
-int launch_dev_k(const DevGeom& gm, const void* u, const void* v,
-                 const void* vals, const void* ulo, const void* vlo,
-                 const void* unit_seg, const void* unit_start,
-                 const void* unit_count, const void* vsum, void* grid64,
-                 int nunits, int npix, int tile, int nta, int support,
-                 double beta, cudaStream_t s) {
-  auto fn = unit_tiles_dev_kernel<T, K>;
-  cudaError_t e = cudaFuncSetAttribute(
-      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)gm.smem);
-  if (e != cudaSuccess) return (int)e;
-  // units a CTA: about kDevWaves CTAs an SM over the launch
-  int dev = 0, sms = 0;
-  e = cudaGetDevice(&dev);
-  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (e != cudaSuccess) return (int)e;
-  const int per = max(1, (int)((long long)nunits * gm.nsl / ((long long)sms * kDevWaves)));
-  const int nblocks = (nunits + per - 1) / per;
-  fn<<<dim3((unsigned)nblocks, (unsigned)gm.nsl), gm.threads, gm.smem, s>>>(
-      (const T*)u, (const T*)v, (const T*)vals, (const T*)ulo, (const T*)vlo,
-      (const int*)unit_seg, (const int*)unit_start, (const int*)unit_count,
-      (const double*)vsum, (u64*)grid64, npix, tile, nta, support, gm.stage, nunits,
-      per, (T)beta);
-  return ska_last_error();
-}
-
-template <typename T>
-int launch_dev(const void* u, const void* v, const void* vals,
-               const void* ulo, const void* vlo, const void* unit_seg,
-               const void* unit_start, const void* unit_count,
-               const void* vsum, void* grid64, int nunits, int npix,
-               int tile, int nta, int support, double beta, cudaStream_t s) {
-  const DevGeom gm = dev_plan<T>(support);
-  if (gm.threads == 0) return (int)cudaErrorInvalidValue;  // no batch fits
-#define SKA_UNIT_TILES_DEV(K)                                                  \
-  launch_dev_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,          \
-                     unit_count, vsum, grid64, nunits, npix, tile, nta,       \
-                     support, beta, s)
-  switch (gm.k) {
-    case 8: return SKA_UNIT_TILES_DEV(8);
-    case 7: return SKA_UNIT_TILES_DEV(7);
-    case 6: return SKA_UNIT_TILES_DEV(6);
-    case 5: return SKA_UNIT_TILES_DEV(5);
-    default: return SKA_UNIT_TILES_DEV(4);
-  }
-#undef SKA_UNIT_TILES_DEV
-}
-
 template <typename T>
 int launch_band(const void* u, const void* v, const void* vals, const void* ulo,
                 const void* vlo, const void* unit_seg, const void* unit_start,
                 const void* unit_count, const void* vsum, void* grid64, int nunits, int npix,
                 int tile, int nta, int support, double beta, cudaStream_t s) {
   const BandGeom gm = band_plan<T>(support, tile);
-  if (gm.threads == 0)  // no cluster holds a window
-    return launch_dev<T>(u, v, vals, ulo, vlo, unit_seg, unit_start, unit_count, vsum, grid64,
-                         nunits, npix, tile, nta, support, beta, s);
-#define SKA_UNIT_TILES_BAND(K)                                                 \
-  launch_band_k<T, K>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start,         \
-                      unit_count, vsum, grid64, nunits, npix, tile, nta,      \
-                      support, beta, s)
+  if (gm.threads == 0) return (int)cudaErrorInvalidValue;  // not one row of a block fits
+#define SKA_UNIT_TILES_BAND(K)                                                    \
+  band_clipped(gm) ? launch_band_k<T, K, true>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start, \
+                                      unit_count, vsum, grid64, nunits, npix, tile,  \
+                                      nta, support, beta, s)                         \
+          : launch_band_k<T, K, false>(gm, u, v, vals, ulo, vlo, unit_seg, unit_start, \
+                                       unit_count, vsum, grid64, nunits, npix, tile,  \
+                                       nta, support, beta, s)
   switch (gm.k) {
     case 8: return SKA_UNIT_TILES_BAND(8);
     case 7: return SKA_UNIT_TILES_BAND(7);
@@ -2115,7 +2111,7 @@ inline int unit_tiles_route(int S, int tile) {
     const WideGeom g = wide_plan<T>(S, tile);
     if (g.cs != 0) return g.cs * g.rb >= g.rows ? 2 : 3;
   }
-  return S == 1 || band_plan<T>(S, tile).threads || dev_plan<T>(S).threads ? 4 : 0;
+  return S == 1 || band_plan<T>(S, tile).threads ? 4 : 0;
 }
 
 template <typename T>
@@ -2200,8 +2196,8 @@ SKA_EXPORT int ska_unit_tiles(const void* u, const void* v, const void* vals,
 // own), decided before any launch: 0 refused (a support past the tile, as
 // the JAX package's tiled gridder refuses it), 1 the narrow kernel, 2 the
 // wide variant holding the whole tile, 3 the wide variant in turns, 4
-// route 4 (sub-tiles; no launch at support 1; device memory past the
-// largest window a cluster holds).
+// route 4 (sub-tiles; no launch at support 1; windows clipped to blocks of
+// the held cells past the largest window a cluster holds).
 SKA_EXPORT int ska_unit_tiles_route(int support, int tile, int f64) {
   return f64 ? unit_tiles_route<double>(support, tile) : unit_tiles_route<float>(support, tile);
 }
@@ -2213,16 +2209,20 @@ SKA_EXPORT int ska_unit_tiles_route(int support, int tile, int f64) {
 // the rows of a column a thread owns, 5 the entries a walk takes a batch,
 // 6 and 7 the rows and columns of window corners of a sub-tile, 8 the CTAs
 // of one walk, 9 the passes of a walk's threads over its classes, 10 the
-// tap buffers; 0 past them, at support 1 (no launch) and where no cluster
-// holds a window (the device-memory walk serves it).
+// tap buffers, 11 and 12 the held rows and columns of a block where the
+// cluster serves a sub-tile's held cells in blocks, windows clipped to
+// each (0 where it holds them whole); 0 past them, at support 1 (no
+// launch) and where not one row of a block fits.
 SKA_EXPORT int ska_unit_tiles_band_geometry(int support, int tile, int f64, int what) {
   if (support < 2 || support > tile) return 0;
   const BandGeom gm =
       f64 ? band_plan<double>(support, tile) : band_plan<float>(support, tile);
   if (gm.threads == 0) return 0;
-  const int v[] = {gm.cs, gm.threads, (int)gm.smem, gm.walks, gm.k, gm.stage,
-                   gm.tr, gm.tc, gm.nsl, gm.npass, gm.nbuf};
-  return what >= 0 && what < 11 ? v[what] : 0;
+  const bool clip = band_clipped(gm);
+  const int v[] = {gm.cs,  gm.threads, (int)gm.smem, gm.walks, gm.k,
+                   gm.stage, gm.tr,    gm.tc,        gm.nsl,   gm.npass,
+                   gm.nbuf, clip ? gm.cs * gm.rb : 0, clip ? gm.ld - 1 : 0};
+  return what >= 0 && what < 13 ? v[what] : 0;
 }
 
 // The wide variant's launch geometry at `support` (2 to 64 and the tile;

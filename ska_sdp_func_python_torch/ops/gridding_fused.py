@@ -25,8 +25,9 @@ hold fewer rows than the tile) and K3's whole-warp variant (each lane one
 or two columns). K1's wide variant also takes windows of up to 16 cells on
 tiles whose int64 rows one block cannot hold. Windows past 64 cells, and
 tiles of which a cluster's bands cannot hold one window's rows, take K1's
-device-memory route (its register runs added straight into the int64
-grids); windows past 64 cells take K3's long-window kernel, which stages
+route 4 (sub-tiles of window corners whose cells and halo a cluster holds
+in shared int64, in blocks with each window clipped to them where it
+cannot hold one whole); windows past 64 cells take K3's long-window kernel, which stages
 each piece's window rows in shared memory band after band and serves two
 entries of a corner row in one pass over a band's rows, each lane three to
 five columns. ``ska_grid_route`` and ``ska_degrid_route`` name the route

@@ -15,7 +15,7 @@ permutation, in place of the JAX package's rank-keyed sorts.
 
 A plan takes any support from 1 to its tile (the JAX plan path's limit,
 on the card too: past a window of 64 cells, or on a tile of which no
-cluster holds one window's rows, K1 and K3 take their device-memory and
+cluster holds one window's rows, K1 and K3 take their route 4 and
 long-window routes), and linear (a
 plane pair an entry) or nearest-plane (one plane an entry, ``plane_idx``
 without ``plane_frac``) w-stacking, as the JAX plan path does. An odd

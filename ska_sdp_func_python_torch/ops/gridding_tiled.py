@@ -22,7 +22,9 @@ supports past 64 and tiles of which no cluster holds one window's rows
 through K9's route 4, which serves the tile a sub-tile of window corners
 after another, each with its halo held in shared memory over a cluster,
 and whose walks past 64 span the CTAs of a cluster, sharing each batch's
-taps through distributed shared memory; support 1, whose taps are zero,
+taps through distributed shared memory (past the largest window a
+cluster holds, the held cells in blocks, each window clipped to them);
+support 1, whose taps are zero,
 launches only the conversion (``ska_unit_tiles_route`` names the route
 of a geometry, ``ska_unit_tiles_band_geometry`` route 4's launch). Its
 plain version

@@ -2,8 +2,8 @@
 package: windows past 64 cells on the plan path (``make_grid_plan``,
 ``grid_with_plan``, ``degrid_with_plan``), ``tiled_grid`` at supports 1
 and past 64, and the plain versions on tiles past what a cluster of the
-card holds. On the card these run K1's device-memory route, K3's
-long-window kernel and K9's device-memory route (``ska_grid_route``,
+card holds. On the card these run K1's route 4, K3's long-window
+kernel and K9's route 4 (``ska_grid_route``,
 ``ska_degrid_route``, ``ska_unit_tiles_route`` return 4); on the CPU the
 wrappers take their plain versions, held here to the JAX package's own
 results (its Pallas kernels in interpret mode, in x64).

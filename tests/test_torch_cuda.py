@@ -21,7 +21,7 @@ launch to launch; held against the plain version accumulated in f64) and
 sums in another order: rows per lane, then a shuffle reduction) agree to
 1e-5 of the maximum, for one plan and for a stack of channel plans in one
 launch, at supports 2 to 64 (the wide variants past 16 and on tiles the
-narrow kernel cannot hold, up to 512), past 64 (K1's device-memory route,
+narrow kernel cannot hold, up to 512), past 64 (K1's route 4,
 K3's long-window kernel, its windows straddling the bands it stages, on
 dense and sparse streams) and on tiles no cluster holds, and on linear,
 nearest-plane and single-plane plans; ``unit_tiles`` (fixed-point sums:
@@ -1335,7 +1335,7 @@ def test_grid_refuses_a_tile_it_cannot_hold(dev, support, tile):
     """Past the largest tile a cluster serves: a linear plan's bands over
     a cluster of 8 hold fewer than one window's rows at span 64 on tile
     1024 and at span 8 on tile 4096, where K1 refused the tile until its
-    device-memory route took it (``ska_grid_route`` 4): against the plain
+    route 4 took it (``ska_grid_route`` 4): against the plain
     version accumulated in f64, to 1e-5 of the maximum, with the same bits
     on a second launch; one launch a call."""
     plan = _support_plan(dev, support, "linear", n=2000, npix=tile, nplanes=3, tile=tile)
@@ -1593,17 +1593,18 @@ def _k9_streams(dev, u64, v64, dtype, support, tile, npix, unit, with_lo, vals=N
     return streams, dict(npixel=npix, tile=tile, support=support, beta=2.3 * support)
 
 
-def _k9_check(streams, kw, dtype, bits=True):
+def _k9_check(streams, kw, dtype, bits=True, tol=None):
     """One launch of K9 against unit_tiles_plain accumulated in f64 (f32
-    to 1e-5 of the grid maximum, f64 to 1e-12) and, with ``bits``, a second
-    launch to the same bits."""
+    to 1e-5 of the grid maximum, f64 to 1e-12, or ``tol``) and, with
+    ``bits``, a second launch to the same bits."""
     stream, ref_stream = streams
     before = kernels.KERNELS["unit_tiles"].launches
     out = stream.grid(**kw)
     torch.cuda.synchronize()
     assert kernels.KERNELS["unit_tiles"].launches == before + 1
     ref = ref_stream.grid(plain=True, **kw)
-    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    if tol is None:
+        tol = 1e-5 if dtype == torch.float32 else 1e-12
     assert ref.abs().max() > 0
     assert (out.to(torch.complex128) - ref).abs().max() <= tol * ref.abs().max()
     if bits:
@@ -1736,7 +1737,7 @@ def test_unit_tiles_wide_nan_value_gives_nan_grids(dev, support, dtype):
 def test_unit_tiles_wide_refuses_a_tile_no_cluster_holds(dev, dtype):
     """A tile of whose fixed-point words a cluster of 8 CTAs cannot hold
     one window's rows (4096 at support 64), which K9 refused until its
-    device-memory route took it (``ska_unit_tiles_route`` 4): against
+    route 4 took it (``ska_unit_tiles_route`` 4): against
     unit_tiles_plain accumulated in f64 (f32 to 1e-5 of the grid maximum,
     f64 to 1e-12), two launches to the same bits."""
     tile, support = 4096, 64
@@ -1842,7 +1843,7 @@ def test_routes_1_to_3_unchanged_up_to_tile_512(dev):
 @pytest.mark.parametrize("support,tile", [(72, 96), (97, 448), (128, 256)])
 def test_grid_and_degrid_past_64_cells_match_plain(dev, support, tile, mode):
     """Windows past 64 cells (an odd support's are S + 1): K1's
-    device-memory route (``ska_grid_route`` 4) and K3's long-window kernel
+    route 4 (``ska_grid_route`` 4) and K3's long-window kernel
     (``ska_degrid_route`` 4) against their plain versions (K1's
     accumulated in f64), to 1e-5 of the maximum; two launches of each give
     the same bits, one launch a call."""
@@ -1898,7 +1899,7 @@ def test_degrid_stack_past_64_cells_matches_plain(dev, frac):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 @pytest.mark.parametrize("support,tile", [(72, 96), (80, 192), (97, 256), (128, 256)])
 def test_unit_tiles_past_64_matches_plain(dev, support, tile, dtype, with_lo):
-    """K9's device-memory route (``ska_unit_tiles_route`` 4) at supports
+    """K9's route 4 (``ska_unit_tiles_route`` 4) at supports
     past 64 on a core-heavy stream of full units: f64 against
     unit_tiles_plain in f64 to 1e-12 of the grid maximum; f32 against
     unit_tiles_plain on the same f32 stream to 1e-5, since past 64 the f32
@@ -1923,7 +1924,7 @@ def test_unit_tiles_past_64_matches_plain(dev, support, tile, dtype, with_lo):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
 def test_unit_tiles_at_support_1_gives_zero_grids(dev, dtype):
     """Support 1: the ES kernel of half width 0 is zero everywhere, so K9's
-    device-memory route and its plain version give zero grids; the
+    route 4 and its plain version give zero grids; the
     launch is counted."""
     f64 = int(dtype == torch.float64)
     assert kernels.query("ska_unit_tiles_route", 1, 64, f64) == 4
@@ -2035,24 +2036,185 @@ def test_unit_tiles_route4_bands_match_plain(dev, case, support, tile, dtype):
     _k9_check(streams, kw, dtype)
 
 
-def test_unit_tiles_past_the_largest_window_a_cluster_holds(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=["f32", "f64"])
+def test_unit_tiles_past_the_largest_window_a_cluster_holds(dev, dtype):
     """A support of 384 on tile 512: no cluster holds one window and its
-    halo (386 x 386 int64 pairs), so route 4 adds K9's register runs into
-    the fixed-point grids in device memory (``ska_unit_tiles_band_geometry``
-    0): in f64 against unit_tiles_plain in f64 to 1e-12 of the grid
-    maximum, two launches to the same bits. (In f32 the ES taps' beta
-    (sqrt(1 - nu^2) - 1) loses about beta x 2^-24 = 5.3e-5 to
-    cancellation at this support, in the plain version too: no f32 grid
-    is right to 1e-5 here.)"""
-    support, tile, dtype = 384, 512, torch.float64
-    f64 = 1
+    halo (386 x 386 int64 pairs), so K9's route 4 serves each sub-tile's
+    held cells in blocks over the cluster, windows clipped to each
+    (``ska_unit_tiles_band_geometry`` 11 and 12 the block's rows and
+    columns): f64 against unit_tiles_plain in f64 to 1e-12 of the grid
+    maximum; f32 against unit_tiles_plain on the same f32 stream to beta x
+    2^-24 = 5.3e-5 of it: the f32 ES taps' beta (sqrt(1 - nu^2) - 1)
+    cancels that much away, so taps that the kernel and the plain version
+    round an ulp of sqrt(1 - nu^2) apart differ by up to that (2.1e-5 of
+    the maximum on this stream, for the device-memory walk that served this
+    support before as for the blocks), and both lie 5.8e-5 from the f64
+    grids; two launches give the same bits."""
+    support, tile = 384, 512
+    f64 = int(dtype == torch.float64)
     assert kernels.query("ska_unit_tiles_route", support, tile, f64) == 4
-    assert kernels.query("ska_unit_tiles_band_geometry", support, tile, f64, 0) == 0
-    assert kernels.query("ska_unit_tiles_band_geometry", 256, tile, f64, 0) > 0
+    geo = [kernels.query("ska_unit_tiles_band_geometry", support, tile, f64, w)
+           for w in range(13)]
+    assert geo[0] == 8 and geo[1] > 0 and geo[2] <= 232448
+    hb, wb = geo[11], geo[12]
+    assert 0 < hb < geo[6] + support + 1  # the held rows in bands
+    assert 0 < wb <= geo[7] + support + 1
+    assert kernels.query("ska_unit_tiles_band_geometry", 256, tile, f64, 11) == 0
     rng = np.random.default_rng(79)
     u64, v64 = rng.normal(512, 120, (2, 1500))
     streams, kw = _k9_streams(dev, u64, v64, dtype, support, tile, 1024, 1024, True)
-    _k9_check(streams, kw, dtype)
+    if dtype == torch.float32:
+        streams = (streams[0], streams[0])
+    _k9_check(streams, kw, dtype, tol=kw["beta"] * 2.0**-24 if dtype == torch.float32 else None)
+
+
+def test_unit_tiles_support_as_wide_as_the_tile(dev):
+    """A support equal to the tile (1024): K9's route 4 in blocks, each
+    window clipped to every block it meets, on 300 positions (600 entries
+    over two planes) whose windows lie in a 2048^2 grid of 1024^2 tiles:
+    f64 against unit_tiles_plain in f64 to 1e-12 of the grid maximum, two
+    launches to the same bits."""
+    support = tile = 1024
+    assert kernels.query("ska_unit_tiles_route", support, tile, 1) == 4
+    assert kernels.query("ska_unit_tiles_band_geometry", support, tile, 1, 11) > 0
+    rng = np.random.default_rng(83)
+    u64, v64 = rng.uniform(520, 1530, (2, 300))
+    streams, kw = _k9_streams(dev, u64, v64, torch.float64, support, tile, 2048, 1024, True)
+    _k9_check(streams, kw, torch.float64)
+
+
+# The tiles that divide a 1024^2, 1344^2, 2048^2 or 4096^2 grid, and the
+# digests of the route tables and of route 4's geometry taken from the
+# library before route 4's device-memory walks were replaced: K1's and
+# K9's routes at every span or support up to 512 on those tiles, and K9's
+# route-4 geometry (fields 0-10) wherever a cluster held a sub-tile whole
+_TILES = sorted({t for n in (1024, 1344, 2048, 4096) for t in range(1, n + 1) if n % t == 0})
+_BEFORE_ROUTE4 = {
+    "grid_route": "89d01d4783ccd21cc05b68001ec280648be76078ec4ef005edff450f46be54db",
+    "unit_tiles_route": "981336621ada2661f67e26872c59bf6e225f8aef7decf24f2714010d23bb2617",
+    "unit_tiles_band": "af811a964c3cef5762d09c221b13b79f5d4280b5ce45140a06dac38f95cf536e",
+}
+
+
+def _digest(rows):
+    import hashlib
+
+    return hashlib.sha256(np.asarray(rows, np.int64).tobytes()).hexdigest()
+
+
+def route4_tables(query):
+    """The rows of _BEFORE_ROUTE4's digests from ``query(symbol, *args)``:
+    ``ska_grid_route`` at even spans 2-512 (nacc 4 then 2) and
+    ``ska_unit_tiles_route`` at supports 1-512 (f32 then f64) on every tile
+    of _TILES that holds them; ``ska_unit_tiles_band_geometry`` fields 0-10
+    at supports 2-400 on those tiles and at (t, t) from 512 to 4096,
+    wherever field 0 is non-zero and 11 is zero (a cluster holds the
+    sub-tile whole), each with its case."""
+    grid_route = [query("ska_grid_route", s, t, nacc) for nacc in (4, 2)
+                  for s in range(2, 513, 2) for t in _TILES if t >= s]
+    unit_route = [query("ska_unit_tiles_route", s, t, f64) for f64 in (0, 1)
+                  for s in range(1, 513) for t in _TILES if t >= s]
+    cases = [(s, t) for s in range(2, 401) for t in _TILES if t >= s]
+    cases += [(t, t) for t in _TILES if 400 < t <= 4096]
+    band = []
+    for f64 in (0, 1):
+        for s, t in cases:
+            if (query("ska_unit_tiles_band_geometry", s, t, f64, 0)
+                    and not query("ska_unit_tiles_band_geometry", s, t, f64, 11)):
+                band += [f64, s, t] + [query("ska_unit_tiles_band_geometry", s, t, f64, w)
+                                       for w in range(11)]
+    return {"grid_route": grid_route, "unit_tiles_route": unit_route, "unit_tiles_band": band}
+
+
+def test_route4_keeps_every_route_and_whole_geometry(dev):
+    """Replacing route 4's device-memory walks moved no geometry: K1 and
+    K9 take every span and support up to 512 on every tile of _TILES by the
+    same route as before (route 4 exactly where it was), and K9's route 4
+    keeps its launch geometry wherever a cluster held a sub-tile whole, so
+    that only the geometries the walk served are new."""
+    tables = route4_tables(kernels.query)
+    for name, digest in _BEFORE_ROUTE4.items():
+        assert _digest(tables[name]) == digest, name
+
+
+def _route4_plan(dev, case, support, mode, npix, tile, n):
+    """A plan on 3 planes of npix^2 at ``support``: "dense", ``n`` entries in
+    a core of sigma 12 cells at the grid's centre (a tile corner), many a
+    window corner, windows straddling the sub-tiles' and tiles' edges;
+    "sparse", ``n`` entries spread over the grid and past its edges."""
+    rng = np.random.default_rng(support + 5 * (case == "sparse"))
+    if case == "dense":
+        u, v = rng.normal(npix / 2, 12, (2, n))
+    else:
+        u, v = rng.uniform(-10, npix + 10, (2, n))
+    p0 = torch.as_tensor(rng.integers(0, 2, n)).to(dev)
+    frac = torch.as_tensor(rng.uniform(0, 1, n)).to(dev) if mode == "linear" else None
+    return make_grid_plan(torch.as_tensor(u).to(dev), torch.as_tensor(v).to(dev), p0, frac,
+                          npixel=npix, support=support, nplanes=3, tile=tile)
+
+
+@pytest.mark.parametrize("mode", ["linear", "nearest"])
+@pytest.mark.parametrize("support,tile,n", [(65, 96, 12000), (72, 96, 12000),
+                                            (97, 256, 8000), (128, 256, 6000),
+                                            (256, 512, 1500)])
+@pytest.mark.parametrize("case", ["dense", "sparse"])
+def test_grid_route4_sub_tiles_match_plain(dev, case, support, tile, n, mode):
+    """K1's route 4 (``ska_grid_route`` 4): sub-tiles of window corners
+    with their halo in shared int64 over a cluster, at spans 66, 72, 98
+    and 128 (a walk's classes over 2-4 CTAs past 72) and at 256 on tile 512
+    on a linear plan, where no cluster holds a window whole and the held
+    cells go in blocks, windows clipped to each; linear (4 words a cell)
+    and nearest (2) plans, dense and sparse streams. Against the plain
+    version accumulated in f64 to 1e-5 of the maximum; two launches give
+    the same bits, one launch a call."""
+    npix = 2 * tile
+    plan = _route4_plan(dev, case, support, mode, npix, tile, n)
+    nacc = 4 if mode == "linear" else 2
+    assert kernels.query("ska_grid_route", plan.span, tile, nacc) == 4
+    geo = [kernels.query("ska_grid_band_geometry", plan.span, tile, nacc, w) for w in range(13)]
+    cs, threads, smem, walks, k, stage, tr, tc, nsl, npass, nbuf, hb, wb = geo
+    assert threads > 0 and smem <= 232448 and cs % nsl == 0
+    assert 1 <= tr <= tile and 1 <= tc <= tile
+    assert (nsl > 1) == (plan.span > 72 and hb == 0)
+    assert (hb > 0) == (plan.span == 256 and nacc == 4)
+    g = torch.Generator(device=dev).manual_seed(support + tile)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    ref = grid_plain(plan, vals.to(torch.complex128))
+    before = kernels.KERNELS["grid"].launches
+    out = grid(plan, vals)
+    assert torch.equal(grid(plan, vals), out)
+    torch.cuda.synchronize()
+    assert kernels.KERNELS["grid"].launches == before + 2
+    assert ref.abs().max() > 0
+    assert (out - ref).abs().max() <= 1e-5 * ref.abs().max()
+
+
+@pytest.mark.parametrize("support,tile", [(72, 96), (256, 512)])
+def test_grid_route4_of_a_nan_and_raw_shards(dev, support, tile):
+    """K1's route 4, whole sub-tiles (72) and blocks (256): a NaN value
+    gives NaN in every cell and zeros give zeros; on the sharded route the
+    raw int64 planes converted on their own give the launch's own grids bit
+    for bit, and the values split over two shards, each gridded at the
+    global bound, sum in int64 to the same bits in either order, within
+    1e-5 of the whole stream's grids."""
+    plan = _route4_plan(dev, "sparse", support, "linear", 2 * tile, tile, 1500)
+    assert kernels.query("ska_grid_route", plan.span, tile, 4) == 4
+    g = torch.Generator(device=dev).manual_seed(support + 4)
+    vals = torch.randn(plan.n, generator=g, device=dev, dtype=torch.complex64)
+    own = (grid_vsum(vals), plan.tap_bound)
+    whole = grid(plan, vals)
+    assert torch.equal(grid_convert(grid(plan, vals, raw=True, bound=own), own), whole)
+    shard = torch.arange(plan.n, device=dev) % 2
+    parts = [torch.where(shard == d, vals, 0) for d in range(2)]
+    bound = (grid_vsum(parts[0]) + grid_vsum(parts[1]), plan.tap_bound)
+    raws = [grid(plan, p, raw=True, bound=bound) for p in parts]
+    assert torch.equal(raws[0] + raws[1], raws[1] + raws[0])
+    out = grid_convert(raws[0] + raws[1], bound)
+    assert (out - whole).abs().max() <= 1e-5 * whole.abs().max()
+    zeros = torch.zeros_like(vals)
+    assert not grid(plan, zeros).abs().max()
+    zeros[plan.n // 2] = float("nan")
+    assert torch.isnan(grid(plan, zeros)).all()
 
 
 @pytest.mark.parametrize("support,tile", [(48, 2048), (96, 256)])

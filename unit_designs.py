@@ -22,7 +22,8 @@ entries a unit and the share of consecutive entries on one window corner
 and plane; each other's largest difference from the package over the
 package's maximum; the package's launch geometry; and each design's time
 with CUDA events over a few launches after a warm-up: the others, the
-package twice, then the others in reverse order, beside the bound.
+package twice, then the others in reverse order, beside the bound and
+the package's time over it.
 
 Usage: python3 unit_designs.py --other DIR [DIR ...] [--full | --phase18]
 """
@@ -147,8 +148,10 @@ def main() -> int:
                     times.append((name, cs.timed(lambda: stream.grid(**geo), reps)))
                 use("package")
                 bnd = cs.unit_tiles_bound(stream, geo, peak)
+                mine = [t for n, t in times if n == "package"]
                 cs.say(f"{label}: ms in turns " + ", ".join(f"{n} {t:.4f}" for n, t in times)
-                       + f"; bound {bnd[0]:.4f} ms ({bnd[1]})")
+                       + f"; bound {bnd[0]:.4f} ms ({bnd[1]}); the package "
+                       f"{sum(mine) / len(mine) / bnd[0]:.1f} x the bound")
                 del stream
                 torch.cuda.empty_cache()
             del vis, model

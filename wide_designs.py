@@ -10,14 +10,17 @@ package's flags, all builds started together) into
 ``build/wide_designs/``, each under the name of its directory.
 
 On the flagship's plans at ``chip_smoke.SUPPORTS16`` (the full stream, or
-its first 1,048,576 entries), or with ``--phase18`` on phase 18b's (its
-first 1,048,576 entries at the (support, tile) of ``chip_smoke.WIDE18``,
-windows past 64 cells, linear and nearest planes: K1's device-memory
-route and K3's long-window kernel), the script times, with CUDA events
-over 10 (K1) or 20 (K3) launches after a warm-up, the others, the package
-twice, then the others in reverse order, and prints each other's largest
-difference from the package over the package's maximum, the launch
-geometry, the walk-order statistics of each plan and each kernel's bound.
+its first 1,048,576 entries), or with ``--phase18`` on phase 18a's (the
+whole stream at ``chip_smoke.SUPPORTS18`` with one tile the 1344^2 grid,
+``chip_smoke.TILE18``: K1's route 4 only, beside the package's K1w at the
+imaging API's tile) and 18b's (its first 1,048,576 entries at the
+(support, tile) of ``chip_smoke.WIDE18``, windows past 64 cells, linear
+and nearest planes: K1's route 4 and K3's long-window kernel), the script
+times, with CUDA events over 10 (K1) or 20 (K3) launches after a warm-up,
+the others, the package twice, then the others in reverse order, and
+prints each other's largest difference from the package over the
+package's maximum, the launch geometry, the walk-order statistics of
+each plan and each kernel's bound and the package's time over it.
 With ``--ical`` it then runs the flagship Hogbom ``ical`` at
 ``chip_smoke.ICAL16`` (padding ``chip_smoke.ICAL16_PADDING``, 4 cycles) on
 the first other's kernels, the package's twice and the first other's
@@ -140,6 +143,19 @@ def main() -> int:
         """(label, plan, sorted values) of each cell, one at a time."""
         if args.phase18:
             base = cs.flagship_geometry(vis, model)
+            for support in cs.SUPPORTS18:
+                geo = cs.at_support(base, support)
+                ref_tile = 56 if support <= 56 else 64
+                use("package")
+                ref_gp = cs.flagship_grid_plan(vis, geo, ref_tile)
+                ref_vals = sort_values(ref_gp, weighted)
+                ref_ms = [cs.timed(lambda: grid(ref_gp, ref_vals), 10) for _ in range(2)]
+                del ref_gp, ref_vals
+                cs.say(f"flagship support {support}: K1w at the API's tile {ref_tile} "
+                       + ", ".join(f"{t:.4f}" for t in ref_ms) + " ms (package, two runs)")
+                gp = cs.flagship_grid_plan(vis, geo, cs.TILE18)
+                yield (f"flagship support {support} linear tile {cs.TILE18}", gp,
+                       sort_values(gp, weighted))
             for support, tile in cs.WIDE18:
                 for mode in ("linear", "nearest"):
                     gp = cs.long_window_plan(uvw[:n_sub], base, support, tile, mode)
@@ -157,36 +173,42 @@ def main() -> int:
                        sort_values(gp, weighted[:n_sub]))
 
     for where, gp, vals in plans():
+        # phase 18a times K1 alone (K3 takes its wide variant there)
+        what_all = ("grid",) if gp.tile == cs.TILE18 and gp.span <= 64 else ("grid", "degrid")
         g = torch.Generator(device=device).manual_seed(13)
         grids = torch.randn((gp.nplanes, gp.npixel, gp.npixel), generator=g, device=device,
                             dtype=torch.complex64)
         label = f"{where} (span {gp.span}, {gp.n_in} entries)"
         same, per_corner, nseg = walk_stats(gp)
-        launch = cs.dev_geometry(gp) if gp.span > 64 else cs.wide_geometry(gp)
+        route = kernels.query("ska_grid_route", gp.span, gp.tile, 4 if gp.wstacked else 2)
+        launch = cs.route4_geometry(gp) if route == 4 else cs.wide_geometry(gp)
         cs.say(f"{label}: consecutive walk positions on one plane and window corner {same:.3f}, "
                f"{per_corner:.1f} entries a corner and plane; {nseg} segments, "
                f"{int(gp.chunk_seg.shape[0])} chunks; {launch}")
         use("package")
-        ref = (grid(gp, vals), degrid(gp, grids))
+        run = {"grid": lambda: grid(gp, vals), "degrid": lambda: degrid(gp, grids)}
+        ref = [run[what]() for what in what_all]
         for name in names:
             use(name)
-            out = (grid(gp, vals), degrid(gp, grids))
-            for k, what in enumerate(("grid", "degrid")):
+            out = [run[what]() for what in what_all]
+            for k, what in enumerate(what_all):
                 diff = float((out[k] - ref[k]).abs().max() / ref[k].abs().max())
                 cs.say(f"{label}: {what} {name} vs package, largest difference {diff:.3e} "
                        f"of the maximum")
             del out
         del ref
-        times = {"grid": [], "degrid": []}
+        times = {what: [] for what in what_all}
         for name in turns:
             use(name)
-            times["grid"].append((name, cs.timed(lambda: grid(gp, vals), 10)))
-            times["degrid"].append((name, cs.timed(lambda: degrid(gp, grids), 20)))
+            for what in what_all:
+                times[what].append((name, cs.timed(run[what], 10 if what == "grid" else 20)))
         use("package")
-        for what in ("grid", "degrid"):
+        for what in what_all:
             bnd = (cs.grid_bound if what == "grid" else cs.degrid_bound)(gp)
+            mine = [t for n, t in times[what] if n == "package"]
             cs.say(f"{label}: {what} ms in turns " + ", ".join(f"{n} {t:.4f}" for n, t in times[what])
-                   + f"; bound {bnd[0]:.4f} ms ({bnd[1]})")
+                   + f"; bound {bnd[0]:.4f} ms ({bnd[1]}); the package "
+                   f"{sum(mine) / len(mine) / bnd[0]:.1f} x the bound")
         del gp, vals, grids
         torch.cuda.empty_cache()
     if args.ical:
